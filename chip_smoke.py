@@ -3,20 +3,29 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one flushed line (a failing phase raises, and the
-run exits non-zero):
+Phases, each printing flushed lines (a failing phase raises, and the run
+exits non-zero):
 
 1. card      the GPU's name and power limit, as nvidia-smi prints them;
 2. build     nvcc builds the port's CUDA kernels from csrc/ (seconds);
 3. K1        the attention kernel against its plain version at the path's
              shapes, with partly and fully padded key rows;
 4. K2        the conv-FFN kernel against its plain version;
-5. synthesis the README sentence, text -> wav, through the CLI's main with
+5. K3        the attention-backward kernel against its plain version at the
+             training shapes, and the autograd Function (K1 forward, K3
+             backward) against autograd through the plain forward;
+6. synthesis the README sentence, text -> wav, through the CLI's main with
              the tracked weights; the kernels' launch counts over that run;
              the mel against the same forward with the plain versions;
-6. timings   each kernel, its plain version and the library yardstick
+7. timings   each kernel, its plain version and the library yardstick
              (CUDA events), and text -> wav end to end;
-7. kernels   one JSON line describing K1 and K2.
+8. training  20 steps at full model width (config/LJSpeech10, batch 10) on
+             a synthetic corpus through the port's train(), with one
+             validation pass; launch counts per step and per eval forward;
+             then a resume from the checkpoint through the train CLI;
+9. synthesis from the trained checkpoint through the synthesize CLI's
+             --restore_step;
+10. kernels  one JSON line describing K1, K2 and K3.
 
 The last line is {"ok": true, "device": {...}}.  Outputs go to a temporary
 directory.  Without a CUDA device, or outside a checkout of the repository,
@@ -24,6 +33,7 @@ the script exits non-zero before printing any result.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -31,6 +41,8 @@ import sys
 import tempfile
 import time
 import wave
+
+import yaml
 
 README_SENTENCE = "The quick brown fox jumps over the lazy dog."
 CONFIG = "config/LJSpeech10"
@@ -40,8 +52,14 @@ VOCODER_NPZ = "weights/vocoder_gen_mixed60k.npz"
 # order (up to 2304 terms for K2's first conv), so agreement to ~1e-5 of
 # O(1) values is expected; 1e-4 leaves headroom
 KERNEL_ATOL = 1e-4
+# K3's gradients: float32 sums of up to 1000 terms in another order, held
+# RELATIVE to the largest |gradient| of each output (dq, dk, dv)
+K3_RTOL = 1e-4
 # the mel after ten layers of both kernels and the PostNet
 MEL_ATOL = 1e-3
+# training: the decoder's and encoder's L at LJSpeech lengths
+TRAIN_BATCH = 10
+TRAIN_STEPS = 20
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -82,6 +100,18 @@ def attention_inputs(lens, L, device, seed):
     return q, k, v, mask
 
 
+def attention_grad_inputs(L, device, seed, B=TRAIN_BATCH):
+    """[B, 2, L, 128] q, k, v and g with one full row, one fully padded row
+    and partly padded rows between."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lens = [L, 0] + torch.randint(L // 2, L, (B - 2,), generator=g).tolist()
+    q, k, v, mask = attention_inputs(lens, L, device, seed)
+    grad = torch.randn(q.shape, generator=g).to(device)
+    return q, k, v, mask, grad
+
+
 def ffn_inputs(L, device, seed, k2=1):
     import torch
 
@@ -107,7 +137,10 @@ def main():
     from fastspeech2_tpu_torch.configs.config import load_yaml_configs
     from fastspeech2_tpu_torch.models import transformer
     from fastspeech2_tpu_torch.ops import cuda_attention, cuda_build, cuda_ffn
-    from fastspeech2_tpu_torch.ops.attention import multi_head_attention
+    from fastspeech2_tpu_torch.ops.attention import (
+        multi_head_attention,
+        plain_attention_backward,
+    )
     from fastspeech2_tpu_torch.synthesis.pipeline import Synthesizer
     from fastspeech2_tpu_torch.synthesis.vocoder import (
         get_vocoder,
@@ -170,7 +203,56 @@ def main():
     if not k2_err <= KERNEL_ATOL:
         raise RuntimeError("K2 disagrees with its plain version")
 
-    # 5. synthesis through the CLI's main; counts from this run only
+    # 5. K3 vs plain at the training slice's L (decoder 1000, LJSpeech10's
+    #    bucket 768, encoder 128), batch 10 with one full, one fully padded
+    #    and partly padded rows
+    k3_err = k3_rel = 0.0
+    for L in (1000, 768, 128):
+        q, k, v, mask, g = attention_grad_inputs(L, device, seed=L + 5)
+        out, row_max, row_sum = cuda_attention._launch_forward(
+            q, k, v, mask, True)
+        got = cuda_attention.fused_attention_backward(
+            q, k, v, mask, out, row_max, row_sum, g)
+        torch.cuda.synchronize()
+        ref = plain_attention_backward(q, k, v, mask, g)
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            if not torch.isfinite(a).all():
+                raise RuntimeError(f"K3 {name} not finite at L={L}")
+            err = (a - b).abs().max().item()
+            k3_err = max(k3_err, err)
+            k3_rel = max(k3_rel, err / b.abs().max().item())
+    say(f"[K3] attention-backward kernel vs plain at [10, 2, 1000|768|128, "
+        f"128], one full, one fully padded and partly padded rows: "
+        f"max_abs_err={k3_err:.3e}, max relative to the largest |grad| "
+        f"{k3_rel:.3e} (tolerance {K3_RTOL:g} relative)")
+    if not k3_rel <= K3_RTOL:
+        raise RuntimeError("K3 disagrees with its plain version")
+    # the Function (K1 forward, K3 backward) vs autograd through the plain
+    # forward; a fully padded batch row has P = 1/L, where the TPU kernel's
+    # formula is held instead (autograd through the masked fill gives 0)
+    q, k, v, mask, g = attention_grad_inputs(1000, device, seed=11)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(cuda_attention.fused_attention(*leaves, mask),
+                              leaves, g.transpose(1, 2).contiguous()
+                              .transpose(1, 2))
+    plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(multi_head_attention(*plain_leaves, mask),
+                              plain_leaves, g)
+    formula = plain_attention_backward(q, k, v, mask, g)
+    fn_rel = 0.0
+    for a, b, c in zip(got, ref, formula):
+        keyed = torch.cat([b[:1], b[2:]])   # row 1 is fully padded
+        err = max((torch.cat([a[:1], a[2:]]) - keyed).abs().max().item(),
+                  (a[1] - c[1]).abs().max().item())
+        fn_rel = max(fn_rel, err / b.abs().max().item())
+    say(f"[K3] autograd Function (K1 forward, K3 backward, strided incoming "
+        f"gradient) vs torch.autograd.grad through the plain forward at "
+        f"[10, 2, 1000, 128]: max relative to the largest |grad| "
+        f"{fn_rel:.3e} (tolerance {K3_RTOL:g})")
+    if not fn_rel <= K3_RTOL:
+        raise RuntimeError("the attention Function's gradients disagree")
+
+    # 6. synthesis through the CLI's main; counts from this run only
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--mode", "single", "--text", README_SENTENCE,
                 "--weights_npz", ACOUSTIC_NPZ, "--vocoder_ckpt", VOCODER_NPZ,
@@ -239,7 +321,7 @@ def main():
     if not mel_err <= MEL_ATOL:
         raise RuntimeError("the kernel forward's mel disagrees with plain")
 
-    # 6. timings at the path's shapes
+    # 7. timings at the path's shapes
     import torch.nn.functional as F
 
     enc_len = kern.src_pad_mask.shape[1]
@@ -294,25 +376,225 @@ def main():
         f"forward {fwd[0]:.2f}, vocoder on the {kern.mel.shape[1]}-frame "
         f"mel + int16 trim {voc[0]:.2f}; on {card}")
 
-    # 7. kernels line
+    # K1 and K3 at the training shapes: the decoder's L = 1000, LJSpeech10's
+    # bucket 768 and the encoder's 128, batch 10; the library yardstick for
+    # K3 is the backward of SDPA with the same additive mask
+    train_timings = {}
+    for L in (1000, 768, 128):
+        q, k, v, mask, g = attention_grad_inputs(L, device, seed=L)
+        out, row_max, row_sum = cuda_attention._launch_forward(
+            q, k, v, mask, True)
+        additive = torch.zeros(TRAIN_BATCH, 1, 1, L, device=device
+                               ).masked_fill(mask[:, None, None, :], -1e9)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves,
+                                                  attn_mask=additive)
+        bhld = TRAIN_BATCH * 2 * L * 128
+        train_timings[("K3", L)] = dict(
+            ms=cuda_time_ms(lambda: cuda_attention.fused_attention_backward(
+                q, k, v, mask, out, row_max, row_sum, g)),
+            plain_ms=cuda_time_ms(lambda: plain_attention_backward(
+                q, k, v, mask, g)),
+            library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                sdpa_out, leaves, g, retain_graph=True)),
+            # five L x L x Dh products per (b, h); q, k, v, g read, dq, dk,
+            # dv written, the mask read
+            flops=5 * 2.0 * L * L * 128 * TRAIN_BATCH * 2,
+            nbytes=4 * 7 * bhld + TRAIN_BATCH * L)
+        train_timings[("K1", L)] = dict(
+            ms=cuda_time_ms(lambda: cuda_attention._launch_forward(
+                q, k, v, mask, True)),
+            plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v,
+                                                               mask)),
+            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=additive)),
+            flops=2 * 2.0 * L * L * 128 * TRAIN_BATCH * 2,
+            nbytes=4 * 4 * bhld + TRAIN_BATCH * L)
+        del sdpa_out, leaves
+    for (name, L), t in sorted(train_timings.items()):
+        t["bound_ms"], t["bound_by"] = bound(t["flops"], t["nbytes"])
+        say(f"[timing] {name} at [10, 2, {L}, 128] (training): kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.3e} ms "
+            f"({t['bound_by']}) on {card}")
+
+    # 8. training at full width: 20 steps + one validation pass through the
+    #    port's train(), counts set to 0 just before and read just after
+    from fastspeech2_tpu_torch.data.synthetic import (
+        generate_corpus,
+        synthetic_preprocess_config,
+    )
+    from fastspeech2_tpu_torch.training.loop import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        # 30 utterances of 60-120 phones at 2-8 frames each: ~300-960
+        # frames, LJSpeech's range; 10 held out for validation
+        generate_corpus(corpus, n_utterances=30, min_phones=60,
+                        max_phones=120, n_mels=80, seed=5, val_size=10)
+        pre_cfg = synthetic_preprocess_config(corpus, n_mels=80)
+        train_cfg = dict(load_yaml_configs(
+            f"{CONFIG}/preprocess.yaml", f"{CONFIG}/model.yaml",
+            f"{CONFIG}/train.yaml")[2])
+        train_cfg["path"] = {k: os.path.join(tmp, k) for k in
+                             ("ckpt_path", "log_path", "result_path")}
+        # every utterance fits one bucket; the optimizer block unchanged
+        train_cfg["bucket"] = {"text": 128, "mel": 1024}
+        train_cfg["step"] = dict(train_cfg["step"], total_step=TRAIN_STEPS,
+                                 log_step=1, val_step=TRAIN_STEPS,
+                                 save_step=TRAIN_STEPS)
+        step_times, counts, losses_seen = [], [], []
+        lines = []
+
+        def log(line):
+            lines.append(line)
+            say("[train] " + line)
+
+        def hook(step, losses):
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter())
+            counts.append((cuda_attention.launches,
+                           cuda_attention.bwd_launches, cuda_ffn.launches))
+            losses_seen.append([float(v) for v in losses])
+
+        torch.cuda.reset_peak_memory_stats()
+        cuda_attention.launches = cuda_attention.bwd_launches = 0
+        cuda_ffn.launches = 0
+        t0 = time.perf_counter()
+        _, _, final_step = train(pre_cfg, model_config, train_cfg, log=log,
+                                 device=device, step_hook=hook)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = {"K1": cuda_attention.launches,
+                          "K3": cuda_attention.bwd_launches,
+                          "K2": cuda_ffn.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_step = [tuple(b - a for a, b in zip((0, 0, 0) if i == 0
+                                                 else counts[i - 1], c))
+                    for i, c in enumerate(counts)]
+        eval_counts = tuple(t - c for t, c in zip(
+            (train_launches["K1"], train_launches["K3"],
+             train_launches["K2"]), counts[-1]))
+        # the first step pays cuDNN's and the allocator's first calls
+        step_ms = [(b - a) * 1e3 for a, b in zip(step_times, step_times[1:])]
+        median_step = statistics.median(step_ms)
+        attn_ms = sum(n * (train_timings[("K1", L)]["ms"]
+                           + train_timings[("K3", L)]["ms"])
+                      for n, L in ((model_config["transformer"][
+                          "encoder_layer"], 128), (model_config[
+                              "transformer"]["decoder_layer"], 1000)))
+        totals = [row[0] for row in losses_seen]
+        first5 = statistics.mean(totals[:5])
+        last5 = statistics.mean(totals[-5:])
+        say(f"[train] {final_step} steps at batch {TRAIN_BATCH} (encoder L "
+            f"128, decoder L 1000) in {train_s:.2f} s: median "
+            f"{median_step:.2f} ms per step over steps 2-{final_step} (host "
+            f"clock, device synchronised); peak memory {peak_gib:.2f} GiB; "
+            f"K1 + K3 at these shapes {attn_ms:.2f} ms = "
+            f"{100 * attn_ms / median_step:.1f}% of a step; total loss "
+            f"mean of the first 5 steps {first5:.4f}, of the last 5 "
+            f"{last5:.4f}; launches per step (K1, K3, K2) "
+            f"{sorted(set(per_step))}, per eval forward {eval_counts}; on "
+            f"{card}")
+        if final_step != TRAIN_STEPS or len(losses_seen) != TRAIN_STEPS:
+            raise RuntimeError(f"trained {final_step} steps, expected "
+                               f"{TRAIN_STEPS}")
+        if not all(math.isfinite(v) for row in losses_seen for v in row):
+            raise RuntimeError("a training loss is not finite")
+        if not last5 < first5:
+            raise RuntimeError("the training loss did not fall")
+        if set(per_step) != {(10, 10, 0)}:
+            raise RuntimeError(f"launches per train step {set(per_step)}, "
+                               "expected 10 K1 + 10 K3 + 0 K2")
+        if eval_counts != (10, 0, 10):
+            raise RuntimeError(f"launches in the validation pass "
+                               f"{eval_counts}, expected 10 K1 + 10 K2")
+        if not any(ln.startswith(f"Validation Step {TRAIN_STEPS}")
+                   for ln in lines):
+            raise RuntimeError("no validation line")
+        ckpt = os.path.join(train_cfg["path"]["ckpt_path"],
+                            f"{TRAIN_STEPS}.pth.tar")
+        if not os.path.exists(ckpt):
+            raise RuntimeError(f"no checkpoint at {ckpt}")
+
+        # resume through the CLI in a subprocess, two more steps
+        resume_cfg = dict(train_cfg, step=dict(train_cfg["step"],
+                                               total_step=TRAIN_STEPS + 2))
+        paths = []
+        for name, cfg in (("preprocess", pre_cfg),
+                          ("model", model_config), ("train", resume_cfg)):
+            path = os.path.join(tmp, f"{name}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            paths += [f"-{name[0]}", path]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fastspeech2_tpu_torch.cli.train_cli",
+             *paths, "--restore_step", "-1"], capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"train CLI failed:\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        out_lines = proc.stdout.splitlines()
+        resumed = f"Resuming from step {TRAIN_STEPS}" in out_lines
+        stepped = any(ln.startswith(f"Step {TRAIN_STEPS + 2}/") for ln in
+                      out_lines)
+        saved = os.path.exists(os.path.join(
+            train_cfg["path"]["ckpt_path"], f"{TRAIN_STEPS + 2}.pth.tar"))
+        say(f"[train] python -m fastspeech2_tpu_torch.cli.train_cli "
+            f"--restore_step -1: resumed at step {TRAIN_STEPS}: {resumed}; "
+            f"step {TRAIN_STEPS + 2} logged: {stepped}; its checkpoint "
+            f"written: {saved}; {cli_s:.2f} s")
+        if not (resumed and stepped and saved):
+            raise RuntimeError(f"the CLI resume failed:\n{proc.stdout}")
+
+        # 9. synthesis from the trained checkpoint
+        wavs, out, wav_paths = synthesize_cli.main(
+            ["--mode", "single", "--text", README_SENTENCE, *paths,
+             "--restore_step", str(TRAIN_STEPS + 2),
+             "--vocoder_ckpt", VOCODER_NPZ, "--result_path",
+             os.path.join(tmp, "result")])
+        torch.cuda.synchronize()
+        trained_len = int(out.mel_len[0])
+        finite = bool(torch.isfinite(out.postnet_mel).all())
+        say(f"[synthesis] from the port's checkpoint of step "
+            f"{TRAIN_STEPS + 2} (--restore_step): {len(wavs[0])} samples = "
+            f"mel_len {trained_len} x hop {hop}; mel finite: {finite}; "
+            f"written to {os.path.basename(wav_paths[0])} (after "
+            f"{TRAIN_STEPS + 2} steps it is not speech)")
+        if len(wavs[0]) != trained_len * hop or not finite:
+            raise RuntimeError("synthesis from the trained checkpoint failed")
+
+    # 10. kernels line
     sources = {"K1": ("fused_attention", "fastspeech2_tpu_torch/csrc/attention.cu",
                       "fastspeech2_tpu/ops/pallas_attention.py:96",
                       "[1, 2, 1000, 128] f32"),
                "K2": ("fused_conv_ffn", "fastspeech2_tpu_torch/csrc/conv_ffn.cu",
                       "fastspeech2_tpu/ops/pallas_ffn.py:59",
-                      "[1, 1000, 256] -> 1024, k=(9, 1) f32")}
-    errs = {"K1": k1_err, "K2": k2_err}
+                      "[1, 1000, 256] -> 1024, k=(9, 1) f32"),
+               "K3": ("fused_attention_backward",
+                      "fastspeech2_tpu_torch/csrc/attention_bwd.cu",
+                      "fastspeech2_tpu/ops/pallas_attention.py:130",
+                      "[10, 2, 1000, 128] f32")}
+    errs = {"K1": k1_err, "K2": k2_err, "K3": k3_err}
     kernels = []
-    for name in ("K1", "K2"):
+    for name in ("K1", "K2", "K3"):
         fn, src, replaces, shape = sources[name]
-        t = timings[(name, 1000)]
+        t = (train_timings[(name, 1000)] if name == "K3"
+             else timings[(name, 1000)])
+        # launches: K1 and K2 on the synthesis path (one acoustic forward),
+        # K3 on the training path (20 steps)
+        n = train_launches[name] if name == "K3" else launches[name]
         kernels.append({
             "name": f"{name} {fn}", "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n,
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": shape})
+            "shape": shape,
+            "launches_by_path": {"synthesis": launches.get(name, 0),
+                                 "training": train_launches[name]}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,15 @@
         -p config/LJSpeech10/preprocess.yaml \\
         -m config/LJSpeech10/model.yaml -t config/LJSpeech10/train.yaml
 
+The acoustic weights come from a tracked npz snapshot (``--weights_npz``)
+or from the port's own training checkpoint ``<ckpt_path>/<N>.pth.tar``
+(``--restore_step N``, as the JAX CLI restores its own checkpoints).
+
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given; asking for CUDA without a card raises.  Computes in float32 with
 TF32 off for matrix products and cuDNN convolutions (the JAX CLI's default
-is --dtype float32).  Batch mode (--source) and --long are not ported yet.
+is --dtype float32).  Batch mode (--source), --long and --torch_ckpt are
+not ported yet.
 """
 
 import argparse
@@ -26,6 +31,7 @@ from fastspeech2_tpu_torch.configs.config import (
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
 from fastspeech2_tpu_torch.synthesis.pipeline import Synthesizer
 from fastspeech2_tpu_torch.synthesis.vocoder import get_vocoder, vocoder_infer
+from fastspeech2_tpu_torch.training.checkpoint import load_checkpoint
 from fastspeech2_tpu_torch.utils.device import resolve_device
 from fastspeech2_tpu_torch.utils.params_io import (
     from_jax_params,
@@ -34,13 +40,18 @@ from fastspeech2_tpu_torch.utils.params_io import (
 
 
 def load_model_for_inference(preprocess_config, model_config, weights_npz,
-                             device):
+                             device, train_config=None, restore_step=0):
     """FastSpeech2 in eval mode on ``device`` with a tracked npz snapshot's
-    weights -> (model, config)."""
+    weights, or with the weights of the port's checkpoint of
+    ``restore_step`` under train_config's ckpt_path -> (model, config)."""
     cfg = FastSpeech2Config.build(preprocess_config, model_config)
     model = FastSpeech2(cfg)
-    model.load_state_dict(from_jax_params(load_variables_npz(weights_npz),
-                                          cfg))
+    if restore_step:
+        state = load_checkpoint(train_config["path"]["ckpt_path"],
+                                restore_step)["model"]
+    else:
+        state = from_jax_params(load_variables_npz(weights_npz), cfg)
+    model.load_state_dict(state)
     return model.to(device).eval(), cfg
 
 
@@ -58,8 +69,12 @@ def build_parser():
     parser.add_argument("--duration_control", type=float, default=1.0)
     parser.add_argument("--control_mode", default="reference",
                         choices=("reference", "absolute"))
-    parser.add_argument("--weights_npz", required=True,
-                        help="acoustic weights (tracked fp16 npz snapshot)")
+    weights = parser.add_mutually_exclusive_group(required=True)
+    weights.add_argument("--weights_npz",
+                         help="acoustic weights (tracked fp16 npz snapshot)")
+    weights.add_argument("--restore_step", type=int,
+                         help="acoustic weights from the port's training "
+                              "checkpoint <ckpt_path>/<N>.pth.tar")
     parser.add_argument("--vocoder_ckpt", required=True,
                         help="vocoder weights (tracked fp16 npz snapshot)")
     parser.add_argument("--device", default="cuda",
@@ -78,7 +93,8 @@ def main(argv=None):
     preprocess_config, model_config, train_config = load_yaml_configs(
         args.preprocess_config, args.model_config, args.train_config)
     model, cfg = load_model_for_inference(
-        preprocess_config, model_config, args.weights_npz, device)
+        preprocess_config, model_config, args.weights_npz, device,
+        train_config=train_config, restore_step=args.restore_step)
     vocoder = get_vocoder(model_config, args.vocoder_ckpt, device)
     synthesizer = Synthesizer(model, cfg, preprocess_config, device,
                               vocoder=vocoder,

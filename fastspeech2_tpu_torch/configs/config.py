@@ -2,18 +2,18 @@
 
 Reads the same three-YAML-per-dataset schema as the JAX package
 (config/<ds>/{preprocess,model,train}.yaml) and flattens it, together with
-the corpus stats.json / speakers.json, into an immutable dataclass.  Field
+the corpus stats.json / speakers.json, into immutable dataclasses.  Field
 names and defaults are those of ``fastspeech2_tpu/configs/config.py`` so a
-config built by either package describes the same model; the training and
-kernel-selection fields are left out (the port is inference-only so far,
-and on CUDA it always runs its kernels).
+config built by either package describes the same model and training; the
+kernel-selection and rematerialisation fields are left out (on CUDA the
+port always runs its kernels).
 """
 
 import dataclasses
 import json
 import os
 import warnings
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import yaml
 
@@ -40,9 +40,12 @@ class FastSpeech2Config:
     decoder_hidden: int = 256
     conv_filter_size: int = 1024
     conv_kernel_size: Tuple[int, int] = (9, 1)
+    encoder_dropout: float = 0.2
+    decoder_dropout: float = 0.2
     # variance predictor
     vp_filter_size: int = 256
     vp_kernel_size: int = 3
+    vp_dropout: float = 0.5
     # variance embedding
     pitch_quantization: str = "linear"   # 'linear' | 'log'
     energy_quantization: str = "linear"
@@ -102,8 +105,11 @@ class FastSpeech2Config:
             decoder_hidden=tr["decoder_hidden"],
             conv_filter_size=tr["conv_filter_size"],
             conv_kernel_size=tuple(tr["conv_kernel_size"]),
+            encoder_dropout=tr["encoder_dropout"],
+            decoder_dropout=tr["decoder_dropout"],
             vp_filter_size=vp["filter_size"],
             vp_kernel_size=vp["kernel_size"],
+            vp_dropout=vp["dropout"],
             pitch_quantization=ve["pitch_quantization"],
             energy_quantization=ve["energy_quantization"],
             n_bins=ve["n_bins"],
@@ -120,4 +126,59 @@ class FastSpeech2Config:
             postnet_embedding_dim=postnet.get("embedding_dim", 512),
             postnet_kernel_size=postnet.get("kernel_size", 5),
             postnet_n_convolutions=postnet.get("n_convolutions", 5),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Noam Adam settings (train.yaml ``optimizer`` block)."""
+
+    batch_size: int = 16
+    betas: Tuple[float, float] = (0.9, 0.98)
+    eps: float = 1e-9
+    weight_decay: float = 0.0
+    grad_clip_thresh: float = 1.0
+    grad_acc_step: int = 1
+    warm_up_step: int = 4000
+    anneal_steps: Sequence[int] = (300000, 400000, 500000)
+    anneal_rate: float = 0.3
+    # "bfloat16" stores Adam's first moment in bfloat16; float32 by default
+    mu_dtype: str = "float32"
+
+    @classmethod
+    def build(cls, train_config):
+        o = train_config["optimizer"]
+        return cls(
+            batch_size=o["batch_size"],
+            betas=tuple(o["betas"]),
+            eps=float(o["eps"]),
+            weight_decay=float(o.get("weight_decay", 0.0)),
+            grad_clip_thresh=float(o["grad_clip_thresh"]),
+            grad_acc_step=int(o.get("grad_acc_step", 1)),
+            warm_up_step=int(o["warm_up_step"]),
+            anneal_steps=tuple(o["anneal_steps"]),
+            anneal_rate=float(o["anneal_rate"]),
+            mu_dtype=str(o.get("mu_dtype", "float32")),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    """Duty periods (train.yaml ``step`` block)."""
+
+    total_step: int = 900000
+    log_step: int = 100
+    synth_step: int = 1000
+    val_step: int = 1000
+    save_step: int = 100000
+
+    @classmethod
+    def build(cls, train_config):
+        s = train_config["step"]
+        return cls(
+            total_step=s["total_step"],
+            log_step=s["log_step"],
+            synth_step=s["synth_step"],
+            val_step=s["val_step"],
+            save_step=s["save_step"],
         )

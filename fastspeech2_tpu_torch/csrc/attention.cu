@@ -27,6 +27,13 @@
 // rows are padded to 129 floats in shared memory so the inner product loop
 // is free of bank conflicts.  A simple first kernel: no tensor cores, no
 // TMA, no double buffering.
+//
+// For training, the kernel also writes each query row's softmax statistics
+// (the final running max m and sum l, so that P = exp(s - m) / l) through
+// two optional pointers; the backward kernel K3 (attention_bwd.cu) reads
+// them instead of recomputing a third product.  They are kept apart, not
+// folded into a log-sum-exp: for a fully padded row m = -1e9, and
+// -1e9 + log(L) rounds back to -1e9 in float32.  Inference passes null.
 
 #include <cuda_runtime.h>
 
@@ -62,7 +69,8 @@ __global__ void __launch_bounds__(kThreads)
 mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const unsigned char* __restrict__ key_pad,
-                   float* __restrict__ out, int H, int L, float scale) {
+                   float* __restrict__ out, float* __restrict__ row_max,
+                   float* __restrict__ row_sum, int H, int L, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;              // [kBM][kQS]
   float* Ks = Qs + kBM * kQS;    // [kBN][kQS]
@@ -193,6 +201,10 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         op[(size_t)r * kDh + tx + 16 * j] = acc[i][j] * inv;
+      if (row_max != nullptr && tx == 0) {
+        row_max[(size_t)bh * L + r] = m_i[i];
+        row_sum[(size_t)bh * L + r] = l_i[i];
+      }
     }
   }
 }
@@ -200,13 +212,16 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 // q, k, v, out: [B, H, L, 128] float32, contiguous.  key_pad: [B, L] bytes,
-// nonzero = padded key.  scale = 1/sqrt(D), rounded to float by the caller
-// as the reference rounds it.  Launches on `stream`; returns cudaGetLastError()
-// (or cudaErrorInvalidValue for a shape the kernel does not take).
+// nonzero = padded key.  row_max, row_sum: [B, H, L] float32, or both null.
+// scale = 1/sqrt(D), rounded to float by the caller as the reference rounds
+// it.  Launches on `stream`; returns cudaGetLastError() (or
+// cudaErrorInvalidValue for a shape the kernel does not take).
 extern "C" int fs2_mha_fwd_f32(const void* q, const void* k, const void* v,
-                               const void* key_pad, void* out, int B, int H,
-                               int L, int D, float scale, void* stream) {
+                               const void* key_pad, void* out, void* row_max,
+                               void* row_sum, int B, int H, int L, int D,
+                               float scale, void* stream) {
   if (D != kDh || B <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
+  if ((row_max == nullptr) != (row_sum == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       mha_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
@@ -217,6 +232,6 @@ extern "C" int fs2_mha_fwd_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v),
       static_cast<const unsigned char*>(key_pad), static_cast<float*>(out),
-      H, L, scale);
+      static_cast<float*>(row_max), static_cast<float*>(row_sum), H, L, scale);
   return cudaGetLastError();
 }

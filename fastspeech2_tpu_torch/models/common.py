@@ -2,10 +2,44 @@
 
 Activations are [B, L, C] at every public function, as in the JAX package;
 convolutions transpose to PyTorch's [B, C, L] inside.
+
+Dropout draws its masks from the generator that
+:func:`set_dropout_generator` gives it (the training step gives one
+seeded from the training seed and the step, as the JAX step folds its
+dropout key on the step), or from PyTorch's default generator.
 """
 
 import torch
 from torch import nn
+
+
+def set_dropout_generator(model, generator):
+    """Draw every dropout mask of ``model`` from ``generator`` (a
+    torch.Generator on the activations' device)."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
+
+
+class Dropout(nn.Module):
+    """Flax's dropout: in training mode keep each element with probability
+    1 - rate and scale the kept ones by 1 / (1 - rate); the identity in
+    eval mode."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        if keep_prob == 0.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class LayerNorm(nn.Module):

@@ -1,9 +1,12 @@
-"""FastSpeech 2 acoustic model, inference (port of
+"""FastSpeech 2 acoustic model (port of
 ``fastspeech2_tpu/models/fastspeech2.py``).
 
 encoder -> (+ speaker embedding) -> variance adaptor -> decoder ->
 mel linear -> PostNet residual.  The caller fixes the phone length P and
 the frame length T; the data's lengths travel as length vectors + masks.
+``model.train()`` is the JAX package's ``train=True``: dropout on, the
+PostNet's BatchNorm on masked batch statistics; ``model.eval()`` is
+``train=False``.
 """
 
 from typing import NamedTuple
@@ -33,8 +36,6 @@ class FastSpeech2Output(NamedTuple):
 
 
 class FastSpeech2(nn.Module):
-    """Inference-only in this slice: there is no dropout, and the PostNet's
-    BatchNorm uses its running statistics."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -53,11 +54,12 @@ class FastSpeech2(nn.Module):
                 max_mel_len=None, p_targets=None, e_targets=None,
                 d_targets=None, p_control=1.0, e_control=1.0, d_control=1.0,
                 p_offset=0.0, e_offset=0.0, truncate_decoder=True):
-        """truncate_decoder=True mirrors the reference's training-time cut
-        to max_seq_len; inference re-dispatches pass False (no cut)."""
-        if self.training:
-            raise RuntimeError("FastSpeech2 is inference-only in this port; "
-                               "call .eval()")
+        """Teacher-forced (training and evaluation) with mel_lens,
+        max_mel_len (the batch's static frame length T) and the p/e/d
+        targets; inference without them.  truncate_decoder=True mirrors
+        the reference's training-time cut to max_seq_len; inference
+        re-dispatches pass False (no cut).  The mel targets are the loss's,
+        not the forward's (the JAX forward takes and ignores them)."""
         src_pad_mask = pad_mask_from_lengths(src_lens, texts.shape[1])
         mel_pad_mask = (pad_mask_from_lengths(mel_lens, max_mel_len)
                         if mel_lens is not None else None)

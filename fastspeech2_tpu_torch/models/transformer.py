@@ -7,17 +7,21 @@ each sublayer, sinusoid position encodings built for the length at hand.
 Module names follow the upstream reference's state dict
 (encoder.layer_stack.N.slf_attn.w_qs, ...).
 
-The attention core is kernel K1 and the whole FFN sublayer is kernel K2:
-on CUDA tensors both always launch their kernels (ops/cuda_attention.py,
-ops/cuda_ffn.py); on CPU tensors they compute their plain versions.  The
-port is inference-only in this slice, so there is no dropout.
+The attention core is kernel K1 forward and K3 backward
+(ops/cuda_attention.py).  In eval mode the whole FFN sublayer is kernel K2
+(ops/cuda_ffn.py); in training mode the FFN runs its plain path with
+dropout after the second conv, as the JAX package's training path does
+(fastspeech2_tpu/models/transformer.py:162-189).  On CUDA tensors the
+wrappers always launch their kernels; on CPU tensors they compute their
+plain versions.  Dropout follows the attention's output projection, in
+training mode only.
 """
 
 from torch import nn
 
-from fastspeech2_tpu_torch.models.common import LayerNorm
+from fastspeech2_tpu_torch.models.common import Dropout, LayerNorm
 from fastspeech2_tpu_torch.ops.cuda_attention import fused_attention
-from fastspeech2_tpu_torch.ops.cuda_ffn import fused_conv_ffn
+from fastspeech2_tpu_torch.ops.cuda_ffn import fused_conv_ffn, plain_conv_ffn
 from fastspeech2_tpu_torch.ops.masking import fill_masked
 from fastspeech2_tpu_torch.ops.positional import sinusoid_position_encoding
 
@@ -27,7 +31,7 @@ PAD_ID = 0
 class MultiHeadAttention(nn.Module):
     """Post-LN residual MHA (reference transformer/SubLayers.py:8-57)."""
 
-    def __init__(self, n_head, d_model):
+    def __init__(self, n_head, d_model, dropout):
         super().__init__()
         self.n_head = n_head
         self.d_head = d_model // n_head
@@ -36,6 +40,7 @@ class MultiHeadAttention(nn.Module):
         self.w_vs = nn.Linear(d_model, n_head * self.d_head)
         self.fc = nn.Linear(n_head * self.d_head, d_model)
         self.layer_norm = LayerNorm(d_model)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x, key_pad_mask):
         b, l, _ = x.shape
@@ -47,46 +52,53 @@ class MultiHeadAttention(nn.Module):
         out = fused_attention(proj(self.w_qs), proj(self.w_ks),
                               proj(self.w_vs), key_pad_mask)
         out = out.transpose(1, 2).reshape(b, l, self.n_head * self.d_head)
-        return self.layer_norm(self.fc(out) + x)
+        return self.layer_norm(self.dropout(self.fc(out)) + x)
 
 
 class PositionwiseFeedForward(nn.Module):
-    """conv1d(k0) -> ReLU -> conv1d(k1) -> post-LN residual (reference
-    transformer/SubLayers.py:60-93), computed by kernel K2."""
+    """conv1d(k0) -> ReLU -> conv1d(k1) -> dropout -> post-LN residual
+    (reference transformer/SubLayers.py:60-93): kernel K2 in eval mode, the
+    plain path with dropout in training mode."""
 
-    def __init__(self, d_model, d_inner, kernel_size):
+    def __init__(self, d_model, d_inner, kernel_size, dropout):
         super().__init__()
         self.w_1 = nn.Conv1d(d_model, d_inner, kernel_size[0],
                              padding=(kernel_size[0] - 1) // 2)
         self.w_2 = nn.Conv1d(d_inner, d_model, kernel_size[1],
                              padding=(kernel_size[1] - 1) // 2)
         self.layer_norm = LayerNorm(d_model)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
         # torch Conv1d [out, in, k] -> the kernel's [k, in, out]
         w1 = self.w_1.weight.permute(2, 1, 0).contiguous()
         w2 = self.w_2.weight.permute(2, 1, 0).contiguous()
-        return fused_conv_ffn(x, w1, self.w_1.bias, w2, self.w_2.bias,
-                              self.layer_norm.weight, self.layer_norm.bias)
+        args = (x, w1, self.w_1.bias, w2, self.w_2.bias,
+                self.layer_norm.weight, self.layer_norm.bias)
+        if self.training:
+            return plain_conv_ffn(*args, dropout=self.dropout)
+        return fused_conv_ffn(*args)
 
 
 class FFTBlock(nn.Module):
     """Self-attention + conv FFN, zeroing padded rows after each sublayer
     (reference transformer/Layers.py:11-30)."""
 
-    def __init__(self, d_model, n_head, d_inner, kernel_size):
+    def __init__(self, d_model, n_head, d_inner, kernel_size, dropout):
         super().__init__()
-        self.slf_attn = MultiHeadAttention(n_head, d_model)
-        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size)
+        self.slf_attn = MultiHeadAttention(n_head, d_model, dropout)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, kernel_size,
+                                               dropout)
 
     def forward(self, x, pad_mask):
         x = fill_masked(self.slf_attn(x, pad_mask), pad_mask)
         return fill_masked(self.pos_ffn(x), pad_mask)
 
 
-def _blocks(cfg, n_layers, n_head, d_model):
+def _blocks(cfg, n_layers, n_head, d_model, dropout):
     return nn.ModuleList(
-        FFTBlock(d_model, n_head, cfg.conv_filter_size, cfg.conv_kernel_size)
+        FFTBlock(d_model, n_head, cfg.conv_filter_size, cfg.conv_kernel_size,
+                 dropout)
         for _ in range(n_layers))
 
 
@@ -100,7 +112,7 @@ class Encoder(nn.Module):
         self.src_word_emb = nn.Embedding(cfg.vocab_size, cfg.encoder_hidden,
                                          padding_idx=PAD_ID)
         self.layer_stack = _blocks(cfg, cfg.encoder_layer, cfg.encoder_head,
-                                   cfg.encoder_hidden)
+                                   cfg.encoder_hidden, cfg.encoder_dropout)
 
     def forward(self, src_seq, src_pad_mask):
         pe = sinusoid_position_encoding(src_seq.shape[1], self.d_model,
@@ -121,7 +133,7 @@ class Decoder(nn.Module):
         self.d_model = cfg.decoder_hidden
         self.max_seq_len = cfg.max_seq_len
         self.layer_stack = _blocks(cfg, cfg.decoder_layer, cfg.decoder_head,
-                                   cfg.decoder_hidden)
+                                   cfg.decoder_hidden, cfg.decoder_dropout)
 
     def forward(self, x, mel_pad_mask, truncate_to_max_len=True):
         if truncate_to_max_len and x.shape[1] > self.max_seq_len:

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from fastspeech2_tpu_torch.models.common import Conv, LayerNorm
+from fastspeech2_tpu_torch.models.common import Conv, Dropout, LayerNorm
 from fastspeech2_tpu_torch.ops.length_regulator import length_regulate
 from fastspeech2_tpu_torch.ops.masking import (
     fill_masked,
@@ -24,27 +24,30 @@ from fastspeech2_tpu_torch.ops.masking import (
 
 class _ConvLayer(nn.Module):
     """Holds the predictor's convs under the reference's names
-    (variance_predictor.conv_layer.{conv1d_1,layer_norm_1,...})."""
+    (variance_predictor.conv_layer.{conv1d_1,layer_norm_1,dropout_1,...})."""
 
-    def __init__(self, d_in, filter_size, kernel_size):
+    def __init__(self, d_in, filter_size, kernel_size, dropout):
         super().__init__()
         self.conv1d_1 = Conv(d_in, filter_size, kernel_size)
         self.layer_norm_1 = LayerNorm(filter_size)
+        self.dropout_1 = Dropout(dropout)
         self.conv1d_2 = Conv(filter_size, filter_size, kernel_size)
         self.layer_norm_2 = LayerNorm(filter_size)
+        self.dropout_2 = Dropout(dropout)
 
     def forward(self, x):
-        y = self.layer_norm_1(torch.relu(self.conv1d_1(x)))
-        return self.layer_norm_2(torch.relu(self.conv1d_2(y)))
+        y = self.dropout_1(self.layer_norm_1(torch.relu(self.conv1d_1(x))))
+        return self.dropout_2(self.layer_norm_2(torch.relu(self.conv1d_2(y))))
 
 
 class VariancePredictor(nn.Module):
-    """(conv -> ReLU -> LN) x 2 -> linear -> squeeze; padded entries = 0
-    (reference model/modules.py:197-250)."""
+    """(conv -> ReLU -> LN -> dropout) x 2 -> linear -> squeeze; padded
+    entries = 0 (reference model/modules.py:197-250; JAX package
+    models/variance.py:29-57)."""
 
-    def __init__(self, d_in, filter_size, kernel_size):
+    def __init__(self, d_in, filter_size, kernel_size, dropout):
         super().__init__()
-        self.conv_layer = _ConvLayer(d_in, filter_size, kernel_size)
+        self.conv_layer = _ConvLayer(d_in, filter_size, kernel_size, dropout)
         self.linear_layer = nn.Linear(filter_size, 1)
 
     def forward(self, x, pad_mask):
@@ -67,9 +70,9 @@ class VarianceAdaptor(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, f, k = cfg.encoder_hidden, cfg.vp_filter_size, cfg.vp_kernel_size
-        self.duration_predictor = VariancePredictor(d, f, k)
-        self.pitch_predictor = VariancePredictor(d, f, k)
-        self.energy_predictor = VariancePredictor(d, f, k)
+        self.duration_predictor = VariancePredictor(d, f, k, cfg.vp_dropout)
+        self.pitch_predictor = VariancePredictor(d, f, k, cfg.vp_dropout)
+        self.energy_predictor = VariancePredictor(d, f, k, cfg.vp_dropout)
         self.register_buffer("pitch_bins", _make_bins(
             cfg.pitch_min, cfg.pitch_max, cfg.n_bins,
             cfg.pitch_quantization), persistent=False)

@@ -1,11 +1,15 @@
-"""K1: fused masked self-attention, hand-written CUDA for Hopper
-(``csrc/attention.cu``), replacing the TPU kernel
-``fastspeech2_tpu/ops/pallas_attention.py::_mha_kernel``.
+"""K1 and K3: fused masked self-attention forward and backward,
+hand-written CUDA for Hopper (``csrc/attention.cu``,
+``csrc/attention_bwd.cu``), replacing the TPU kernels
+``fastspeech2_tpu/ops/pallas_attention.py::_mha_kernel`` and
+``::_mha_bwd_kernel`` (the ``fused_multi_head_attention`` custom VJP).
 
 :func:`fused_attention` is the one entry point.  For tensors on the CPU it
-computes the plain version (``ops/attention.py``); for CUDA tensors it
-launches the kernel or raises.  There is no fallback from CUDA to the
-plain version.
+computes the plain forward (``ops/attention.py``), so autograd runs through
+plain ops.  For CUDA tensors it launches K1, and when a gradient is wanted
+it goes through :class:`FusedAttention`, whose backward launches K3; a
+shape either kernel does not take raises.  There is no fallback from CUDA
+to the plain version.
 """
 
 import math
@@ -17,8 +21,112 @@ from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
 
 HEAD_DIM = 128
 
-# kernel launches since the count was last set to 0
+# K1 launches and K3 calls (three launches each: K3a, K3b, K3c) since the
+# counts were last set to 0
 launches = 0
+bwd_launches = 0
+
+
+def _check_inputs(name, q, k, v, key_pad_mask):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be [B, H, L, Dh], got "
+                         f"{tuple(q.shape)}")
+    B, H, L, D = q.shape
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be float32 on "
+                             f"{q.device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != (B, H, L, D) or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous "
+                             f"{(B, H, L, D)}, got {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} is not 16-byte aligned (the "
+                             "kernel loads float4)")
+    if D != HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} is not {HEAD_DIM}")
+    if (key_pad_mask.dtype != torch.bool or key_pad_mask.device != q.device
+            or tuple(key_pad_mask.shape) != (B, L)
+            or not key_pad_mask.is_contiguous()):
+        raise ValueError(f"{name}: key_pad_mask must be a contiguous bool "
+                         f"[{B}, {L}] tensor on {q.device}")
+
+
+def _launch_forward(q, k, v, key_pad_mask, with_stats):
+    """K1 -> out, or (out, row_max, row_sum) with the softmax statistics
+    the backward reads."""
+    global launches
+    _check_inputs("fused_attention", q, k, v, key_pad_mask)
+    B, H, L, D = q.shape
+    lib = load_library()
+    out = torch.empty_like(q)
+    row_max = row_sum = None
+    if with_stats:
+        row_max = torch.empty((B, H, L), device=q.device, dtype=torch.float32)
+        row_sum = torch.empty_like(row_max)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fs2_mha_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad_mask.data_ptr(),
+            out.data_ptr(),
+            None if row_max is None else row_max.data_ptr(),
+            None if row_sum is None else row_sum.data_ptr(),
+            B, H, L, D, 1.0 / math.sqrt(D), stream)
+    check(err, "fs2_mha_fwd_f32")
+    launches += 1
+    return (out, row_max, row_sum) if with_stats else out
+
+
+def fused_attention_backward(q, k, v, key_pad_mask, out, row_max, row_sum,
+                             g):
+    """K3: (dq, dk, dv) of the attention whose K1 forward gave ``out``,
+    ``row_max`` and ``row_sum``, for the incoming gradient ``g`` (made
+    contiguous here: autograd may hand over a strided one)."""
+    global bwd_launches
+    _check_inputs("fused_attention_backward", q, k, v, key_pad_mask)
+    B, H, L, D = q.shape
+    g = g.contiguous()
+    for name, t, shape in (("out", out, (B, H, L, D)), ("g", g, (B, H, L, D)),
+                           ("row_max", row_max, (B, H, L)),
+                           ("row_sum", row_sum, (B, H, L))):
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"fused_attention_backward: {name} must be a "
+                             f"contiguous, 16-byte aligned float32 {shape} "
+                             f"tensor on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    lib = load_library()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    scratch = torch.empty((B, H, L), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fs2_mha_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad_mask.data_ptr(),
+            out.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), B, H, L, D, 1.0 / math.sqrt(D), stream)
+    check(err, "fs2_mha_bwd_f32")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FusedAttention(torch.autograd.Function):
+    """K1 forward, K3 backward (the custom VJP of
+    ``fastspeech2_tpu/ops/pallas_attention.py:227-251``); the mask gets no
+    gradient, as in ``_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_pad_mask):
+        out, row_max, row_sum = _launch_forward(q, k, v, key_pad_mask, True)
+        ctx.save_for_backward(q, k, v, key_pad_mask, out, row_max, row_sum)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dq, dk, dv = fused_attention_backward(*ctx.saved_tensors, g)
+        return dq, dk, dv, None
 
 
 def fused_attention(q, k, v, key_pad_mask):
@@ -29,37 +137,7 @@ def fused_attention(q, k, v, key_pad_mask):
     """
     if q.device.type == "cpu":
         return multi_head_attention(q, k, v, key_pad_mask)
-    global launches
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention: unsupported device {q.device}")
-    if q.dim() != 4:
-        raise ValueError(f"fused_attention: q must be [B, H, L, Dh], got "
-                         f"{tuple(q.shape)}")
-    B, H, L, D = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.float32:
-            raise ValueError(f"fused_attention: {name} must be float32 on "
-                             f"{q.device}, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != (B, H, L, D) or not t.is_contiguous():
-            raise ValueError(f"fused_attention: {name} must be contiguous "
-                             f"{(B, H, L, D)}, got {tuple(t.shape)}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"fused_attention: {name} is not 16-byte "
-                             "aligned (the kernel loads float4)")
-    if D != HEAD_DIM:
-        raise ValueError(f"fused_attention: head dim {D} is not {HEAD_DIM}")
-    if (key_pad_mask.dtype != torch.bool or key_pad_mask.device != q.device
-            or tuple(key_pad_mask.shape) != (B, L)
-            or not key_pad_mask.is_contiguous()):
-        raise ValueError("fused_attention: key_pad_mask must be a contiguous "
-                         f"bool [{B}, {L}] tensor on {q.device}")
-    lib = load_library()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fs2_mha_fwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad_mask.data_ptr(),
-            out.data_ptr(), B, H, L, D, 1.0 / math.sqrt(D), stream)
-    check(err, "fs2_mha_fwd_f32")
-    launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FusedAttention.apply(q, k, v, key_pad_mask)
+    return _launch_forward(q, k, v, key_pad_mask, False)

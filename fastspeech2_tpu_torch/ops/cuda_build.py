@@ -21,7 +21,7 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("attention.cu", "conv_ffn.cu")
+SOURCES = ("attention.cu", "attention_bwd.cu", "conv_ffn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -29,9 +29,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (all return int, a cudaError_t)
 _SIGNATURES = {
-    # q, k, v, key_pad, out, B, H, L, D, scale, stream
-    "fs2_mha_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float,
-                        _P],
+    # q, k, v, key_pad, out, row_max, row_sum, B, H, L, D, scale, stream
+    "fs2_mha_fwd_f32": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+    # q, k, v, key_pad, out, row_max, row_sum, g, dq, dk, dv, d_scratch,
+    # B, H, L, D, scale, stream
+    "fs2_mha_bwd_f32": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
     # x, w1, b1, w2, b2, gamma, beta, h, out, B, L, D, H, k1, k2, stream
     "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 6 + [_P],
 }

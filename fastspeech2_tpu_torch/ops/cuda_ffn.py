@@ -9,7 +9,13 @@ variance is E[y^2] - E[y]^2, eps 1e-5.
 
 :func:`fused_conv_ffn` is the one entry point.  For tensors on the CPU it
 computes the plain version; for CUDA tensors it launches the kernel or
-raises.  There is no fallback from CUDA to the plain version.
+raises.  There is no fallback from CUDA to the plain version.  When a
+gradient is wanted it goes through :class:`FusedConvFFN`: K2 forward, and
+a backward that recomputes the plain version from the saved inputs and
+differentiates it, as the JAX package's custom VJP does with its XLA
+reference (``fastspeech2_tpu/ops/pallas_ffn.py:194-204``).  Training mode
+does not come here: the model's FFN runs its plain path with dropout
+there, as the JAX package does (``models/transformer.py:162-189``).
 """
 
 import torch
@@ -33,21 +39,53 @@ def _conv1d_same(x, w):
     return F.conv1d(xt, w.permute(2, 1, 0)).transpose(1, 2)
 
 
-def plain_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias):
+def plain_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, dropout=None):
     """Plain PyTorch version (cf. ``xla_conv_ffn``,
-    fastspeech2_tpu/ops/pallas_ffn.py:41-58)."""
+    fastspeech2_tpu/ops/pallas_ffn.py:41-58).  ``dropout``, a callable, is
+    applied to the second conv's output before the residual add (the
+    training path, fastspeech2_tpu/models/transformer.py:169-189)."""
     y = torch.relu(_conv1d_same(x, w1) + b1)
-    y = _conv1d_same(y, w2) + b2 + x
+    y = _conv1d_same(y, w2) + b2
+    if dropout is not None:
+        y = dropout(y)
+    y = y + x
     mu = y.mean(dim=-1, keepdim=True)
     var = (y * y).mean(dim=-1, keepdim=True) - mu * mu
     return (y - mu) * torch.rsqrt(var + 1e-5) * ln_scale + ln_bias
 
 
+class FusedConvFFN(torch.autograd.Function):
+    """K2 forward; backward by autograd through :func:`plain_conv_ffn`
+    recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _launch(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = [t.detach().requires_grad_(need)
+                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = plain_conv_ffn(*args)
+        wanted = [t for t in args if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(grads) if t.requires_grad else None for t in args)
+
+
 def fused_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias):
     """x: float32 [B, L, 256]; w1 [k1, 256, H]; b1 [H]; w2 [k2, H, 256];
     b2, ln_scale, ln_bias [256]; H a multiple of 64."""
+    args = (x, w1, b1, w2, b2, ln_scale, ln_bias)
     if x.device.type == "cpu":
-        return plain_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias)
+        return plain_conv_ffn(*args)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return FusedConvFFN.apply(*args)
+    return _launch(*args)
+
+
+def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias):
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_ffn: unsupported device {x.device}")

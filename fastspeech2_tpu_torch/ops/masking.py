@@ -19,3 +19,12 @@ def fill_masked(x, pad_mask, value=0.0):
     if x.dim() == pad_mask.dim() + 1:
         pad_mask = pad_mask[..., None]
     return x.masked_fill(pad_mask, value)
+
+
+def masked_mean(values, keep_mask):
+    """Mean of ``values`` over the entries where ``keep_mask`` is True
+    (True = KEEP here), 0 when none is kept: sum(values * keep) /
+    max(sum(keep), 1), the JAX package's static-shape form of the
+    reference's masked_select(...).mean()."""
+    keep = keep_mask.to(values.dtype)
+    return (values * keep).sum() / torch.clamp(keep.sum(), min=1.0)

@@ -9,6 +9,7 @@ layers of sums in another order), and in inference mode after checking
 that the rounded durations are identical.
 """
 
+import dataclasses
 import json
 import os
 
@@ -33,6 +34,7 @@ from fastspeech2_tpu_torch.configs.config import (
     FastSpeech2Config,
     load_yaml_configs,
 )
+from fastspeech2_tpu_torch.models.common import Dropout
 from fastspeech2_tpu_torch.models.fastspeech2 import (
     FastSpeech2,
     FastSpeech2Output,
@@ -174,14 +176,56 @@ def test_inference_outputs_match_jax(models, controls, max_mel_len, truncate):
 
 
 def test_training_mode_is_refused(models):
-    *_, model, batch = models
+    """The first slice refused train mode; the port trains now, so this
+    holds train mode against the JAX package's train=True where it is
+    deterministic.  With the encoder, decoder and predictor dropout rates
+    at 0 the pre-PostNet mel and the predictions are dropout-free, and the
+    first PostNet BatchNorm's masked batch statistics (it sees the mel
+    before any PostNet dropout) update the running mean and var as JAX
+    does."""
+    jax_model, variables, model, batch = models
+    T = batch["mels"].shape[1]
+    no_dropout = dataclasses.replace(jax_model.config, encoder_dropout=0.0,
+                                     decoder_dropout=0.0, vp_dropout=0.0)
+    ref, mutated = JaxFastSpeech2(no_dropout).apply(
+        variables, jnp.asarray(batch["speakers"]),
+        jnp.asarray(batch["texts"]), jnp.asarray(batch["src_lens"]),
+        mel_lens=jnp.asarray(batch["mel_lens"]), max_mel_len=T,
+        p_targets=jnp.asarray(batch["pitches"]),
+        e_targets=jnp.asarray(batch["energies"]),
+        d_targets=jnp.asarray(batch["durations"]), train=True,
+        rngs={"dropout": jax.random.PRNGKey(0)}, mutable=["batch_stats"])
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    rates = {}
+    for name, m in model.named_modules():
+        if isinstance(m, Dropout) and not name.startswith("postnet"):
+            rates[name], m.rate = m.rate, 0.0
     model.train()
     try:
-        with pytest.raises(RuntimeError, match="inference-only"):
-            model(t["speakers"], t["texts"], t["src_lens"])
+        with torch.no_grad():
+            got = model(t["speakers"], t["texts"], t["src_lens"],
+                        mel_lens=t["mel_lens"], max_mel_len=T,
+                        p_targets=t["pitches"], e_targets=t["energies"],
+                        d_targets=t["durations"])
+        bn = model.postnet.convolutions[0][1]
+        stats = (bn.running_mean.clone(), bn.running_var.clone())
     finally:
         model.eval()
+        for name, m in model.named_modules():
+            if name in rates:
+                m.rate = rates[name]
+        model.load_state_dict(state)
+    for name in ("mel", "pitch_prediction", "energy_prediction",
+                 "log_duration_prediction"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(ref, name)), atol=1e-4,
+                                   rtol=0, err_msg=name)
+    ref_bn = mutated["batch_stats"]["postnet"]["bn_0"]
+    np.testing.assert_allclose(stats[0].numpy(), np.asarray(ref_bn["mean"]),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(stats[1].numpy(), np.asarray(ref_bn["var"]),
+                               atol=1e-5, rtol=0)
 
 
 # ---- vocoder ---------------------------------------------------------------

@@ -1,9 +1,9 @@
 """PyTorch port, ops and kernels: each op of fastspeech2_tpu_torch.ops held
 against its JAX counterpart on the same numpy inputs.
 
-K1 and K2 are compared with the JAX package's Pallas kernels run in
-interpret mode, as tests/test_pallas.py and tests/test_pallas_ffn.py run
-them on the CPU.  On the CPU the port's wrappers compute their plain
+K1, K2 and K3 (the attention backward) are compared with the JAX package's
+Pallas kernels run in interpret mode, as tests/test_pallas.py and
+tests/test_pallas_ffn.py run them on the CPU.  On the CPU the port's wrappers compute their plain
 versions; the CUDA kernels themselves are held against those plain
 versions by tests/test_torch_cuda.py, on a card.
 
@@ -16,19 +16,26 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from fastspeech2_tpu.ops.length_regulator import (
     length_regulate as jax_length_regulate,
 )
 from fastspeech2_tpu.ops.masking import pad_mask_from_lengths as jax_pad_mask
-from fastspeech2_tpu.ops.pallas_attention import attention_op
+from fastspeech2_tpu.ops.pallas_attention import (
+    attention_op,
+    fused_multi_head_attention,
+)
 from fastspeech2_tpu.ops.pallas_ffn import fused_conv_ffn as jax_fused_ffn
 from fastspeech2_tpu.ops.positional import (
     sinusoid_position_encoding as jax_pe,
 )
 from fastspeech2_tpu_torch.ops import cuda_attention, cuda_ffn
-from fastspeech2_tpu_torch.ops.attention import multi_head_attention
+from fastspeech2_tpu_torch.ops.attention import (
+    multi_head_attention,
+    plain_attention_backward,
+)
 from fastspeech2_tpu_torch.ops.length_regulator import length_regulate
 from fastspeech2_tpu_torch.ops.masking import (
     fill_masked,
@@ -91,6 +98,44 @@ def test_attention_wrapper_uses_plain_version_on_cpu():
                                multi_head_attention(q, k, v, mask),
                                rtol=0, atol=0)
     assert cuda_attention.launches == before
+
+
+# ---- K3: attention backward -----------------------------------------------
+
+# a full row, a partly padded row, and a row whose keys are ALL padded
+@pytest.mark.parametrize("B,H,L,D,lens", [
+    (3, 2, 48, 32, [48, 29, 0]),
+    (2, 2, 70, 16, [70, 0]),
+])
+def test_attention_backward_plain_matches_pallas_interpret(B, H, L, D, lens):
+    q, k, v, mask = _attention_inputs(B, H, L, D, lens, seed=1)
+    g = np.random.RandomState(2).randn(B, H, L, D).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda q, k, v: fused_multi_head_attention(q, k, v,
+                                                   jnp.asarray(mask), True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(g))
+    got = plain_attention_backward(*_t(q, k, v, mask, g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                   rtol=0, err_msg=name)
+
+
+def test_attention_backward_plain_matches_autograd():
+    """Rows with a key to attend to: the explicit formula is autograd's
+    gradient.  (A row whose keys are all padded is the exception: there
+    the formula, like the TPU kernel, differs from the gradient of the
+    masked fill; see test_attention_backward_plain_matches_pallas_interpret
+    and tests/test_torch_cuda.py.)"""
+    q, k, v, mask = _attention_inputs(2, 2, 33, 16, [33, 20], seed=4)
+    g = np.random.RandomState(5).randn(2, 2, 33, 16).astype(np.float32)
+    leaves = [t.requires_grad_(True) for t in _t(q, k, v)]
+    ref = torch.autograd.grad(
+        multi_head_attention(*leaves, torch.from_numpy(mask)), leaves,
+        torch.from_numpy(g))
+    got = plain_attention_backward(*_t(q, k, v, mask, g))
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
 # ---- K2: conv FFN ---------------------------------------------------------

@@ -44,8 +44,20 @@ def test_imports_without_jax():
             "sys.modules['fastspeech2_tpu'] = None\n"
             "import fastspeech2_tpu_torch\n"
             "import fastspeech2_tpu_torch.cli.synthesize_cli\n"
+            "import fastspeech2_tpu_torch.cli.train_cli\n"
+            "import fastspeech2_tpu_torch.cli.evaluate_cli\n"
+            "import fastspeech2_tpu_torch.tools.kernel_bounds\n"
+            "import fastspeech2_tpu_torch.tools.profile_train\n"
             "import fastspeech2_tpu_torch.ops.cuda_attention\n"
             "import fastspeech2_tpu_torch.ops.cuda_ffn\n"
+            "import fastspeech2_tpu_torch.data.dataset\n"
+            "import fastspeech2_tpu_torch.data.prefetch\n"
+            "import fastspeech2_tpu_torch.data.synthetic\n"
+            "import fastspeech2_tpu_torch.models.loss\n"
+            "import fastspeech2_tpu_torch.training.checkpoint\n"
+            "import fastspeech2_tpu_torch.training.loop\n"
+            "import fastspeech2_tpu_torch.training.optim\n"
+            "import fastspeech2_tpu_torch.training.step\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
             "'fastspeech2_tpu.')) for m in sys.modules if sys.modules[m])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
