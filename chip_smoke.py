@@ -14,18 +14,29 @@ exits non-zero):
 5. K3        the attention-backward kernel against its plain version at the
              training shapes, and the autograd Function (K1 forward, K3
              backward) against autograd through the plain forward;
-6. synthesis the README sentence, text -> wav, through the CLI's main with
-             the tracked weights; the kernels' launch counts over that run;
-             the mel against the same forward with the plain versions;
-7. timings   each kernel, its plain version and the library yardstick
-             (CUDA events), and text -> wav end to end;
-8. training  20 steps at full model width (config/LJSpeech10, batch 10) on
+6. K4        the MRF ResBlock kernel against its plain version at the 12
+             ResBlock shapes of a 1000-frame parity-vocoder forward, at
+             L = 8 (a 1-frame mel at C = 256) and at ragged L;
+7. synthesis the README sentence, text -> wav, through the CLI's main with
+             the tracked weights (HiFi-GAN-iSTFT); the kernels' launch
+             counts over that run; the mel against the same forward with the
+             plain versions;
+8. parity    the same sentence through the CLI's main with
+             config/LJSpeech/model.yaml: the parity HiFi-GAN from its seeded
+             random init; launch counts (12 K4 per vocoder forward); the wav
+             against the same vocoder forward with the plain ResBlocks;
+9. timings   each kernel, its plain version and the library yardstick
+             (CUDA events), text -> wav end to end and the parity vocoder's
+             forward;
+10. training 20 steps at full model width (config/LJSpeech10, batch 10) on
              a synthetic corpus through the port's train(), with one
              validation pass; launch counts per step and per eval forward;
              then a resume from the checkpoint through the train CLI;
-9. synthesis from the trained checkpoint through the synthesize CLI's
+11. synthesis from the trained checkpoint through the synthesize CLI's
              --restore_step;
-10. kernels  one JSON line describing K1, K2 and K3.
+12. repro    5 training steps twice from one seed through train(): every
+             parameter must agree exactly;
+13. kernels  one JSON line describing K1, K2, K3 and K4.
 
 The last line is {"ok": true, "device": {...}}.  Outputs go to a temporary
 directory.  Without a CUDA device, or outside a checkout of the repository,
@@ -46,6 +57,8 @@ import yaml
 
 README_SENTENCE = "The quick brown fox jumps over the lazy dog."
 CONFIG = "config/LJSpeech10"
+# differs from config/LJSpeech10/model.yaml only in vocoder.model: HiFi-GAN
+PARITY_MODEL = "config/LJSpeech/model.yaml"
 ACOUSTIC_NPZ = "weights/acoustic_LJSpeech10_100k.npz"
 VOCODER_NPZ = "weights/vocoder_gen_mixed60k.npz"
 # float32 kernels vs float32 plain versions: the same sums in another
@@ -57,6 +70,14 @@ KERNEL_ATOL = 1e-4
 K3_RTOL = 1e-4
 # the mel after ten layers of both kernels and the PostNet
 MEL_ATOL = 1e-3
+# K4: float32 sums of up to 2816 terms through six convs, held RELATIVE to
+# the largest |output|
+K4_RTOL = 1e-4
+# the parity wav in [-1, 1] after 12 K4 calls, four upsampling convs and
+# tanh; 1e-4 is ~3 int16 steps
+WAV_ATOL = 1e-4
+DILATIONS = (1, 3, 5)
+REPRO_STEPS = 5
 # training: the decoder's and encoder's L at LJSpeech lengths
 TRAIN_BATCH = 10
 TRAIN_STEPS = 20
@@ -125,6 +146,23 @@ def ffn_inputs(L, device, seed, k2=1):
             r(256, scale=0.1, shift=1.0), r(256, scale=0.1))
 
 
+def resblock_inputs(C, L, k, device, seed, bias=0.5):
+    """x [1, C, L] and three dilation units of Conv1d weights scaled to keep
+    the output O(1); biases of 0.5 show a leak at the sequence edges."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    scale = (C * k) ** -0.5
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(device)
+
+    x = r(1, C, L)
+    w1, w2 = ([r(C, C, k, s=scale) for _ in DILATIONS] for _ in range(2))
+    b1, b2 = ([r(C, s=bias) for _ in DILATIONS] for _ in range(2))
+    return x, w1, b1, w2, b2
+
+
 def main():
     import torch
 
@@ -136,7 +174,13 @@ def main():
     from fastspeech2_tpu_torch.cli import synthesize_cli
     from fastspeech2_tpu_torch.configs.config import load_yaml_configs
     from fastspeech2_tpu_torch.models import transformer
-    from fastspeech2_tpu_torch.ops import cuda_attention, cuda_build, cuda_ffn
+    from fastspeech2_tpu_torch.models.hifigan import ResBlock
+    from fastspeech2_tpu_torch.ops import (
+        cuda_attention,
+        cuda_build,
+        cuda_ffn,
+        cuda_resblock,
+    )
     from fastspeech2_tpu_torch.ops.attention import (
         multi_head_attention,
         plain_attention_backward,
@@ -145,6 +189,10 @@ def main():
     from fastspeech2_tpu_torch.synthesis.vocoder import (
         get_vocoder,
         vocoder_infer,
+    )
+    from fastspeech2_tpu_torch.tools.kernel_bounds import (
+        parity_resblock_shapes,
+        resblock_bound_ms,
     )
     from fastspeech2_tpu_torch.utils.device import resolve_device
 
@@ -252,7 +300,33 @@ def main():
     if not fn_rel <= K3_RTOL:
         raise RuntimeError("the attention Function's gradients disagree")
 
-    # 6. synthesis through the CLI's main; counts from this run only
+    # 6. K4 vs plain at the 12 ResBlock shapes of a 1000-frame parity
+    #    forward, at L = 8 (a 1-frame mel at C = 256: the halo is wider than
+    #    L) and at L ragged against every tile
+    k4_shapes = parity_resblock_shapes(1000)
+    k4_err = k4_rel = 0.0
+    for C, L, k in k4_shapes + [(256, 8, 3), (256, 8, 7), (256, 8, 11),
+                                (128, 1531, 11), (32, 777, 7)]:
+        x, w1, b1, w2, b2 = resblock_inputs(C, L, k, device, seed=C + L + k)
+        with torch.inference_mode():
+            got = cuda_resblock.fused_resblock(x, w1, b1, w2, b2, DILATIONS)
+            torch.cuda.synchronize()
+            ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, DILATIONS)
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"K4 output not finite at C={C}, L={L}, k={k}")
+        err = (got - ref).abs().max().item()
+        k4_err = max(k4_err, err)
+        k4_rel = max(k4_rel, err / ref.abs().max().item())
+    del x, w1, b1, w2, b2, got, ref
+    say(f"[K4] MRF ResBlock kernel vs plain at [1, C, L] = [1, 256, 8000], "
+        f"[1, 128, 64000], [1, 64, 128000], [1, 32, 256000] with k = 3, 7, "
+        f"11 each, [1, 256, 8] (k = 3, 7, 11), [1, 128, 1531] and "
+        f"[1, 32, 777]: max_abs_err={k4_err:.3e}, max relative to the "
+        f"largest |output| {k4_rel:.3e} (tolerance {K4_RTOL:g} relative)")
+    if not k4_rel <= K4_RTOL:
+        raise RuntimeError("K4 disagrees with its plain version")
+
+    # 7. synthesis through the CLI's main; counts from this run only
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--mode", "single", "--text", README_SENTENCE,
                 "--weights_npz", ACOUSTIC_NPZ, "--vocoder_ckpt", VOCODER_NPZ,
@@ -261,11 +335,13 @@ def main():
                 "--result_path", tmp]
         cuda_attention.launches = 0
         cuda_ffn.launches = 0
+        cuda_resblock.launches = 0
         t0 = time.perf_counter()
         wavs, out, paths = synthesize_cli.main(argv)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-        launches = {"K1": cuda_attention.launches, "K2": cuda_ffn.launches}
+        launches = {"K1": cuda_attention.launches, "K2": cuda_ffn.launches,
+                    "K4": cuda_resblock.launches}
         with wave.open(paths[0], "rb") as f:
             written = f.readframes(f.getnframes())
     if written != wavs[0].astype("<i2").tobytes():
@@ -283,18 +359,21 @@ def main():
     say(f"[synthesis] {README_SENTENCE!r}: {len(wav)} samples = mel_len "
         f"{mel_len} x hop {hop}; peak {peak}; written wav read back equal; "
         f"{forwards} acoustic forward(s); launches K1={launches['K1']} "
-        f"K2={launches['K2']}; CLI main {cli_s:.2f} s (build, load, G2P and "
-        f"first calls included)")
+        f"K2={launches['K2']} K4={launches['K4']} (HiFi-GAN-iSTFT); CLI main "
+        f"{cli_s:.2f} s (build, load, G2P and first calls included)")
     if len(wav) != mel_len * hop or mel_len <= 0:
         raise RuntimeError("wav length is not mel_len * hop")
     if peak < 100:
         raise RuntimeError("the wav is silent")
     if not torch.isfinite(out.postnet_mel).all():
         raise RuntimeError("the mel is not finite")
-    for name, n in launches.items():
-        if n != 10 * forwards:
-            raise RuntimeError(f"{name} launched {n} times, expected "
-                               f"{10 * forwards} (10 per acoustic forward)")
+    for name in ("K1", "K2"):
+        if launches[name] != 10 * forwards:
+            raise RuntimeError(f"{name} launched {launches[name]} times, "
+                               f"expected {10 * forwards} (10 per acoustic "
+                               "forward)")
+    if launches["K4"] != 0:
+        raise RuntimeError("the iSTFT vocoder launched K4")
 
     model, cfg = synthesize_cli.load_model_for_inference(
         preprocess_config, model_config, ACOUSTIC_NPZ, device)
@@ -321,7 +400,70 @@ def main():
     if not mel_err <= MEL_ATOL:
         raise RuntimeError("the kernel forward's mel disagrees with plain")
 
-    # 7. timings at the path's shapes
+    # 8. the parity HiFi-GAN through the CLI's main, from its seeded random
+    #    init (no --vocoder_ckpt); counts from this run only
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--mode", "single", "--text", README_SENTENCE,
+                "--weights_npz", ACOUSTIC_NPZ,
+                "-p", f"{CONFIG}/preprocess.yaml", "-m", PARITY_MODEL,
+                "-t", f"{CONFIG}/train.yaml", "--result_path", tmp]
+        cuda_attention.launches = 0
+        cuda_ffn.launches = 0
+        cuda_resblock.launches = 0
+        t0 = time.perf_counter()
+        p_wavs, p_out, _ = synthesize_cli.main(argv)
+        torch.cuda.synchronize()
+        p_cli_s = time.perf_counter() - t0
+        parity_launches = {"K1": cuda_attention.launches,
+                           "K2": cuda_ffn.launches,
+                           "K4": cuda_resblock.launches}
+    parity_model_config = load_yaml_configs(
+        f"{CONFIG}/preprocess.yaml", PARITY_MODEL, f"{CONFIG}/train.yaml")[1]
+    p_mel_len = int(p_out.mel_len[0])
+    p_need = int(p_out.duration_rounded.sum(dim=1).max())
+    p_forwards = 2 if p_need > parity_model_config["max_seq_len"] else 1
+    p_peak = int(abs(p_wavs[0].astype("int32")).max())
+    say(f"[parity] {README_SENTENCE!r} with {PARITY_MODEL} (HiFi-GAN, "
+        f"seeded random init): {len(p_wavs[0])} samples = mel_len "
+        f"{p_mel_len} x hop {hop}; peak {p_peak}; {p_forwards} acoustic "
+        f"forward(s); launches K1={parity_launches['K1']}"
+        f" K2={parity_launches['K2']} K4={parity_launches['K4']}; CLI main "
+        f"{p_cli_s:.2f} s")
+    if len(p_wavs[0]) != p_mel_len * hop or p_mel_len <= 0:
+        raise RuntimeError("parity wav length is not mel_len * hop")
+    if (parity_launches["K1"], parity_launches["K2"]) != (10 * p_forwards,) * 2:
+        raise RuntimeError(f"parity synthesis launched {parity_launches}, "
+                           f"expected {10 * p_forwards} K1 and K2")
+    if parity_launches["K4"] != 12:
+        raise RuntimeError(f"K4 launched {parity_launches['K4']} times, "
+                           "expected 12 (one vocoder forward)")
+    # the same vocoder again (the seeded init), and the CLI's wav from it
+    parity_vocoder = get_vocoder(parity_model_config, None, device)
+    resblocks = [m for m in parity_vocoder.modules()
+                 if isinstance(m, ResBlock)]
+    again = vocoder_infer(p_out.postnet_mel, parity_vocoder,
+                          preprocess_config,
+                          lengths=p_out.mel_len.cpu().numpy())[0]
+    if not (again == p_wavs[0]).all():
+        raise RuntimeError("the parity vocoder does not give the CLI's wav")
+    with torch.inference_mode():
+        p_wav = parity_vocoder(p_out.postnet_mel)
+        for m in resblocks:
+            m.fused = False
+        p_plain = parity_vocoder(p_out.postnet_mel)
+        for m in resblocks:
+            m.fused = True
+    if not torch.isfinite(p_wav).all():
+        raise RuntimeError("the parity wav is not finite")
+    wav_err = (p_wav - p_plain).abs().max().item()
+    say(f"[parity] vocoder wav with K4 vs the plain ResBlocks on the card, "
+        f"[1, {p_out.postnet_mel.shape[1]}] frames -> {p_wav.shape[1]} "
+        f"samples, finite: max_abs_diff={wav_err:.3e} (tolerance "
+        f"{WAV_ATOL:g}; largest |sample| {p_plain.abs().max().item():.3e})")
+    if not wav_err <= WAV_ATOL:
+        raise RuntimeError("the K4 vocoder's wav disagrees with plain")
+
+    # 9. timings at the path's shapes
     import torch.nn.functional as F
 
     enc_len = kern.src_pad_mask.shape[1]
@@ -375,6 +517,51 @@ def main():
         f"(median ms): frontend with neural G2P {front[0]:.2f}, acoustic "
         f"forward {fwd[0]:.2f}, vocoder on the {kern.mel.shape[1]}-frame "
         f"mel + int16 trim {voc[0]:.2f}; on {card}")
+
+    # K4 at the 12 ResBlock shapes of a 1000-frame parity forward; the
+    # library yardstick is cuDNN's six-conv chain (the plain version) with
+    # cuDNN free to autotune its algorithms (benchmark mode)
+    k4_timings = []
+    for C, L, k in k4_shapes:
+        rb = resblock_inputs(C, L, k, device, seed=C + k)
+        packed = cuda_resblock.pack_resblock_weights(*rb[1:])
+        with torch.inference_mode():
+            t = dict(
+                shape=[1, C, L], k=k,
+                ms=cuda_time_ms(lambda: cuda_resblock.fused_resblock(
+                    *rb, DILATIONS, packed=packed)),
+                plain_ms=cuda_time_ms(lambda: cuda_resblock.plain_resblock(
+                    *rb, DILATIONS)))
+            with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                t["library_ms"] = cuda_time_ms(
+                    lambda: cuda_resblock.plain_resblock(*rb, DILATIONS))
+        t["bound_ms"], t["bound_by"], _, _ = resblock_bound_ms(1, L, C, k)
+        k4_timings.append(t)
+        say(f"[timing] K4 [1, {C}, {L}] k={k}: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, cuDNN autotuned "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.3e} ms "
+            f"({t['bound_by']}) on {card}")
+    del rb, packed
+    k4_total = {key: sum(t[key] for t in k4_timings)
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    voc_k4 = host_ms(lambda: vocoder_infer(p_out.postnet_mel, parity_vocoder,
+                                           preprocess_config))
+    for m in resblocks:
+        m.fused = False
+    voc_plain = host_ms(lambda: vocoder_infer(
+        p_out.postnet_mel, parity_vocoder, preprocess_config))
+    for m in resblocks:
+        m.fused = True
+    say(f"[timing] K4, the 12 calls of one 1000-frame parity forward: "
+        f"kernel {k4_total['ms']:.4f} ms, plain {k4_total['plain_ms']:.4f} "
+        f"ms, cuDNN autotuned {k4_total['library_ms']:.4f} ms, bound "
+        f"{k4_total['bound_ms']:.4f} ms; the parity vocoder on the "
+        f"{p_out.postnet_mel.shape[1]}-frame mel + int16: median "
+        f"{voc_k4[0]:.2f} ms over 5 (min {voc_k4[1]:.2f}) with K4, "
+        f"{voc_plain[0]:.2f} ms (min {voc_plain[1]:.2f}) with the plain "
+        f"ResBlocks; on {card}")
 
     # K1 and K3 at the training shapes: the decoder's L = 1000, LJSpeech10's
     # bucket 768 and the encoder's 128, batch 10; the library yardstick for
@@ -454,12 +641,13 @@ def main():
             torch.cuda.synchronize()
             step_times.append(time.perf_counter())
             counts.append((cuda_attention.launches,
-                           cuda_attention.bwd_launches, cuda_ffn.launches))
+                           cuda_attention.bwd_launches, cuda_ffn.launches,
+                           cuda_resblock.launches))
             losses_seen.append([float(v) for v in losses])
 
         torch.cuda.reset_peak_memory_stats()
         cuda_attention.launches = cuda_attention.bwd_launches = 0
-        cuda_ffn.launches = 0
+        cuda_ffn.launches = cuda_resblock.launches = 0
         t0 = time.perf_counter()
         _, _, final_step = train(pre_cfg, model_config, train_cfg, log=log,
                                  device=device, step_hook=hook)
@@ -467,14 +655,15 @@ def main():
         train_s = time.perf_counter() - t0
         train_launches = {"K1": cuda_attention.launches,
                           "K3": cuda_attention.bwd_launches,
-                          "K2": cuda_ffn.launches}
+                          "K2": cuda_ffn.launches,
+                          "K4": cuda_resblock.launches}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        per_step = [tuple(b - a for a, b in zip((0, 0, 0) if i == 0
+        per_step = [tuple(b - a for a, b in zip((0, 0, 0, 0) if i == 0
                                                  else counts[i - 1], c))
                     for i, c in enumerate(counts)]
         eval_counts = tuple(t - c for t, c in zip(
             (train_launches["K1"], train_launches["K3"],
-             train_launches["K2"]), counts[-1]))
+             train_launches["K2"], train_launches["K4"]), counts[-1]))
         # the first step pays cuDNN's and the allocator's first calls
         step_ms = [(b - a) * 1e3 for a, b in zip(step_times, step_times[1:])]
         median_step = statistics.median(step_ms)
@@ -493,7 +682,7 @@ def main():
             f"K1 + K3 at these shapes {attn_ms:.2f} ms = "
             f"{100 * attn_ms / median_step:.1f}% of a step; total loss "
             f"mean of the first 5 steps {first5:.4f}, of the last 5 "
-            f"{last5:.4f}; launches per step (K1, K3, K2) "
+            f"{last5:.4f}; launches per step (K1, K3, K2, K4) "
             f"{sorted(set(per_step))}, per eval forward {eval_counts}; on "
             f"{card}")
         if final_step != TRAIN_STEPS or len(losses_seen) != TRAIN_STEPS:
@@ -503,10 +692,10 @@ def main():
             raise RuntimeError("a training loss is not finite")
         if not last5 < first5:
             raise RuntimeError("the training loss did not fall")
-        if set(per_step) != {(10, 10, 0)}:
+        if set(per_step) != {(10, 10, 0, 0)}:
             raise RuntimeError(f"launches per train step {set(per_step)}, "
-                               "expected 10 K1 + 10 K3 + 0 K2")
-        if eval_counts != (10, 0, 10):
+                               "expected 10 K1 + 10 K3 + 0 K2 + 0 K4")
+        if eval_counts != (10, 0, 10, 0):
             raise RuntimeError(f"launches in the validation pass "
                                f"{eval_counts}, expected 10 K1 + 10 K2")
         if not any(ln.startswith(f"Validation Step {TRAIN_STEPS}")
@@ -549,7 +738,7 @@ def main():
         if not (resumed and stepped and saved):
             raise RuntimeError(f"the CLI resume failed:\n{proc.stdout}")
 
-        # 9. synthesis from the trained checkpoint
+        # 11. synthesis from the trained checkpoint
         wavs, out, wav_paths = synthesize_cli.main(
             ["--mode", "single", "--text", README_SENTENCE, *paths,
              "--restore_step", str(TRAIN_STEPS + 2),
@@ -566,16 +755,42 @@ def main():
         if len(wavs[0]) != trained_len * hop or not finite:
             raise RuntimeError("synthesis from the trained checkpoint failed")
 
-    # 10. kernels line
+        # 12. reproducibility: REPRO_STEPS steps twice from one seed through
+        #     train(), with no duty but the final checkpoint
+        def trained_params(run):
+            cfg = dict(train_cfg, path={
+                k: os.path.join(tmp, f"repro{run}", k) for k in
+                ("ckpt_path", "log_path", "result_path")})
+            cfg["step"] = dict(cfg["step"], total_step=REPRO_STEPS,
+                               log_step=REPRO_STEPS, val_step=10 ** 9,
+                               save_step=10 ** 9)
+            model, _, step = train(pre_cfg, model_config, cfg,
+                                   log=lambda line: None, device=device)
+            if step != REPRO_STEPS:
+                raise RuntimeError(f"the repro run stopped at step {step}")
+            return {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+
+        first, second = trained_params(0), trained_params(1)
+        diffs = {n: (first[n] - second[n]).abs().max().item() for n in first}
+        repro_diff = max(diffs.values())
+        say(f"[repro] {REPRO_STEPS} training steps twice from one seed "
+            f"through train(): max |parameter difference| {repro_diff:.3e} "
+            f"({sum(v > 0 for v in diffs.values())} of {len(diffs)} "
+            f"tensors differ)")
+        if repro_diff != 0.0:
+            raise RuntimeError("two trainings from one seed differ")
+
+    # 13. kernels line
     sources = {"K1": ("fused_attention", "fastspeech2_tpu_torch/csrc/attention.cu",
-                      "fastspeech2_tpu/ops/pallas_attention.py:96",
+                      "fastspeech2_tpu/ops/pallas_attention.py:93",
                       "[1, 2, 1000, 128] f32"),
                "K2": ("fused_conv_ffn", "fastspeech2_tpu_torch/csrc/conv_ffn.cu",
-                      "fastspeech2_tpu/ops/pallas_ffn.py:59",
+                      "fastspeech2_tpu/ops/pallas_ffn.py:61",
                       "[1, 1000, 256] -> 1024, k=(9, 1) f32"),
                "K3": ("fused_attention_backward",
                       "fastspeech2_tpu_torch/csrc/attention_bwd.cu",
-                      "fastspeech2_tpu/ops/pallas_attention.py:130",
+                      "fastspeech2_tpu/ops/pallas_attention.py:138",
                       "[10, 2, 1000, 128] f32")}
     errs = {"K1": k1_err, "K2": k2_err, "K3": k3_err}
     kernels = []
@@ -594,7 +809,26 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": shape,
             "launches_by_path": {"synthesis": launches.get(name, 0),
+                                 "parity synthesis": parity_launches.get(
+                                     name, 0),
                                  "training": train_launches[name]}})
+    # K4: the sums over the 12 calls of one 1000-frame parity forward
+    kernels.append({
+        "name": "K4 fused_resblock", "route": "cuda",
+        "source": "fastspeech2_tpu_torch/csrc/resblock.cu",
+        "replaces": "fastspeech2_tpu/ops/pallas_resblock.py:122",
+        "launches": parity_launches["K4"], "max_abs_err": k4_err,
+        "ms": k4_total["ms"], "plain_ms": k4_total["plain_ms"],
+        "bound_ms": k4_total["bound_ms"],
+        "bound_by": "/".join(sorted({t["bound_by"] for t in k4_timings})),
+        "library_ms": k4_total["library_ms"],
+        "shape": "the 12 ResBlock calls of a 1000-frame parity forward, "
+                 "[1, 256|128|64|32, 8000|64000|128000|256000], k = 3, 7, "
+                 "11, f32",
+        "per_call": k4_timings,
+        "launches_by_path": {"synthesis": launches["K4"],
+                             "parity synthesis": parity_launches["K4"],
+                             "training": train_launches["K4"]}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@
 
 The acoustic weights come from a tracked npz snapshot (``--weights_npz``)
 or from the port's own training checkpoint ``<ckpt_path>/<N>.pth.tar``
-(``--restore_step N``, as the JAX CLI restores its own checkpoints).
+(``--restore_step N``, as the JAX CLI restores its own checkpoints).  The
+vocoder is the one model.yaml names (``vocoder.model``): with
+``-m config/LJSpeech/model.yaml`` the parity HiFi-GAN, whose ResBlocks run
+K4 on the card; ``--vocoder_ckpt`` is optional (see ``get_vocoder``).
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given; asking for CUDA without a card raises.  Computes in float32 with
@@ -75,8 +78,12 @@ def build_parser():
     weights.add_argument("--restore_step", type=int,
                          help="acoustic weights from the port's training "
                               "checkpoint <ckpt_path>/<N>.pth.tar")
-    parser.add_argument("--vocoder_ckpt", required=True,
-                        help="vocoder weights (tracked fp16 npz snapshot)")
+    parser.add_argument("--vocoder_ckpt", default=None,
+                        help="vocoder weights: a tracked fp16 npz snapshot "
+                             "or a reference .pth.tar (default: "
+                             "configs/hifigan/generator_<speaker>.pth.tar "
+                             "for HiFi-GAN where it exists, else a seeded "
+                             "random init)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--result_path", default=None,

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from fastspeech2_tpu_torch.models.hifigan import LRELU_SLOPE, ResBlock
+from fastspeech2_tpu_torch.models.hifigan import build_stages, run_stages
 
 
 def _istft_bases(n_fft):
@@ -77,37 +77,20 @@ class HiFiGANiSTFTGenerator(nn.Module):
         super().__init__()
         self.n_fft = gen_istft_n_fft
         self.hop = gen_istft_hop_size
-        self.num_kernels = len(resblock_kernel_sizes)
         self.conv_pre = nn.Conv1d(n_mel_channels, upsample_initial_channel, 7,
                                   padding=3)
-        self.ups = nn.ModuleList()
-        self.resblocks = nn.ModuleList()
-        ch = upsample_initial_channel
-        for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
-            c_out = upsample_initial_channel // (2 ** (i + 1))
-            # padding (k-u)//2 gives exactly T*u frames: the crop the JAX
-            # package applies to its VALID transposed conv
-            # (fastspeech2_tpu/models/hifigan.py:138-148)
-            self.ups.append(nn.ConvTranspose1d(ch, c_out, k, stride=u,
-                                               padding=(k - u) // 2))
-            ch = c_out
-            for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
-                self.resblocks.append(ResBlock(ch, rk, tuple(rd)))
+        # plain ResBlocks, as the JAX package builds them
+        # (fastspeech2_tpu/models/hifigan_istft.py:126-129)
+        self.ups, self.resblocks, ch = build_stages(
+            upsample_rates, upsample_kernel_sizes, upsample_initial_channel,
+            resblock_kernel_sizes, resblock_dilation_sizes, fused=False)
         n_bins = self.n_fft // 2 + 1
         self.conv_post = nn.Conv1d(ch, 2 * n_bins, 7, padding=3)
 
     def forward(self, mel):
         """mel: [B, T, n_mels] -> wav [B, T * prod(rates) * istft_hop]."""
-        x = self.conv_pre(mel.transpose(1, 2))
-        for i, up in enumerate(self.ups):
-            x = up(F.leaky_relu(x, LRELU_SLOPE))
-            blocks = self.resblocks[i * self.num_kernels:
-                                    (i + 1) * self.num_kernels]
-            acc = None
-            for block in blocks:
-                y = block(x)
-                acc = y if acc is None else acc + y
-            x = acc / self.num_kernels
+        x = run_stages(self.conv_pre(mel.transpose(1, 2)), self.ups,
+                       self.resblocks)
         x = self.conv_post(F.leaky_relu(x, 0.01)).transpose(1, 2)
         n_bins = self.n_fft // 2 + 1
         mag = torch.exp(torch.clamp(x[..., :n_bins], -20.0, 6.0))

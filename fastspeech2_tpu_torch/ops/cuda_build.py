@@ -21,7 +21,7 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("attention.cu", "attention_bwd.cu", "conv_ffn.cu")
+SOURCES = ("attention.cu", "attention_bwd.cu", "conv_ffn.cu", "resblock.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,8 @@ _SIGNATURES = {
     "fs2_mha_bwd_f32": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
     # x, w1, b1, w2, b2, gamma, beta, h, out, B, L, D, H, k1, k2, stream
     "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 6 + [_P],
+    # x, t, out, w1, b1, w2, b2, B, C, L, k, d, stream
+    "fs2_resblock_unit_f32": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _library = None

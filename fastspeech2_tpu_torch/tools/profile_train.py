@@ -48,12 +48,9 @@ def group_of(name):
     return "other (elementwise, reductions, copies, optimizer)"
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--steps", type=int, default=5)
-    args = parser.parse_args(argv)
-    device = resolve_device("cuda")
-    card = torch.cuda.get_device_name(0)
+def init_synthetic_training(device):
+    """-> (model in train mode, optim_cfg, optimizer, the first epoch's
+    batches on ``device``), at full width on the synthetic corpus."""
     _, model_config, train_config = load_yaml_configs(
         f"{CONFIG}/preprocess.yaml", f"{CONFIG}/model.yaml",
         f"{CONFIG}/train.yaml")
@@ -68,7 +65,16 @@ def main(argv=None):
             group_size=4, shuffle=True, drop_last=True,
             max_mel_len=cfg.max_seq_len, text_bucket=128, mel_bucket=1024)
         batches = [batch_to_device(b, device) for b in loader.epoch(0)]
-    model.train()
+    return model.train(), optim_cfg, optimizer, batches
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--steps", type=int, default=5)
+    args = parser.parse_args(argv)
+    device = resolve_device("cuda")
+    card = torch.cuda.get_device_name(0)
+    model, optim_cfg, optimizer, batches = init_synthetic_training(device)
     step = 0
 
     def run(n):

@@ -68,6 +68,11 @@ def init_training(preprocess_config, model_config, train_config,
     weights drawn from ``seed`` or restored from ``restore_step``."""
     cfg = FastSpeech2Config.build(preprocess_config, model_config)
     optim_cfg = OptimConfig.build(train_config)
+    # a step is reproducible on the card: cuDNN takes its deterministic
+    # convolution algorithms, untuned (its float32 weight-gradient
+    # algorithms may otherwise sum in another order from run to run)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = FastSpeech2(cfg)

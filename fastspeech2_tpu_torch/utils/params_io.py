@@ -7,6 +7,9 @@ names, which are the upstream PyTorch reference's state-dict names.  The
 names and transposes follow ``fastspeech2_tpu/convert/to_torch.py``
 (acoustic model and HiFi-GAN, the iSTFT variant included).  Everything
 happens in memory; nothing converted is written to disk.
+:func:`hifigan_from_torch_state_dict` reads an upstream HiFi-GAN generator
+state dict (a reference ``.pth.tar``), folding weight norm as
+``fastspeech2_tpu/convert/from_torch.py:159-183`` does.
 
 Every array of the tree must be consumed by the map: an array left over
 raises, and ``load_state_dict(strict=True)`` catches the opposite case.
@@ -167,3 +170,26 @@ def hifigan_from_jax_params(variables, n_upsamples, n_resblock_kernels=3):
             m.conv1d(f"resblocks.{i}.convs2.{j}", f"resblock_{i}/conv2_{j}")
             j += 1
     return m.finish()
+
+
+def hifigan_from_torch_state_dict(state_dict):
+    """Reference HiFi-GAN generator state_dict -> the port's: weight norm
+    folded (weight = g * v / ||v||, the norm over every axis but 0, as
+    remove_weight_norm() gives at load, reference utils/model.py:68);
+    checkpoints whose weight norm was already removed (plain ``.weight``
+    keys) pass through."""
+    sd = {}
+    for key, value in state_dict.items():
+        value = torch.as_tensor(value, dtype=torch.float32)
+        if key.endswith(".weight_v"):
+            continue
+        if key.endswith(".weight_g"):
+            prefix = key[:-len(".weight_g")]
+            v = torch.as_tensor(state_dict[prefix + ".weight_v"],
+                                dtype=torch.float32)
+            axes = tuple(range(1, v.dim()))
+            norm = torch.sqrt(torch.sum(v * v, dim=axes, keepdim=True))
+            sd[prefix + ".weight"] = value * v / norm
+        else:
+            sd[key] = value
+    return sd

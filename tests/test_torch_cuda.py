@@ -1,7 +1,7 @@
-"""PyTorch port, CUDA kernels on the card: K1, K2 and K3 against their
+"""PyTorch port, CUDA kernels on the card: K1, K2, K3 and K4 against their
 plain versions at the main path's shapes, their input checks, the model's
-forward going through K1 and K2, and a training step going through K1 and
-K3.
+forward going through K1 and K2, a training step going through K1 and K3,
+and the parity HiFi-GAN going through K4.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs on a GPU host without JAX:
@@ -9,7 +9,8 @@ imports no JAX, so it also runs on a GPU host without JAX:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerance 1e-4 absolute in float32: the same sums in another order (up to
-2304 terms for K2's first conv) on O(1) values.
+2304 terms for K2's first conv) on O(1) values; K4's outputs are held to
+1e-4 of their largest |value| (sums of up to 2816 terms through six convs).
 """
 
 import pytest
@@ -18,7 +19,8 @@ import torch
 from fastspeech2_tpu_torch.configs.config import FastSpeech2Config
 from fastspeech2_tpu_torch.models import transformer
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
-from fastspeech2_tpu_torch.ops import cuda_attention, cuda_ffn
+from fastspeech2_tpu_torch.models.hifigan import HiFiGANGenerator, ResBlock
+from fastspeech2_tpu_torch.ops import cuda_attention, cuda_ffn, cuda_resblock
 from fastspeech2_tpu_torch.ops.attention import (
     multi_head_attention,
     plain_attention_backward,
@@ -226,3 +228,111 @@ def test_train_step_goes_through_k1_and_k3(device):
     assert (cuda_attention.launches, cuda_attention.bwd_launches,
             cuda_ffn.launches) == (3, 3, 0)
     assert all(torch.isfinite(v) for v in losses)
+
+
+def _resblock_inputs(C, k, L, device, B=1, bias=0.5, seed=0):
+    """x [B, C, L] and three dilation units of Conv1d weights scaled to keep
+    the output O(1); biases of size ``bias`` show a leak at the edges."""
+    g = torch.Generator().manual_seed(seed)
+    scale = (C * k) ** -0.5
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(device)
+
+    x = r(B, C, L)
+    w1, w2 = ([r(C, C, k, s=scale) for _ in range(3)] for _ in range(2))
+    b1, b2 = ([r(C, s=bias) for _ in range(3)] for _ in range(2))
+    return x, w1, b1, w2, b2
+
+
+def _assert_resblock_close(got, ref):
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item(), err
+
+
+# every (C, k) of the parity generator; L ragged against every tile size
+@pytest.mark.parametrize("C", [256, 128, 64, 32])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_resblock_kernel_matches_plain(device, C, k):
+    x, w1, b1, w2, b2 = _resblock_inputs(C, k, 1531, device, B=2, seed=C + k)
+    before = cuda_resblock.launches
+    got = cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    torch.cuda.synchronize()
+    assert cuda_resblock.launches == before + 1
+    _assert_resblock_close(got, cuda_resblock.plain_resblock(
+        x, w1, b1, w2, b2, (1, 3, 5)))
+
+
+# L = 8: a 1-frame mel at C = 256, the halo (60 at k = 11) wider than L
+@pytest.mark.parametrize("C,L", [(256, 8), (256, 1), (32, 37), (64, 300)])
+def test_resblock_kernel_short_inputs(device, C, L):
+    x, w1, b1, w2, b2 = _resblock_inputs(C, 11, L, device, seed=L)
+    got = cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    torch.cuda.synchronize()
+    _assert_resblock_close(got, cuda_resblock.plain_resblock(
+        x, w1, b1, w2, b2, (1, 3, 5)))
+
+
+def test_resblock_kernel_edges_take_no_bias(device):
+    """A zero input: the output near both edges comes from the biases
+    through each conv's own zero padding only; a second conv that read
+    lrelu(b1) outside [0, L) would differ here."""
+    x, w1, b1, w2, b2 = _resblock_inputs(64, 11, 700, device, bias=2.0)
+    x = torch.zeros_like(x)
+    got = cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    torch.cuda.synchronize()
+    ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    assert (ref[..., :60] - ref[..., 300:360]).abs().max() > 1e-2
+    _assert_resblock_close(got, ref)
+
+
+def test_resblock_kernel_raises_on_what_it_does_not_take(device):
+    x, w1, b1, w2, b2 = _resblock_inputs(64, 3, 40, device)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_resblock.fused_resblock(x.half(), w1, b1, w2, b2, (1, 3, 5))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_resblock.fused_resblock(x.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), w1, b1, w2, b2,
+                                     (1, 3, 5))
+    packed = cuda_resblock.pack_resblock_weights(
+        *([t.cpu() for t in ts] for ts in (w1, b1, w2, b2)))
+    with pytest.raises(ValueError, match="w1 must be float32 on cuda"):
+        cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5),
+                                     packed=packed)
+    x, w1, b1, w2, b2 = _resblock_inputs(48, 3, 40, device)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    x, w1, b1, w2, b2 = _resblock_inputs(32, 5, 40, device)
+    with pytest.raises(ValueError, match="k in"):
+        cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+
+
+def test_resblock_kernel_refuses_a_gradient(device):
+    x, w1, b1, w2, b2 = _resblock_inputs(32, 7, 300, device, seed=3)
+    w1[0].requires_grad_(True)
+    before = cuda_resblock.launches
+    with pytest.raises(RuntimeError, match="inference-only"):
+        cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    with torch.no_grad():
+        cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    assert cuda_resblock.launches == before + 1
+
+
+def test_parity_generator_goes_through_k4(device):
+    torch.manual_seed(0)
+    gen = HiFiGANGenerator().to(device).eval()
+    mel = torch.randn(2, 16, 80, generator=torch.Generator().manual_seed(1)
+                      ).to(device)
+    cuda_resblock.launches = 0
+    with torch.inference_mode():
+        wav = gen(mel)
+    assert cuda_resblock.launches == 12
+    assert wav.shape == (2, 16 * 256) and torch.isfinite(wav).all()
+    for m in gen.modules():
+        if isinstance(m, ResBlock):
+            m.fused = False
+    with torch.inference_mode():
+        ref = gen(mel)
+    assert cuda_resblock.launches == 12
+    torch.testing.assert_close(wav, ref, atol=1e-4, rtol=0)

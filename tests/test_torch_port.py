@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -50,6 +51,10 @@ def test_imports_without_jax():
             "import fastspeech2_tpu_torch.tools.profile_train\n"
             "import fastspeech2_tpu_torch.ops.cuda_attention\n"
             "import fastspeech2_tpu_torch.ops.cuda_ffn\n"
+            "import fastspeech2_tpu_torch.ops.cuda_resblock\n"
+            "import fastspeech2_tpu_torch.models.hifigan\n"
+            "import fastspeech2_tpu_torch.synthesis.vocoder\n"
+            "import fastspeech2_tpu_torch.tools.repro_train\n"
             "import fastspeech2_tpu_torch.data.dataset\n"
             "import fastspeech2_tpu_torch.data.prefetch\n"
             "import fastspeech2_tpu_torch.data.synthetic\n"
@@ -93,10 +98,10 @@ def test_cuda_without_a_card_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def _tiny_setup(tmp_path, max_seq_len=64):
-    """Tiny model.yaml + acoustic npz from the JAX initialiser, and a
-    train.yaml whose result path is under tmp_path."""
-    with open(f"{CONFIG}/model.yaml") as f:
+def _tiny_setup(tmp_path, max_seq_len=64, model_yaml=f"{CONFIG}/model.yaml"):
+    """Tiny model.yaml (from ``model_yaml``) + acoustic npz from the JAX
+    initialiser, and a train.yaml whose result path is under tmp_path."""
+    with open(model_yaml) as f:
         model_cfg = yaml.safe_load(f)
     tr = model_cfg["transformer"]
     tr.update(encoder_layer=1, decoder_layer=2, encoder_hidden=16,
@@ -151,6 +156,44 @@ def test_cli_wav_matches_jax_cli(tmp_path, monkeypatch):
     assert got.shape == ref.shape == (mel_len * 256,)
     np.testing.assert_array_equal(got, wavs[0])
     assert np.abs(got.astype(np.int32)).max() > 0
+    np.testing.assert_allclose(got.astype(np.float64), ref.astype(np.float64),
+                               atol=1e-3 * 32768, rtol=0)
+
+
+def test_cli_parity_hifigan_wav_matches_jax_cli(tmp_path, monkeypatch):
+    """config/LJSpeech/model.yaml names the parity HiFi-GAN; its weights are
+    the JAX package's random init at full width, written as an npz the way
+    scripts/save_weights_npz.py writes one.  On the CPU the port's
+    ResBlocks run K4's plain version."""
+    from fastspeech2_tpu.models.hifigan import HiFiGANGenerator
+
+    monkeypatch.chdir(REPO)
+    model_path, train_path, npz = _tiny_setup(
+        tmp_path, model_yaml=os.path.join(REPO, "config", "LJSpeech",
+                                          "model.yaml"))
+    with open(model_path) as f:
+        assert yaml.safe_load(f)["vocoder"]["model"] == "HiFi-GAN"
+    gen = HiFiGANGenerator()
+    vocoder_npz = str(tmp_path / "vocoder_parity_init.npz")
+    save_variables_npz(vocoder_npz, jax.jit(gen.init)(
+        jax.random.PRNGKey(0), jax.numpy.zeros((1, 8, 80))))
+    common = ["--mode", "single", "--text", README_SENTENCE,
+              "-p", f"{CONFIG}/preprocess.yaml", "-m", model_path,
+              "-t", train_path, "--weights_npz", npz,
+              "--vocoder_ckpt", vocoder_npz]
+    jax_main(common)
+    wavs, out, paths = synthesize_cli.main(
+        common + ["--device", "cpu", "--result_path",
+                  str(tmp_path / "torch_result")])
+
+    sr_ref, ref = wavfile.read(tmp_path / "jax_result" /
+                               (README_SENTENCE[:100] + ".wav"))
+    sr, got = wavfile.read(paths[0])
+    mel_len = int(out.mel_len[0])
+    assert sr == sr_ref == 22050 and mel_len > 0
+    assert got.shape == ref.shape == (mel_len * 256,)
+    np.testing.assert_array_equal(got, wavs[0])
+    assert np.abs(ref.astype(np.int32)).max() > 0
     np.testing.assert_allclose(got.astype(np.float64), ref.astype(np.float64),
                                atol=1e-3 * 32768, rtol=0)
 
