@@ -7,13 +7,17 @@ Phases, each printing flushed lines (a failing phase raises, and the run
 exits non-zero):
 
 1. card      the GPU's name and power limit, as nvidia-smi prints them;
-2. build     nvcc builds the port's CUDA kernels from csrc/ (seconds);
+2. build     nvcc builds the port's CUDA kernels from csrc/ (seconds); the
+             attention kernels' registers, spills, shared memory and
+             resident blocks per SM, their HMMA (tensor-core) instruction
+             counts in the SASS, and K1's grid at batch 1;
 3. K1        the attention kernel against its plain version at the path's
              shapes, with partly and fully padded key rows;
 4. K2        the conv-FFN kernel against its plain version;
 5. K3        the attention-backward kernel against its plain version at the
              training shapes, and the autograd Function (K1 forward, K3
-             backward) against autograd through the plain forward;
+             backward) against autograd through the plain forward; K1 and
+             K3 launched twice on the same inputs must agree bit for bit;
 6. K4        the MRF ResBlock kernel against its plain version at the 12
              ResBlock shapes of a 1000-frame parity-vocoder forward, at
              L = 8 (a 1-frame mel at C = 256) and at ragged L;
@@ -81,9 +85,16 @@ REPRO_STEPS = 5
 # training: the decoder's and encoder's L at LJSpeech lengths
 TRAIN_BATCH = 10
 TRAIN_STEPS = 20
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
+# dense TF32 on the tensor cores, HBM
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# the attention kernels' SASS functions: K1 and its key-split combine; K3a
+# (D = rowsum(g * out)), K3b (dK, dV and the dQ partials), the dQ reduction
+ATTENTION_KERNELS = ("mha_fwd_f32_kernel", "mha_fwd_combine_kernel",
+                     "mha_bwd_rowdot_kernel", "mha_bwd_dkdv_kernel",
+                     "mha_bwd_dq_reduce_kernel")
 
 
 def say(*parts):
@@ -105,10 +116,53 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops, nbytes, tensor_cores=False):
+    """-> (least time in ms, "operations" | "bytes") on the float32 CUDA
+    cores' basis (K2, K4, and K1's and K3's SIMT bound for the record), or
+    with ``tensor_cores`` on K1's and K3's: 3xTF32, three TF32 products for
+    each float32-accurate one."""
+    if tensor_cores:
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    else:
+        t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ptxas_summary(report, names):
+    """-> {kernel: "R registers, S B smem, spills"} from nvcc -Xptxas -v."""
+    out, current = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            current = next((n for n in names if n in line), None)
+        elif current and "spill" in line:
+            out[current] = line.strip()
+        elif current and "Used" in line:
+            out[current] = (line.split(":", 1)[1].strip() + "; "
+                            + out.get(current, ""))
+            current = None
+    return out
+
+
+def hmma_counts(lib_path, names):
+    """-> {kernel: HMMA instructions in its SASS}, or None without
+    cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        head = block.split("\n", 1)[0]
+        name = next((n for n in names if n in head), None)
+        if name:
+            counts[name] = counts.get(name, 0) + sum(
+                " HMMA." in ln for ln in block.splitlines())
+    return counts
 
 
 def attention_inputs(lens, L, device, seed):
@@ -214,6 +268,27 @@ def main():
     say(f"[build] {'built' if info['built'] else 'loaded'} "
         f"{os.path.basename(info['path'])} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {info['seconds']:.2f} s); ptxas: {' | '.join(ptxas)}")
+    lib = cuda_build.load_library()
+    per_kernel = ptxas_summary(info.get("ptxas", ""), ATTENTION_KERNELS)
+    occupancy = {"mha_fwd_f32_kernel": lib.fs2_mha_fwd_blocks_per_sm(),
+                 "mha_bwd_dkdv_kernel": lib.fs2_mha_bwd_blocks_per_sm()}
+    for name in ATTENTION_KERNELS:
+        say(f"[build] {name}: {per_kernel.get(name, 'not in the report')}; "
+            f"resident blocks per SM "
+            f"{occupancy.get(name, 'n/a (no shared memory)')}")
+    hmma = hmma_counts(info["path"], ATTENTION_KERNELS)
+    say(f"[build] HMMA (tensor-core) instructions in the SASS: "
+        f"{'not measured (no cuobjdump)' if hmma is None else hmma}")
+    if hmma is not None and not all(hmma.get(n, 0) > 0 for n in (
+            "mha_fwd_f32_kernel", "mha_bwd_dkdv_kernel")):
+        raise RuntimeError("K1 or K3 has no tensor-core instruction")
+    k1_grids = {(B, L): cuda_attention.forward_plan(B, 2, L)[0]
+                for B, L in ((1, 32), (1, 1000), (TRAIN_BATCH, 128),
+                             (TRAIN_BATCH, 768), (TRAIN_BATCH, 1000))}
+    say(f"[build] K1's grid (query tiles, B*H, key chunks) at [B, 2, L, "
+        f"128], by (B, L): {k1_grids}; {math.prod(k1_grids[(1, 1000)])} "
+        f"blocks at [1, 2, 1000, 128] on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     # 3. K1 vs plain: the encoder's L (32 for the README sentence's 31
     #    phones, 48 for 33-48 phones) and the decoder's (1000); each at
@@ -230,11 +305,40 @@ def main():
                 raise RuntimeError(f"K1 output not finite at L={L}, "
                                    f"lens={lens}")
             k1_err = max(k1_err, (got - ref).abs().max().item())
-    say(f"[K1] attention kernel vs plain at [1|2, 2, 32|48|1000, 128], "
-        f"partly and fully padded rows: max_abs_err={k1_err:.3e} "
-        f"(tolerance {KERNEL_ATOL:g})")
+    # ... and at the training slice's L, batch 10 (one full, one fully
+    #    padded and partly padded rows), with the softmax statistics K3
+    #    reads: the row max against the float32 masked scores' (absolute),
+    #    the row sum relative to itself
+    stats_rel = 0.0
+    for L in (1000, 768, 128):
+        q, k, v, mask, _ = attention_grad_inputs(L, device, seed=L + 3)
+        got, row_max, row_sum = cuda_attention._launch_forward(
+            q, k, v, mask, True)
+        torch.cuda.synchronize()
+        ref = multi_head_attention(q, k, v, mask)
+        scores = (torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(128)
+                  ).masked_fill(mask[:, None, None, :], -1e9)
+        ref_max = scores.amax(dim=-1)
+        ref_sum = torch.exp(scores - ref_max[..., None]).sum(dim=-1)
+        del scores
+        for name, t in (("output", got), ("row_max", row_max),
+                        ("row_sum", row_sum)):
+            if not torch.isfinite(t).all():
+                raise RuntimeError(f"K1 {name} not finite at [10, 2, {L}, "
+                                   "128]")
+        k1_err = max(k1_err, (got - ref).abs().max().item(),
+                     (row_max - ref_max).abs().max().item())
+        stats_rel = max(stats_rel,
+                        ((row_sum - ref_sum).abs() / ref_sum).max().item())
+    say(f"[K1] attention kernel vs plain at [1|2, 2, 32|48|1000, 128] and "
+        f"[10, 2, 1000|768|128, 128], partly and fully padded rows: "
+        f"max_abs_err={k1_err:.3e} over the output and the row max "
+        f"(tolerance {KERNEL_ATOL:g}); row sum max relative error "
+        f"{stats_rel:.3e} (tolerance {KERNEL_ATOL:g})")
     if not k1_err <= KERNEL_ATOL:
         raise RuntimeError("K1 disagrees with its plain version")
+    if not stats_rel <= KERNEL_ATOL:
+        raise RuntimeError("K1's row sums disagree with the plain scores'")
 
     # 4. K2 vs plain
     k2_err = 0.0
@@ -299,6 +403,28 @@ def main():
         f"{fn_rel:.3e} (tolerance {K3_RTOL:g})")
     if not fn_rel <= K3_RTOL:
         raise RuntimeError("the attention Function's gradients disagree")
+    # repeatability: K1 (on its single-launch and key-split grids) and K3
+    # twice on the same inputs; no atomics, every sum in a fixed order
+    repeat = {}
+    for B, L in ((TRAIN_BATCH, 1000), (1, 1000)):
+        if B == 1:
+            q, k, v, mask = attention_inputs([253], L, device, seed=L + 13)
+            g = torch.randn(q.shape, device=device)
+        else:
+            q, k, v, mask, g = attention_grad_inputs(L, device, seed=L + 13)
+        fwd = [cuda_attention._launch_forward(q, k, v, mask, True)
+               for _ in range(2)]
+        bwd = [cuda_attention.fused_attention_backward(q, k, v, mask,
+                                                       *fwd[0], g)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        repeat[(B, L)] = (all(torch.equal(a, b) for a, b in zip(*fwd)),
+                          all(torch.equal(a, b) for a, b in zip(*bwd)))
+    say(f"[repeat] K1 and K3 launched twice on the same inputs at [10, 2, "
+        f"1000, 128] and [1, 2, 1000, 128] (K1 on its key-split grid): "
+        f"bitwise equal (K1, K3): {repeat}")
+    if not all(all(v) for v in repeat.values()):
+        raise RuntimeError("K1 or K3 is not bitwise repeatable")
 
     # 6. K4 vs plain at the 12 ResBlock shapes of a 1000-frame parity
     #    forward, at L = 8 (a 1-frame mel at C = 256: the halo is wider than
@@ -479,7 +605,8 @@ def main():
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=additive)),
             flops=4.0 * 2 * L * L * 128,
-            nbytes=4 * (4 * 2 * L * 128) + L)
+            nbytes=4 * (4 * 2 * L * 128) + L,
+            tensor_cores=True)
         args = ffn_inputs(L, device, seed=9)
         timings[("K2", L)] = dict(
             ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(*args)),
@@ -488,13 +615,29 @@ def main():
             flops=2.0 * L * 256 * 1024 * 9 + 2.0 * L * 1024 * 256,
             nbytes=4 * (2 * L * 256 + 9 * 256 * 1024 + 1024 * 256
                         + 1024 + 3 * 256))
+    def set_bound(t):
+        """K1 and K3: the 3xTF32 tensor-core basis, the SIMT float32 bound
+        kept beside it; K2: the SIMT float32 basis."""
+        if t.get("tensor_cores"):
+            t["bound_ms"], t["bound_by"] = bound(t["flops"], t["nbytes"], True)
+            t["simt_bound_ms"] = bound(t["flops"], t["nbytes"])[0]
+            t["bound_basis"] = ("3xTF32 on the tensor cores: max(3 x "
+                                "operations / 495 TFLOP/s, bytes / 3.35 TB/s)")
+        else:
+            t["bound_ms"], t["bound_by"] = bound(t["flops"], t["nbytes"])
+            t["bound_basis"] = ("float32 CUDA cores: max(operations / 67 "
+                                "TFLOP/s, bytes / 3.35 TB/s)")
+
     for (name, L), t in sorted(timings.items()):
-        t["bound_ms"], t["bound_by"] = bound(t["flops"], t["nbytes"])
+        set_bound(t)
         lib = ("null" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
+        simt = (f"; SIMT bound {t['simt_bound_ms']:.3e} ms"
+                if "simt_bound_ms" in t else "")
         say(f"[timing] {name} L={L}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{t['bound_ms']:.3e} ms ({t['bound_by']}) on {card}")
+            f"{t['bound_ms']:.3e} ms ({t['bound_by']}; "
+            f"{t['bound_basis']}){simt} on {card}")
 
     def host_ms(fn, n=5):
         times = []
@@ -587,7 +730,8 @@ def main():
             # five L x L x Dh products per (b, h); q, k, v, g read, dq, dk,
             # dv written, the mask read
             flops=5 * 2.0 * L * L * 128 * TRAIN_BATCH * 2,
-            nbytes=4 * 7 * bhld + TRAIN_BATCH * L)
+            nbytes=4 * 7 * bhld + TRAIN_BATCH * L,
+            tensor_cores=True)
         train_timings[("K1", L)] = dict(
             ms=cuda_time_ms(lambda: cuda_attention._launch_forward(
                 q, k, v, mask, True)),
@@ -596,14 +740,16 @@ def main():
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=additive)),
             flops=2 * 2.0 * L * L * 128 * TRAIN_BATCH * 2,
-            nbytes=4 * 4 * bhld + TRAIN_BATCH * L)
+            nbytes=4 * 4 * bhld + TRAIN_BATCH * L,
+            tensor_cores=True)
         del sdpa_out, leaves
     for (name, L), t in sorted(train_timings.items()):
-        t["bound_ms"], t["bound_by"] = bound(t["flops"], t["nbytes"])
+        set_bound(t)
         say(f"[timing] {name} at [10, 2, {L}, 128] (training): kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.3e} ms "
-            f"({t['bound_by']}) on {card}")
+            f"({t['bound_by']}, 3xTF32); SIMT bound "
+            f"{t['simt_bound_ms']:.3e} ms on {card}")
 
     # 8. training at full width: 20 steps + one validation pass through the
     #    port's train(), counts set to 0 just before and read just after
@@ -793,6 +939,14 @@ def main():
                       "fastspeech2_tpu/ops/pallas_attention.py:138",
                       "[10, 2, 1000, 128] f32")}
     errs = {"K1": k1_err, "K2": k2_err, "K3": k3_err}
+    # K1 and K3 at every shape the paths give them
+    per_shape = {name: [
+        dict(shape=[B, 2, L, 128], **{key: t[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "simt_bound_ms")})
+        for (B, table) in ((1, timings), (TRAIN_BATCH, train_timings))
+        for (n, L), t in sorted(table.items()) if n == name]
+        for name in ("K1", "K3")}
     kernels = []
     for name in ("K1", "K2", "K3"):
         fn, src, replaces, shape = sources[name]
@@ -807,7 +961,9 @@ def main():
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": shape,
+            "bound_basis": t["bound_basis"],
+            "simt_bound_ms": t.get("simt_bound_ms"), "shape": shape,
+            "per_shape": per_shape.get(name),
             "launches_by_path": {"synthesis": launches.get(name, 0),
                                  "parity synthesis": parity_launches.get(
                                      name, 0),
@@ -822,6 +978,8 @@ def main():
         "bound_ms": k4_total["bound_ms"],
         "bound_by": "/".join(sorted({t["bound_by"] for t in k4_timings})),
         "library_ms": k4_total["library_ms"],
+        "bound_basis": "float32 CUDA cores: max(operations / 67 TFLOP/s, "
+                       "bytes / 3.35 TB/s)",
         "shape": "the 12 ResBlock calls of a 1000-frame parity forward, "
                  "[1, 256|128|64|32, 8000|64000|128000|256000], k = 3, 7, "
                  "11, f32",

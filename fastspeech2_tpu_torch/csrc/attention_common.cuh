@@ -1,0 +1,264 @@
+// Shared by K1 (attention.cu) and K3 (attention_bwd.cu): float32 products
+// on Hopper's tensor cores within ~1e-5 of float32 (3xTF32), asynchronous tile
+// copies, and the score tile S = Q K^T, whose arithmetic the two kernels
+// must share bit for bit.
+//
+// 3xTF32 (CUTLASS's OpMultiplyAddFastF32): each float32 operand x is split
+// into big = tf32(x) and small = tf32(x - big), both rounded as
+// cvt.rna.tf32.f32 rounds (to nearest, ties away from zero, 10 mantissa
+// bits), and a product is accumulated in float32 as big*small + small*big
+// + big*big, small terms first.  The dropped small*small term is ~2^-22 of
+// the product, so the split alone keeps float32 accuracy, at three TF32
+// products' cost (the tensor cores' 495 TFLOP/s TF32 peak, i.e. 165 TFLOP/s
+// of float32-accurate work, against 67 TFLOP/s on the CUDA cores).  The
+// tensor cores' own float32 accumulation rounds less exactly than an FMA
+// chain: on an H100 the kernels' errors against float64 are ~4x (K1) and
+// ~7x (K3) plain float32's, where the same split on float32 GEMMs matches
+// plain float32 (tools/attention_bench.py --errors).  The
+// rounding is done on the bit pattern (add half a TF32 unit, clear the 13
+// low bits): for every finite float it is cvt.rna's result, in two integer
+// instructions where sm_90a's SASS spends about five on the cvt and its
+// NaN and infinity cases.
+//
+// The kernels are bound by how fast the tensor cores are fed, so each
+// k-step issues its three passes across several independent accumulators
+// (all big*small, then all small*big, then all big*big; mma_3xtf32_n)
+// rather than three dependent products in a row, and fragments of
+// row-major tiles whose rows are 16-byte runs of k come in by ldmatrix
+// (one instruction for four 8 x 4 float blocks).
+//
+// Fragments are those of mma.sync.aligned.m16n8k8.row.col.f32.tf32 for lane
+// (g, t) = (lane / 4, lane % 4):
+//   A (16 x 8):  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
+//   B (8 x 8):   b0 (k=t, n=g)  b1 (k=t+4, n=g)
+//   C (16 x 8):  c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
+// A product whose k index runs over keys or query rows may take its k in
+// any order, as long as A and B agree.  Those products use the order
+// k = t <-> row 2t, k = t+4 <-> row 2t+1 of each group of 8, so that a C
+// fragment (c0, c2, c1, c3) is an A fragment as it stands (no shuffles),
+// and the matching B fragment rows 2t and 2t+1 of a row-major tile are
+// free of bank conflicts at a row stride of 4 mod 32 floats.
+//
+// Shared-memory tiles of [rows][128] floats have a row stride of 132
+// floats (4 mod 32 banks): a fragment load by the 32 lanes of a warp then
+// touches 32 different banks, and rows stay 16-byte aligned for cp.async.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fs2_attn {
+
+constexpr int kDh = 128;           // head dim
+constexpr int kStride = kDh + 4;   // smem row stride of [rows][128] tiles
+constexpr float kMaskValue = -1e9f;
+constexpr float kInitMax = -1e30f;  // below any score, finite
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite float
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void split_bits(uint32_t x, uint32_t& big,
+                                           uint32_t& small) {
+  split(__uint_as_float(x), big, small);
+}
+
+// d += a b, one m16n8k8 TF32 product accumulated in float32
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32 for N independent accumulators sharing the A fragment:
+// d[i] += a_big b_small[i] + a_small b_big[i] + a_big b_big[i], one pass
+// over all N at a time
+template <int N>
+__device__ __forceinline__ void mma_3xtf32_n(float (*d)[4],
+                                             const uint32_t ab[4],
+                                             const uint32_t as[4],
+                                             const uint32_t (*bb)[2],
+                                             const uint32_t (*bs)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], ab, bs[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], as, bb[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], ab, bb[i]);
+}
+
+// four 8 x 4 float blocks of shared memory; lane l gives the address of row
+// l % 8 of block l / 8 (16-byte aligned) and receives word l % 4 of row
+// l / 4 of each block
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const float* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// A fragment of a row-major tile (m = row, k = column); p = &tile[m0][k0]
+__device__ __forceinline__ void load_a(const float* p, int lane,
+                                       uint32_t big[4], uint32_t small[4]) {
+  const int blk = lane / 8;
+  uint32_t r[4];
+  ldmatrix_x4(r, p + (lane % 8 + 8 * (blk & 1)) * kStride + 4 * (blk >> 1));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_bits(r[i], big[i], small[i]);
+}
+
+// B fragments of two n-tiles (n0.., n0+8..) of a tile that holds B^T
+// row-major (n = row, k = column), as K holds it for S = Q K^T;
+// p = &tile[n0][k0]
+__device__ __forceinline__ void load_bt2(const float* p, int lane,
+                                         uint32_t big[2][2],
+                                         uint32_t small[2][2]) {
+  const int blk = lane / 8;
+  uint32_t r[4];
+  ldmatrix_x4(r, p + (lane % 8 + 8 * (blk >> 1)) * kStride + 4 * (blk & 1));
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_bits(r[i], big[i / 2][i % 2], small[i / 2][i % 2]);
+}
+
+// B fragment of a row-major tile (k = row, n = column) in the permuted k
+// order; p = &tile[k0][n0], row stride `stride`
+__device__ __forceinline__ void load_b_perm(const float* p, int stride, int g,
+                                            int t, uint32_t big[2],
+                                            uint32_t small[2]) {
+  split(p[(2 * t) * stride + g], big[0], small[0]);
+  split(p[(2 * t + 1) * stride + g], big[1], small[1]);
+}
+
+// A fragment of a row-major tile (m = row, k = column) in the permuted k
+// order; p = &tile[m0][k0], row stride `stride` (even: keys 2t and 2t + 1
+// come in one 8-byte load)
+__device__ __forceinline__ void load_a_perm(const float* p, int stride, int g,
+                                            int t, uint32_t big[4],
+                                            uint32_t small[4]) {
+  const float2 lo = *reinterpret_cast<const float2*>(p + g * stride + 2 * t);
+  const float2 hi =
+      *reinterpret_cast<const float2*>(p + (g + 8) * stride + 2 * t);
+  split(lo.x, big[0], small[0]);
+  split(hi.x, big[1], small[1]);
+  split(lo.y, big[2], small[2]);
+  split(hi.y, big[3], small[3]);
+}
+
+// A fragment of the TRANSPOSE of a row-major tile (m = column, k = row) in
+// the permuted k order; p = &tile[k0][m0], row stride `stride`
+__device__ __forceinline__ void load_at_perm(const float* p, int stride,
+                                             int g, int t, uint32_t big[4],
+                                             uint32_t small[4]) {
+  split(p[(2 * t) * stride + g], big[0], small[0]);
+  split(p[(2 * t) * stride + g + 8], big[1], small[1]);
+  split(p[(2 * t + 1) * stride + g], big[2], small[2]);
+  split(p[(2 * t + 1) * stride + g + 8], big[3], small[3]);
+}
+
+// A fragment (permuted k order) from one 8-column group of a C fragment
+__device__ __forceinline__ void c_as_a(const float c[4], uint32_t big[4],
+                                       uint32_t small[4]) {
+  split(c[0], big[0], small[0]);
+  split(c[2], big[1], small[1]);
+  split(c[1], big[2], small[2]);
+  split(c[3], big[3], small[3]);
+}
+
+// THE SCORE CONTRACT.  One warp's 16 x 32 tile of raw scores
+// s = Q K^T: query rows of the tile at q (row-major [16][128], stride
+// kStride) against keys of the tile at k ([32][128]); s[j] is the C
+// fragment of keys 8j..8j+7.  The sum over d runs in eight-wide k-steps
+// d = 0, 8, ..., 120; each adds a_big b_small, a_small b_big and a_big
+// b_big, in that order, to an accumulator that starts at 0, with Q as A
+// and K as B.  K1 forms every score through this function and K3
+// recomputes every score through it, so K3's scores, and through K1's row
+// max and row sum its probabilities, are K1's bit for bit.  K3 also forms
+// dP = G V^T with it.
+__device__ __forceinline__ void score_tile(const float* q, const float* k,
+                                           int lane, float s[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+  for (int d = 0; d < kDh; d += 8) {
+    uint32_t ab[4], as[4], bb[4][2], bs[4][2];
+    load_a(q + d, lane, ab, as);
+    load_bt2(k + d, lane, bb, bs);
+    load_bt2(k + 16 * kStride + d, lane, bb + 2, bs + 2);
+    mma_3xtf32_n<4>(s, ab, as, bb, bs);
+  }
+}
+
+// The scaled, masked score: the scale before the mask, and a multiply the
+// compiler may not fuse into a later subtraction (K1 and K3 must agree)
+__device__ __forceinline__ float masked_score(float s, bool padded,
+                                              float scale) {
+  return padded ? kMaskValue : __fmul_rn(s, scale);
+}
+
+// ---- asynchronous copies ---------------------------------------------------
+
+// 16 bytes global -> shared; zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned saddr =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + ROWS) of a row-major [L][128] matrix into a smem tile of
+// stride kStride, by THREADS threads; rows at or past L are zeros
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* src,
+                                                int r0, int L, int tid) {
+  static_assert((ROWS * kDh / 4) % THREADS == 0, "tile / threads");
+#pragma unroll
+  for (int it = 0; it < ROWS * kDh / 4 / THREADS; ++it) {
+    const int i = tid + it * THREADS;
+    const int r = i / (kDh / 4);
+    const int c = (i % (kDh / 4)) * 4;
+    const bool ok = r0 + r < L;
+    cp_async16(dst + r * kStride + c,
+               ok ? src + static_cast<size_t>(r0 + r) * kDh + c : src, ok);
+  }
+}
+
+// ---- reductions over the 4 lanes that share a row of a C fragment --------
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+}  // namespace fs2_attn

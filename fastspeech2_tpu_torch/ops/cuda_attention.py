@@ -12,6 +12,8 @@ shape either kernel does not take raises.  There is no fallback from CUDA
 to the plain version.
 """
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -21,8 +23,8 @@ from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
 
 HEAD_DIM = 128
 
-# K1 launches and K3 calls (three launches each: K3a, K3b, K3c) since the
-# counts were last set to 0
+# K1 calls (one launch, or two on the key-split path) and K3 calls (three
+# launches each: K3a, K3b, K3c) since the counts were last set to 0
 launches = 0
 bwd_launches = 0
 
@@ -53,6 +55,22 @@ def _check_inputs(name, q, k, v, key_pad_mask):
                          f"[{B}, {L}] tensor on {q.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(device_index, B, H, L):
+    grid = (ctypes.c_int * 3)()
+    n = load_library().fs2_mha_fwd_plan(B, H, L, grid)
+    if n < 0:
+        raise ValueError(f"fs2_mha_fwd_plan: bad shape {(B, H, L)}")
+    return tuple(grid), n
+
+
+def forward_plan(B, H, L):
+    """K1's grid on the current card for [B, H, L, 128]: ((query tiles,
+    B*H, key chunks), float32 scratch elements).  More than one key chunk
+    means the split path: partials to scratch and a combining launch."""
+    return _plan(torch.cuda.current_device(), B, H, L)
+
+
 def _launch_forward(q, k, v, key_pad_mask, with_stats):
     """K1 -> out, or (out, row_max, row_sum) with the softmax statistics
     the backward reads."""
@@ -66,12 +84,17 @@ def _launch_forward(q, k, v, key_pad_mask, with_stats):
         row_max = torch.empty((B, H, L), device=q.device, dtype=torch.float32)
         row_sum = torch.empty_like(row_max)
     with torch.cuda.device(q.device):
+        _, n_scratch = forward_plan(B, H, L)
+        # the key-split partials, when the grid splits the keys
+        scratch = (torch.empty(n_scratch, device=q.device,
+                               dtype=torch.float32) if n_scratch else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fs2_mha_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad_mask.data_ptr(),
             out.data_ptr(),
             None if row_max is None else row_max.data_ptr(),
             None if row_sum is None else row_sum.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             B, H, L, D, 1.0 / math.sqrt(D), stream)
     check(err, "fs2_mha_fwd_f32")
     launches += 1
@@ -99,7 +122,9 @@ def fused_attention_backward(q, k, v, key_pad_mask, out, row_max, row_sum,
                              f"{tuple(t.shape)} on {t.device}")
     lib = load_library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    scratch = torch.empty((B, H, L), device=q.device, dtype=torch.float32)
+    # the dQ partial of each 64-key tile, and D = rowsum(g * out)
+    scratch = torch.empty(lib.fs2_mha_bwd_scratch_floats(B, H, L),
+                          device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fs2_mha_bwd_f32(

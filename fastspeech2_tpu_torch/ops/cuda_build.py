@@ -22,23 +22,36 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("attention.cu", "attention_bwd.cu", "conv_ffn.cu", "resblock.cu")
+# headers the sources include (hashed with them)
+HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argument types (all return int, a cudaError_t)
+# C entry points: name -> argument types; each returns an int (a
+# cudaError_t or a count) unless _RESTYPES names another type
 _SIGNATURES = {
-    # q, k, v, key_pad, out, row_max, row_sum, B, H, L, D, scale, stream
-    "fs2_mha_fwd_f32": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
-    # q, k, v, key_pad, out, row_max, row_sum, g, dq, dk, dv, d_scratch,
+    # q, k, v, key_pad, out, row_max, row_sum, scratch, B, H, L, D, scale,
+    # stream
+    "fs2_mha_fwd_f32": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+    # B, H, L, grid (int[3], written) -> scratch floats (long long)
+    "fs2_mha_fwd_plan": [_I] * 3 + [_P],
+    "fs2_mha_fwd_blocks_per_sm": [],
+    "fs2_mha_bwd_blocks_per_sm": [],
+    # q, k, v, key_pad, out, row_max, row_sum, g, dq, dk, dv, scratch,
     # B, H, L, D, scale, stream
     "fs2_mha_bwd_f32": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
+    # B, H, L -> scratch floats (long long)
+    "fs2_mha_bwd_scratch_floats": [_I] * 3,
     # x, w1, b1, w2, b2, gamma, beta, h, out, B, L, D, H, k1, k2, stream
     "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 6 + [_P],
     # x, t, out, w1, b1, w2, b2, B, C, L, k, d, stream
     "fs2_resblock_unit_f32": [_P] * 7 + [_I] * 5 + [_P],
 }
+
+_RESTYPES = {"fs2_mha_fwd_plan": ctypes.c_longlong,
+             "fs2_mha_bwd_scratch_floats": ctypes.c_longlong}
 
 _library = None
 build_info = {}   # filled by the build: path, seconds, ptxas report
@@ -56,7 +69,7 @@ def _nvcc():
 
 def _digest():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -88,9 +101,13 @@ def _build(target):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        report = "".join(reports)
+        with open(partial + ".ptxas.txt", "w") as f:
+            f.write(report)
+        os.replace(partial + ".ptxas.txt", target + ".ptxas.txt")
         os.replace(partial, target)   # atomic: concurrent builds agree
-    build_info.update(seconds=time.perf_counter() - t0,
-                      ptxas="".join(reports), built=True)
+    build_info.update(seconds=time.perf_counter() - t0, ptxas=report,
+                      built=True)
 
 
 def load_library():
@@ -102,11 +119,14 @@ def load_library():
     build_info.update(path=target, built=False, seconds=0.0)
     if not os.path.exists(target):
         _build(target)
+    elif os.path.exists(target + ".ptxas.txt"):
+        with open(target + ".ptxas.txt") as f:
+            build_info["ptxas"] = f.read()   # the report of the build
     lib = ctypes.CDLL(target)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     _library = lib
     return lib
 

@@ -1,23 +1,41 @@
 """The least time an H100 could take for K4
 (``fastspeech2_tpu/ops/pallas_resblock.py::_resblock_kernel``, ported as
-``csrc/resblock.cu``), at the shapes the parity HiFi-GAN gives it:
+``csrc/resblock.cu``), at the shapes the parity HiFi-GAN gives it, and for
+K1 and K3 (the attention forward and backward, ``csrc/attention.cu`` and
+``csrc/attention_bwd.cu``) at the attention shapes of the main paths:
 
     python -m fastspeech2_tpu_torch.tools.kernel_bounds [--frames 1000]
 
-Pure arithmetic from the shapes, no device.  One call is one MRF ResBlock
-of kernel size k on x [B, C, L]: 3 dilation units (1, 3, 5) of two k-tap
-convs, 12 k C^2 B L operations; it reads x and the weights once and writes
-the output once.  The parity generator (upsample rates 8, 8, 2, 2 from 512
-channels) runs it at C = 256, 128, 64 and 32 on L = 8 T, 64 T, 128 T and
-256 T for a T-frame mel, with k = 3, 7 and 11 at each: 12 calls per
-forward.  Peaks: 67 TFLOP/s float32 outside the tensor cores and 3.35 TB/s
-(H100 SXM data sheet).
+Pure arithmetic from the shapes, no device.  One K4 call is one MRF
+ResBlock of kernel size k on x [B, C, L]: 3 dilation units (1, 3, 5) of two
+k-tap convs, 12 k C^2 B L operations; it reads x and the weights once and
+writes the output once.  The parity generator (upsample rates 8, 8, 2, 2
+from 512 channels) runs it at C = 256, 128, 64 and 32 on L = 8 T, 64 T,
+128 T and 256 T for a T-frame mel, with k = 3, 7 and 11 at each: 12 calls
+per forward.  K4 runs on the CUDA cores, so its peak is 67 TFLOP/s float32.
+
+K1 (4 L^2 Dh operations per (b, h)) and K3 (10 L^2 Dh, the reference's five
+products) run their products on the tensor cores as 3xTF32, three TF32
+products for each float32-accurate one, so their least time is
+max(3 x operations / 495 TFLOP/s, bytes / 3.35 TB/s); the SIMT float32
+bound (operations / 67 TFLOP/s) is printed beside it for the record.
+Bytes: K1 reads q, k, v and the mask and writes the output; K3 reads q, k,
+v, the incoming gradient and the mask and writes dq, dk and dv.  Peaks:
+H100 SXM data sheet (dense TF32 without sparsity; HBM3 3.35 TB/s).
 """
 
 import argparse
 
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+# 3xTF32: big*small + small*big + big*big for each float32-accurate product
+TF32_PASSES = 3
 PEAK_HBM_BYTES = 3.35e12
+HEAD_DIM = 128
+# the attention shapes of the main paths: [B, 2, L, 128] with batch 1 for
+# the README sentence (encoder L 32, decoder 1000) and batch 10 in
+# training (encoder 128, LJSpeech10's bucket 768, decoder 1000)
+ATTENTION_SHAPES = ((1, 32), (1, 1000), (10, 128), (10, 768), (10, 1000))
 # (channels, upsampling so far) of the parity generator's four stages
 PARITY_STAGES = ((256, 8), (128, 64), (64, 128), (32, 256))
 KERNEL_SIZES = (3, 7, 11)
@@ -32,6 +50,21 @@ def resblock_bound_ms(B, L, C, k, units=3, itemsize=4):
     if t_ops >= t_bytes:
         return t_ops, "operations", flops, nbytes
     return t_bytes, "bytes", flops, nbytes
+
+
+def attention_bound_ms(B, H, L, backward=False, D=HEAD_DIM):
+    """K1 (forward) or K3 (``backward``) on [B, H, L, D] float32 ->
+    (bound in ms on the 3xTF32 basis, "operations" | "bytes", the SIMT
+    float32 bound in ms, operations, bytes)."""
+    flops = (10.0 if backward else 4.0) * B * H * L * L * D
+    tensors = 7 if backward else 4
+    nbytes = 4 * tensors * B * H * L * D + B * L
+    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_simt = max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", t_simt, flops, nbytes
+    return t_bytes, "bytes", t_simt, flops, nbytes
 
 
 def parity_resblock_shapes(frames):
@@ -57,6 +90,16 @@ def main(argv=None):
     print(f"K4, the {len(shapes)} calls of one parity-vocoder forward on a "
           f"{args.frames}-frame mel: {total_flops:.4g} operations, bound "
           f"{total:.4f} ms")
+    for B, L in ATTENTION_SHAPES:
+        for name, backward in (("K1", False), ("K3", True)):
+            if backward and B == 1:
+                continue
+            ms, by, simt, flops, nbytes = attention_bound_ms(B, 2, L,
+                                                             backward)
+            print(f"{name} x [{B}, 2, {L}, {HEAD_DIM}]: {flops:.4g} "
+                  f"operations, {nbytes:.4g} bytes -> bound {ms:.4e} ms "
+                  f"({by}, 3xTF32 on the tensor cores); SIMT float32 bound "
+                  f"{simt:.4e} ms")
 
 
 if __name__ == "__main__":

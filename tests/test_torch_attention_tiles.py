@@ -1,0 +1,320 @@
+"""PyTorch port, the arithmetic of K1 and K3 (``csrc/attention.cu``,
+``csrc/attention_bwd.cu``) on the CPU.
+
+The CUDA kernels run only on a card, so this file carries a numpy model of
+what they compute and holds it against the JAX package's Pallas attention
+(``fused_multi_head_attention`` in interpret mode) and its gradients, as
+``tests/test_torch_ops.py`` runs them:
+
+- TF32 rounding as ``cvt.rna.tf32.f32`` does it: to nearest, ties away from
+  zero, to 10 mantissa bits, on the bit pattern;
+- the 3xTF32 product (big*small + small*big + big*big per eight-wide
+  k-step, accumulated in float32; the tensor core modelled as exact
+  products summed in float64 and rounded once per step);
+- K1's tiles: 32-key tiles with the online softmax, the key chunks of the
+  split grid and their combine in the fixed order 0, 1, ...;
+- K3's tiles: D = rowsum(G o O), P recomputed from K1's row max and row
+  sum, dV and dK per 64-key tile, and dQ as the sum, in the order 0, 1,
+  ..., of each 64-key tile's share dS K.
+
+A wrong combine formula, mask order or tile edge shows here in seconds,
+without a card.  The last test pins the bound the card's times are held
+to (``tools/kernel_bounds.py``, 3xTF32 on the tensor cores).  Inputs: B = 2, H = 2, Dh = 128, one fully padded batch
+row, L from 1 to 130 (ragged against every tile).  Tolerance 1e-5
+absolute: float32 sums of at most 130 O(1) terms in another order, as in
+the JAX package's own kernel tests.
+"""
+
+import functools
+import math
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from fastspeech2_tpu.ops.pallas_attention import fused_multi_head_attention
+from fastspeech2_tpu_torch.tools.kernel_bounds import attention_bound_ms
+
+DH = 128
+KEY_TILE = 32     # K1's keys per tile
+TILE = 64         # K1's query rows per block; K3's tiles
+MASK = np.float32(-1e9)
+INIT_MAX = np.float32(-1e30)
+SCALE = np.float32(1.0 / math.sqrt(DH))
+LENGTHS = (1, 17, 64, 65, 130)
+
+
+# ---- TF32 and 3xTF32 ------------------------------------------------------
+
+def tf32_rna(x):
+    """cvt.rna.tf32.f32: add half a TF32 unit to the magnitude bits and
+    drop the 13 low mantissa bits (sign-magnitude, so ties go away from
+    zero)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split(x):
+    x = np.asarray(x, np.float32)
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def mma_3xtf32(acc, a, b):
+    """acc + a @ b ([..., M, K] @ [..., K, N], K a multiple of 8) as the
+    kernels form it: per eight-wide k-step, a_big b_small, a_small b_big
+    and a_big b_big, each added to the float32 accumulator."""
+    ab, as_ = split(a)
+    bb, bs = split(b)
+    acc = np.asarray(acc, np.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((ab, bs), (as_, bb), (ab, bb)):
+            step = x[..., ks].astype(np.float64) @ y[..., ks, :].astype(
+                np.float64)
+            acc = (acc.astype(np.float64) + step).astype(np.float32)
+    return acc
+
+
+def _rows(x, r0, n):
+    """rows [r0, r0 + n) of [..., L, D], zeros past L (the kernels'
+    zero-filled tiles)."""
+    out = np.zeros(x.shape[:-2] + (n, x.shape[-1]), np.float32)
+    got = x[..., r0:r0 + n, :]
+    out[..., :got.shape[-2], :] = got
+    return out
+
+
+def _flags(pad, k0, n, L):
+    """(key < L, key padded) for keys [k0, k0 + n): [n], [B, n]."""
+    keys = np.arange(k0, k0 + n)
+    ok = keys < L
+    padded = np.zeros((pad.shape[0], n), bool)
+    padded[:, ok] = pad[:, keys[ok]]
+    return ok, padded
+
+
+def _masked_scores(q_tile, k_tile, padded):
+    s = mma_3xtf32(0.0, q_tile, np.swapaxes(k_tile, -1, -2))
+    return np.where(padded[:, None, None, :], MASK, s * SCALE)
+
+
+# ---- K1 ---------------------------------------------------------------------
+
+def k1_model(q, k, v, pad, chunks=1):
+    """-> (out, row_max, row_sum) of K1 with the keys split into ``chunks``
+    chunks of whole 32-key tiles (1: the single-launch grid)."""
+    L = q.shape[2]
+    n_tiles = -(-L // KEY_TILE)
+    per_chunk = -(-n_tiles // min(chunks, n_tiles))
+    parts = []
+    for t0 in range(0, n_tiles, per_chunk):
+        m = np.full(q.shape[:3], INIT_MAX, np.float32)
+        l = np.zeros(q.shape[:3], np.float32)
+        o = np.zeros(q.shape, np.float32)
+        for kt in range(t0, min(n_tiles, t0 + per_chunk)):
+            k0 = kt * KEY_TILE
+            ok, padded = _flags(pad, k0, KEY_TILE, L)
+            s = _masked_scores(q, _rows(k, k0, KEY_TILE), padded)
+            mx = np.maximum(m, np.where(ok, s, INIT_MAX).max(-1))
+            alpha = np.exp(m - mx)
+            p = np.where(ok, np.exp(np.where(ok, s - mx[..., None], 0)),
+                         np.float32(0))
+            l = l * alpha + p.sum(-1, dtype=np.float32)
+            m = mx
+            o = mma_3xtf32(o * alpha[..., None], p, _rows(v, k0, KEY_TILE))
+        parts.append((m, l, o))
+    if len(parts) == 1:
+        m, l, o = parts[0]
+        return o * (np.float32(1) / l)[..., None], m, l
+    # the combining launch: chunks in the order 0, 1, ...
+    mx = np.full(q.shape[:3], INIT_MAX, np.float32)
+    for m, _, _ in parts:
+        mx = np.maximum(mx, m)
+    lsum = np.zeros_like(mx)
+    acc = np.zeros(q.shape, np.float32)
+    for m, l, o in parts:
+        w = np.exp(m - mx)
+        lsum = lsum + l * w
+        acc = acc + o * w[..., None]
+    return acc * (np.float32(1) / lsum)[..., None], mx, lsum
+
+
+# ---- K3 ---------------------------------------------------------------------
+
+def k3_model(q, k, v, pad, out, row_max, row_sum, g):
+    """-> (dq, dk, dv) of K3a, K3b (dK, dV and the dQ shares) and K3c (their
+    sum)."""
+    L = q.shape[2]
+    n_tiles = -(-L // TILE)
+    D = (g * out).sum(-1, dtype=np.float32)                       # K3a
+    dk, dv = (np.zeros(q.shape, np.float32) for _ in range(2))
+
+    def p_and_ds(q0, k0):
+        """P and dS of query rows [q0, q0 + 64) x keys [k0, k0 + 64)."""
+        rows = np.arange(q0, q0 + TILE)
+        row_ok = rows < L
+        idx = np.minimum(rows, L - 1)
+        m = np.where(row_ok, row_max[..., idx], np.float32(0))[..., None]
+        l = np.where(row_ok, row_sum[..., idx], np.float32(1))[..., None]
+        d = np.where(row_ok, D[..., idx], np.float32(0))[..., None]
+        key_ok, padded = _flags(pad, k0, TILE, L)
+        ok = row_ok[:, None] & key_ok[None, :]
+        s = _masked_scores(_rows(q, q0, TILE), _rows(k, k0, TILE), padded)
+        dp = mma_3xtf32(0.0, _rows(g, q0, TILE),
+                        np.swapaxes(_rows(v, k0, TILE), -1, -2))
+        p = np.where(ok, np.exp(np.where(ok, s - m, 0)) / l, np.float32(0))
+        ds = np.where(ok, p * (dp - d) * SCALE, np.float32(0))
+        return p, ds
+
+    shares = np.zeros((n_tiles,) + q.shape, np.float32)
+    for kt in range(n_tiles):                                     # K3b
+        k0 = kt * TILE
+        acc_dv = acc_dk = np.zeros(q.shape[:2] + (TILE, DH), np.float32)
+        for qt in range(n_tiles):
+            q0 = qt * TILE
+            p, ds = p_and_ds(q0, k0)
+            acc_dv = mma_3xtf32(acc_dv, np.swapaxes(p, -1, -2),
+                                _rows(g, q0, TILE))
+            acc_dk = mma_3xtf32(acc_dk, np.swapaxes(ds, -1, -2),
+                                _rows(q, q0, TILE))
+            share = mma_3xtf32(0.0, ds, _rows(k, k0, TILE))
+            n = min(TILE, L - q0)
+            shares[kt][..., q0:q0 + n, :] = share[..., :n, :]
+        n = min(TILE, L - k0)
+        dv[..., k0:k0 + n, :] = acc_dv[..., :n, :]
+        dk[..., k0:k0 + n, :] = acc_dk[..., :n, :]
+    dq = shares[0]                                                # K3c
+    for share in shares[1:]:
+        dq = dq + share
+    return dq, dk, dv
+
+
+# ---- inputs and the JAX reference --------------------------------------------
+
+def _inputs(L, seed=0):
+    """[2, 2, L, 128] q, k, v, g; batch row 0 partly padded (unless L is
+    1), batch row 1 fully padded."""
+    rng = np.random.RandomState(seed + L)
+    q, k, v, g = (rng.randn(2, 2, L, DH).astype(np.float32)
+                  for _ in range(4))
+    lens = np.array([L - L // 4, 0])
+    pad = np.arange(L)[None, :] >= lens[:, None]
+    return q, k, v, g, pad
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(L):
+    """-> (out, dq, dk, dv) of the Pallas kernels in interpret mode."""
+    q, k, v, g, pad = _inputs(L)
+    out, vjp = jax.vjp(
+        lambda q, k, v: fused_multi_head_attention(q, k, v, jnp.asarray(pad),
+                                                   True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return tuple(np.asarray(x) for x in (out, *vjp(jnp.asarray(g))))
+
+
+def _float64_stats(q, k, pad):
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) / math.sqrt(DH)
+    s = np.where(pad[:, None, None, :], -1e9, s)
+    m = s.max(-1)
+    return m, np.exp(s - m[..., None]).sum(-1)
+
+
+# ---- tests --------------------------------------------------------------------
+
+def test_tf32_rna_rounds_to_nearest_ties_away_from_zero():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)     # a TF32 unit at 1
+    cases = {
+        one + ulp / 2: one + ulp,                      # tie: away from zero
+        -(one + ulp / 2): -(one + ulp),
+        one + ulp / 2 - np.float32(2.0 ** -23): one,   # below the tie
+        one + 3 * ulp / 2: one + 2 * ulp,              # tie, odd neighbour
+        np.float32(0.0): np.float32(0.0),
+    }
+    for x, want in cases.items():
+        assert tf32_rna(np.float32(x)) == want, x
+    x = np.random.RandomState(0).randn(10000).astype(np.float32) * 100
+    r = tf32_rna(x)
+    assert not (r.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert (np.abs(r.astype(np.float64) - x) <= 2.0 ** -11 * np.abs(x)).all()
+
+
+def test_3xtf32_product_keeps_float32_accuracy():
+    """3xTF32 is within float32 rounding of the exact product; a single
+    TF32 product (about 3 decimal digits) is not."""
+    rng = np.random.RandomState(1)
+    a = rng.randn(64, DH).astype(np.float32)
+    b = rng.randn(DH, 32).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    three = mma_3xtf32(np.zeros((64, 32), np.float32), a, b)
+    single = tf32_rna(a).astype(np.float64) @ tf32_rna(b).astype(np.float64)
+    f32 = (a @ b).astype(np.float64)
+    err3 = np.abs(three - exact).max()
+    assert err3 <= 4 * np.abs(f32 - exact).max() + 1e-6
+    assert err3 < 1e-5 and np.abs(single - exact).max() > 100 * err3
+
+
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("L", LENGTHS)
+def test_k1_tiles_match_pallas_forward(L, chunks):
+    q, k, v, _, pad = _inputs(L)
+    out, row_max, row_sum = k1_model(q, k, v, pad, chunks)
+    np.testing.assert_allclose(out, _jax_reference(L)[0], atol=1e-5, rtol=0)
+    # the statistics K3 reads: the row max of the masked, scaled scores
+    # and the sum of exp(s - max), a fully padded row's -1e9 and L
+    m, l = _float64_stats(q, k, pad)
+    np.testing.assert_allclose(row_max, m, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(row_sum, l, atol=0, rtol=1e-5)
+    assert (row_max[1] == MASK).all() and (row_sum[1] == L).all()
+
+
+@pytest.mark.parametrize("L", LENGTHS)
+def test_k3_tiles_match_pallas_backward(L):
+    q, k, v, g, pad = _inputs(L)
+    out, row_max, row_sum = k1_model(q, k, v, pad)
+    got = k3_model(q, k, v, pad, out, row_max, row_sum, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, _jax_reference(L)[1:]):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=name)
+    # the fully padded batch row has the uniform P = 1/L, so its dq and dk
+    # are those of the reference kernel and not 0 (ROADMAP, found in the
+    # reference); its dv is mean(g) over the rows
+    if L > 1:
+        assert np.abs(got[0][1]).max() > 1e-3
+    np.testing.assert_allclose(got[2][1],
+                               np.broadcast_to(g[1].mean(1, keepdims=True),
+                                               g[1].shape),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("L", LENGTHS)
+def test_k3_tiles_on_the_split_forward(L):
+    """K3 reads the statistics of whichever grid K1 ran: the key-split
+    combine's row max and row sum give the same gradients."""
+    q, k, v, g, pad = _inputs(L)
+    out, row_max, row_sum = k1_model(q, k, v, pad, chunks=4)
+    got = k3_model(q, k, v, pad, out, row_max, row_sum, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, _jax_reference(L)[1:]):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_attention_bounds_use_the_3xtf32_basis():
+    """K1's and K3's least time: three TF32 products per float32-accurate
+    one at 495 TFLOP/s, or the bytes at 3.35 TB/s, whichever is larger; the
+    SIMT float32 bound (67 TFLOP/s) beside it for the record."""
+    ms, by, simt, flops, nbytes = attention_bound_ms(10, 2, 1000)
+    assert flops == 4 * 10 * 2 * 1000 ** 2 * DH and by == "operations"
+    assert math.isclose(ms, 3 * flops / 495e12 * 1e3)
+    assert math.isclose(simt, flops / 67e12 * 1e3)
+    ms, by, _, flops, nbytes = attention_bound_ms(10, 2, 1000, backward=True)
+    assert flops == 10 * 10 * 2 * 1000 ** 2 * DH
+    assert nbytes == 4 * 7 * 10 * 2 * 1000 * DH + 10 * 1000
+    assert math.isclose(ms, 3 * flops / 495e12 * 1e3)
+    # at the README sentence's encoder length the bytes bound it
+    ms, by, _, _, nbytes = attention_bound_ms(1, 2, 32)
+    assert by == "bytes" and math.isclose(ms, nbytes / 3.35e12 * 1e3)

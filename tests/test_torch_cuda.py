@@ -1,5 +1,7 @@
 """PyTorch port, CUDA kernels on the card: K1, K2, K3 and K4 against their
-plain versions at the main path's shapes, their input checks, the model's
+plain versions at the main path's shapes and at ragged L, their input
+checks, K1's key-split grid at batch 1 and the row statistics it hands to
+K3, K1 and K3 giving the same bits on a second launch, the model's
 forward going through K1 and K2, a training step going through K1 and K3,
 and the parity HiFi-GAN going through K4.
 
@@ -58,9 +60,17 @@ def _ffn_inputs(L, device, H=1024, k2=1, seed=0):
             r(256, scale=0.1, shift=1.0), r(256, scale=0.1)]
 
 
-# encoder L = round_up(phones, 16); decoder L = 1000 or round_up(need, 512)
+# encoder L = round_up(phones, 16); decoder L = 1000 or round_up(need, 512);
+# ragged L against the 32-key and 64-row tiles; batch 1 at 1000 and 32 (the
+# README sentence's shapes, where K1 splits the keys to fill the card);
+# batch 10 at 1000, the training decoder's shape
+TRAIN_LENS = [1000, 0, 731, 512, 999, 640, 877, 580, 950, 700]
+
+
 @pytest.mark.parametrize("L,lens", [
     (32, [31, 0]), (48, [48, 33]), (1000, [1000, 253, 0]), (1536, [1100]),
+    (1, [1, 0]), (63, [63, 40, 0]), (65, [65, 0]), (129, [129, 100, 0]),
+    (1000, [253]), (32, [31]), (1000, TRAIN_LENS),
 ])
 def test_attention_kernel_matches_plain(device, L, lens):
     q, k, v, mask = _attention_inputs(lens, L, device, seed=L)
@@ -71,6 +81,59 @@ def test_attention_kernel_matches_plain(device, L, lens):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, multi_head_attention(q, k, v, mask),
                                atol=1e-4, rtol=0)
+
+
+# the statistics K3 reads, on the single-launch and the key-split grids
+@pytest.mark.parametrize("lens,L", [([1000, 253, 0], 1000), ([253], 1000),
+                                    ([31], 32), ([100, 0], 129),
+                                    (TRAIN_LENS, 1000)])
+def test_attention_kernel_row_statistics(device, lens, L):
+    q, k, v, mask = _attention_inputs(lens, L, device, seed=L + 2)
+    out, row_max, row_sum = cuda_attention._launch_forward(q, k, v, mask,
+                                                           True)
+    torch.cuda.synchronize()
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / 128 ** 0.5
+    s = s.masked_fill(mask[:, None, None, :], -1e9)
+    ref_max = s.amax(-1)
+    torch.testing.assert_close(row_max, ref_max, atol=1e-5, rtol=0)
+    ref_sum = torch.exp(s - ref_max[..., None]).sum(-1)
+    torch.testing.assert_close(row_sum, ref_sum, atol=0, rtol=1e-5)
+    torch.testing.assert_close(out, multi_head_attention(q, k, v, mask),
+                               atol=1e-4, rtol=0)
+
+
+def test_attention_kernel_fills_the_card_at_batch_one(device):
+    """At [1, 2, 1000, 128] the (query tile, b*h) grid is 32 blocks; K1
+    splits the keys so that at least 128 blocks run.  The partials take
+    chunks * B*H*L * (128 + 2) floats of scratch, none without a split."""
+    for B, L in ((1, 1000), (1, 32), (10, 128), (10, 768), (10, 1000)):
+        grid, scratch = cuda_attention.forward_plan(B, 2, L)
+        assert grid[:2] == (-(-L // 64), B * 2), grid
+        assert scratch == (0 if grid[2] == 1
+                           else grid[2] * B * 2 * L * 130), (grid, scratch)
+    grid, _ = cuda_attention.forward_plan(1, 2, 1000)
+    assert grid[0] * grid[1] * grid[2] >= 128 and grid[2] > 1, grid
+
+
+# two launches on the same inputs give the same bits (no atomics, a fixed
+# order of every sum, the key-split combine included)
+@pytest.mark.parametrize("lens,L", [([253], 1000), ([1000, 611, 0], 1000),
+                                    ([31], 32)])
+def test_attention_kernels_are_bitwise_repeatable(device, lens, L):
+    q, k, v, mask = _attention_inputs(lens, L, device, seed=L + 3)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(L)).to(
+        device)
+    first = cuda_attention._launch_forward(q, k, v, mask, True)
+    second = cuda_attention._launch_forward(q, k, v, mask, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    before = cuda_attention.bwd_launches
+    grads = [cuda_attention.fused_attention_backward(q, k, v, mask, *first, g)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert cuda_attention.bwd_launches == before + 2
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("L,k2", [(1000, 1), (32, 1), (48, 3), (1536, 1)])
@@ -137,10 +200,13 @@ def test_model_forward_goes_through_both_kernels(device, max_mel_len):
                                rtol=0)
 
 
-# encoder L = 128 and decoder L = 1000 of the training slice's buckets, an
-# L with a ragged edge, each with partly and fully padded batch rows
+# encoder L = 128 and decoder L = 1000 of the training slice's buckets, L
+# ragged against the 64-row and 64-key tiles, each with partly and fully
+# padded batch rows; batch 1 at 1000 (K1 on its key-split grid)
 @pytest.mark.parametrize("L,lens", [
     (128, [128, 70, 0]), (1000, [1000, 611, 0]), (77, [77, 40, 0]),
+    (1, [1, 0]), (63, [63, 0]), (65, [65, 30, 0]), (129, [129, 0]),
+    (1000, [700]),
 ])
 def test_attention_backward_kernel_matches_plain(device, L, lens):
     q, k, v, mask = _attention_inputs(lens, L, device, seed=L + 1)
