@@ -7,24 +7,29 @@ Phases, each printing flushed lines (a failing phase raises, and the run
 exits non-zero):
 
 1. card      the GPU's name and power limit, as nvidia-smi prints them;
-2. build     nvcc builds the port's CUDA kernels from csrc/ (seconds); the
-             attention kernels' registers, spills, shared memory and
-             resident blocks per SM, their HMMA (tensor-core) instruction
-             counts in the SASS, and K1's grid at batch 1;
+2. build     nvcc builds the port's CUDA kernels from csrc/ (about a
+             minute); every kernel's registers and spills over all its
+             template instances (a spill fails the run), K1's and K3's
+             resident blocks per SM, every kernel's HMMA (tensor-core)
+             instruction count in the SASS, K1's grid at batch 1 and K2's
+             plan;
 3. K1        the attention kernel against its plain version at the path's
              shapes, with partly and fully padded key rows;
-4. K2        the conv-FFN kernel against its plain version;
+4. K2        the conv-FFN kernel against its plain version at every path
+             shape, each launched twice (bitwise equal);
 5. K3        the attention-backward kernel against its plain version at the
              training shapes, and the autograd Function (K1 forward, K3
              backward) against autograd through the plain forward; K1 and
              K3 launched twice on the same inputs must agree bit for bit;
 6. K4        the MRF ResBlock kernel against its plain version at the 12
-             ResBlock shapes of a 1000-frame parity-vocoder forward, at
-             L = 8 (a 1-frame mel at C = 256) and at ragged L;
+             ResBlock shapes of a 1000-frame parity-vocoder forward (each
+             launched twice, bitwise equal), at L = 8 (a 1-frame mel at
+             C = 256) and at ragged L;
 7. synthesis the README sentence, text -> wav, through the CLI's main with
              the tracked weights (HiFi-GAN-iSTFT); the kernels' launch
-             counts over that run; the mel against the same forward with the
-             plain versions;
+             counts over that run (6 K4 per iSTFT forward); the mel against
+             the same forward with the plain versions, the iSTFT wav
+             against the same vocoder with its plain ResBlocks;
 8. parity    the same sentence through the CLI's main with
              config/LJSpeech/model.yaml: the parity HiFi-GAN from its seeded
              random init; launch counts (12 K4 per vocoder forward); the wav
@@ -85,16 +90,25 @@ REPRO_STEPS = 5
 # training: the decoder's and encoder's L at LJSpeech lengths
 TRAIN_BATCH = 10
 TRAIN_STEPS = 20
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
-# dense TF32 on the tensor cores, HBM
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_HBM_BYTES = 3.35e12
+# every kernel's least time (tools/kernel_bounds.py: H100 SXM peaks from
+# NVIDIA's data sheet)
+BOUND_BASIS = ("3xTF32 on the tensor cores: max(3 x operations / 495 "
+               "TFLOP/s, bytes / 3.35 TB/s)")
 # the attention kernels' SASS functions: K1 and its key-split combine; K3a
 # (D = rowsum(g * out)), K3b (dK, dV and the dQ partials), the dQ reduction
 ATTENTION_KERNELS = ("mha_fwd_f32_kernel", "mha_fwd_combine_kernel",
                      "mha_bwd_rowdot_kernel", "mha_bwd_dkdv_kernel",
                      "mha_bwd_dq_reduce_kernel")
+# the convolution kernels' SASS functions (templates: several instances
+# each): K4's one-launch dilation unit and its two-launch conv, K2's two
+# convs (its LayerNorm kernel does no product)
+CONV_KERNELS = ("resblock_unit_kernel", "resblock_conv_kernel",
+                "ffn_conv1_kernel", "ffn_conv2_kernel")
+# K2's shapes on the paths: (B, L, k2) of the README sentence's encoder
+# and decoder, the re-dispatch bucket, one frame, a 3-tap second conv, and
+# the validation forward at batch 10
+K2_SHAPES = ((1, 1000, 1), (1, 32, 1), (1, 1536, 1), (1, 1, 1), (1, 48, 3),
+             (TRAIN_BATCH, 128, 1), (TRAIN_BATCH, 1000, 1))
 
 
 def say(*parts):
@@ -116,31 +130,33 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes, tensor_cores=False):
-    """-> (least time in ms, "operations" | "bytes") on the float32 CUDA
-    cores' basis (K2, K4, and K1's and K3's SIMT bound for the record), or
-    with ``tensor_cores`` on K1's and K3's: 3xTF32, three TF32 products for
-    each float32-accurate one."""
-    if tensor_cores:
-        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
-    else:
-        t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def with_bound(t, bound):
+    """t + the bound of one of tools/kernel_bounds.py's functions: 3xTF32
+    on the tensor cores, the SIMT float32 bound beside it."""
+    t["bound_ms"], t["bound_by"], t["simt_bound_ms"] = bound[:3]
+    t["bound_basis"] = BOUND_BASIS
+    return t
 
 
-def ptxas_summary(report, names):
-    """-> {kernel: "R registers, S B smem, spills"} from nvcc -Xptxas -v."""
-    out, current = {}, None
+def ptxas_by_kernel(report, names):
+    """-> {kernel: {instances, max_registers, spill_bytes}} over all the
+    template instances of each kernel, from nvcc -Xptxas -v."""
+    out = {n: dict(instances=0, max_registers=0, spill_bytes=0)
+           for n in names}
+    current = None
     for line in report.splitlines():
         if "Compiling entry function" in line:
             current = next((n for n in names if n in line), None)
-        elif current and "spill" in line:
-            out[current] = line.strip()
-        elif current and "Used" in line:
-            out[current] = (line.split(":", 1)[1].strip() + "; "
-                            + out.get(current, ""))
-            current = None
+            if current:
+                out[current]["instances"] += 1
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[current]["spill_bytes"] += nums[1] + nums[2]
+        elif current and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            out[current]["max_registers"] = max(
+                out[current]["max_registers"], regs)
     return out
 
 
@@ -187,7 +203,7 @@ def attention_grad_inputs(L, device, seed, B=TRAIN_BATCH):
     return q, k, v, mask, grad
 
 
-def ffn_inputs(L, device, seed, k2=1):
+def ffn_inputs(L, device, seed, k2=1, B=1):
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -195,7 +211,7 @@ def ffn_inputs(L, device, seed, k2=1):
     def r(*shape, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=g) * scale + shift).to(device)
 
-    return (r(1, L, 256), r(9, 256, 1024, scale=0.03), r(1024, scale=0.1),
+    return (r(B, L, 256), r(9, 256, 1024, scale=0.03), r(1024, scale=0.1),
             r(k2, 1024, 256, scale=0.03), r(256, scale=0.1),
             r(256, scale=0.1, shift=1.0), r(256, scale=0.1))
 
@@ -245,6 +261,8 @@ def main():
         vocoder_infer,
     )
     from fastspeech2_tpu_torch.tools.kernel_bounds import (
+        attention_bound_ms,
+        ffn_bound_ms,
         parity_resblock_shapes,
         resblock_bound_ms,
     )
@@ -269,19 +287,27 @@ def main():
         f"{os.path.basename(info['path'])} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {info['seconds']:.2f} s); ptxas: {' | '.join(ptxas)}")
     lib = cuda_build.load_library()
-    per_kernel = ptxas_summary(info.get("ptxas", ""), ATTENTION_KERNELS)
     occupancy = {"mha_fwd_f32_kernel": lib.fs2_mha_fwd_blocks_per_sm(),
                  "mha_bwd_dkdv_kernel": lib.fs2_mha_bwd_blocks_per_sm()}
-    for name in ATTENTION_KERNELS:
-        say(f"[build] {name}: {per_kernel.get(name, 'not in the report')}; "
-            f"resident blocks per SM "
-            f"{occupancy.get(name, 'n/a (no shared memory)')}")
-    hmma = hmma_counts(info["path"], ATTENTION_KERNELS)
-    say(f"[build] HMMA (tensor-core) instructions in the SASS: "
+    per_kernel = ptxas_by_kernel(info.get("ptxas", ""),
+                                 ATTENTION_KERNELS + CONV_KERNELS)
+    for name, row in per_kernel.items():
+        say(f"[build] {name}: {row['instances']} instance(s), at most "
+            f"{row['max_registers']} registers, {row['spill_bytes']} bytes "
+            f"of spill stores and loads in all; resident blocks per SM "
+            f"{occupancy.get(name, 'not queried')}")
+    if any(row["instances"] == 0 or row["spill_bytes"]
+           for row in per_kernel.values()):
+        raise RuntimeError(f"a kernel is missing from the build or spills: "
+                           f"{per_kernel}")
+    hmma = hmma_counts(info["path"], ATTENTION_KERNELS + CONV_KERNELS)
+    say(f"[build] HMMA (tensor-core) instructions in the SASS (summed over "
+        f"a template's instances): "
         f"{'not measured (no cuobjdump)' if hmma is None else hmma}")
     if hmma is not None and not all(hmma.get(n, 0) > 0 for n in (
-            "mha_fwd_f32_kernel", "mha_bwd_dkdv_kernel")):
-        raise RuntimeError("K1 or K3 has no tensor-core instruction")
+            "mha_fwd_f32_kernel", "mha_bwd_dkdv_kernel") + CONV_KERNELS):
+        raise RuntimeError("a kernel that multiplies has no tensor-core "
+                           "instruction")
     k1_grids = {(B, L): cuda_attention.forward_plan(B, 2, L)[0]
                 for B, L in ((1, 32), (1, 1000), (TRAIN_BATCH, 128),
                              (TRAIN_BATCH, 768), (TRAIN_BATCH, 1000))}
@@ -289,6 +315,11 @@ def main():
         f"128], by (B, L): {k1_grids}; {math.prod(k1_grids[(1, 1000)])} "
         f"blocks at [1, 2, 1000, 128] on "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    k2_plans = {(B, L): cuda_ffn.forward_plan(B, L, 1024, 9)
+                for B, L, _ in K2_SHAPES}
+    say(f"[build] K2's plan (positions per block and tap splits of the first "
+        f"conv, hidden groups of the second) at [B, L, 256] -> 1024, by "
+        f"(B, L): {k2_plans}")
 
     # 3. K1 vs plain: the encoder's L (32 for the README sentence's 31
     #    phones, 48 for 33-48 phones) and the decoder's (1000); each at
@@ -340,20 +371,26 @@ def main():
     if not stats_rel <= KERNEL_ATOL:
         raise RuntimeError("K1's row sums disagree with the plain scores'")
 
-    # 4. K2 vs plain
+    # 4. K2 vs plain at every path shape, each launched twice
     k2_err = 0.0
-    for L, k2 in ((1000, 1), (32, 1), (48, 3)):
-        args = ffn_inputs(L, device, seed=L + k2, k2=k2)
+    k2_repeat = True
+    for B, L, k2 in K2_SHAPES:
+        args = ffn_inputs(L, device, seed=L + k2 + B, k2=k2, B=B)
         got = cuda_ffn.fused_conv_ffn(*args)
+        again = cuda_ffn.fused_conv_ffn(*args)
         torch.cuda.synchronize()
         ref = cuda_ffn.plain_conv_ffn(*args)
         if not torch.isfinite(got).all():
-            raise RuntimeError(f"K2 output not finite at L={L}")
+            raise RuntimeError(f"K2 output not finite at [{B}, {L}, 256]")
+        k2_repeat = k2_repeat and torch.equal(got, again)
         k2_err = max(k2_err, (got - ref).abs().max().item())
-    say(f"[K2] conv-FFN kernel vs plain at [1, 1000|32|48, 256] -> 1024 "
-        f"(k2 = 1, 3): max_abs_err={k2_err:.3e} (tolerance {KERNEL_ATOL:g})")
+    say(f"[K2] conv-FFN kernel vs plain at [B, L, 256] -> 1024, (B, L, k2) "
+        f"in {K2_SHAPES}: max_abs_err={k2_err:.3e} (tolerance "
+        f"{KERNEL_ATOL:g}); two launches bitwise equal: {k2_repeat}")
     if not k2_err <= KERNEL_ATOL:
         raise RuntimeError("K2 disagrees with its plain version")
+    if not k2_repeat:
+        raise RuntimeError("K2 is not bitwise repeatable")
 
     # 5. K3 vs plain at the training slice's L (decoder 1000, LJSpeech10's
     #    bucket 768, encoder 128), batch 10 with one full, one fully padded
@@ -431,11 +468,17 @@ def main():
     #    L) and at L ragged against every tile
     k4_shapes = parity_resblock_shapes(1000)
     k4_err = k4_rel = 0.0
+    k4_repeat = True
     for C, L, k in k4_shapes + [(256, 8, 3), (256, 8, 7), (256, 8, 11),
                                 (128, 1531, 11), (32, 777, 7)]:
         x, w1, b1, w2, b2 = resblock_inputs(C, L, k, device, seed=C + L + k)
         with torch.inference_mode():
             got = cuda_resblock.fused_resblock(x, w1, b1, w2, b2, DILATIONS)
+            if (C, L, k) in k4_shapes:
+                again = cuda_resblock.fused_resblock(x, w1, b1, w2, b2,
+                                                     DILATIONS)
+                k4_repeat = k4_repeat and torch.equal(got, again)
+                del again
             torch.cuda.synchronize()
             ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, DILATIONS)
         if not torch.isfinite(got).all():
@@ -448,9 +491,12 @@ def main():
         f"[1, 128, 64000], [1, 64, 128000], [1, 32, 256000] with k = 3, 7, "
         f"11 each, [1, 256, 8] (k = 3, 7, 11), [1, 128, 1531] and "
         f"[1, 32, 777]: max_abs_err={k4_err:.3e}, max relative to the "
-        f"largest |output| {k4_rel:.3e} (tolerance {K4_RTOL:g} relative)")
+        f"largest |output| {k4_rel:.3e} (tolerance {K4_RTOL:g} relative); "
+        f"two launches bitwise equal at the 12 path shapes: {k4_repeat}")
     if not k4_rel <= K4_RTOL:
         raise RuntimeError("K4 disagrees with its plain version")
+    if not k4_repeat:
+        raise RuntimeError("K4 is not bitwise repeatable")
 
     # 7. synthesis through the CLI's main; counts from this run only
     with tempfile.TemporaryDirectory() as tmp:
@@ -485,7 +531,8 @@ def main():
     say(f"[synthesis] {README_SENTENCE!r}: {len(wav)} samples = mel_len "
         f"{mel_len} x hop {hop}; peak {peak}; written wav read back equal; "
         f"{forwards} acoustic forward(s); launches K1={launches['K1']} "
-        f"K2={launches['K2']} K4={launches['K4']} (HiFi-GAN-iSTFT); CLI main "
+        f"K2={launches['K2']} K4={launches['K4']} (HiFi-GAN-iSTFT, 6 K4 "
+        f"per vocoder forward); CLI main "
         f"{cli_s:.2f} s (build, load, G2P and first calls included)")
     if len(wav) != mel_len * hop or mel_len <= 0:
         raise RuntimeError("wav length is not mel_len * hop")
@@ -498,8 +545,9 @@ def main():
             raise RuntimeError(f"{name} launched {launches[name]} times, "
                                f"expected {10 * forwards} (10 per acoustic "
                                "forward)")
-    if launches["K4"] != 0:
-        raise RuntimeError("the iSTFT vocoder launched K4")
+    if launches["K4"] != 6:
+        raise RuntimeError(f"K4 launched {launches['K4']} times, expected 6 "
+                           "(one iSTFT vocoder forward)")
 
     model, cfg = synthesize_cli.load_model_for_inference(
         preprocess_config, model_config, ACOUSTIC_NPZ, device)
@@ -525,6 +573,25 @@ def main():
         f"{kern.src_pad_mask.shape[1]}, decoder L={kern.mel.shape[1]}")
     if not mel_err <= MEL_ATOL:
         raise RuntimeError("the kernel forward's mel disagrees with plain")
+    # the iSTFT vocoder's wav with K4 against its plain ResBlocks
+    istft_resblocks = [m for m in vocoder.modules() if isinstance(m, ResBlock)]
+    with torch.inference_mode():
+        i_wav = vocoder(kern.postnet_mel)
+        for m in istft_resblocks:
+            m.fused = False
+        i_plain = vocoder(kern.postnet_mel)
+        for m in istft_resblocks:
+            m.fused = True
+    if not torch.isfinite(i_wav).all():
+        raise RuntimeError("the iSTFT wav is not finite")
+    istft_err = (i_wav - i_plain).abs().max().item()
+    say(f"[synthesis] iSTFT vocoder wav with K4 ({len(istft_resblocks)} "
+        f"ResBlocks) vs the plain ResBlocks on the card, "
+        f"[1, {kern.postnet_mel.shape[1]}] frames -> {i_wav.shape[1]} "
+        f"samples: max_abs_diff={istft_err:.3e} (tolerance {WAV_ATOL:g}; "
+        f"largest |sample| {i_plain.abs().max().item():.3e})")
+    if not istft_err <= WAV_ATOL:
+        raise RuntimeError("the iSTFT vocoder's K4 wav disagrees with plain")
 
     # 8. the parity HiFi-GAN through the CLI's main, from its seeded random
     #    init (no --vocoder_ckpt); counts from this run only
@@ -598,46 +665,32 @@ def main():
         q, k, v, mask = attention_inputs([partial], L, device, seed=7)
         additive = torch.zeros(1, 1, 1, L, device=device).masked_fill(
             mask[:, None, None, :], -1e9)
-        timings[("K1", L)] = dict(
+        timings[("K1", 1, L)] = with_bound(dict(
             ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
                 q, k, v, mask)),
             plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v, mask)),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=additive)),
-            flops=4.0 * 2 * L * L * 128,
-            nbytes=4 * (4 * 2 * L * 128) + L,
-            tensor_cores=True)
-        args = ffn_inputs(L, device, seed=9)
-        timings[("K2", L)] = dict(
-            ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(*args)),
-            plain_ms=cuda_time_ms(lambda: cuda_ffn.plain_conv_ffn(*args)),
-            library_ms=None,
-            flops=2.0 * L * 256 * 1024 * 9 + 2.0 * L * 1024 * 256,
-            nbytes=4 * (2 * L * 256 + 9 * 256 * 1024 + 1024 * 256
-                        + 1024 + 3 * 256))
-    def set_bound(t):
-        """K1 and K3: the 3xTF32 tensor-core basis, the SIMT float32 bound
-        kept beside it; K2: the SIMT float32 basis."""
-        if t.get("tensor_cores"):
-            t["bound_ms"], t["bound_by"] = bound(t["flops"], t["nbytes"], True)
-            t["simt_bound_ms"] = bound(t["flops"], t["nbytes"])[0]
-            t["bound_basis"] = ("3xTF32 on the tensor cores: max(3 x "
-                                "operations / 495 TFLOP/s, bytes / 3.35 TB/s)")
-        else:
-            t["bound_ms"], t["bound_by"] = bound(t["flops"], t["nbytes"])
-            t["bound_basis"] = ("float32 CUDA cores: max(operations / 67 "
-                                "TFLOP/s, bytes / 3.35 TB/s)")
+                q, k, v, attn_mask=additive))), attention_bound_ms(1, 2, L))
+    # K2 as the model calls it, its weight pack made once: the README
+    # sentence's encoder and decoder, the validation forward at batch 10
+    for B, L in ((1, enc_len), (1, 1000), (TRAIN_BATCH, 128),
+                 (TRAIN_BATCH, 1000)):
+        args = ffn_inputs(L, device, seed=9, B=B)
+        packed = cuda_ffn.pack_ffn_weights(args[1], args[3])
+        with torch.inference_mode():
+            timings[("K2", B, L)] = with_bound(dict(
+                ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(
+                    *args, packed=packed)),
+                plain_ms=cuda_time_ms(lambda: cuda_ffn.plain_conv_ffn(*args)),
+                library_ms=None), ffn_bound_ms(B, L))
 
-    for (name, L), t in sorted(timings.items()):
-        set_bound(t)
+    for (name, B, L), t in sorted(timings.items()):
         lib = ("null" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        simt = (f"; SIMT bound {t['simt_bound_ms']:.3e} ms"
-                if "simt_bound_ms" in t else "")
-        say(f"[timing] {name} L={L}: kernel {t['ms']:.4f} ms, plain "
+        say(f"[timing] {name} B={B} L={L}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{t['bound_ms']:.3e} ms ({t['bound_by']}; "
-            f"{t['bound_basis']}){simt} on {card}")
+            f"{t['bound_ms']:.3e} ms ({t['bound_by']}; {t['bound_basis']}); "
+            f"SIMT bound {t['simt_bound_ms']:.3e} ms on {card}")
 
     def host_ms(fn, n=5):
         times = []
@@ -680,15 +733,16 @@ def main():
                                             allow_tf32=False):
                 t["library_ms"] = cuda_time_ms(
                     lambda: cuda_resblock.plain_resblock(*rb, DILATIONS))
-        t["bound_ms"], t["bound_by"], _, _ = resblock_bound_ms(1, L, C, k)
-        k4_timings.append(t)
+        k4_timings.append(with_bound(t, resblock_bound_ms(1, L, C, k)))
         say(f"[timing] K4 [1, {C}, {L}] k={k}: kernel {t['ms']:.4f} ms, "
             f"plain {t['plain_ms']:.4f} ms, cuDNN autotuned "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.3e} ms "
-            f"({t['bound_by']}) on {card}")
+            f"({t['bound_by']}, 3xTF32); SIMT bound "
+            f"{t['simt_bound_ms']:.3e} ms on {card}")
     del rb, packed
     k4_total = {key: sum(t[key] for t in k4_timings)
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "simt_bound_ms")}
     voc_k4 = host_ms(lambda: vocoder_infer(p_out.postnet_mel, parity_vocoder,
                                            preprocess_config))
     for m in resblocks:
@@ -700,7 +754,8 @@ def main():
     say(f"[timing] K4, the 12 calls of one 1000-frame parity forward: "
         f"kernel {k4_total['ms']:.4f} ms, plain {k4_total['plain_ms']:.4f} "
         f"ms, cuDNN autotuned {k4_total['library_ms']:.4f} ms, bound "
-        f"{k4_total['bound_ms']:.4f} ms; the parity vocoder on the "
+        f"{k4_total['bound_ms']:.4f} ms (3xTF32; SIMT "
+        f"{k4_total['simt_bound_ms']:.4f} ms); the parity vocoder on the "
         f"{p_out.postnet_mel.shape[1]}-frame mel + int16: median "
         f"{voc_k4[0]:.2f} ms over 5 (min {voc_k4[1]:.2f}) with K4, "
         f"{voc_plain[0]:.2f} ms (min {voc_plain[1]:.2f}) with the plain "
@@ -719,32 +774,24 @@ def main():
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         sdpa_out = F.scaled_dot_product_attention(*leaves,
                                                   attn_mask=additive)
-        bhld = TRAIN_BATCH * 2 * L * 128
-        train_timings[("K3", L)] = dict(
+        train_timings[("K3", L)] = with_bound(dict(
             ms=cuda_time_ms(lambda: cuda_attention.fused_attention_backward(
                 q, k, v, mask, out, row_max, row_sum, g)),
             plain_ms=cuda_time_ms(lambda: plain_attention_backward(
                 q, k, v, mask, g)),
             library_ms=cuda_time_ms(lambda: torch.autograd.grad(
-                sdpa_out, leaves, g, retain_graph=True)),
-            # five L x L x Dh products per (b, h); q, k, v, g read, dq, dk,
-            # dv written, the mask read
-            flops=5 * 2.0 * L * L * 128 * TRAIN_BATCH * 2,
-            nbytes=4 * 7 * bhld + TRAIN_BATCH * L,
-            tensor_cores=True)
-        train_timings[("K1", L)] = dict(
+                sdpa_out, leaves, g, retain_graph=True))),
+            attention_bound_ms(TRAIN_BATCH, 2, L, backward=True))
+        train_timings[("K1", L)] = with_bound(dict(
             ms=cuda_time_ms(lambda: cuda_attention._launch_forward(
                 q, k, v, mask, True)),
             plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v,
                                                                mask)),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=additive)),
-            flops=2 * 2.0 * L * L * 128 * TRAIN_BATCH * 2,
-            nbytes=4 * 4 * bhld + TRAIN_BATCH * L,
-            tensor_cores=True)
+                q, k, v, attn_mask=additive))),
+            attention_bound_ms(TRAIN_BATCH, 2, L))
         del sdpa_out, leaves
     for (name, L), t in sorted(train_timings.items()):
-        set_bound(t)
         say(f"[timing] {name} at [10, 2, {L}, 128] (training): kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.3e} ms "
@@ -939,19 +986,24 @@ def main():
                       "fastspeech2_tpu/ops/pallas_attention.py:138",
                       "[10, 2, 1000, 128] f32")}
     errs = {"K1": k1_err, "K2": k2_err, "K3": k3_err}
-    # K1 and K3 at every shape the paths give them
+    # K1, K2 and K3 at every shape the paths give them
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "simt_bound_ms")
     per_shape = {name: [
-        dict(shape=[B, 2, L, 128], **{key: t[key] for key in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "simt_bound_ms")})
-        for (B, table) in ((1, timings), (TRAIN_BATCH, train_timings))
-        for (n, L), t in sorted(table.items()) if n == name]
+        dict(shape=[B, 2, L, 128], **{key: t[key] for key in keys})
+        for (B, L), t in sorted(
+            [((1, L), t) for (n, _, L), t in timings.items() if n == name]
+            + [((TRAIN_BATCH, L), t) for (n, L), t in train_timings.items()
+               if n == name])]
         for name in ("K1", "K3")}
+    per_shape["K2"] = [dict(shape=[B, L, 256], **{key: t[key] for key in keys})
+                       for (n, B, L), t in sorted(timings.items())
+                       if n == "K2"]
     kernels = []
     for name in ("K1", "K2", "K3"):
         fn, src, replaces, shape = sources[name]
         t = (train_timings[(name, 1000)] if name == "K3"
-             else timings[(name, 1000)])
+             else timings[(name, 1, 1000)])
         # launches: K1 and K2 on the synthesis path (one acoustic forward),
         # K3 on the training path (20 steps)
         n = train_launches[name] if name == "K3" else launches[name]
@@ -977,9 +1029,10 @@ def main():
         "ms": k4_total["ms"], "plain_ms": k4_total["plain_ms"],
         "bound_ms": k4_total["bound_ms"],
         "bound_by": "/".join(sorted({t["bound_by"] for t in k4_timings})),
-        "library_ms": k4_total["library_ms"],
-        "bound_basis": "float32 CUDA cores: max(operations / 67 TFLOP/s, "
-                       "bytes / 3.35 TB/s)",
+        "library_ms": k4_total["library_ms"], "bound_basis": BOUND_BASIS,
+        "simt_bound_ms": k4_total["simt_bound_ms"],
+        "sources": ["fastspeech2_tpu_torch/csrc/resblock.cu",
+                    "fastspeech2_tpu_torch/csrc/resblock_conv.cu"],
         "shape": "the 12 ResBlock calls of a 1000-frame parity forward, "
                  "[1, 256|128|64|32, 8000|64000|128000|256000], k = 3, 7, "
                  "11, f32",

@@ -1,4 +1,5 @@
-// K2: fused position-wise conv FFN forward, float32, for sm_90a.
+// K2: fused position-wise conv FFN forward, float32 on the tensor cores
+// (3xTF32), for sm_90a.
 //
 // Replaces the TPU kernel fastspeech2_tpu/ops/pallas_ffn.py (_ffn_kernel via
 // _pallas_forward), which keeps one batch row's [L, H] hidden activation in
@@ -8,254 +9,437 @@
 //   y   = conv1d_k2(h; w2 [k2, H, D]) + b2 + x
 //   out = (y - mean) / sqrt(E[y^2] - mean^2 + 1e-5) * gamma + beta   (over D)
 //
-// with float32 accumulation; each k-tap conv is k shifted [L, C] x [C, N]
-// products (tap j reads row t + j - (k-1)/2), and taps that fall outside
-// [0, L) read zero.
+// Each k-tap conv is k shifted products (tap j reads row t + j - (k-1)/2);
+// taps that fall outside [0, L) read zero.
 //
-// What bounds it on an H100: the first conv is 2 L D H k1 operations
-// (4.7 GFLOP at L = 1000, D = 256, H = 1024, k1 = 9) on the CUDA cores in
-// float32 (67 TFLOP/s), against ~10 MB of weights and activations, so
-// operations bound it.
+// What bounds it on an H100: 2 L D H (k1 + k2) operations (5.24 GFLOP at
+// L = 1000, D = 256, H = 1024, k = (9, 1)), 3xTF32 on the tensor cores:
+// 0.0318 ms at L = 1000.  At L = 32 the 10.5 MB of weights bound it
+// (0.0032 ms at 3.35 TB/s), and the bound asks that many SMs pull them at
+// once.
 //
-// Design: the [L, 1024] hidden activation that fit VMEM does not fit a
-// block's shared memory, so this first version takes two launches and
-// round-trips h through device memory (4 MB at L = 1000; a later version
-// removes that):
-//   (a) conv_relu: a tiled SIMT GEMM over (rows, H) in 64 x 64 tiles, the
-//       k1 taps and the D contraction walked in 16-wide slices; epilogue
-//       bias + ReLU, h written to a scratch buffer the caller allocates.
-//   (b) conv_residual_ln: 16 rows x all D = 256 columns per block, so the
-//       LayerNorm row statistics stay inside the block; epilogue bias +
-//       residual into shared memory, then one warp per row reduces the sum
-//       and the sum of squares with shuffles and writes the normalised row.
-// Sequence-edge taps are zero-filled while the A tile is loaded.  A simple
-// first kernel: no tensor cores, no TMA, no double buffering.
+// Design (conv_tiles.cuh has the implicit GEMM and the packed weights):
+// three launches, h and the second conv's partial sums through device
+// memory (in L2 at the path's shapes):
+//   (a) conv1: M = H (64 per block, 4 warps) by N = positions (BN = 64 or
+//       128 per block) by K = D x the block's taps.  The k1 taps are split
+//       over S blocks (S chosen so that the grid fills every SM: 9 at
+//       L = 32, 2 at L = 1000), each writing its partial sum of the
+//       pre-activation to part[S][B][L][H].  x's rows (window BN + taps - 1)
+//       are staged 16 channels at a time by cp.async, a ring of four
+//       slices (at L = 32 a block's work per slice is short, and the copy
+//       latency would show), and split once per staged element.
+//   (b) conv2: 16 rows x all D = 256 columns per block (8 warps of 32) x
+//       one of G groups of the hidden channels (G chosen so that the grid
+//       fills every SM: 16 at L = 32, 4 at L = 1000), so that many SMs pull
+//       w2 at once.  The block stages the S partials of its rows' h (with
+//       the (k2-1)/2 halo) 64 hidden channels at a time by cp.async, and
+//       forms h = ReLU(sum over s in order + b1), 0 outside [0, L), split
+//       once per staged element; it writes its group's share of the
+//       product to ypart[G][B][L][256].
+//   (c) LayerNorm: one warp per row sums the G shares in order, adds b2
+//       and the residual, reduces the sum and the sum of squares with
+//       shuffles and writes the normalised row, with the LayerNorm
+//       arithmetic of the first version of this kernel.
+// (a) and (b) keep two levels of sums: each staged slice's products are
+// accumulated by the tensor cores from 0 and then added to the running
+// float32 sum on the CUDA cores.  The tensor cores' own accumulation rounds
+// less exactly than float32's round-to-nearest, and over the 3072 terms of
+// a 3-tap second conv its error reached ~1.1e-4 on the LayerNorm's output
+// (against plain float32, on an H100) with one level.  No atomics: the
+// partials are summed in a fixed order, and two launches on the same
+// inputs agree bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "conv_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 16;
+using namespace fs2_conv;
 
-// ---- (a) h = ReLU(conv_k1(x) + b1) ---------------------------------------
-constexpr int kBM_A = 64;
-constexpr int kBN_A = 64;
+constexpr int kD = 256;
+constexpr int kMaxSmem = 227 * 1024;   // a block's dynamic shared memory
 
-__global__ void __launch_bounds__(kThreads)
-conv_relu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                     const float* __restrict__ b1, float* __restrict__ h,
-                     int L, int D, int H, int k1) {
-  __shared__ __align__(16) float As[kBK][kBM_A];  // transposed: [k][row]
-  __shared__ __align__(16) float Bs[kBK][kBN_A];
+// ---- (a) part[s] = the taps of split s of conv_k1(x) -----------------------
+constexpr int kThreadsA = 128;
+constexpr int kBM_A = 64;       // hidden channels per block
+constexpr int kSliceA = 16;     // input channels per staged slice
+constexpr int kStrideA = 20;    // 4 mod 32, 16-byte rows
+constexpr int kStagesA = 4;     // slices in flight: the ring of raw buffers
 
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.y * kBM_A;
-  const int n0 = blockIdx.x * kBN_A;
-  const float* xb = x + static_cast<size_t>(b) * L * D;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx + 16 j
-  const int ty = tid / 16;  // rows ty*4 + i
-  const int p1 = (k1 - 1) / 2;
-
-  // tile-load coordinates: A as 64 rows x 4 float4, B as 16 rows x 16 float4
-  const int a_row = tid / 4;
-  const int a_col = (tid % 4) * 4;
-  const int b_row = tid / 16;
-  const int b_col = (tid % 16) * 4;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int tap = 0; tap < k1; ++tap) {
-    const int src = t0 + a_row + tap - p1;
-    const bool in_range = src >= 0 && src < L;
-    for (int c0 = 0; c0 < D; c0 += kBK) {
-      float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (in_range)
-        av = *reinterpret_cast<const float4*>(
-            xb + static_cast<size_t>(src) * D + c0 + a_col);
-      As[a_col + 0][a_row] = av.x;
-      As[a_col + 1][a_row] = av.y;
-      As[a_col + 2][a_row] = av.z;
-      As[a_col + 3][a_row] = av.w;
-      *reinterpret_cast<float4*>(&Bs[b_row][b_col]) =
-          *reinterpret_cast<const float4*>(
-              w1 + (static_cast<size_t>(tap) * D + c0 + b_row) * H + n0 +
-              b_col);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float av4[4] = {a.x, a.y, a.z, a.w};
-        float bv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av4[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  float* hb = h + static_cast<size_t>(b) * L * H;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
-    if (t < L) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + tx + 16 * j;
-        hb[static_cast<size_t>(t) * H + n] = fmaxf(acc[i][j] + b1[n], 0.f);
-      }
-    }
+// rows [win0, win0 + span) of x's channels [c0, c0 + 16) into dst [span][20],
+// zero outside [0, L)
+__device__ __forceinline__ void stage_rows_a(float* dst, const float* xb,
+                                             int c0, int L, int win0,
+                                             int span, int tid) {
+  for (int i = tid; i < span * 4; i += kThreadsA) {
+    const int row = i >> 2;
+    const int q = (i & 3) * 4;
+    const int pos = win0 + row;
+    const bool ok = pos >= 0 && pos < L;
+    cp_async16(dst + row * kStrideA + q,
+               ok ? xb + static_cast<size_t>(pos) * kD + c0 + q : xb, ok);
   }
 }
 
-// ---- (b) out = LN(conv_k2(h) + b2 + x) over D = 256 -----------------------
-constexpr int kD_B = 256;
-constexpr int kBM_B = 16;
+// MT m-tiles per warp, WN warps along the positions (and 4 / WN along the
+// channels): BN = 128 is (4, 4), 64 is (2, 2), 32 is (1, 1)
+template <int MT, int WN>
+__global__ void __launch_bounds__(kThreadsA)
+ffn_conv1_kernel(const float* __restrict__ x, const float4* __restrict__ w1,
+                 float* __restrict__ part, int B, int L, int H, int k1,
+                 int splits) {
+  constexpr int WM = kBM_A / (16 * MT);
+  constexpr int BN = 32 * WN;
+  static_assert(WM * WN * 32 == kThreadsA, "4 warps");
+  extern __shared__ __align__(16) float smem[];
 
-__global__ void __launch_bounds__(kThreads)
-conv_residual_ln_f32_kernel(const float* __restrict__ h,
-                            const float* __restrict__ w2,
-                            const float* __restrict__ b2,
-                            const float* __restrict__ x,
-                            const float* __restrict__ gamma,
-                            const float* __restrict__ beta,
-                            float* __restrict__ out, int L, int H, int k2) {
-  __shared__ __align__(16) float As[kBK][kBM_B];  // transposed: [k][row]
-  __shared__ __align__(16) float Bs[kBK][kD_B];
-  __shared__ float Ys[kBM_B][kD_B];
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kBM_B;
-  const float* hb = h + static_cast<size_t>(b) * L * H;
+  const int l0 = blockIdx.x * BN;
+  const int n0 = blockIdx.y * kBM_A;
+  const int b = blockIdx.z / splits;
+  const int sp = blockIdx.z % splits;
   const int tid = threadIdx.x;
-  const int tx = tid % 64;  // columns tx + 64 j
-  const int ty = tid / 64;  // rows ty*4 + i
-  const int p2 = (k2 - 1) / 2;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp % WM;
+  const int wn = warp / WM;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int per = (k1 + splits - 1) / splits;
+  const int j0 = min(sp * per, k1);
+  const int j1 = min(j0 + per, k1);
+  const int win0 = l0 + j0 - (k1 - 1) / 2;
+  const int span = BN + (j1 > j0 ? j1 - j0 - 1 : 0);
+  const float* xb = x + static_cast<size_t>(b) * L * kD;
+  const int wf_mt = k1 * (kD / 8) * kFrag4;
+  const int tap4 = (kD / 8) * kFrag4;
+  const float4* wf = w1 + (n0 / 16 + wm * MT) * wf_mt;
 
-  const int a_row = tid / kBK;
-  const int a_col = tid % kBK;
+  const int buf = span * kStrideA;   // floats per raw slice
+  float* raw = smem;                 // [kStagesA][span][20]
+  uint32_t* pb = reinterpret_cast<uint32_t*>(smem + kStagesA * buf);
+  uint32_t* ps = pb + buf;
 
-  float acc[4][4];
+  float acc[MT][4][4];
+  zero(acc);
+  if (j1 > j0) {
+    constexpr int slices = kD / kSliceA;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int tap = 0; tap < k2; ++tap) {
-    const int src = t0 + a_row + tap - p2;
-    const bool in_range = src >= 0 && src < L;
-    for (int c0 = 0; c0 < H; c0 += kBK) {
-      As[a_col][a_row] =
-          in_range ? hb[static_cast<size_t>(src) * H + c0 + a_col] : 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int idx = tid + kThreads * u;  // float4 index in the 16 x 256 tile
-        const int r = idx / (kD_B / 4);
-        const int c = (idx % (kD_B / 4)) * 4;
-        *reinterpret_cast<float4*>(&Bs[r][c]) =
-            *reinterpret_cast<const float4*>(
-                w2 + (static_cast<size_t>(tap) * H + c0 + r) * kD_B + c);
+    for (int s = 0; s < kStagesA - 1; ++s) {
+      stage_rows_a(raw + s * buf, xb, s * kSliceA, L, win0, span, tid);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int s = 0; s < slices; ++s) {
+      cp_async_wait<kStagesA - 2>();
+      __syncthreads();
+      const int next = s + kStagesA - 1;
+      if (next < slices)
+        stage_rows_a(raw + (next % kStagesA) * buf, xb, next * kSliceA, L,
+                     win0, span, tid);
+      cp_async_commit();
+      const float* src = raw + (s % kStagesA) * buf;
+      for (int i = tid; i < span * kSliceA; i += kThreadsA) {
+        const int at = (i >> 4) * kStrideA + (i & 15);
+        split(src[at], pb[at], ps[at]);
       }
       __syncthreads();
+      float sl[MT][4][4];
+      zero(sl);
+#pragma unroll 1
+      for (int j = j0; j < j1; ++j)
+        mma_tap<MT, 4, kSliceA / 8, true>(
+            sl, pb, ps, kStrideA, wn * 32 + (j - j0),
+            wf + j * tap4 + s * (kSliceA / 8) * kFrag4, wf_mt, lane);
+      add(acc, sl);
+    }
+  }
+
+  float* pout = part + static_cast<size_t>(sp * B + b) * L * H;
 #pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float av4[4] = {a.x, a.y, a.z, a.w};
-        float bv[4];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 64 * j];
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av4[i], bv[j], acc[i][j]);
+      for (int i = 0; i < 4; ++i) {
+        const int n = n0 + 16 * (wm * MT + mt) + g + (i >= 2 ? 8 : 0);
+        const int l = l0 + wn * 32 + 8 * nt + 2 * t + (i & 1);
+        if (l < L) pout[static_cast<size_t>(l) * H + n] = acc[mt][nt][i];
       }
-      __syncthreads();
+}
+
+// ---- (b) ypart[g] = hidden group g's share of conv_k2(ReLU(sum part + b1))
+constexpr int kThreadsB = 256;
+constexpr int kBN_B = 16;       // rows per block
+constexpr int kSliceB = 64;     // hidden channels per staged slice
+constexpr int kStrideB = 68;    // 4 mod 32, 16-byte rows
+
+int smem_b(int splits, int k2) {
+  const int span = kBN_B + k2 - 1;
+  return 4 * (2 * splits + 2) * span * kStrideB;
+}
+
+// rows [win0, win0 + span) of the hidden channels [c0, c0 + 64) of each of
+// the splits partial planes (plane floats apart, rows H apart) into dst
+// [splits][span][68], zero outside [0, L)
+__device__ __forceinline__ void stage_rows_b(float* dst, const float* part,
+                                             size_t plane, int splits, int c0,
+                                             int L, int H, int win0, int span,
+                                             int tid) {
+  for (int s = 0; s < splits; ++s)
+    for (int i = tid; i < span * (kSliceB / 4); i += kThreadsB) {
+      const int row = i >> 4;
+      const int q = (i & 15) * 4;
+      const int pos = win0 + row;
+      const bool ok = pos >= 0 && pos < L;
+      cp_async16(dst + (s * span + row) * kStrideB + q,
+                 ok ? part + s * plane + static_cast<size_t>(pos) * H + c0 + q
+                    : part,
+                 ok);
     }
+}
+
+// grid (row tiles, groups, B): 16 rows x all 256 columns (8 warps of 32) x
+// the hidden channels [g H / groups, (g + 1) H / groups)
+__global__ void __launch_bounds__(kThreadsB)
+ffn_conv2_kernel(const float* __restrict__ part, const float* __restrict__ b1,
+                 const float4* __restrict__ w2, float* __restrict__ ypart,
+                 int B, int L, int H, int k2, int splits) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.z;
+  const int grp = blockIdx.y;
+  const int l0 = blockIdx.x * kBN_B;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;    // columns [32 warp, 32 warp + 32)
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int span = kBN_B + k2 - 1;
+  const int win0 = l0 - (k2 - 1) / 2;
+  const int wf_mt = k2 * (H / 8) * kFrag4;
+  const int tap4 = (H / 8) * kFrag4;
+  const float4* wf = w2 + 2 * warp * wf_mt;
+  const size_t plane = static_cast<size_t>(B) * L * H;   // floats per split
+  const float* pb0 = part + static_cast<size_t>(b) * L * H;
+  const int slices = H / kSliceB / gridDim.y;
+  const int sl0 = grp * slices;
+
+  float* raw = smem;        // [2][splits][span][68]
+  const int buf = splits * span * kStrideB;
+  uint32_t* pb = reinterpret_cast<uint32_t*>(smem + 2 * buf);
+  uint32_t* ps = pb + span * kStrideB;
+
+  float acc[2][2][4];
+  zero(acc);
+  stage_rows_b(raw, pb0, plane, splits, sl0 * kSliceB, L, H, win0, span,
+               tid);
+  cp_async_commit();
+#pragma unroll 1
+  for (int i_sl = 0; i_sl < slices; ++i_sl) {
+    const int sl = sl0 + i_sl;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i_sl + 1 < slices)
+      stage_rows_b(raw + ((i_sl + 1) & 1) * buf, pb0, plane, splits,
+                   (sl + 1) * kSliceB, L, H, win0, span, tid);
+    cp_async_commit();
+    const float* src = raw + (i_sl & 1) * buf;
+    for (int i = tid; i < span * kSliceB; i += kThreadsB) {
+      const int row = i >> 6;
+      const int c = i & 63;
+      const int pos = win0 + row;
+      float v = 0.f;
+      if (pos >= 0 && pos < L) {
+        float sum = src[row * kStrideB + c];
+        for (int s = 1; s < splits; ++s)
+          sum += src[(s * span + row) * kStrideB + c];
+        v = fmaxf(sum + __ldg(b1 + sl * kSliceB + c), 0.f);
+      }
+      split(v, pb[row * kStrideB + c], ps[row * kStrideB + c]);
+    }
+    __syncthreads();
+    float part_acc[2][2][4];
+    zero(part_acc);
+#pragma unroll 1
+    for (int j = 0; j < k2; ++j)
+      mma_tap<2, 2, kSliceB / 8, true>(
+          part_acc, pb, ps, kStrideB, j,
+          wf + j * tap4 + sl * (kSliceB / 8) * kFrag4, wf_mt, lane);
+    add(acc, part_acc);
   }
 
-  const float* xb = x + static_cast<size_t>(b) * L * kD_B;
+  float* yb = ypart + (static_cast<size_t>(grp) * B + b) * L * kD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int t = t0 + r;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = tx + 64 * j;
-      Ys[r][n] = t < L ? acc[i][j] + b2[n] + xb[static_cast<size_t>(t) * kD_B + n]
-                       : 0.f;
-    }
-  }
-  __syncthreads();
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = 32 * warp + 16 * mt + g + (i >= 2 ? 8 : 0);
+        const int l = l0 + 8 * nt + 2 * t + (i & 1);
+        if (l < L) yb[static_cast<size_t>(l) * kD + n] = acc[mt][nt][i];
+      }
+}
 
-  // one warp per row: 8 warps x 2 rows
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  float* ob = out + static_cast<size_t>(b) * L * kD_B;
-  for (int r = warp; r < kBM_B; r += kThreads / 32) {
-    const int t = t0 + r;
-    if (t >= L) continue;  // warp-uniform
-    float s = 0.f, sq = 0.f;
+// ---- (c) out = LN(sum of the groups' ypart + b2 + x) over D = 256 ---------
+constexpr int kThreadsC = 256;   // one warp per row
+
+__global__ void __launch_bounds__(kThreadsC)
+ffn_ln_kernel(const float* __restrict__ ypart, const float* __restrict__ b2,
+              const float* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, float* __restrict__ out,
+              int rows, int groups) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kThreadsC / 32) + (threadIdx.x >> 5);
+  if (r >= rows) return;   // warp-uniform
+  const size_t plane = static_cast<size_t>(rows) * kD;
+  const size_t at = static_cast<size_t>(r) * kD + lane;
+  float y[kD / 32];
 #pragma unroll
-    for (int u = 0; u < kD_B / 32; ++u) {
-      const float y = Ys[r][lane + 32 * u];
-      s += y;
-      sq = fmaf(y, y, sq);
-    }
+  for (int u = 0; u < kD / 32; ++u) y[u] = ypart[at + 32 * u];
+#pragma unroll 4
+  for (int grp = 1; grp < groups; ++grp) {
+    const float* p = ypart + grp * plane + at;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    }
-    const float mean = s / kD_B;
-    const float var = sq / kD_B - mean * mean;
-    const float inv = 1.f / sqrtf(var + 1e-5f);
-#pragma unroll
-    for (int u = 0; u < kD_B / 32; ++u) {
-      const int n = lane + 32 * u;
-      ob[static_cast<size_t>(t) * kD_B + n] =
-          (Ys[r][n] - mean) * inv * gamma[n] + beta[n];
-    }
+    for (int u = 0; u < kD / 32; ++u) y[u] += p[32 * u];
   }
+  float s = 0.f, sq = 0.f;
+#pragma unroll
+  for (int u = 0; u < kD / 32; ++u) {
+    y[u] = y[u] + __ldg(b2 + lane + 32 * u) + x[at + 32 * u];
+    s += y[u];
+    sq = fmaf(y[u], y[u], sq);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  }
+  const float mean = s / kD;
+  const float var = sq / kD - mean * mean;
+  const float inv = 1.f / sqrtf(var + 1e-5f);
+#pragma unroll
+  for (int u = 0; u < kD / 32; ++u) {
+    const int n = lane + 32 * u;
+    out[at + 32 * u] = (y[u] - mean) * inv * gamma[n] + beta[n];
+  }
+}
+
+template <int MT, int WN>
+cudaError_t launch_a(const float* x, const float4* w1, float* part, int B,
+                     int L, int H, int k1, int splits, cudaStream_t s) {
+  constexpr int BN = 32 * WN;
+  const int per = (k1 + splits - 1) / splits;
+  const int smem = 4 * (kStagesA + 2) * (BN + per - 1) * kStrideA;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ffn_conv1_kernel<MT, WN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid((L + BN - 1) / BN, H / kBM_A, B * splits);
+  ffn_conv1_kernel<MT, WN><<<grid, kThreadsA, smem, s>>>(x, w1, part, B, L,
+                                                          H, k1, splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x, out: [B, L, D]; w1: [k1, D, H]; b1: [H]; w2: [k2, H, D]; b2, gamma,
-// beta: [D]; h: [B, L, H] scratch.  All float32, contiguous.  Takes D = 256,
-// H a multiple of 64; a k-tap conv pads (k-1)/2 zeros before and
-// k/2 after (SAME).  Launches both kernels on `stream`;
-// returns cudaGetLastError() after each (or cudaErrorInvalidValue for a
-// shape the kernels do not take).
+// K2's launch plan at [B, L, 256] -> H with a k1-tap first conv:
+//   cfg[0] = positions per block of (a): 64 up to L = 64, else 128;
+//   cfg[1] = the tap splits S of (a), the smallest whose grid has a block
+//            for every SM (at most k1, and no split left without a tap);
+//   cfg[2] = the hidden groups G of (b), the smallest power of two (at most
+//            H / 64) whose grid has a block for every SM.
+// Chosen by measurement on an H100 (PERF.md).  Returns the floats of
+// scratch the call needs: S B L H partial sums of the first conv, then
+// G B L 256 of the second.
+extern "C" long long fs2_conv_ffn_plan(int B, int L, int H, int k1,
+                                       int* cfg) {
+  const int bn = L <= 64 ? 64 : 128;
+  const long long blocks =
+      static_cast<long long>((L + bn - 1) / bn) * (H / kBM_A) * B;
+  int splits = k1;
+  for (int s = 1; s <= k1; ++s)
+    if (blocks * s >= sm_count()) {
+      splits = s;
+      break;
+    }
+  const int per = (k1 + splits - 1) / splits;
+  splits = (k1 + per - 1) / per;
+  const long long tiles = static_cast<long long>((L + kBN_B - 1) / kBN_B) * B;
+  int groups = 1;
+  while (groups * 2 <= H / kSliceB && (H / kSliceB) % (groups * 2) == 0 &&
+         tiles * groups < sm_count())
+    groups *= 2;
+  cfg[0] = bn;
+  cfg[1] = splits;
+  cfg[2] = groups;
+  return (static_cast<long long>(splits) * H + groups * kD) * B * L;
+}
+
+// x, out: [B, L, D]; w1, w2: packed fragments of conv1 ([H/16][k1][D/8][32]
+// [8] floats) and conv2 ([D/16][k2][H/8][32][8]), conv_tiles.cuh; b1: [H];
+// b2, gamma, beta: [D]; scratch: fs2_conv_ffn_plan's floats.  All float32,
+// contiguous, 16-byte aligned.  Takes D = 256, H a multiple of 64, k1, k2
+// >= 1 (a k-tap conv pads (k-1)/2 zeros before and k/2 after, SAME), and
+// bn, splits, groups as fs2_conv_ffn_plan gives them (bn in {64, 128},
+// 1 <= splits <= k1, groups dividing H / 64).  Launches the three kernels on
+// `stream`; returns cudaGetLastError() after each (or cudaErrorInvalidValue
+// for a shape the kernels do not take).
 extern "C" int fs2_conv_ffn_fwd_f32(const void* x, const void* w1,
                                     const void* b1, const void* w2,
                                     const void* b2, const void* gamma,
-                                    const void* beta, void* h, void* out,
-                                    int B, int L, int D, int H, int k1, int k2,
-                                    void* stream) {
-  if (D != kD_B || H <= 0 || H % kBN_A != 0 || B <= 0 || L <= 0 ||
-      k1 <= 0 || k2 <= 0)
+                                    const void* beta, void* scratch,
+                                    void* out, int B, int L, int D, int H,
+                                    int k1, int k2, int bn, int splits,
+                                    int groups, void* stream) {
+  if (D != kD || H <= 0 || H % kBM_A != 0 || B <= 0 || L <= 0 || k1 <= 0 ||
+      k2 <= 0 || splits <= 0 || splits > k1 || groups <= 0 ||
+      (H / kSliceB) % groups != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid_a(H / kBN_A, (L + kBM_A - 1) / kBM_A, B);
-  conv_relu_f32_kernel<<<grid_a, kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<float*>(h), L, D, H, k1);
-  cudaError_t err = cudaGetLastError();
+  const float* xf = static_cast<const float*>(x);
+  const float4* w1f = static_cast<const float4*>(w1);
+  float* part = static_cast<float*>(scratch);
+  float* ypart = part + static_cast<size_t>(splits) * B * L * H;
+  cudaError_t err;
+  switch (bn) {
+    case 128:
+      err = launch_a<4, 4>(xf, w1f, part, B, L, H, k1, splits, s);
+      break;
+    case 64:
+      err = launch_a<2, 2>(xf, w1f, part, B, L, H, k1, splits, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
-  dim3 grid_b((L + kBM_B - 1) / kBM_B, B);
-  conv_residual_ln_f32_kernel<<<grid_b, kThreads, 0, s>>>(
-      static_cast<const float*>(h), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(x),
+  const int smem = smem_b(splits, k2);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    err = cudaFuncSetAttribute(ffn_conv2_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid_b((L + kBN_B - 1) / kBN_B, groups, B);
+  ffn_conv2_kernel<<<grid_b, kThreadsB, smem, s>>>(
+      part, static_cast<const float*>(b1), static_cast<const float4*>(w2),
+      ypart, B, L, H, k2, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rows = B * L;
+  const dim3 grid_c((rows + kThreadsC / 32 - 1) / (kThreadsC / 32));
+  ffn_ln_kernel<<<grid_c, kThreadsC, 0, s>>>(
+      ypart, static_cast<const float*>(b2), xf,
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<float*>(out), L, H, k2);
+      static_cast<float*>(out), rows, groups);
   return cudaGetLastError();
 }

@@ -1,230 +1,250 @@
-// K4: one HiFi-GAN MRF ResBlock dilation unit, float32, for sm_90a.
+// K4: one HiFi-GAN MRF ResBlock dilation unit in one launch, float32 on
+// the tensor cores (3xTF32), for sm_90a.
 //
 // Replaces the TPU kernel fastspeech2_tpu/ops/pallas_resblock.py
 // (_resblock_kernel via _pallas_forward), which fuses a whole ResBlock
 // (3 dilation units) over one L tile and its halo in VMEM.  On channels-first
 // [B, C, L] activations, one dilation unit d with k-tap convs is
 //
-//   t   = lrelu(conv_{k,d}(lrelu(x); w1) + b1)      (launch a)
-//   out = x + conv_{k,1}(t; w2) + b2                 (launch b)
+//   t   = lrelu(conv_{k,d}(lrelu(x); w1) + b1)
+//   out = x + conv_{k,1}(t; w2) + b2
 //
 // with lrelu slope 0.1 and SAME zero padding on each conv's own input:
 // (k-1)/2 * d positions for the first conv, (k-1)/2 for the second.  Tap j
 // of a conv dilated by d reads position l + (j - (k-1)/2) * d; positions
-// outside [0, L) read 0.  Zero-filling the staged input is exactly right at
-// both sequence edges: the first conv's input is lrelu(x), and lrelu(0) = 0;
-// the second conv's input is t, which (b) reads only inside [0, L) and
-// otherwise takes as 0, never as lrelu(b1 + partial sums).
+// outside [0, L) read 0.  The first conv's input is lrelu(x), and
+// lrelu(0) = 0, so zero-filling the staged x is exact; the second conv's
+// input t is set to 0 outside [0, L), never to lrelu(b1 + partial sums).
 //
-// What bounds it on an H100: 4 k C^2 L operations per launch (a whole
-// ResBlock is 12 k C^2 L: 594.5 GFLOP for the twelve calls of a 1000-frame
-// parity-vocoder forward) on the CUDA cores in float32 (67 TFLOP/s; the port
-// keeps TF32 off), against 8 C L bytes of activations and 4 k C^2 of
-// weights, so operations bound it at every shape of the path.
+// What bounds it on an H100: 4 k C^2 L operations per unit (594.5 GFLOP for
+// the twelve ResBlocks of a 1000-frame parity-vocoder forward), 3xTF32 on
+// the tensor cores (3 x operations / 495 TFLOP/s; 3.603 ms for the twelve),
+// against 8 C L bytes of activations per unit.  At C = 32 and 64 two
+// launches per unit (t through device memory) move 5 activation passes,
+// whose time exceeds the 3xTF32 bound of the k = 3 calls; this kernel
+// keeps t on chip and moves 2.
 //
-// Design.  The TPU kernel's whole-chain fusion does not fit an SM: one conv's
-// weights at C = 256, k = 11 are 2.9 MB (the L2 holds all of a ResBlock's 17
-// MB), and its tap packing (G = 128 / C shifted copies along the
-// contraction) answers the MXU's 128-row contraction, which an SM does not
-// have.  So a unit is two launches and t round-trips through device memory.
-// Each launch is a SIMT GEMM of [C_out] x [C_in * k] by [C_in * k] x [L]:
-//   - a block owns BM output channels (64, or 32 at C = 32) by BN positions
-//     (256, or 512 at C = 32); each of its 256 threads keeps 8 x 8 sums in
-//     registers, its positions strided by the block's thread columns so a
-//     warp reads consecutive shared-memory words;
-//   - it walks the input channels 8 at a time: the 8 input rows of the tile
-//     and its halo of (k-1) * d positions are staged in shared memory (lrelu
-//     applied on load for launch a), and the weights of those 8 channels,
-//     all k taps and the block's BM output channels, from a copy packed once
-//     after load as [C_in, k, C_out] so the staging reads are contiguous;
-//   - the epilogue adds the bias and stores lrelu (a) or adds the residual
-//     (b), guarding the tail positions past L.
-// The unit's output may alias its residual input: each element is read and
-// then written by the same thread.  A simple first kernel: no tensor cores,
-// no TMA, no double buffering.
+// Design (conv_tiles.cuh has the implicit GEMM, the packed weights and the
+// staging).  A block of 4 warps owns BN output positions of all C channels
+// of one batch row:
+//   1. the first conv over the BN positions plus a halo of 8 on each side
+//      (enough for the second conv's (k-1)/2 <= 8), reading x's window of
+//      BN + 16 + (k-1) d positions one 16-channel slice at a time
+//      (cp.async, double-buffered, lrelu and the TF32 split once per
+//      staged element); each warp takes half the channels and half the
+//      BN + 16 columns;
+//   2. t = lrelu(acc + b1), 0 outside [0, L), split once into big and small
+//      planes of [C][BN + 16] in shared memory (over the staging buffers);
+//   3. the second conv from those planes, each warp half the channels and
+//      half the BN positions; out = x + (acc + b2), x read again from L2.
+// The halo of t is computed by both neighbouring blocks with the same
+// arithmetic, so the result does not depend on the tiling.  C = 32, 64 or
+// 128 (MT = C / 32 m-tiles per warp); BN = 64 or 128
+// (fs2_resblock_unit_tile says which).  `out` must not alias `x`: a block
+// reads x's halo from its neighbours' positions.
 
 #include <cuda_runtime.h>
 
+#include "conv_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 8;   // input channels per shared-memory stage
-constexpr int kTM = 8;   // output channels per thread
-constexpr int kTN = 8;   // positions per thread
-constexpr float kSlope = 0.1f;
+using namespace fs2_conv;
 
-__device__ __forceinline__ float lrelu(float v) {
-  return v > 0.f ? v : kSlope * v;
-}
+constexpr int kThreads = 128;
+constexpr int kTHalo = 8;   // t columns on each side of the tile
 
-template <int BM>
-struct Tile {
-  static constexpr int kNY = BM / kTM;          // thread rows
-  static constexpr int kNX = kThreads / kNY;    // thread columns
-  static constexpr int kBN = kNX * kTN;         // positions per block
+template <int MT, int BN, int K>
+struct Unit {
+  static constexpr int C = 32 * MT;
+  static constexpr int N1 = BN + 2 * kTHalo;   // t columns per block
+  static constexpr int NT1 = N1 / 16;          // per warp: half of them
+  static constexpr int NT2 = BN / 16;
+  static constexpr int TStride = cf_stride(N1);
+  static constexpr int WfMt = K * (C / 8) * kFrag4;   // float4s per m-tile
+  // taps unrolled per loop: all, but one at a time for the widest tile at
+  // k = 11, which spills otherwise
+  static constexpr int TapUnroll = BN == 128 && K == 11 ? 1 : K;
+  static_assert(N1 % 16 == 0 && (K - 1) / 2 <= kTHalo, "tile");
+
+  static int smem_bytes(int d) {
+    const int staging = 4 * kSliceCF * cf_stride(N1 + (K - 1) * d);
+    const int planes = 2 * C * TStride;
+    return 4 * (staging > planes ? staging : planes);
+  }
 };
 
-inline int smem_bytes(int bm, int k, int d) {
-  const int bn = kThreads / (bm / kTM) * kTN;
-  return (kBK * k * bm + kBK * (bn + (k - 1) * d)) * 4;
-}
-
-// kFirst: in = x (lrelu on load), out = lrelu(conv + bias), dilation d.
-// !kFirst: in = t, out = res + conv + bias, dilation 1 (d passed as 1).
-// w: packed [C_in, K, C_out]; bias: [C_out].
-template <int BM, int K, bool kFirst>
+template <int MT, int BN, int K>
 __global__ void __launch_bounds__(kThreads)
-resblock_conv_kernel(const float* in, const float* __restrict__ w,
-                     const float* __restrict__ bias, const float* res,
-                     float* out, int C, int L, int d) {
-  using T = Tile<BM>;
+resblock_unit_kernel(const float* __restrict__ x,
+                     const float4* __restrict__ w1,
+                     const float* __restrict__ b1,
+                     const float4* __restrict__ w2,
+                     const float* __restrict__ b2, float* __restrict__ out,
+                     int L, int d) {
+  using U = Unit<MT, BN, K>;
+  constexpr int C = U::C;
+  constexpr int H2 = (K - 1) / 2;
   extern __shared__ __align__(16) float smem[];
-  const int span = T::kBN + (K - 1) * d;
-  float* ws = smem;                    // [kBK][K][BM]
-  float* xs = smem + kBK * K * BM;     // [kBK][span]
 
-  const int b = blockIdx.z;
-  const int co0 = blockIdx.y * BM;
-  const int l0 = blockIdx.x * T::kBN;
+  const int b = blockIdx.y;
+  const int l0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
-  const int tx = tid % T::kNX;
-  const int ty = tid / T::kNX;
-  const int pad = (K - 1) / 2 * d;
-  const float* inb = in + static_cast<size_t>(b) * C * L;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp & 1;    // channels [wm * MT * 16, +MT * 16)
+  const int wn = warp >> 1;   // columns of its half
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float* xb = x + static_cast<size_t>(b) * C * L;
 
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int m = 0; m < kTM; ++m)
-#pragma unroll
-    for (int i = 0; i < kTN; ++i) acc[m][i] = 0.f;
+  // 1. first conv over t's columns [l0 - kTHalo, l0 + BN + kTHalo)
+  float acc1[MT][U::NT1][4];
+  zero(acc1);
+  const int span1 = U::N1 + (K - 1) * d;
+  conv_cf<MT, U::NT1, K, kThreads, true, U::TapUnroll>(
+      acc1, xb, C, L, l0 - kTHalo - H2 * d, span1, cf_stride(span1), d,
+      w1 + wm * MT * U::WfMt, U::WfMt, wn * (U::N1 / 2), smem, tid, lane);
 
-  for (int ci0 = 0; ci0 < C; ci0 += kBK) {
-    // weights of channels ci0 .. ci0 + kBK: kBK * K rows of BM floats
-    constexpr int kRow4 = BM / 4;
-    for (int idx = tid; idx < kBK * K * kRow4; idx += kThreads) {
-      const int row = idx / kRow4;
-      const int col = (idx % kRow4) * 4;
-      *reinterpret_cast<float4*>(&ws[row * BM + col]) =
-          *reinterpret_cast<const float4*>(
-              w + (static_cast<size_t>(ci0) * K + row) * C + co0 + col);
-    }
-    // input rows and their halo, zero outside [0, L)
-    for (int r = 0; r < kBK; ++r) {
-      const float* src = inb + static_cast<size_t>(ci0 + r) * L;
-      for (int s = tid; s < span; s += kThreads) {
-        const int pos = l0 - pad + s;
-        float v = 0.f;
-        if (pos >= 0 && pos < L) {
-          v = src[pos];
-          if (kFirst) v = lrelu(v);
-        }
-        xs[r * span + s] = v;
+  // 2. t, zero outside [0, L), split into planes over the staging buffers
+  uint32_t* tb = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* ts = tb + C * U::TStride;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < U::NT1; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int co = 16 * (wm * MT + mt) + g + (i >= 2 ? 8 : 0);
+        const int col = wn * (U::N1 / 2) + 8 * nt + 2 * t + (i & 1);
+        const int pos = l0 - kTHalo + col;
+        const float v = pos >= 0 && pos < L
+                            ? lrelu(acc1[mt][nt][i] + __ldg(b1 + co))
+                            : 0.f;
+        split(v, tb[co * U::TStride + col], ts[co * U::TStride + col]);
       }
-    }
-    __syncthreads();
+  __syncthreads();
 
+  // 3. second conv from the planes, residual from x
+  float acc2[MT][U::NT2][4];
+  zero(acc2);
+  const float4* w2w = w2 + wm * MT * U::WfMt;
+  constexpr int tap4 = (C / 8) * kFrag4;
+  constexpr int kTapUnroll = U::TapUnroll;
 #pragma unroll 1
-    for (int c = 0; c < kBK; ++c) {
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const float* wr = ws + (c * K + j) * BM + ty * kTM;
-        const float4 wa = *reinterpret_cast<const float4*>(wr);
-        const float4 wb = *reinterpret_cast<const float4*>(wr + 4);
-        const float wv[kTM] = {wa.x, wa.y, wa.z, wa.w,
-                               wb.x, wb.y, wb.z, wb.w};
-        const float* xr = xs + c * span + j * d + tx;
-        float xv[kTN];
-#pragma unroll
-        for (int i = 0; i < kTN; ++i) xv[i] = xr[i * T::kNX];
-#pragma unroll
-        for (int m = 0; m < kTM; ++m)
-#pragma unroll
-          for (int i = 0; i < kTN; ++i)
-            acc[m][i] = fmaf(wv[m], xv[i], acc[m][i]);
-      }
-    }
-    __syncthreads();
+  for (int s = 0; s < C / kSliceCF; ++s) {
+    const int off = s * kSliceCF * U::TStride;
+#pragma unroll kTapUnroll
+    for (int j = 0; j < K; ++j)
+      mma_tap<MT, U::NT2, kSliceCF / 8, false>(
+          acc2, tb + off, ts + off, U::TStride,
+          wn * (BN / 2) + kTHalo - H2 + j,
+          w2w + s * (kSliceCF / 8) * kFrag4 + j * tap4, U::WfMt, lane);
   }
-
-  const size_t base = static_cast<size_t>(b) * C * L;
+  float* ob = out + static_cast<size_t>(b) * C * L;
 #pragma unroll
-  for (int m = 0; m < kTM; ++m) {
-    const int co = co0 + ty * kTM + m;
-    const float bv = bias[co];
-    const size_t row = base + static_cast<size_t>(co) * L;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < kTN; ++i) {
-      const int l = l0 + tx + i * T::kNX;
-      if (l < L) {
-        const float v = acc[m][i] + bv;
-        if (kFirst)
-          out[row + l] = lrelu(v);
-        else
-          out[row + l] = res[row + l] + v;
+    for (int nt = 0; nt < U::NT2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int co = 16 * (wm * MT + mt) + g + (i >= 2 ? 8 : 0);
+        const int l = l0 + wn * (BN / 2) + 8 * nt + 2 * t + (i & 1);
+        if (l < L) {
+          const size_t at = static_cast<size_t>(co) * L + l;
+          ob[at] = xb[at] + (acc2[mt][nt][i] + __ldg(b2 + co));
+        }
       }
-    }
-  }
 }
 
-template <int BM, int K>
-cudaError_t launch_unit(const float* x, float* t, float* out, const float* w1,
-                        const float* b1, const float* w2, const float* b2,
-                        int B, int C, int L, int d, cudaStream_t s) {
-  const dim3 grid((L + Tile<BM>::kBN - 1) / Tile<BM>::kBN, C / BM, B);
-  resblock_conv_kernel<BM, K, true>
-      <<<grid, kThreads, smem_bytes(BM, K, d), s>>>(x, w1, b1, nullptr, t, C,
-                                                    L, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  resblock_conv_kernel<BM, K, false>
-      <<<grid, kThreads, smem_bytes(BM, K, 1), s>>>(t, w2, b2, x, out, C, L,
-                                                    1);
+template <int MT, int BN, int K>
+cudaError_t launch(const float* x, float* out, const float4* w1,
+                   const float* b1, const float4* w2, const float* b2, int B,
+                   int L, int d, cudaStream_t s) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        resblock_unit_kernel<MT, BN, K>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const int smem = Unit<MT, BN, K>::smem_bytes(d);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const dim3 grid((L + BN - 1) / BN, B);
+  resblock_unit_kernel<MT, BN, K><<<grid, kThreads, smem, s>>>(
+      x, w1, b1, w2, b2, out, L, d);
   return cudaGetLastError();
 }
 
-template <int BM>
-cudaError_t dispatch_k(const float* x, float* t, float* out, const float* w1,
-                       const float* b1, const float* w2, const float* b2,
-                       int B, int C, int L, int k, int d, cudaStream_t s) {
+template <int MT, int BN>
+cudaError_t dispatch_k(const float* x, float* out, const float4* w1,
+                       const float* b1, const float4* w2, const float* b2,
+                       int B, int L, int k, int d, cudaStream_t s) {
   switch (k) {
-    case 3:
-      return launch_unit<BM, 3>(x, t, out, w1, b1, w2, b2, B, C, L, d, s);
-    case 7:
-      return launch_unit<BM, 7>(x, t, out, w1, b1, w2, b2, B, C, L, d, s);
-    case 11:
-      return launch_unit<BM, 11>(x, t, out, w1, b1, w2, b2, B, C, L, d, s);
-    default:
-      return cudaErrorInvalidValue;
+    case 3: return launch<MT, BN, 3>(x, out, w1, b1, w2, b2, B, L, d, s);
+    case 7: return launch<MT, BN, 7>(x, out, w1, b1, w2, b2, B, L, d, s);
+    case 11: return launch<MT, BN, 11>(x, out, w1, b1, w2, b2, B, L, d, s);
+    default: return cudaErrorInvalidValue;
   }
+}
+
+template <int MT>
+cudaError_t dispatch_bn(const float* x, float* out, const float4* w1,
+                        const float* b1, const float4* w2, const float* b2,
+                        int B, int L, int k, int d, int bn, cudaStream_t s) {
+  if constexpr (MT <= 2) {   // at C = 128 the 128-wide tile spills
+    if (bn == 128)
+      return dispatch_k<MT, 128>(x, out, w1, b1, w2, b2, B, L, k, d, s);
+  }
+  if (bn == 64)
+    return dispatch_k<MT, 64>(x, out, w1, b1, w2, b2, B, L, k, d, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// One dilation unit of an MRF ResBlock: out = x + conv2(lrelu(conv1(lrelu(x))
-// + b1)) + b2, two launches on `stream`.  x, out: [B, C, L]; t: [B, C, L]
-// scratch; w1, w2: packed [C, k, C] ([C_in, k, C_out]); b1, b2: [C].  All
-// float32, contiguous, 16-byte aligned.  `out` may be `x`.  Takes C a
-// multiple of 32, k in {3, 7, 11}, d >= 1, any L >= 1 (the largest shared
-// memory use, C = 64 with k = 11 and d = 5, is 32.3 KB, under the 48 KB a
-// block gets without opting in).  Returns cudaGetLastError() after each
-// launch, or cudaErrorInvalidValue for a shape the kernels do not take.
-extern "C" int fs2_resblock_unit_f32(const void* x, void* t, void* out,
+// The tile width the unit kernel takes at [B, C, L] with k taps: 64
+// positions at C = 128 (the 128-wide tile spills there), at k = 3 with
+// C = 64, and where 128 gives fewer than two blocks per SM; else 128
+// (measured on an H100 at the parity forward's shapes: PERF.md).
+extern "C" int fs2_resblock_unit_tile(int B, int C, int L, int k) {
+  const long long blocks = static_cast<long long>((L + 127) / 128) * B;
+  if (C >= 128 || (C == 64 && k == 3) || blocks < 2LL * sm_count())
+    return 64;
+  return 128;
+}
+
+// One dilation unit of an MRF ResBlock in one launch on `stream`:
+// out = x + conv2(lrelu(conv1(lrelu(x)) + b1)) + b2.  x, out: [B, C, L],
+// out not aliasing x; w1, w2: the unit's packed fragments
+// ([C/16][k][C/8][32][8] floats, conv_tiles.cuh); b1, b2: [C].  All float32,
+// contiguous, 16-byte aligned.  C in {32, 64, 128}, k in {3, 7, 11},
+// 1 <= d <= 64, L >= 1; bn = 64 (or 128 at C <= 64) positions per block,
+// or 0 for fs2_resblock_unit_tile's.  Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int fs2_resblock_unit_f32(const void* x, void* out,
                                      const void* w1, const void* b1,
                                      const void* w2, const void* b2, int B,
-                                     int C, int L, int k, int d,
+                                     int C, int L, int k, int d, int bn,
                                      void* stream) {
-  if (B <= 0 || L <= 0 || C <= 0 || C % 32 != 0 || d <= 0 || d > 64 ||
-      smem_bytes(C % 64 == 0 ? 64 : 32, k, d) > 48 * 1024)
-    return cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || d <= 0 || d > 64) return cudaErrorInvalidValue;
+  if (bn == 0) bn = fs2_resblock_unit_tile(B, C, L, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
-  float* tf = static_cast<float*>(t);
   float* of = static_cast<float*>(out);
-  const float* w1f = static_cast<const float*>(w1);
+  const float4* w1f = static_cast<const float4*>(w1);
+  const float4* w2f = static_cast<const float4*>(w2);
   const float* b1f = static_cast<const float*>(b1);
-  const float* w2f = static_cast<const float*>(w2);
   const float* b2f = static_cast<const float*>(b2);
-  if (C % 64 == 0)
-    return dispatch_k<64>(xf, tf, of, w1f, b1f, w2f, b2f, B, C, L, k, d, s);
-  return dispatch_k<32>(xf, tf, of, w1f, b1f, w2f, b2f, B, C, L, k, d, s);
+  switch (C) {
+    case 32:
+      return dispatch_bn<1>(xf, of, w1f, b1f, w2f, b2f, B, L, k, d, bn, s);
+    case 64:
+      return dispatch_bn<2>(xf, of, w1f, b1f, w2f, b2f, B, L, k, d, bn, s);
+    case 128:
+      return dispatch_bn<4>(xf, of, w1f, b1f, w2f, b2f, B, L, k, d, bn, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

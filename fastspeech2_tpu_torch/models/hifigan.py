@@ -11,9 +11,9 @@ channels-first [B, C, T] inside the generator; its public io is
 Its 12 ResBlocks go through K4 (``ops/cuda_resblock.py``): the kernel on
 CUDA, the plain version on the CPU.  The JAX package resolves its
 ``resblock_backend="auto"`` to XLA from a TPU v5e measurement
-(``hifigan.py:52-63``); the port sends the parity generator to K4 on the
-H100.  The iSTFT generators (``models/hifigan_istft.py``) keep their
-ResBlocks on the plain path, as the JAX package does.
+(``hifigan.py:52-63``); the port sends the parity generator, and the
+iSTFT generators (``models/hifigan_istft.py``), to K4 on the H100, where
+it is faster than cuDNN's chain of float32 convs (PERF.md).
 """
 
 import torch

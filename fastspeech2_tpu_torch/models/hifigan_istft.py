@@ -6,7 +6,8 @@ ResBlocks] -> lrelu(0.01) -> conv_post -> (log-magnitude, phase) of an
 n_fft=16 spectrum per frame -> windowed overlap-add inverse STFT (hop 4).
 Total upsampling 8*8*4 = 256 = the mel hop: [B, T, n_mels] -> [B, T*256].
 The inverse STFT is real arithmetic (cos/sin basis products + a static
-overlap-add), as in the JAX package.
+overlap-add), as in the JAX package.  The ResBlocks go through K4
+(``ops/cuda_resblock.py``) on CUDA, as the parity generator's do.
 """
 
 import numpy as np
@@ -79,11 +80,13 @@ class HiFiGANiSTFTGenerator(nn.Module):
         self.hop = gen_istft_hop_size
         self.conv_pre = nn.Conv1d(n_mel_channels, upsample_initial_channel, 7,
                                   padding=3)
-        # plain ResBlocks, as the JAX package builds them
-        # (fastspeech2_tpu/models/hifigan_istft.py:126-129)
+        # K4 ResBlocks: the JAX package builds plain ones here
+        # (fastspeech2_tpu/models/hifigan_istft.py:126-129, from a TPU v5e
+        # measurement); on the H100 K4 is faster than cuDNN's chain of
+        # float32 convs at these shapes (PERF.md)
         self.ups, self.resblocks, ch = build_stages(
             upsample_rates, upsample_kernel_sizes, upsample_initial_channel,
-            resblock_kernel_sizes, resblock_dilation_sizes, fused=False)
+            resblock_kernel_sizes, resblock_dilation_sizes, fused=True)
         n_bins = self.n_fft // 2 + 1
         self.conv_post = nn.Conv1d(ch, 2 * n_bins, 7, padding=3)
 

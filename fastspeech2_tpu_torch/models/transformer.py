@@ -17,11 +17,16 @@ plain versions.  Dropout follows the attention's output projection, in
 training mode only.
 """
 
+import torch
 from torch import nn
 
 from fastspeech2_tpu_torch.models.common import Dropout, LayerNorm
 from fastspeech2_tpu_torch.ops.cuda_attention import fused_attention
-from fastspeech2_tpu_torch.ops.cuda_ffn import fused_conv_ffn, plain_conv_ffn
+from fastspeech2_tpu_torch.ops.cuda_ffn import (
+    fused_conv_ffn,
+    pack_ffn_weights,
+    plain_conv_ffn,
+)
 from fastspeech2_tpu_torch.ops.masking import fill_masked
 from fastspeech2_tpu_torch.ops.positional import sinusoid_position_encoding
 
@@ -58,7 +63,9 @@ class MultiHeadAttention(nn.Module):
 class PositionwiseFeedForward(nn.Module):
     """conv1d(k0) -> ReLU -> conv1d(k1) -> dropout -> post-LN residual
     (reference transformer/SubLayers.py:60-93): kernel K2 in eval mode, the
-    plain path with dropout in training mode."""
+    plain path with dropout in training mode.  K2's weight pack is made
+    once for the no-grad forwards and again only when a weight is
+    replaced, moved or changed in place."""
 
     def __init__(self, d_model, d_inner, kernel_size, dropout):
         super().__init__()
@@ -68,16 +75,33 @@ class PositionwiseFeedForward(nn.Module):
                              padding=(kernel_size[1] - 1) // 2)
         self.layer_norm = LayerNorm(d_model)
         self.dropout = Dropout(dropout)
+        self._pack = self._pack_key = None
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to() / .cuda() / .cpu() give the weights new storage
+        self._pack = self._pack_key = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _packed(self, w1, w2):
+        key = tuple((t.data_ptr(), t._version)
+                    for t in (self.w_1.weight, self.w_2.weight))
+        if key != self._pack_key:
+            self._pack, self._pack_key = pack_ffn_weights(w1, w2), key
+        return self._pack
 
     def forward(self, x):
-        # torch Conv1d [out, in, k] -> the kernel's [k, in, out]
-        w1 = self.w_1.weight.permute(2, 1, 0).contiguous()
-        w2 = self.w_2.weight.permute(2, 1, 0).contiguous()
+        # torch Conv1d [out, in, k] -> the JAX layout [k, in, out], a view
+        w1 = self.w_1.weight.permute(2, 1, 0)
+        w2 = self.w_2.weight.permute(2, 1, 0)
         args = (x, w1, self.w_1.bias, w2, self.w_2.bias,
                 self.layer_norm.weight, self.layer_norm.bias)
         if self.training:
             return plain_conv_ffn(*args, dropout=self.dropout)
-        return fused_conv_ffn(*args)
+        packed = None
+        if x.device.type == "cuda" and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in args)):
+            packed = self._packed(w1, w2)
+        return fused_conv_ffn(*args, packed=packed)
 
 
 class FFTBlock(nn.Module):

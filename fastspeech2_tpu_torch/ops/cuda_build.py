@@ -21,9 +21,10 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("attention.cu", "attention_bwd.cu", "conv_ffn.cu", "resblock.cu")
+SOURCES = ("attention.cu", "attention_bwd.cu", "conv_ffn.cu", "resblock.cu",
+           "resblock_conv.cu")
 # headers the sources include (hashed with them)
-HEADERS = ("attention_common.cuh",)
+HEADERS = ("attention_common.cuh", "conv_tiles.cuh", "tf32_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,14 +45,22 @@ _SIGNATURES = {
     "fs2_mha_bwd_f32": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
     # B, H, L -> scratch floats (long long)
     "fs2_mha_bwd_scratch_floats": [_I] * 3,
-    # x, w1, b1, w2, b2, gamma, beta, h, out, B, L, D, H, k1, k2, stream
-    "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 6 + [_P],
-    # x, t, out, w1, b1, w2, b2, B, C, L, k, d, stream
-    "fs2_resblock_unit_f32": [_P] * 7 + [_I] * 5 + [_P],
+    # x, w1, b1, w2, b2, gamma, beta, scratch, out, B, L, D, H, k1, k2, bn,
+    # splits, groups, stream
+    "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 9 + [_P],
+    # B, L, H, k1, cfg (int[3], written) -> scratch floats (long long)
+    "fs2_conv_ffn_plan": [_I] * 4 + [_P],
+    # x, out, w1, b1, w2, b2, B, C, L, k, d, bn, stream
+    "fs2_resblock_unit_f32": [_P] * 6 + [_I] * 6 + [_P],
+    # B, C, L, k -> positions per block
+    "fs2_resblock_unit_tile": [_I] * 4,
+    # in, w, bias, res, out, B, C, L, k, d, first, stream
+    "fs2_resblock_conv_f32": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _RESTYPES = {"fs2_mha_fwd_plan": ctypes.c_longlong,
-             "fs2_mha_bwd_scratch_floats": ctypes.c_longlong}
+             "fs2_mha_bwd_scratch_floats": ctypes.c_longlong,
+             "fs2_conv_ffn_plan": ctypes.c_longlong}
 
 _library = None
 build_info = {}   # filled by the build: path, seconds, ptxas report

@@ -1,5 +1,5 @@
-"""K2: fused position-wise conv FFN, hand-written CUDA for Hopper
-(``csrc/conv_ffn.cu``), replacing the TPU kernel
+"""K2: fused position-wise conv FFN, hand-written CUDA for Hopper on the
+tensor cores (``csrc/conv_ffn.cu``), replacing the TPU kernel
 ``fastspeech2_tpu/ops/pallas_ffn.py::_ffn_kernel``, with its plain version.
 
 Both compute LN(ReLU(conv1d_k1(x) + b1) -> conv1d_k2 + b2 + x) over
@@ -16,17 +16,28 @@ differentiates it, as the JAX package's custom VJP does with its XLA
 reference (``fastspeech2_tpu/ops/pallas_ffn.py:194-204``).  Training mode
 does not come here: the model's FFN runs its plain path with dropout
 there, as the JAX package does (``models/transformer.py:162-189``).
+
+The kernel's products run as 3xTF32, within ~1e-5 of float32.  It reads
+both convs' weights split into TF32 planes in the tensor cores' fragment
+order (:func:`pack_ffn_weights`, ``ops/tf32_pack.py``); the model keeps
+that pack for its no-grad forwards and rebuilds it only when a weight
+changes.  Without a pack, a call packs the weights it is given.
 """
+
+import ctypes
+import functools
 
 import torch
 from torch.nn import functional as F
 
 from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
+from fastspeech2_tpu_torch.ops.tf32_pack import pack_fragments
 
 MODEL_DIM = 256
 
 # fused_conv_ffn calls that launched the kernel since the count was last
-# set to 0 (each call is two launches: conv+ReLU, then conv+residual+LN)
+# set to 0 (each call is three launches: the first conv's partial sums, the
+# second conv's group shares, the residual and LayerNorm)
 launches = 0
 
 
@@ -39,11 +50,31 @@ def _conv1d_same(x, w):
     return F.conv1d(xt, w.permute(2, 1, 0)).transpose(1, 2)
 
 
-def plain_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, dropout=None):
+def pack_ffn_weights(w1, w2):
+    """w1 [k1, D, H], w2 [k2, H, D] (JAX layouts, any strides) -> (w1p
+    [H/16, k1, D/8, 32, 8], w2p [D/16, k2, H/8, 32, 8]): what K2 reads."""
+    return (pack_fragments(w1.detach().permute(0, 2, 1)),
+            pack_fragments(w2.detach().permute(0, 2, 1)))
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(B, L, H, k1):
+    """-> (positions per block of the first conv, its tap splits, the
+    second conv's hidden groups): the kernel's own plan
+    (``fs2_conv_ffn_plan``)."""
+    cfg = (ctypes.c_int * 3)()
+    load_library().fs2_conv_ffn_plan(B, L, H, k1, cfg)
+    return tuple(cfg)
+
+
+def plain_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, dropout=None,
+                   packed=None):
     """Plain PyTorch version (cf. ``xla_conv_ffn``,
     fastspeech2_tpu/ops/pallas_ffn.py:41-58).  ``dropout``, a callable, is
     applied to the second conv's output before the residual add (the
-    training path, fastspeech2_tpu/models/transformer.py:169-189)."""
+    training path, fastspeech2_tpu/models/transformer.py:169-189).
+    ``packed`` is ignored (it reads w1 and w2), so that this function can
+    stand in for :func:`fused_conv_ffn`."""
     y = torch.relu(_conv1d_same(x, w1) + b1)
     y = _conv1d_same(y, w2) + b2
     if dropout is not None:
@@ -61,7 +92,7 @@ class FusedConvFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *args):
         ctx.save_for_backward(*args)
-        return _launch(*args)
+        return _launch(*args, packed=pack_ffn_weights(args[1], args[3]))
 
     @staticmethod
     def backward(ctx, g):
@@ -74,18 +105,24 @@ class FusedConvFFN(torch.autograd.Function):
         return tuple(next(grads) if t.requires_grad else None for t in args)
 
 
-def fused_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias):
+def fused_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, packed=None):
     """x: float32 [B, L, 256]; w1 [k1, 256, H]; b1 [H]; w2 [k2, H, 256];
-    b2, ln_scale, ln_bias [256]; H a multiple of 64."""
+    b2, ln_scale, ln_bias [256]; H a multiple of 64; ``packed``: the
+    weights' :func:`pack_ffn_weights`, made here when not given (and on
+    the gradient path, from the saved weights)."""
     args = (x, w1, b1, w2, b2, ln_scale, ln_bias)
     if x.device.type == "cpu":
         return plain_conv_ffn(*args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return FusedConvFFN.apply(*args)
-    return _launch(*args)
+    if packed is None:
+        packed = pack_ffn_weights(w1, w2)
+    return _launch(*args, packed=packed)
 
 
-def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias):
+def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
+    """``plan``: (positions per block, tap splits, hidden groups) for
+    measurement; the kernel's own :func:`forward_plan` by default."""
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_ffn: unsupported device {x.device}")
@@ -94,9 +131,15 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias):
     B, L, D = x.shape
     k1, _, H = w1.shape
     k2 = w2.shape[0]
-    shapes = {"x": (x, (B, L, MODEL_DIM)), "w1": (w1, (k1, D, H)),
-              "b1": (b1, (H,)), "w2": (w2, (k2, H, D)), "b2": (b2, (D,)),
-              "ln_scale": (ln_scale, (D,)), "ln_bias": (ln_bias, (D,))}
+    if H % 64 != 0:
+        raise ValueError(f"fused_conv_ffn: hidden width {H} is not a "
+                         "multiple of 64")
+    w1p, w2p = packed
+    shapes = {"x": (x, (B, L, MODEL_DIM)),
+              "w1": (w1p, (H // 16, k1, D // 8, 32, 8)),
+              "b1": (b1, (H,)), "w2": (w2p, (D // 16, k2, H // 8, 32, 8)),
+              "b2": (b2, (D,)), "ln_scale": (ln_scale, (D,)),
+              "ln_bias": (ln_bias, (D,))}
     for name, (t, shape) in shapes.items():
         if t.device != x.device or t.dtype != torch.float32:
             raise ValueError(f"fused_conv_ffn: {name} must be float32 on "
@@ -107,18 +150,19 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias):
         if t.data_ptr() % 16:
             raise ValueError(f"fused_conv_ffn: {name} is not 16-byte "
                              "aligned (the kernel loads float4)")
-    if H % 64 != 0:
-        raise ValueError(f"fused_conv_ffn: hidden width {H} is not a "
-                         "multiple of 64")
     lib = load_library()
-    hidden = torch.empty((B, L, H), device=x.device, dtype=torch.float32)
+    bn, splits, groups = plan or forward_plan(B, L, H, k1)
+    # the first conv's partial sums, then the second conv's group shares
+    scratch = torch.empty((splits * H + groups * D) * B * L,
+                          device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fs2_conv_ffn_fwd_f32(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            x.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
             b2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            hidden.data_ptr(), out.data_ptr(), B, L, D, H, k1, k2, stream)
+            scratch.data_ptr(), out.data_ptr(), B, L, D, H, k1, k2, bn,
+            splits, groups, stream)
     check(err, "fs2_conv_ffn_fwd_f32")
     launches += 1
     return out

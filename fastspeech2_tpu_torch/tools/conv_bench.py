@@ -1,0 +1,358 @@
+"""Time and check the convolution kernels K4 (the MRF ResBlock) and K2 (the
+conv FFN) on a CUDA card.
+
+Three parts, each optional:
+
+- ``--timings``: K4 at the 12 ResBlock shapes of a 1000-frame parity
+  forward and K2 at every shape of the port's paths ([1, 32|1000|1536,
+  256] for the README sentence and the re-dispatch bucket, [10, 128|1000,
+  256] for the validation forward), beside the plain versions (cuDNN at
+  the inference path's settings) and, for K4, cuDNN's chain autotuned
+  (``cudnn.benchmark``); CUDA events over 20 calls after 3 warm-up calls,
+  as ``chip_smoke.py`` times them.  ``--root DIR`` times the kernels of the
+  port in another checkout (for example an unpacked parent commit): its
+  ``fastspeech2_tpu_torch`` is imported instead of this one, and built
+  there.
+- ``--sweep``: K4 at its 12 shapes by route (one launch per dilation unit,
+  or two conv launches) and the unit kernel's tile width (64 or 128
+  positions; tile 0 is the conv kernel's one tile of 64), and K2's
+  plan at [1, 32|1000, 256] by tile width, tap split count and hidden
+  groups, each held against the plain version.
+- ``--profile``: the device time of each kernel a call launches (K2's
+  three launches, K4's per dilation unit), from ``torch.profiler`` over 20
+  calls, at K2's README shapes and K4's widest and narrowest shapes.
+- ``--errors``: K4 at its 12 shapes and K2 at [1, 1000, 256], the error
+  against a float64 evaluation of the same function, beside that of the
+  plain float32 version and of the 3xTF32 products emulated with float32
+  convolutions (cuDNN, TF32 off): the split's dropped small*small term
+  against the tensor cores' own float32 accumulation.
+
+Run from a checkout's root: ``python fastspeech2_tpu_torch/tools/conv_bench.py
+--timings --sweep --profile --errors [--root DIR] [--json FILE]``.
+"""
+
+import argparse
+import functools
+import inspect
+import itertools
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DILATIONS = (1, 3, 5)
+K4_RTOL = 1e-4
+KERNEL_ATOL = 1e-4
+# K2's shapes: (B, L) of the README sentence's encoder and decoder, the
+# re-dispatch bucket, and the validation forward at batch 10
+K2_SHAPES = ((1, 32), (1, 1000), (1, 1536), (10, 128), (10, 1000))
+# the HiFi-GAN-iSTFT C8C8I vocoder's ResBlocks (upsample rates 8, 8 from 512
+# channels): the first six of the parity forward's twelve
+ISTFT_CHANNELS = (256, 128)
+
+
+def cuda_time_ms(fn, iters=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def resblock_inputs(C, L, k, seed, device="cuda"):
+    """x [1, C, L] and three dilation units of Conv1d weights scaled to keep
+    the output O(1), biases of 0.5 (as chip_smoke.py makes them)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    scale = (C * k) ** -0.5
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(device)
+
+    x = r(1, C, L)
+    w1, w2 = ([r(C, C, k, s=scale) for _ in DILATIONS] for _ in range(2))
+    b1, b2 = ([r(C, s=0.5) for _ in DILATIONS] for _ in range(2))
+    return x, w1, b1, w2, b2
+
+
+def ffn_inputs(B, L, seed, device="cuda", k2=1):
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g) * scale + shift).to(device)
+
+    return (r(B, L, 256), r(9, 256, 1024, scale=0.03), r(1024, scale=0.1),
+            r(k2, 1024, 256, scale=0.03), r(256, scale=0.1),
+            r(256, scale=0.1, shift=1.0), r(256, scale=0.1))
+
+
+def ffn_kernel_call(ffn, args):
+    """K2 as the model calls it: with its weight pack made once, where the
+    port has one."""
+    if "packed" in inspect.signature(ffn.fused_conv_ffn).parameters:
+        packed = ffn.pack_ffn_weights(args[1], args[3])
+        return lambda: ffn.fused_conv_ffn(*args, packed=packed)
+    return lambda: ffn.fused_conv_ffn(*args)
+
+
+def timings(resblock, ffn, bounds):
+    import torch
+
+    rows = []
+    for C, L, k in bounds.parity_resblock_shapes(1000):
+        rb = resblock_inputs(C, L, k, seed=C + k)
+        packed = resblock.pack_resblock_weights(*rb[1:])
+        with torch.inference_mode():
+            row = dict(
+                kernel="K4", shape=[1, C, L], k=k,
+                ms=cuda_time_ms(lambda: resblock.fused_resblock(
+                    *rb, DILATIONS, packed=packed)),
+                plain_ms=cuda_time_ms(lambda: resblock.plain_resblock(
+                    *rb, DILATIONS)))
+            with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                row["cudnn_autotuned_ms"] = cuda_time_ms(
+                    lambda: resblock.plain_resblock(*rb, DILATIONS))
+        rows.append(row)
+    for B, L in K2_SHAPES:
+        args = ffn_inputs(B, L, seed=L + B)
+        with torch.inference_mode():
+            rows.append(dict(
+                kernel="K2", shape=[B, L, 256],
+                ms=cuda_time_ms(ffn_kernel_call(ffn, args)),
+                plain_ms=cuda_time_ms(lambda: ffn.plain_conv_ffn(*args))))
+    return rows
+
+
+def sweep(resblock, ffn, bounds):
+    """K4 by route and tile, K2's first launch by tile and split count."""
+    import torch
+
+    rows = []
+    for C, L, k in bounds.parity_resblock_shapes(1000):
+        rb = resblock_inputs(C, L, k, seed=C + k)
+        packed = resblock.pack_resblock_weights(*rb[1:])
+        with torch.inference_mode():
+            ref = resblock.plain_resblock(*rb, DILATIONS)
+            for how in ("unit", "conv"):
+                if (how == "unit" and C not in (32, 64, 128)) or (
+                        how == "conv" and C % 64):
+                    continue
+                for tile in ((0,) if how == "conv" else
+                             (64,) if C == 128 else (64, 128)):
+                    def run():
+                        return resblock._launch(rb[0], packed, DILATIONS,
+                                                how=how, tile=tile)
+                    err = (run() - ref).abs().max().item()
+                    if not err <= K4_RTOL * ref.abs().max().item():
+                        raise RuntimeError(f"K4 {how} tile {tile} at "
+                                           f"{[C, L, k]}: {err:.3e}")
+                    rows.append(dict(kernel="K4", shape=[1, C, L], k=k,
+                                     route=how, tile=tile,
+                                     ms=cuda_time_ms(run),
+                                     max_abs_err=err))
+    for B, L in ((1, 32), (1, 1000)):
+        args = ffn_inputs(B, L, seed=L + B)
+        packed = ffn.pack_ffn_weights(args[1], args[3])
+        ref = ffn.plain_conv_ffn(*args)
+        for plan in itertools.product((64, 128), (1, 2, 3, 5, 9),
+                                      (1, 4, 16)):
+            def run():
+                return ffn._launch(*args, packed=packed, plan=plan)
+            err = (run() - ref).abs().max().item()
+            if not err <= KERNEL_ATOL:
+                raise RuntimeError(f"K2 plan {plan} at {[B, L]}: {err:.3e}")
+            rows.append(dict(kernel="K2", shape=[B, L, 256], tile=plan[0],
+                             splits=plan[1], groups=plan[2],
+                             ms=cuda_time_ms(run), max_abs_err=err))
+    return rows
+
+
+def profile(resblock, ffn):
+    """-> [{call, shape, kernels: {name: device ms per call}}]."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    calls = []
+    for B, L in ((1, 32), (1, 1000)):
+        args = ffn_inputs(B, L, seed=L + B)
+        calls.append(("K2", [B, L, 256], ffn_kernel_call(ffn, args)))
+    for C, L, k in ((256, 8000, 3), (128, 64000, 11), (32, 256000, 3)):
+        rb = resblock_inputs(C, L, k, seed=C + k)
+        packed = resblock.pack_resblock_weights(*rb[1:])
+        calls.append(("K4", [1, C, L, k], functools.partial(
+            resblock.fused_resblock, *rb, DILATIONS, packed=packed)))
+    rows = []
+    for name, shape, fn in calls:
+        with torch.inference_mode():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.key_averages():
+            dev = getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+            if dev > 0:
+                kernels[e.key[:60]] = dev / 1e3 / 20
+        rows.append(dict(call=name, shape=shape, kernels=kernels))
+    return rows
+
+
+def errors(resblock, ffn, bounds):
+    """The kernels' errors against float64, beside plain float32 and the
+    3xTF32 products emulated with float32 convolutions."""
+    import torch
+    import torch.nn.functional as F
+
+    def tf32(x):   # cvt.rna on the bit pattern
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    def conv3(x, w, **kw):   # x (*) w as big*small + small*big + big*big
+        xb, wb = tf32(x), tf32(w)
+        xs, ws = tf32(x - xb), tf32(w - wb)
+        return (F.conv1d(xb, ws, **kw) + F.conv1d(xs, wb, **kw)
+                + F.conv1d(xb, wb, **kw))
+
+    def emulated_resblock(x, w1, b1, w2, b2):
+        for u, d in enumerate(DILATIONS):
+            k = w1[u].shape[-1]
+            t = conv3(F.leaky_relu(x, 0.1), w1[u], padding=(k * d - d) // 2,
+                      dilation=d) + b1[u][:, None]
+            t = conv3(F.leaky_relu(t, 0.1), w2[u],
+                      padding=(k - 1) // 2) + b2[u][:, None]
+            x = x + t
+        return x
+
+    rows = []
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=False,
+            allow_tf32=False):
+        for C, L, k in bounds.parity_resblock_shapes(1000):
+            rb = resblock_inputs(C, L, k, seed=C + k + 1)
+            ref = resblock.plain_resblock(
+                *[t.double() if torch.is_tensor(t) else [v.double() for v in t]
+                  for t in rb], DILATIONS)
+            scale = ref.abs().max().item()
+            versions = {
+                "kernel": resblock.fused_resblock(*rb, DILATIONS),
+                "plain float32": resblock.plain_resblock(*rb, DILATIONS),
+                "3xTF32 emulated, float32 convs": emulated_resblock(*rb),
+            }
+            rows.append(dict(kernel="K4", shape=[1, C, L], k=k, errors={
+                name: (v.double() - ref).abs().max().item() / scale
+                for name, v in versions.items()}))
+        args = ffn_inputs(1, 1000, seed=17)
+        ref = ffn.plain_conv_ffn(*[a.double() for a in args])
+        rows.append(dict(kernel="K2", shape=[1, 1000, 256], errors={
+            "kernel": (ffn_kernel_call(ffn, args)().double() - ref
+                       ).abs().max().item(),
+            "plain float32": (ffn.plain_conv_ffn(*args).double() - ref
+                              ).abs().max().item()}))
+    return rows
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose fastspeech2_tpu_torch is timed")
+    ap.add_argument("--timings", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--errors", action="store_true")
+    ap.add_argument("--json", default=None, help="also write results here")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("conv_bench: no CUDA card")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from fastspeech2_tpu_torch.ops import cuda_ffn as ffn
+    from fastspeech2_tpu_torch.ops import cuda_resblock as resblock
+    from fastspeech2_tpu_torch.tools import kernel_bounds as bounds
+    from fastspeech2_tpu_torch.utils.device import resolve_device
+
+    if not resblock.__file__.startswith(os.path.abspath(args.root) + os.sep):
+        sys.exit(f"conv_bench: imported {resblock.__file__}, not the port "
+                 f"in {args.root} (run this file, not the module)")
+    resolve_device("cuda")   # pins TF32 off, as the port's entry points do
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    result = dict(root=os.path.abspath(args.root), card=card)
+    print(f"[bench] {card}; port from {result['root']}", flush=True)
+    if args.timings:
+        result["timings"] = timings(resblock, ffn, bounds)
+        for r in result["timings"]:
+            extra = (f", cuDNN autotuned {r['cudnn_autotuned_ms']:.4f} ms"
+                     if "cudnn_autotuned_ms" in r else "")
+            k = f" k={r['k']}" if "k" in r else ""
+            print(f"[bench] {r['kernel']} {r['shape']}{k}: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{extra}",
+                  flush=True)
+        k4 = [r for r in result["timings"] if r["kernel"] == "K4"]
+        istft = [r for r in k4 if r["shape"][1] in ISTFT_CHANNELS]
+        for name, rows in (("the 12 parity calls", k4),
+                           ("the iSTFT vocoder's 6 shapes", istft)):
+            print(f"[bench] K4 summed over {name}: kernel "
+                  f"{sum(r['ms'] for r in rows):.4f} ms, plain (cuDNN at "
+                  f"the inference settings) "
+                  f"{sum(r['plain_ms'] for r in rows):.4f} ms, cuDNN "
+                  f"autotuned "
+                  f"{sum(r['cudnn_autotuned_ms'] for r in rows):.4f} ms",
+                  flush=True)
+    if args.sweep:
+        result["sweep"] = sweep(resblock, ffn, bounds)
+        for r in result["sweep"]:
+            what = (f"route {r['route']}" if r["kernel"] == "K4"
+                    else f"splits {r['splits']} groups {r['groups']}")
+            k = f" k={r['k']}" if "k" in r else ""
+            print(f"[bench] sweep {r['kernel']} {r['shape']}{k} {what} tile "
+                  f"{r['tile']}: {r['ms']:.4f} ms (max_abs_err "
+                  f"{r['max_abs_err']:.2e})", flush=True)
+    if args.profile:
+        result["profile"] = profile(resblock, ffn)
+        for r in result["profile"]:
+            cells = ", ".join(f"{n} {ms:.4f}" for n, ms in
+                              sorted(r["kernels"].items()))
+            print(f"[bench] profile {r['call']} {r['shape']}: device ms per "
+                  f"call by kernel: {cells}", flush=True)
+    if args.errors:
+        result["errors"] = errors(resblock, ffn, bounds)
+        for r in result["errors"]:
+            cells = ", ".join(f"{key} {err:.3e}"
+                              for key, err in r["errors"].items())
+            scale = ("relative to the largest |output|" if r["kernel"] == "K4"
+                     else "absolute")
+            k = f" k={r['k']}" if "k" in r else ""
+            print(f"[bench] {r['kernel']} {r['shape']}{k} against float64 "
+                  f"({scale}): {cells}", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

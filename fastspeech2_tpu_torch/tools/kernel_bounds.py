@@ -1,8 +1,10 @@
 """The least time an H100 could take for K4
 (``fastspeech2_tpu/ops/pallas_resblock.py::_resblock_kernel``, ported as
-``csrc/resblock.cu``), at the shapes the parity HiFi-GAN gives it, and for
-K1 and K3 (the attention forward and backward, ``csrc/attention.cu`` and
-``csrc/attention_bwd.cu``) at the attention shapes of the main paths:
+``csrc/resblock.cu``), at the shapes the parity HiFi-GAN gives it, for K2
+(``pallas_ffn.py::_ffn_kernel``, ``csrc/conv_ffn.cu``) at the FFN's shapes,
+and for K1 and K3 (the attention forward and backward,
+``csrc/attention.cu`` and ``csrc/attention_bwd.cu``) at the attention
+shapes of the main paths:
 
     python -m fastspeech2_tpu_torch.tools.kernel_bounds [--frames 1000]
 
@@ -12,16 +14,18 @@ k-tap convs, 12 k C^2 B L operations; it reads x and the weights once and
 writes the output once.  The parity generator (upsample rates 8, 8, 2, 2
 from 512 channels) runs it at C = 256, 128, 64 and 32 on L = 8 T, 64 T,
 128 T and 256 T for a T-frame mel, with k = 3, 7 and 11 at each: 12 calls
-per forward.  K4 runs on the CUDA cores, so its peak is 67 TFLOP/s float32.
+per forward.  One K2 call on x [B, L, 256] with H = 1024 and taps (9, 1)
+is 2 B L 256 H (9 + 1) operations; it reads x and both convs' weights and
+biases once and writes the output once.
 
-K1 (4 L^2 Dh operations per (b, h)) and K3 (10 L^2 Dh, the reference's five
-products) run their products on the tensor cores as 3xTF32, three TF32
-products for each float32-accurate one, so their least time is
+All four kernels run their products on the tensor cores as 3xTF32, three
+TF32 products for each float32-accurate one, so their least time is
 max(3 x operations / 495 TFLOP/s, bytes / 3.35 TB/s); the SIMT float32
-bound (operations / 67 TFLOP/s) is printed beside it for the record.
-Bytes: K1 reads q, k, v and the mask and writes the output; K3 reads q, k,
-v, the incoming gradient and the mask and writes dq, dk and dv.  Peaks:
-H100 SXM data sheet (dense TF32 without sparsity; HBM3 3.35 TB/s).
+bound (max(operations / 67 TFLOP/s, bytes / 3.35 TB/s), the CUDA cores'
+float32 peak) is given beside it for the record.  Bytes: K1 reads q, k, v
+and the mask and writes the output; K3 reads q, k, v, the incoming
+gradient and the mask and writes dq, dk and dv.  Peaks: H100 SXM data
+sheet (dense TF32 without sparsity; HBM3 3.35 TB/s).
 """
 
 import argparse
@@ -39,17 +43,37 @@ ATTENTION_SHAPES = ((1, 32), (1, 1000), (10, 128), (10, 768), (10, 1000))
 # (channels, upsampling so far) of the parity generator's four stages
 PARITY_STAGES = ((256, 8), (128, 64), (64, 128), (32, 256))
 KERNEL_SIZES = (3, 7, 11)
+MODEL_DIM = 256
+FFN_DIM = 1024
+FFN_TAPS = (9, 1)
+
+
+def _bound(flops, nbytes):
+    """-> (3xTF32 bound in ms, "operations" | "bytes", SIMT float32 bound
+    in ms, operations, bytes)."""
+    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_simt = max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", t_simt, flops, nbytes
+    return t_bytes, "bytes", t_simt, flops, nbytes
 
 
 def resblock_bound_ms(B, L, C, k, units=3, itemsize=4):
-    """-> (bound in ms, "operations" | "bytes", operations, bytes)."""
+    """K4 on [B, C, L] -> (bound in ms on the 3xTF32 basis, "operations" |
+    "bytes", the SIMT float32 bound in ms, operations, bytes)."""
     flops = units * 2 * (2.0 * k * C * C) * B * L
     nbytes = itemsize * (2 * B * L * C + units * 2 * (k * C * C + C))
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    if t_ops >= t_bytes:
-        return t_ops, "operations", flops, nbytes
-    return t_bytes, "bytes", flops, nbytes
+    return _bound(flops, nbytes)
+
+
+def ffn_bound_ms(B, L, D=MODEL_DIM, H=FFN_DIM, taps=FFN_TAPS):
+    """K2 on x [B, L, D] -> (bound in ms on the 3xTF32 basis, "operations"
+    | "bytes", the SIMT float32 bound in ms, operations, bytes)."""
+    k1, k2 = taps
+    flops = 2.0 * B * L * D * H * (k1 + k2)
+    nbytes = 4 * (2 * B * L * D + k1 * D * H + k2 * H * D + H + 3 * D)
+    return _bound(flops, nbytes)
 
 
 def attention_bound_ms(B, H, L, backward=False, D=HEAD_DIM):
@@ -59,12 +83,7 @@ def attention_bound_ms(B, H, L, backward=False, D=HEAD_DIM):
     flops = (10.0 if backward else 4.0) * B * H * L * L * D
     tensors = 7 if backward else 4
     nbytes = 4 * tensors * B * H * L * D + B * L
-    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_simt = max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes)
-    if t_ops >= t_bytes:
-        return t_ops, "operations", t_simt, flops, nbytes
-    return t_bytes, "bytes", t_simt, flops, nbytes
+    return _bound(flops, nbytes)
 
 
 def parity_resblock_shapes(frames):
@@ -79,17 +98,26 @@ def main(argv=None):
     parser.add_argument("--frames", type=int, default=1000)
     parser.add_argument("--batch", type=int, default=1)
     args = parser.parse_args(argv)
-    total = total_flops = 0.0
+    total = total_simt = total_flops = 0.0
     shapes = parity_resblock_shapes(args.frames)
     for C, L, k in shapes:
-        ms, by, flops, nbytes = resblock_bound_ms(args.batch, L, C, k)
+        ms, by, simt, flops, nbytes = resblock_bound_ms(args.batch, L, C, k)
         total += ms
+        total_simt += simt
         total_flops += flops
         print(f"K4 x [{args.batch}, {C}, {L}] k={k}: {flops:.4g} "
-              f"operations, {nbytes:.4g} bytes -> bound {ms:.4f} ms ({by})")
+              f"operations, {nbytes:.4g} bytes -> bound {ms:.4f} ms ({by}, "
+              f"3xTF32 on the tensor cores); SIMT float32 bound {simt:.4f} "
+              "ms")
     print(f"K4, the {len(shapes)} calls of one parity-vocoder forward on a "
           f"{args.frames}-frame mel: {total_flops:.4g} operations, bound "
-          f"{total:.4f} ms")
+          f"{total:.4f} ms (3xTF32); SIMT float32 bound {total_simt:.4f} ms")
+    for B, L in ((1, 32), (1, 1000), (10, 1000)):
+        ms, by, simt, flops, nbytes = ffn_bound_ms(B, L)
+        print(f"K2 x [{B}, {L}, {MODEL_DIM}] -> {FFN_DIM}, taps "
+              f"{FFN_TAPS}: {flops:.4g} operations, {nbytes:.4g} bytes -> "
+              f"bound {ms:.4e} ms ({by}, 3xTF32 on the tensor cores); SIMT "
+              f"float32 bound {simt:.4e} ms")
     for B, L in ATTENTION_SHAPES:
         for name, backward in (("K1", False), ("K3", True)):
             if backward and B == 1:

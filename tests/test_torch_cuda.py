@@ -1,9 +1,11 @@
 """PyTorch port, CUDA kernels on the card: K1, K2, K3 and K4 against their
 plain versions at the main path's shapes and at ragged L, their input
 checks, K1's key-split grid at batch 1 and the row statistics it hands to
-K3, K1 and K3 giving the same bits on a second launch, the model's
-forward going through K1 and K2, a training step going through K1 and K3,
-and the parity HiFi-GAN going through K4.
+K3, K1, K2, K3 and K4 giving the same bits on a second launch, K4's two
+routes and both tile widths, K2's tap splits, the FFN's weight pack
+rebuilt after a weight change, the model's forward going through K1 and
+K2, a training step going through K1 and K3, and the parity HiFi-GAN
+going through K4.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs on a GPU host without JAX:
@@ -27,6 +29,7 @@ from fastspeech2_tpu_torch.ops.attention import (
     multi_head_attention,
     plain_attention_backward,
 )
+from fastspeech2_tpu_torch.tools.kernel_bounds import parity_resblock_shapes
 
 pytestmark = pytest.mark.cuda
 
@@ -49,13 +52,13 @@ def _attention_inputs(lens, L, device, D=128, seed=0):
     return q, k, v, mask.to(device)
 
 
-def _ffn_inputs(L, device, H=1024, k2=1, seed=0):
+def _ffn_inputs(L, device, H=1024, k2=1, seed=0, B=1):
     g = torch.Generator().manual_seed(seed)
 
     def r(*shape, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=g) * scale + shift).to(device)
 
-    return [r(1, L, 256), r(9, 256, H, scale=0.03), r(H, scale=0.1),
+    return [r(B, L, 256), r(9, 256, H, scale=0.03), r(H, scale=0.1),
             r(k2, H, 256, scale=0.03), r(256, scale=0.1),
             r(256, scale=0.1, shift=1.0), r(256, scale=0.1)]
 
@@ -367,7 +370,7 @@ def test_resblock_kernel_raises_on_what_it_does_not_take(device):
         cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5),
                                      packed=packed)
     x, w1, b1, w2, b2 = _resblock_inputs(48, 3, 40, device)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    with pytest.raises(ValueError, match="multiple of 64"):
         cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
     x, w1, b1, w2, b2 = _resblock_inputs(32, 5, 40, device)
     with pytest.raises(ValueError, match="k in"):
@@ -402,3 +405,108 @@ def test_parity_generator_goes_through_k4(device):
         ref = gen(mel)
     assert cuda_resblock.launches == 12
     torch.testing.assert_close(wav, ref, atol=1e-4, rtol=0)
+
+
+# K2 at every shape the paths give it: the README sentence's encoder (32)
+# and decoder (1000), the re-dispatch bucket (1536), one frame, and the
+# validation forward's batch of 10; two launches must agree bit for bit
+@pytest.mark.parametrize("B", [1, 10])
+@pytest.mark.parametrize("L", [1, 32, 1000, 1536])
+@pytest.mark.parametrize("k2", [1, 3])
+def test_conv_ffn_kernel_at_the_path_shapes(device, B, L, k2):
+    args = _ffn_inputs(L, device, k2=k2, seed=L + k2 + B, B=B)
+    got = cuda_ffn.fused_conv_ffn(*args)
+    again = cuda_ffn.fused_conv_ffn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, cuda_ffn.plain_conv_ffn(*args),
+                               atol=1e-4, rtol=0)
+
+
+# every tile width of the first conv with tap splits that leave one, two,
+# three and nine taps per block (9 = 3 + 3 + 3, 5 + 4, ...), and the second
+# conv's hidden channels in 1, 4 and 16 groups
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 9])
+@pytest.mark.parametrize("groups", [1, 4, 16])
+def test_conv_ffn_kernel_every_plan(device, bn, splits, groups):
+    args = _ffn_inputs(100, device, k2=3, seed=bn + splits + groups)
+    packed = cuda_ffn.pack_ffn_weights(args[1], args[3])
+    got = cuda_ffn._launch(*args, packed=packed, plan=(bn, splits, groups))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, cuda_ffn.plain_conv_ffn(*args),
+                               atol=1e-4, rtol=0)
+
+
+def test_ffn_weight_pack_is_rebuilt_after_a_weight_change(device):
+    torch.manual_seed(0)
+    ffn = transformer.PositionwiseFeedForward(256, 1024, (9, 1), 0.1)
+    ffn = ffn.to(device).eval()
+    x = torch.randn(1, 50, 256, generator=torch.Generator().manual_seed(1)
+                    ).to(device)
+    with torch.inference_mode():
+        ffn(x)
+        first = ffn._pack
+        ffn(x)
+        assert ffn._pack is first
+    with torch.no_grad():
+        ffn.w_1.weight.mul_(0.5)
+    with torch.inference_mode():
+        got = ffn(x)
+    assert ffn._pack is not first
+    ref = cuda_ffn.plain_conv_ffn(
+        x, ffn.w_1.weight.permute(2, 1, 0), ffn.w_1.bias,
+        ffn.w_2.weight.permute(2, 1, 0), ffn.w_2.bias,
+        ffn.layer_norm.weight, ffn.layer_norm.bias)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+# K4 at the 12 ResBlock shapes of a 1000-frame parity-vocoder forward
+@pytest.mark.parametrize("C,L,k", parity_resblock_shapes(1000))
+def test_resblock_kernel_at_the_parity_path_shapes(device, C, L, k):
+    x, w1, b1, w2, b2 = _resblock_inputs(C, k, L, device, seed=C + k)
+    with torch.inference_mode():
+        got = cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+        ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    _assert_resblock_close(got, ref)
+
+
+# both routes and every tile width the unit kernel has (the conv kernel
+# has one), L at one position, below the halo (60 at k = 11), and at the
+# 64- and 128-position tiles +- 1
+@pytest.mark.parametrize("how,C,tile", [
+    ("unit", 32, 64), ("unit", 32, 128), ("unit", 64, 64), ("unit", 64, 128),
+    ("unit", 128, 64), ("conv", 64, 0), ("conv", 128, 0), ("conv", 256, 0)])
+@pytest.mark.parametrize("L,k", [(1, 11), (9, 3), (40, 11), (63, 7),
+                                 (65, 11), (127, 3), (129, 11)])
+def test_resblock_routes_and_tiles(device, how, C, tile, L, k):
+    x, w1, b1, w2, b2 = _resblock_inputs(C, k, L, device, B=2,
+                                         seed=C + L + k)
+    packed = cuda_resblock.pack_resblock_weights(w1, b1, w2, b2)
+    with torch.inference_mode():
+        got = cuda_resblock._launch(x, packed, (1, 3, 5), how=how, tile=tile)
+        ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    _assert_resblock_close(got, ref)
+
+
+# one unit of k = 11 dilated by 5: the widest halo of the path (50)
+@pytest.mark.parametrize("how,C", [("unit", 64), ("conv", 128)])
+def test_resblock_kernel_k11_d5(device, how, C):
+    x, w1, b1, w2, b2 = _resblock_inputs(C, 11, 777, device, bias=2.0)
+    w1, b1, w2, b2 = w1[:1], b1[:1], w2[:1], b2[:1]
+    packed = cuda_resblock.pack_resblock_weights(w1, b1, w2, b2)
+    with torch.inference_mode():
+        got = cuda_resblock._launch(x, packed, (5,), how=how)
+        ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, (5,))
+    _assert_resblock_close(got, ref)
+
+
+@pytest.mark.parametrize("C,L,k", [(32, 4097, 7), (64, 3000, 11),
+                                   (128, 2000, 3), (256, 1531, 11)])
+def test_resblock_kernel_is_bitwise_repeatable(device, C, L, k):
+    x, w1, b1, w2, b2 = _resblock_inputs(C, k, L, device, seed=k)
+    with torch.inference_mode():
+        got = [cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+               for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*got)
