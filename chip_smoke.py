@@ -34,9 +34,27 @@ exits non-zero):
              config/LJSpeech/model.yaml: the parity HiFi-GAN from its seeded
              random init; launch counts (12 K4 per vocoder forward); the wav
              against the same vocoder forward with the plain ResBlocks;
+           then the synthesize CLI's inference options, each through its
+           main with the launch counts set to 0 just before and read just
+           after (10 K1 + 10 K2 per acoustic forward throughout):
+   melgan    vocoder.model MelGAN on its tracked snapshot (0 K4);
+   griffin-lim  vocoder.model none: the card's Griffin-Lim against the
+             CPU's from the same initial phase, and two card runs bitwise
+             equal;
+   batch     --mode batch over the corpus's 10 metadata rows (forwards at
+             batch 8 and 2): each forward's mel against the same forward
+             with the plain K1/K2, launches per forward, 10 wavs and 10
+             pngs (or the line saying matplotlib is missing);
+   long      --long on three sentences: the joined wav is the chunks plus
+             the pauses;
+   torch_ckpt  --torch_ckpt on the tracked weights as a reference-format
+             .pth.tar: the wav bitwise equal to the --weights_npz run's;
+   mandarin  tone-numbered pinyin with a language: zh config, and hanzi
+             without pypinyin raising;
 9. timings   each kernel, its plain version and the library yardstick
-             (CUDA events), text -> wav end to end and the parity vocoder's
-             forward;
+             (CUDA events; K1 and K2 also at batch mode's batch-8 shapes),
+             text -> wav end to end, the parity vocoder's forward, and
+             MelGAN's and Griffin-Lim's forward on the 1000-frame mel;
 10. training 20 steps at full model width (config/LJSpeech10, batch 10) on
              a synthetic corpus through the port's train(), with one
              validation pass; launch counts per step and per eval forward;
@@ -52,6 +70,8 @@ directory.  Without a CUDA device, or outside a checkout of the repository,
 the script exits non-zero before printing any result.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -70,6 +90,20 @@ CONFIG = "config/LJSpeech10"
 PARITY_MODEL = "config/LJSpeech/model.yaml"
 ACOUSTIC_NPZ = "weights/acoustic_LJSpeech10_100k.npz"
 VOCODER_NPZ = "weights/vocoder_gen_mixed60k.npz"
+MELGAN_NPZ = "weights/vocoder_melgan_30k.npz"
+# batch mode reads the corpus's metadata: 10 rows, forwards at batch 8
+# and 2 (the CLI's BATCH_SIZE)
+BATCH_SOURCE = "preprocessed_data/LJSpeech10/train.txt"
+LONG_TEXT = ("The quick brown fox jumps over the lazy dog. The soviet "
+             "authorities denied oswald permission. They bought their "
+             "offices from one another.")
+PINYIN_TEXT = "ni3 hao3 shi4 jie4"
+HANZI_TEXT = "你好世界"
+# Griffin-Lim on the card against the CPU from the same initial phase:
+# 30 rounds of float32 FFTs (cuFFT against PocketFFT), absolute on the
+# float waveform, where 1.0 is int16 full scale (the README sentence's
+# peaks near 3.8, and its int16 wav clips)
+GL_ATOL = 1e-4
 # float32 kernels vs float32 plain versions: the same sums in another
 # order (up to 2304 terms for K2's first conv), so agreement to ~1e-5 of
 # O(1) values is expected; 1e-4 leaves headroom
@@ -233,6 +267,388 @@ def resblock_inputs(C, L, k, device, seed, bias=0.5):
     return x, w1, b1, w2, b2
 
 
+def launch_counts():
+    """-> {kernel: launches so far} of the four wrappers."""
+    from fastspeech2_tpu_torch.ops import (
+        cuda_attention,
+        cuda_ffn,
+        cuda_resblock,
+    )
+
+    return {"K1": cuda_attention.launches, "K2": cuda_ffn.launches,
+            "K3": cuda_attention.bwd_launches, "K4": cuda_resblock.launches}
+
+
+def zero_counts():
+    from fastspeech2_tpu_torch.ops import (
+        cuda_attention,
+        cuda_ffn,
+        cuda_resblock,
+    )
+
+    cuda_attention.launches = cuda_attention.bwd_launches = 0
+    cuda_ffn.launches = cuda_resblock.launches = 0
+
+
+@contextlib.contextmanager
+def record_forwards():
+    """Wrap ``Synthesizer.infer_ids`` (every acoustic forward of the CLI's
+    modes goes through it): each call's arguments, output and the launches
+    it made (one acoustic forward, or two with a re-dispatch)."""
+    from fastspeech2_tpu_torch.synthesis.pipeline import Synthesizer
+
+    calls = []
+    inner = Synthesizer.infer_ids
+
+    def infer_ids(self, *args, **kwargs):
+        before = launch_counts()
+        out = inner(self, *args, **kwargs)
+        after = launch_counts()
+        calls.append(dict(synth=self, args=args, kwargs=kwargs, out=out,
+                          launches={k: after[k] - before[k]
+                                    for k in after}))
+        return out
+
+    Synthesizer.infer_ids = infer_ids
+    try:
+        yield calls
+    finally:
+        Synthesizer.infer_ids = inner
+
+
+def drive_cli(argv):
+    """The synthesize CLI's main(argv), every launch count set to 0 just
+    before and read just after -> (its return value, launches, the
+    acoustic forwards, its printed lines, seconds)."""
+    import torch
+
+    from fastspeech2_tpu_torch.cli import synthesize_cli
+
+    printed = io.StringIO()
+    with record_forwards() as calls:
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = synthesize_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+    return result, launches, calls, printed.getvalue().splitlines(), seconds
+
+
+def batch_shapes(preprocess_config):
+    """-> [(padded batch, encoder L, real rows)] of the batch-mode forwards
+    over BATCH_SOURCE, as the CLI packs them (rows of 8, the batch padded to
+    a power of two, phones to a multiple of 16)."""
+    from fastspeech2_tpu_torch.cli.synthesize_cli import (
+        BATCH_SIZE,
+        load_metadata_rows,
+    )
+    from fastspeech2_tpu_torch.synthesis.pipeline import TEXT_BUCKET, round_up
+    from fastspeech2_tpu_torch.text import text_to_sequence
+
+    cleaners = preprocess_config["preprocessing"]["text"]["text_cleaners"]
+    texts = load_metadata_rows(preprocess_config, BATCH_SOURCE)[2]
+    lens = [len(text_to_sequence(t, cleaners)) for t in texts]
+    return [(1 << (len(chunk) - 1).bit_length(),
+             round_up(max(chunk), TEXT_BUCKET), len(chunk))
+            for chunk in (lens[i:i + BATCH_SIZE]
+                          for i in range(0, len(lens), BATCH_SIZE))]
+
+
+def inference_options(device, card, preprocess_config, model_config,
+                      readme_wav, transformer, cuda_ffn, plain_attention):
+    """The synthesize CLI's inference options on the card, each through its
+    main (``drive_cli``): MelGAN and Griffin-Lim through model.yaml's
+    vocoder.model, batch mode, --long, --torch_ckpt and the Mandarin
+    frontend.  Raises on a failed gate.  -> {"launches": {path: {kernel:
+    n}}, "timings": {...}, "errors": {...}}."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from fastspeech2_tpu_torch.configs.config import FastSpeech2Config
+    from fastspeech2_tpu_torch.synthesis.vocoder import (
+        GriffinLimVocoder,
+        MelGANVocoder,
+        get_vocoder,
+        vocoder_infer,
+    )
+    from fastspeech2_tpu_torch.utils.params_io import (
+        from_jax_params,
+        load_variables_npz,
+    )
+
+    pp = preprocess_config["preprocessing"]
+    hop, sr = pp["stft"]["hop_length"], pp["audio"]["sampling_rate"]
+    bshapes = batch_shapes(preprocess_config)
+    found, errors = {}, {}
+
+    def check_launches(path, calls, launches, k4_per_vocoder, vocoders):
+        """10 K1 + 10 K2 per acoustic forward (a re-dispatch is a second
+        one), ``k4_per_vocoder`` K4 per vocoder forward, no K3 -> the
+        acoustic forwards."""
+        forwards = sum(
+            2 if int(c["out"].duration_rounded.sum(dim=1).max())
+            > model_config["max_seq_len"] else 1 for c in calls)
+        expected = {"K1": 10 * forwards, "K2": 10 * forwards, "K3": 0,
+                    "K4": k4_per_vocoder * vocoders}
+        if launches != expected:
+            raise RuntimeError(f"[{path}] launches {launches}, expected "
+                               f"{expected}")
+        found[path] = launches
+        return forwards
+
+    def check_wav(path, wav, out, i=0):
+        mel_len = int(out.mel_len[i])
+        peak = int(np.abs(wav.astype(np.int32)).max())
+        if len(wav) != mel_len * hop or mel_len <= 0:
+            raise RuntimeError(f"[{path}] wav length {len(wav)} is not "
+                               f"mel_len {mel_len} x hop {hop}")
+        if peak == 0:
+            raise RuntimeError(f"[{path}] the wav is silent")
+        if not torch.isfinite(out.postnet_mel).all():
+            raise RuntimeError(f"[{path}] the mel is not finite")
+        return mel_len, peak
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def yaml_file(name, cfg):
+            path = os.path.join(tmp, f"{name}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            return path
+
+        def argv(text, model=f"{CONFIG}/model.yaml",
+                 pre=f"{CONFIG}/preprocess.yaml",
+                 weights=("--weights_npz", ACOUSTIC_NPZ),
+                 vocoder_ckpt=VOCODER_NPZ):
+            args = ["--mode", "single", "--text", text, "-p", pre,
+                    "-m", model, "-t", f"{CONFIG}/train.yaml", *weights,
+                    "--result_path", os.path.join(tmp, "result")]
+            if vocoder_ckpt:
+                args += ["--vocoder_ckpt", vocoder_ckpt]
+            return args
+
+        def with_vocoder(name):
+            return dict(model_config, vocoder=dict(model_config["vocoder"],
+                                                   model=name))
+
+        # melgan: vocoder.model MelGAN on its tracked snapshot
+        melgan_cfg = with_vocoder("MelGAN")
+        (wavs, out, _), launches, calls, _, cli_s = drive_cli(argv(
+            README_SENTENCE, model=yaml_file("model_melgan", melgan_cfg),
+            vocoder_ckpt=MELGAN_NPZ))
+        forwards = check_launches("melgan", calls, launches, 0, 1)
+        mel_len, peak = check_wav("melgan", wavs[0], out)
+        mel = out.postnet_mel
+        melgan = get_vocoder(melgan_cfg, preprocess_config, MELGAN_NPZ,
+                             device)
+        with torch.inference_mode():
+            melgan_wav = melgan(mel)
+        if not (isinstance(melgan, MelGANVocoder)
+                and torch.isfinite(melgan_wav).all()):
+            raise RuntimeError("[melgan] the vocoder's wav is not finite")
+        again = vocoder_infer(mel, melgan, preprocess_config,
+                              lengths=out.mel_len.cpu().numpy())[0]
+        say(f"[melgan] {README_SENTENCE!r} with vocoder.model MelGAN "
+            f"({MELGAN_NPZ}): {len(wavs[0])} samples = mel_len {mel_len} x "
+            f"hop {hop}; peak {peak}; finite; {forwards} acoustic "
+            f"forward(s); launches {launches}; the same vocoder again gives "
+            f"the CLI's wav: {np.array_equal(again, wavs[0])}; CLI main "
+            f"{cli_s:.2f} s")
+        if not np.array_equal(again, wavs[0]):
+            raise RuntimeError("[melgan] the vocoder does not repeat the "
+                               "CLI's wav")
+
+        # griffin-lim: vocoder.model none; the card against the CPU from
+        # the same initial phase (drawn on the CPU from seed 0)
+        gl_cfg = with_vocoder("none")
+        (wavs, out, _), launches, calls, _, cli_s = drive_cli(argv(
+            README_SENTENCE, model=yaml_file("model_none", gl_cfg),
+            vocoder_ckpt=None))
+        forwards = check_launches("griffin-lim", calls, launches, 0, 1)
+        mel_len, peak = check_wav("griffin-lim", wavs[0], out)
+        gl = get_vocoder(gl_cfg, preprocess_config, None, device)
+        gl_cpu = get_vocoder(gl_cfg, preprocess_config, None, "cpu")
+        with torch.inference_mode():
+            first = gl(out.postnet_mel)
+            second = gl(out.postnet_mel)
+            torch.cuda.synchronize()
+            on_cpu = gl_cpu(out.postnet_mel.cpu())
+        repeat = torch.equal(first, second)
+        gl_err = (first.cpu() - on_cpu).abs().max().item()
+        errors["griffin-lim"] = gl_err
+        cli_again = np.array_equal(vocoder_infer(
+            out.postnet_mel, gl, preprocess_config,
+            lengths=out.mel_len.cpu().numpy())[0], wavs[0])
+        say(f"[griffin-lim] {README_SENTENCE!r} with vocoder.model none "
+            f"(Griffin-Lim, {gl.n_iters} iterations, n_fft {gl.n_fft}): "
+            f"{len(wavs[0])} samples = mel_len {mel_len} x hop {hop}; peak "
+            f"{peak}; {forwards} acoustic forward(s); launches {launches}; "
+            f"card vs CPU from the same initial phase on the "
+            f"{out.postnet_mel.shape[1]}-frame mel: max_abs_err="
+            f"{gl_err:.3e} (tolerance {GL_ATOL:g} of full scale; largest "
+            f"|sample| {on_cpu.abs().max().item():.3e}); two card runs "
+            f"bitwise equal: {repeat}; the CLI's wav repeated: {cli_again}; "
+            f"CLI main {cli_s:.2f} s")
+        if not (isinstance(gl, GriffinLimVocoder)
+                and torch.isfinite(first).all()):
+            raise RuntimeError("[griffin-lim] the wav is not finite")
+        if not gl_err <= GL_ATOL:
+            raise RuntimeError("[griffin-lim] the card disagrees with the "
+                               "CPU")
+        if not (repeat and cli_again):
+            raise RuntimeError("[griffin-lim] two runs on the card differ")
+
+        # batch: the corpus's metadata, 8 rows per forward; each forward's
+        # mel against the same forward with the plain K1/K2
+        result = os.path.join(tmp, "batch")
+        (wavs, outs, paths), launches, calls, lines, cli_s = drive_cli([
+            "--mode", "batch", "--source", BATCH_SOURCE,
+            "-p", f"{CONFIG}/preprocess.yaml", "-m", f"{CONFIG}/model.yaml",
+            "-t", f"{CONFIG}/train.yaml", "--weights_npz", ACOUSTIC_NPZ,
+            "--vocoder_ckpt", VOCODER_NPZ, "--result_path", result])
+        forwards = check_launches("batch", calls, launches, 6, len(calls))
+        shapes = [(c["out"].postnet_mel.shape[0],
+                   c["out"].src_pad_mask.shape[1]) for c in calls]
+        if shapes != [(B, enc) for B, enc, _ in bshapes]:
+            raise RuntimeError(f"[batch] forwards at {shapes}, expected "
+                               f"{bshapes}")
+        batch_err = 0.0
+        for c in calls:
+            rows = len(c["args"][0])
+            saved = transformer.fused_attention, transformer.fused_conv_ffn
+            transformer.fused_attention = plain_attention
+            transformer.fused_conv_ffn = cuda_ffn.plain_conv_ffn
+            try:
+                plain = c["synth"].infer_ids(*c["args"], **c["kwargs"])
+            finally:
+                transformer.fused_attention, transformer.fused_conv_ffn = \
+                    saved
+            kern = c["out"]
+            if not torch.equal(kern.duration_rounded[:rows],
+                               plain.duration_rounded[:rows]):
+                raise RuntimeError("[batch] kernel and plain forwards "
+                                   "predict other durations")
+            err = (kern.postnet_mel[:rows]
+                   - plain.postnet_mel[:rows]).abs().max().item()
+            batch_err = max(batch_err, err)
+            say(f"[batch] forward of {rows} rows padded to batch "
+                f"{kern.postnet_mel.shape[0]}: encoder L "
+                f"{kern.src_pad_mask.shape[1]}, decoder L "
+                f"{kern.mel.shape[1]}; launches {c['launches']}; mel "
+                f"(postnet) vs the plain K1/K2 max_abs_diff={err:.3e} "
+                f"(tolerance {MEL_ATOL:g})")
+        errors["batch"] = batch_err
+        mel_lens = [int(m) for c in calls
+                    for m in c["out"].mel_len[: len(c["args"][0])]]
+        for path, wav, mel_len in zip(paths, wavs, mel_lens):
+            if len(wav) != mel_len * hop:
+                raise RuntimeError(f"[batch] {path}: {len(wav)} samples, "
+                                   f"expected {mel_len * hop}")
+        written = sorted(os.listdir(result))
+        n_wav = sum(n.endswith(".wav") for n in written)
+        n_png = sum(n.endswith(".png") for n in written)
+        no_png = [ln for ln in lines
+                  if ln.startswith("matplotlib is not installed")]
+        n_rows = sum(rows for _, _, rows in bshapes)
+        say(f"[batch] --mode batch --source {BATCH_SOURCE}: {len(wavs)} "
+            f"rows, {len(calls)} forwards at (batch, encoder L) {shapes}, "
+            f"{forwards} acoustic forward(s); launches {launches}; "
+            f"{n_wav} wavs and {n_png} pngs written"
+            f"{'; ' + ' | '.join(no_png) if no_png else ''}; CLI main "
+            f"{cli_s:.2f} s")
+        if not batch_err <= MEL_ATOL:
+            raise RuntimeError("[batch] a mel disagrees with plain K1/K2")
+        if not (len(wavs) == n_wav == n_rows
+                and (n_png == n_rows or (n_png == 0 and no_png))):
+            raise RuntimeError(f"[batch] wrote {written}")
+
+        # long: three sentences as one batch, joined with 120 ms pauses
+        ([joined], chunks, [path]), launches, calls, lines, cli_s = \
+            drive_cli(argv(LONG_TEXT) + ["--long"])
+        forwards = check_launches("long", calls, launches, 6, 1)
+        out = calls[0]["out"]
+        pause = int(sr * 120.0 / 1000.0)
+        lengths = [int(m) * hop for m in out.mel_len[: len(chunks)]]
+        expected = sum(lengths) + pause * (len(chunks) - 1)
+        say(f"[long] --long on {len(chunks)} sentences (batch "
+            f"{out.postnet_mel.shape[0]}): joined wav {len(joined)} samples"
+            f" = chunks {lengths} + {len(chunks) - 1} pauses of {pause}; "
+            f"{forwards} acoustic forward(s); launches {launches}; printed "
+            f"{[ln for ln in lines if ln.startswith('Synthesized')]}; "
+            f"written {os.path.basename(path)}: {os.path.exists(path)}; CLI "
+            f"main {cli_s:.2f} s")
+        if len(chunks) != 3 or len(joined) != expected:
+            raise RuntimeError("[long] the joined wav's length is not the "
+                               "chunks' plus the pauses")
+        if not os.path.exists(path):
+            raise RuntimeError(f"[long] {path} not written")
+
+        # torch_ckpt: the tracked npz as a reference-format .pth.tar
+        cfg = FastSpeech2Config.build(preprocess_config, model_config)
+        ckpt = os.path.join(tmp, "acoustic.pth.tar")
+        torch.save({"model": from_jax_params(
+            load_variables_npz(ACOUSTIC_NPZ), cfg)}, ckpt)
+        (wavs, out, _), launches, calls, _, cli_s = drive_cli(argv(
+            README_SENTENCE, weights=("--torch_ckpt", ckpt)))
+        forwards = check_launches("torch_ckpt", calls, launches, 6, 1)
+        check_wav("torch_ckpt", wavs[0], out)
+        same = np.array_equal(wavs[0], readme_wav)
+        say(f"[torch_ckpt] {README_SENTENCE!r} through --torch_ckpt "
+            f"({{'model': state_dict}} from {ACOUSTIC_NPZ}): "
+            f"{len(wavs[0])} samples; {forwards} acoustic forward(s); "
+            f"launches {launches}; bitwise equal to the --weights_npz "
+            f"wav: {same}; CLI main {cli_s:.2f} s")
+        if not same:
+            raise RuntimeError("[torch_ckpt] the wav differs from the "
+                               "--weights_npz run's")
+
+        # mandarin: tone-numbered pinyin with a language: zh config
+        zh = copy.deepcopy(preprocess_config)
+        zh["preprocessing"]["text"] = {"text_cleaners": [], "language": "zh"}
+        zh_yaml = yaml_file("preprocess_zh", zh)
+        (wavs, out, _), launches, calls, lines, cli_s = drive_cli(argv(
+            PINYIN_TEXT, pre=zh_yaml))
+        forwards = check_launches("mandarin", calls, launches, 6, 1)
+        mel_len, peak = check_wav("mandarin", wavs[0], out)
+        ids = [int(i) for i in calls[0]["args"][0][0]]
+        phones = [ln for ln in lines if ln.startswith("Phoneme Sequence")]
+        saved = sys.modules.get("pypinyin")
+        sys.modules["pypinyin"] = None      # hanzi without pypinyin
+        try:
+            drive_cli(argv(HANZI_TEXT, pre=zh_yaml))
+            hanzi = "no error"
+        except RuntimeError as e:
+            hanzi = str(e)
+        finally:
+            if saved is None:
+                del sys.modules["pypinyin"]
+            else:
+                sys.modules["pypinyin"] = saved
+        say(f"[mandarin] {PINYIN_TEXT!r} with language zh: {phones}, phone "
+            f"IDs {ids}; {len(wavs[0])} samples = mel_len {mel_len} x hop "
+            f"{hop}, peak {peak}, mel finite; {forwards} acoustic "
+            f"forward(s); launches {launches}; hanzi {HANZI_TEXT!r} without "
+            f"pypinyin raises: {hanzi!r}; CLI main {cli_s:.2f} s")
+        if not hanzi.startswith("pypinyin is unavailable"):
+            raise RuntimeError("[mandarin] hanzi did not raise the "
+                               "RuntimeError")
+
+        # the two vocoders' forward on the README sentence's 1000-frame mel
+        with torch.inference_mode():
+            timings = {
+                "melgan_ms": cuda_time_ms(lambda: melgan(mel)),
+                "griffin_lim_ms": cuda_time_ms(lambda: gl(mel), iters=5,
+                                               warmup=1)}
+        say(f"[timing] vocoder forward on the {mel.shape[1]}-frame mel "
+            f"(CUDA events): MelGAN {timings['melgan_ms']:.4f} ms (cuDNN "
+            f"convolutions), Griffin-Lim {timings['griffin_lim_ms']:.4f} ms "
+            f"({gl.n_iters} iterations, cuFFT); on {card}")
+    return {"launches": found, "timings": timings, "errors": errors}
+
+
 def main():
     import torch
 
@@ -269,6 +685,13 @@ def main():
     from fastspeech2_tpu_torch.utils.device import resolve_device
 
     device = resolve_device("cuda")     # also pins TF32 off
+    preprocess_config, model_config, _ = load_yaml_configs(
+        f"{CONFIG}/preprocess.yaml", f"{CONFIG}/model.yaml",
+        f"{CONFIG}/train.yaml")
+    # batch mode's forwards: [(padded batch, encoder L, real rows)]
+    bshapes = batch_shapes(preprocess_config)
+    k2_shapes = K2_SHAPES + tuple(
+        (B, L, 1) for B, enc, _ in bshapes for L in (enc, 1000))
 
     # 1. card
     smi = subprocess.run(
@@ -316,7 +739,7 @@ def main():
         f"blocks at [1, 2, 1000, 128] on "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     k2_plans = {(B, L): cuda_ffn.forward_plan(B, L, 1024, 9)
-                for B, L, _ in K2_SHAPES}
+                for B, L, _ in k2_shapes}
     say(f"[build] K2's plan (positions per block and tap splits of the first "
         f"conv, hidden groups of the second) at [B, L, 256] -> 1024, by "
         f"(B, L): {k2_plans}")
@@ -336,6 +759,17 @@ def main():
                 raise RuntimeError(f"K1 output not finite at L={L}, "
                                    f"lens={lens}")
             k1_err = max(k1_err, (got - ref).abs().max().item())
+    # ... at batch mode's shapes ([8|2, 2, L_enc|1000, 128]; one full, one
+    #    fully padded and partly padded rows) ...
+    k1_batch = [(B, L) for B, enc, _ in bshapes for L in (enc, 1000)]
+    for B, L in k1_batch:
+        q, k, v, mask, _ = attention_grad_inputs(L, device, seed=L + B, B=B)
+        got = cuda_attention.fused_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = multi_head_attention(q, k, v, mask)
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"K1 output not finite at [{B}, 2, {L}, 128]")
+        k1_err = max(k1_err, (got - ref).abs().max().item())
     # ... and at the training slice's L, batch 10 (one full, one fully
     #    padded and partly padded rows), with the softmax statistics K3
     #    reads: the row max against the float32 masked scores' (absolute),
@@ -361,7 +795,8 @@ def main():
                      (row_max - ref_max).abs().max().item())
         stats_rel = max(stats_rel,
                         ((row_sum - ref_sum).abs() / ref_sum).max().item())
-    say(f"[K1] attention kernel vs plain at [1|2, 2, 32|48|1000, 128] and "
+    say(f"[K1] attention kernel vs plain at [1|2, 2, 32|48|1000, 128], "
+        f"batch mode's [B, 2, L, 128] for (B, L) in {k1_batch} and "
         f"[10, 2, 1000|768|128, 128], partly and fully padded rows: "
         f"max_abs_err={k1_err:.3e} over the output and the row max "
         f"(tolerance {KERNEL_ATOL:g}); row sum max relative error "
@@ -374,7 +809,7 @@ def main():
     # 4. K2 vs plain at every path shape, each launched twice
     k2_err = 0.0
     k2_repeat = True
-    for B, L, k2 in K2_SHAPES:
+    for B, L, k2 in k2_shapes:
         args = ffn_inputs(L, device, seed=L + k2 + B, k2=k2, B=B)
         got = cuda_ffn.fused_conv_ffn(*args)
         again = cuda_ffn.fused_conv_ffn(*args)
@@ -385,7 +820,7 @@ def main():
         k2_repeat = k2_repeat and torch.equal(got, again)
         k2_err = max(k2_err, (got - ref).abs().max().item())
     say(f"[K2] conv-FFN kernel vs plain at [B, L, 256] -> 1024, (B, L, k2) "
-        f"in {K2_SHAPES}: max_abs_err={k2_err:.3e} (tolerance "
+        f"in {k2_shapes}: max_abs_err={k2_err:.3e} (tolerance "
         f"{KERNEL_ATOL:g}); two launches bitwise equal: {k2_repeat}")
     if not k2_err <= KERNEL_ATOL:
         raise RuntimeError("K2 disagrees with its plain version")
@@ -518,9 +953,6 @@ def main():
             written = f.readframes(f.getnframes())
     if written != wavs[0].astype("<i2").tobytes():
         raise RuntimeError("the written wav differs from the synthesized one")
-    preprocess_config, model_config, _ = load_yaml_configs(
-        f"{CONFIG}/preprocess.yaml", f"{CONFIG}/model.yaml",
-        f"{CONFIG}/train.yaml")
     wav = wavs[0]
     hop = preprocess_config["preprocessing"]["stft"]["hop_length"]
     sr = preprocess_config["preprocessing"]["audio"]["sampling_rate"]
@@ -551,7 +983,8 @@ def main():
 
     model, cfg = synthesize_cli.load_model_for_inference(
         preprocess_config, model_config, ACOUSTIC_NPZ, device)
-    vocoder = get_vocoder(model_config, VOCODER_NPZ, device)
+    vocoder = get_vocoder(model_config, preprocess_config, VOCODER_NPZ,
+                          device)
     synth = Synthesizer(model, cfg, preprocess_config, device,
                         vocoder=vocoder)
     ids, _ = synth.text_to_ids(README_SENTENCE)
@@ -631,7 +1064,8 @@ def main():
         raise RuntimeError(f"K4 launched {parity_launches['K4']} times, "
                            "expected 12 (one vocoder forward)")
     # the same vocoder again (the seeded init), and the CLI's wav from it
-    parity_vocoder = get_vocoder(parity_model_config, None, device)
+    parity_vocoder = get_vocoder(parity_model_config, preprocess_config,
+                                 None, device)
     resblocks = [m for m in parity_vocoder.modules()
                  if isinstance(m, ResBlock)]
     again = vocoder_infer(p_out.postnet_mel, parity_vocoder,
@@ -656,6 +1090,12 @@ def main():
     if not wav_err <= WAV_ATOL:
         raise RuntimeError("the K4 vocoder's wav disagrees with plain")
 
+    # the inference options of the synthesize CLI, each through its main
+    # with the counts set to 0 just before and read just after
+    options = inference_options(device, card, preprocess_config,
+                                model_config, wavs[0], transformer,
+                                cuda_ffn, multi_head_attention)
+
     # 9. timings at the path's shapes
     import torch.nn.functional as F
 
@@ -671,10 +1111,24 @@ def main():
             plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v, mask)),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=additive))), attention_bound_ms(1, 2, L))
+    # ... and at batch mode's batch-8 shapes (one full, one fully padded
+    #    and partly padded rows)
+    B8, enc8, _ = bshapes[0]
+    for L in (enc8, 1000):
+        q, k, v, mask, _ = attention_grad_inputs(L, device, seed=8, B=B8)
+        additive = torch.zeros(B8, 1, 1, L, device=device).masked_fill(
+            mask[:, None, None, :], -1e9)
+        timings[("K1", B8, L)] = with_bound(dict(
+            ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
+                q, k, v, mask)),
+            plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v, mask)),
+            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=additive))), attention_bound_ms(B8, 2, L))
     # K2 as the model calls it, its weight pack made once: the README
-    # sentence's encoder and decoder, the validation forward at batch 10
-    for B, L in ((1, enc_len), (1, 1000), (TRAIN_BATCH, 128),
-                 (TRAIN_BATCH, 1000)):
+    # sentence's encoder and decoder, batch mode's batch-8 forward, the
+    # validation forward at batch 10
+    for B, L in ((1, enc_len), (1, 1000), (B8, enc8), (B8, 1000),
+                 (TRAIN_BATCH, 128), (TRAIN_BATCH, 1000)):
         args = ffn_inputs(L, device, seed=9, B=B)
         packed = cuda_ffn.pack_ffn_weights(args[1], args[3])
         with torch.inference_mode():
@@ -992,7 +1446,7 @@ def main():
     per_shape = {name: [
         dict(shape=[B, 2, L, 128], **{key: t[key] for key in keys})
         for (B, L), t in sorted(
-            [((1, L), t) for (n, _, L), t in timings.items() if n == name]
+            [((B, L), t) for (n, B, L), t in timings.items() if n == name]
             + [((TRAIN_BATCH, L), t) for (n, L), t in train_timings.items()
                if n == name])]
         for name in ("K1", "K3")}
@@ -1019,6 +1473,8 @@ def main():
             "launches_by_path": {"synthesis": launches.get(name, 0),
                                  "parity synthesis": parity_launches.get(
                                      name, 0),
+                                 **{path: n[name] for path, n in
+                                    options["launches"].items()},
                                  "training": train_launches[name]}})
     # K4: the sums over the 12 calls of one 1000-frame parity forward
     kernels.append({
@@ -1039,6 +1495,8 @@ def main():
         "per_call": k4_timings,
         "launches_by_path": {"synthesis": launches["K4"],
                              "parity synthesis": parity_launches["K4"],
+                             **{path: n["K4"] for path, n in
+                                options["launches"].items()},
                              "training": train_launches["K4"]}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -2,20 +2,24 @@
 ``fastspeech2_tpu/cli/evaluate_cli.py``, its loss mode):
 
     python -m fastspeech2_tpu_torch.cli.evaluate_cli -p PRE.yaml \\
-        -m MODEL.yaml -t TRAIN.yaml (--restore_step N | --weights_npz F) \\
+        -m MODEL.yaml -t TRAIN.yaml \\
+        (--restore_step N | --weights_npz F | --torch_ckpt F) \\
         [--device cuda|cpu]
 
 Prints the sample-weighted mean teacher-forced losses over val.txt in eval
 mode (the loader's duplicate rows left out), one "Validation Step" line,
-from the port's own checkpoint ``<ckpt_path>/<N>.pth.tar`` or a tracked
-npz snapshot.  Runs on the card unless ``--device cpu`` is given, in
-float32.  Not ported yet: --synth, --objective (with --split, --save_dir,
---vocoder_ckpt) and --torch_ckpt.
+from the port's own checkpoint ``<ckpt_path>/<N>.pth.tar``, a tracked
+npz snapshot or a reference-format ``.pth.tar``.  Runs on the card unless
+``--device cpu`` is given, in float32.  Not ported yet: --synth and
+--objective (with --split, --save_dir, --vocoder_ckpt).
 """
 
 import argparse
 
-from fastspeech2_tpu_torch.cli.synthesize_cli import load_model_for_inference
+from fastspeech2_tpu_torch.cli.synthesize_cli import (
+    add_weights_args,
+    load_model_for_inference,
+)
 from fastspeech2_tpu_torch.configs.config import (
     OptimConfig,
     load_yaml_configs,
@@ -30,11 +34,7 @@ def build_parser():
     parser.add_argument("-p", "--preprocess_config", required=True)
     parser.add_argument("-m", "--model_config", required=True)
     parser.add_argument("-t", "--train_config", required=True)
-    weights = parser.add_mutually_exclusive_group(required=True)
-    weights.add_argument("--restore_step", type=int,
-                         help="the port's checkpoint <ckpt_path>/<N>.pth.tar")
-    weights.add_argument("--weights_npz",
-                         help="tracked fp16 npz snapshot")
+    add_weights_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     return parser
@@ -48,7 +48,8 @@ def main(argv=None):
         args.preprocess_config, args.model_config, args.train_config)
     model, cfg = load_model_for_inference(
         preprocess_config, model_config, args.weights_npz, device,
-        train_config=train_config, restore_step=args.restore_step)
+        train_config=train_config, restore_step=args.restore_step,
+        torch_ckpt=args.torch_ckpt)
     losses = evaluate(model, FeatureDataset("val.txt", preprocess_config),
                       OptimConfig.build(train_config).batch_size, cfg,
                       device)

@@ -5,7 +5,10 @@ Phone IDs padded to a (batch, text) bucket -> one acoustic forward at the
 default frame length (max_seq_len) -> a re-dispatch at round_up(need, 512)
 frames with decoder truncation off when the predicted length exceeds it ->
 the vocoder -> int16 wavs trimmed to mel_len * hop.  Per utterance the
-results are a trimmed wav (save_results writes ``<id>.wav``).
+results are a trimmed wav and a mel/F0/energy png (save_results writes
+``<id>.wav`` and ``<id>.png``; the png needs matplotlib).
+:meth:`Synthesizer.synthesize_long` splits a long text into sentences,
+synthesizes them as one batch and joins them with short pauses.
 
 Not ported here: the serving-only warm-shape snapping and the fused
 acoustic+vocoder jit path of the JAX package (PyTorch runs eagerly; the
@@ -14,16 +17,22 @@ unfused path computes the same values).
 
 import json
 import os
+import re
 import wave
 
 import numpy as np
 import torch
 
+from fastspeech2_tpu_torch.synthesis.plotting import (
+    expand_by_duration,
+    plot_mel,
+)
 from fastspeech2_tpu_torch.synthesis.vocoder import vocoder_infer
 from fastspeech2_tpu_torch.text import text_to_sequence
 from fastspeech2_tpu_torch.text.g2p import (
     english_to_phones,
     make_oov_to_phones,
+    mandarin_to_phones,
     read_lexicon,
 )
 
@@ -67,12 +76,13 @@ class Synthesizer:
 
     def text_to_ids(self, text):
         pp = self.preprocess_config["preprocessing"]
-        if pp["text"]["language"] != "en":
-            raise NotImplementedError(
-                f"the {pp['text']['language']!r} frontend is not ported yet")
-        if self._oov_to_phones is None:
-            self._oov_to_phones = make_oov_to_phones(self.device)
-        phones = english_to_phones(text, self.lexicon, self._oov_to_phones)
+        if pp["text"]["language"] == "zh":
+            phones = mandarin_to_phones(text, self.lexicon)
+        else:
+            if self._oov_to_phones is None:
+                self._oov_to_phones = make_oov_to_phones(self.device)
+            phones = english_to_phones(text, self.lexicon,
+                                       self._oov_to_phones)
         return np.asarray(
             text_to_sequence(phones, pp["text"]["text_cleaners"]),
             dtype=np.int64), phones
@@ -163,19 +173,80 @@ class Synthesizer:
                 lengths=out.mel_len.cpu().numpy())[: len(id_seqs)]
         return wavs, out
 
+    def synthesize_long(self, text, speaker=0, p_control=1.0, e_control=1.0,
+                        d_control=1.0, pause_ms=120.0):
+        """Unlimited-length synthesis: split on sentence punctuation,
+        synthesize the chunks as one batch, join them with ``pause_ms`` of
+        silence -> (int16 wav, list of chunks)."""
+        chunks = [c.strip() for c in
+                  re.split(r"(?<=[.!?;:])\s+", text.strip()) if c.strip()]
+        if not chunks:
+            return np.zeros(0, np.int16), []
+        speakers = np.full(len(chunks), speaker, np.int64)
+        wavs, _ = self.synthesize(chunks, speakers, p_control, e_control,
+                                  d_control)
+        sr = self.preprocess_config["preprocessing"]["audio"][
+            "sampling_rate"]
+        pause = np.zeros(int(sr * pause_ms / 1000.0), np.int16)
+        pieces = []
+        for i, w in enumerate(wavs):
+            pieces.append(w)
+            if i < len(wavs) - 1:
+                pieces.append(pause)
+        return np.concatenate(pieces), chunks
+
     # -- result files ----------------------------------------------------
 
-    def save_results(self, ids, wavs, result_path):
-        """Write <id>.wav (16-bit mono PCM) per utterance; returns the
-        paths.  The JAX package also draws a mel/F0/energy png; that plot
-        is not ported."""
+    def save_results(self, ids, out, wavs, result_path):
+        """Write <id>.wav (16-bit mono PCM) and <id>.png (the mel with its
+        F0 and energy, utils/tools.py:164-210) per utterance; returns the
+        wav paths.  Without matplotlib the wavs are written, one line says
+        the pngs were not drawn, and nothing else changes."""
         os.makedirs(result_path, exist_ok=True)
-        sr = self.preprocess_config["preprocessing"]["audio"]["sampling_rate"]
+        pp = self.preprocess_config["preprocessing"]
+        sr = pp["audio"]["sampling_rate"]
         paths = []
-        for basename, wav in zip(ids, wavs):
-            path = os.path.join(result_path, f"{basename}.wav")
-            write_wav(path, sr, wav)
-            paths.append(path)
+        if wavs is not None:
+            for basename, wav in zip(ids, wavs):
+                path = os.path.join(result_path, f"{basename}.wav")
+                write_wav(path, sr, wav)
+                paths.append(path)
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print(f"matplotlib is not installed: {len(ids)} png(s) not "
+                  f"drawn in {result_path}")
+            return paths
+        from matplotlib import pyplot as plt
+
+        stats_path = os.path.join(
+            self.preprocess_config["path"]["preprocessed_path"],
+            "stats.json")
+        if os.path.exists(stats_path):
+            with open(stats_path) as f:
+                stats = json.load(f)
+            stats = stats["pitch"] + stats["energy"][:2]
+        else:
+            stats = [0.0, 1.0, 0.0, 1.0, 0.0, 1.0]
+        postnet_mel = out.postnet_mel.float().cpu().numpy()
+        durations = out.duration_rounded.cpu().numpy()
+        pitches = out.pitch_prediction.float().cpu().numpy()
+        energies = out.energy_prediction.float().cpu().numpy()
+        for i, basename in enumerate(ids):
+            L, S = int(out.mel_len[i]), int(out.src_len[i])
+            pitch, energy = pitches[i], energies[i]
+            if pp["pitch"]["feature"] == "phoneme_level":
+                pitch = expand_by_duration(pitch[:S], durations[i, :S])
+            else:
+                pitch = pitch[:L]
+            if pp["energy"]["feature"] == "phoneme_level":
+                energy = expand_by_duration(energy[:S], durations[i, :S])
+            else:
+                energy = energy[:L]
+            fig = plot_mel([(postnet_mel[i, :L].T, pitch, energy)], stats,
+                           ["Synthesized Spectrogram"])
+            fig.savefig(os.path.join(result_path, f"{basename}.png"))
+            plt.close(fig)
         return paths
 
 

@@ -9,7 +9,10 @@ package takes when ``g2p_en`` is not installed: the trained seq2seq model
 (text/neural_g2p.py), then the rule engine.  The port never uses
 ``g2p_en``.
 
-The Mandarin frontend (mandarin_to_phones) is not ported yet.
+Mandarin follows synthesize.py:59-84: text -> TONE3 pinyin (through
+``pypinyin`` where it is installed; otherwise the input must already be
+tone-numbered pinyin tokens) -> lexicon initial/final phones, else the
+algorithmic decomposition (text/pinyin_g2p.py), OOV -> "sp".
 """
 
 import re
@@ -87,3 +90,35 @@ def english_to_phones(text, lexicon, oov_to_phones=letter_to_sound):
     out = re.sub(r"\{[^\w\s]?\}", "{sp}", out)
     return out.replace("}{", " ")
 
+
+
+def mandarin_to_phones(text, lexicon):
+    """Hanzi or tone-numbered pinyin -> phone string."""
+    try:  # pragma: no cover - optional dependency
+        from pypinyin import Style, pinyin
+
+        pinyins = [
+            p[0] for p in pinyin(
+                text, style=Style.TONE3, strict=False,
+                neutral_tone_with_five=True)
+        ]
+    except ImportError:
+        if re.search(r"[一-鿿]", text):
+            raise RuntimeError(
+                "pypinyin is unavailable: pass tone-numbered pinyin "
+                "(e.g. 'ni3 hao3') instead of hanzi")
+        pinyins = text.split()
+    from fastspeech2_tpu_torch.text.pinyin_g2p import split_pinyin
+
+    phones = []
+    for p in pinyins:
+        if p in lexicon:
+            phones += lexicon[p]
+        else:
+            # the algorithmic decomposition, OOV -> sp as upstream
+            decomposed = split_pinyin(p)
+            if decomposed:
+                phones += decomposed
+            else:
+                phones.append("sp")
+    return "{" + " ".join(phones) + "}"

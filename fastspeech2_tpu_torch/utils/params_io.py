@@ -5,11 +5,15 @@ the flattened Flax variable paths ("params/encoder/layer_0/...").  This
 module reads them (numpy only) and maps the tree onto the port's module
 names, which are the upstream PyTorch reference's state-dict names.  The
 names and transposes follow ``fastspeech2_tpu/convert/to_torch.py``
-(acoustic model and HiFi-GAN, the iSTFT variant included).  Everything
+(acoustic model and HiFi-GAN, the iSTFT variant included) and
+``convert/from_torch.py::melgan_params_from_torch`` (MelGAN).  Everything
 happens in memory; nothing converted is written to disk.
-:func:`hifigan_from_torch_state_dict` reads an upstream HiFi-GAN generator
-state dict (a reference ``.pth.tar``), folding weight norm as
-``fastspeech2_tpu/convert/from_torch.py:159-183`` does.
+
+Reference ``.pth.tar`` state dicts carry the port's names already:
+:func:`fastspeech2_from_torch_state_dict` (acoustic model) drops the
+buffers the port derives from the config, and :func:`fold_weight_norm`
+(HiFi-GAN, and MelGAN through :func:`melgan_from_torch_state_dict`) folds
+weight norm as ``fastspeech2_tpu/convert/from_torch.py:159-183`` does.
 
 Every array of the tree must be consumed by the map: an array left over
 raises, and ``load_state_dict(strict=True)`` catches the opposite case.
@@ -172,12 +176,42 @@ def hifigan_from_jax_params(variables, n_upsamples, n_resblock_kernels=3):
     return m.finish()
 
 
-def hifigan_from_torch_state_dict(state_dict):
-    """Reference HiFi-GAN generator state_dict -> the port's: weight norm
-    folded (weight = g * v / ||v||, the norm over every axis but 0, as
-    remove_weight_norm() gives at load, reference utils/model.py:68);
-    checkpoints whose weight norm was already removed (plain ``.weight``
-    keys) pass through."""
+def melgan_from_jax_params(variables):
+    """Flax MelGAN generator variables ({"params": ...} or the bare params)
+    -> the state_dict of ``models.melgan.MelGANGenerator``: the
+    melgan-neurips ``model.<idx>`` names that
+    ``convert/from_torch.py::melgan_params_from_torch`` reads (pad and
+    conv_pre, then per stage [leaky_relu, conv_transpose, ResnetBlocks],
+    then leaky_relu, pad and conv_post).  The stage and residual-block
+    counts are read off the tree."""
+    tree = variables["params"] if "params" in variables else variables
+    m = _Mapper(tree)
+    n_stages = n_res = 0
+    while m.has(f"up_{n_stages}/kernel"):
+        n_stages += 1
+    while m.has(f"res_0_{n_res}/shortcut/kernel"):
+        n_res += 1
+    m.conv1d("model.1", "conv_pre")
+    idx = 2
+    for i in range(n_stages):
+        m.conv_transpose1d(f"model.{idx + 1}", f"up_{i}")
+        idx += 2                            # leaky_relu, conv_transpose
+        for j in range(n_res):
+            path = f"res_{i}_{j}"
+            m.conv1d(f"model.{idx}.block.2", f"{path}/conv_dilated")
+            m.conv1d(f"model.{idx}.block.4", f"{path}/conv_1x1")
+            m.conv1d(f"model.{idx}.shortcut", f"{path}/shortcut")
+            idx += 1
+    m.conv1d(f"model.{idx + 2}", "conv_post")   # after leaky_relu, pad
+    return m.finish()
+
+
+def fold_weight_norm(state_dict):
+    """A reference generator state_dict (HiFi-GAN, MelGAN) with weight norm
+    -> plain ``.weight`` keys: weight = g * v / ||v||, the norm over every
+    axis but 0, as remove_weight_norm() gives at load (reference
+    utils/model.py:68); keys whose weight norm was already removed (plain
+    ``.weight``) pass through."""
     sd = {}
     for key, value in state_dict.items():
         value = torch.as_tensor(value, dtype=torch.float32)
@@ -192,4 +226,42 @@ def hifigan_from_torch_state_dict(state_dict):
             sd[prefix + ".weight"] = value * v / norm
         else:
             sd[key] = value
+    return sd
+
+
+def melgan_from_torch_state_dict(state_dict):
+    """A melgan-neurips checkpoint -> the port's MelGAN state_dict: the
+    generator of a training checkpoint (``model_g``) when present, the
+    ``mel2wav.`` prefix stripped (as ``fastspeech2_tpu/synthesis/
+    vocoder.py:114-115`` and ``convert/from_torch.py:199`` do), weight norm
+    folded."""
+    if "model_g" in state_dict:
+        state_dict = state_dict["model_g"]
+    return fold_weight_norm({k.split("mel2wav.")[-1]: v
+                             for k, v in state_dict.items()})
+
+
+# buffers the reference registers that the port derives from the config
+_REGENERATED = ("encoder.position_enc", "decoder.position_enc",
+                "variance_adaptor.pitch_bins", "variance_adaptor.energy_bins")
+
+
+def fastspeech2_from_torch_state_dict(state_dict, cfg):
+    """A reference FastSpeech2 state_dict (``ckpt["model"]`` of a reference
+    ``.pth.tar``) -> the port's, which has the same names.  What
+    ``convert/from_torch.py:109-156`` treats specially is mapped: the
+    position tables and pitch/energy bins, which the port derives from the
+    config, are dropped; ``speaker_emb`` is read for a multi-speaker config
+    only; a PostNet BatchNorm saved without ``num_batches_tracked`` gets 0.
+    Anything else that does not match fails the strict load."""
+    sd = {}
+    for key, value in state_dict.items():
+        if key not in _REGENERATED:
+            value = torch.as_tensor(value)
+            sd[key] = value.float() if value.is_floating_point() else value
+    if not cfg.multi_speaker:
+        sd.pop("speaker_emb.weight", None)
+    for i in range(cfg.postnet_n_convolutions):
+        sd.setdefault(f"postnet.convolutions.{i}.1.num_batches_tracked",
+                      torch.zeros((), dtype=torch.long))
     return sd

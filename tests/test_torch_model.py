@@ -175,9 +175,8 @@ def test_inference_outputs_match_jax(models, controls, max_mel_len, truncate):
     _compare_outputs(ref, got, atol=1e-4)
 
 
-def test_training_mode_is_refused(models):
-    """The first slice refused train mode; the port trains now, so this
-    holds train mode against the JAX package's train=True where it is
+def test_train_mode_outputs_and_batch_stats_match_jax(models):
+    """Train mode against the JAX package's train=True where it is
     deterministic.  With the encoder, decoder and predictor dropout rates
     at 0 the pre-PostNet mel and the predictions are dropout-free, and the
     first PostNet BatchNorm's masked batch statistics (it sees the mel
@@ -302,7 +301,7 @@ def test_acoustic_npz_maps_every_array(in_repo):
 def test_vocoder_npz_maps_every_array(in_repo):
     _, model_cfg, _ = _ljspeech10_configs()
     path = "weights/vocoder_gen_mixed60k.npz"
-    gen = get_vocoder(model_cfg, path, "cpu")   # strict load inside
+    gen = get_vocoder(model_cfg, None, path, "cpu")   # strict load inside
     with open("fastspeech2_tpu_torch/configs/hifigan/config_istft.json") as f:
         config = json.load(f)
     params = load_variables_npz(path)

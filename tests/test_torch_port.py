@@ -1,4 +1,5 @@
-"""PyTorch port as a whole: it imports without JAX, it refuses a CUDA run
+"""PyTorch port as a whole: it imports without JAX (and without
+matplotlib, which only draws the result png), it refuses a CUDA run
 without a card, and its CLI turns the README sentence into the same wav
 as the JAX package's CLI on the same weights.
 
@@ -43,6 +44,7 @@ def test_imports_without_jax():
             "sys.modules['jax'] = None\n"
             "sys.modules['flax'] = None\n"
             "sys.modules['fastspeech2_tpu'] = None\n"
+            "sys.modules['matplotlib'] = None\n"
             "import fastspeech2_tpu_torch\n"
             "import fastspeech2_tpu_torch.cli.synthesize_cli\n"
             "import fastspeech2_tpu_torch.cli.train_cli\n"
@@ -63,6 +65,12 @@ def test_imports_without_jax():
             "import fastspeech2_tpu_torch.training.loop\n"
             "import fastspeech2_tpu_torch.training.optim\n"
             "import fastspeech2_tpu_torch.training.step\n"
+            "import fastspeech2_tpu_torch.audio.mel\n"
+            "import fastspeech2_tpu_torch.audio.stft\n"
+            "import fastspeech2_tpu_torch.models.melgan\n"
+            "import fastspeech2_tpu_torch.text.pinyin_g2p\n"
+            "import fastspeech2_tpu_torch.synthesis.plotting\n"
+            "import fastspeech2_tpu_torch.synthesis.pipeline\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
             "'fastspeech2_tpu.')) for m in sys.modules if sys.modules[m])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,9 +1,12 @@
 """PyTorch port, text frontend: the README sentence must give the same
 phones and phone IDs in both packages, the out-of-vocabulary words
 included (they go through the neural G2P, whose decoders are compared
-word by word)."""
+word by word); Mandarin tone-numbered pinyin gives the same
+decomposition, phones and IDs, and hanzi without pypinyin the same
+error."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -59,3 +62,56 @@ def test_ids_are_the_same_vocabulary():
     assert neural_g2p.CHAR_TO_ID == jax_neural_g2p.CHAR_TO_ID
     assert np.array_equal(neural_g2p.encode_word("fox"),
                           jax_neural_g2p.encode_word("fox"))
+
+
+# ---- Mandarin: tone-numbered pinyin ----------------------------------------
+
+PINYIN = ["ni3 hao3 shi4 jie4", "zhuang1 yuan2 lv4 er2 huar1",
+          "xiong2 qu4 wen4 ri4 si1 zi3 qqq9 a5", "lve4 nve4 yo1 r5"]
+
+
+def test_split_pinyin_matches_jax_over_every_syllable():
+    from fastspeech2_tpu.text import pinyin_g2p as jax_pinyin_g2p
+    from fastspeech2_tpu_torch.text import pinyin_g2p
+
+    bodies = jax_pinyin_g2p._enumerate_syllables()
+    assert pinyin_g2p._enumerate_syllables() == bodies
+    assert len(bodies) > 400
+    for body in bodies:
+        for tone in "12345":
+            for syllable in (body + tone, body + "r" + tone):
+                assert (pinyin_g2p.split_pinyin(syllable)
+                        == jax_pinyin_g2p.split_pinyin(syllable)), syllable
+    assert pinyin_g2p.generate_lexicon() == jax_pinyin_g2p.generate_lexicon()
+
+
+@pytest.mark.parametrize("text", PINYIN)
+def test_mandarin_phone_ids_match_jax(text, lexicon):
+    """Lexicon hits stay English words, so every syllable is decomposed;
+    an invalid token becomes sp in both."""
+    from fastspeech2_tpu.text.g2p import (
+        mandarin_to_phones as jax_mandarin_to_phones,
+    )
+    from fastspeech2_tpu_torch.text.g2p import mandarin_to_phones
+
+    for lex in (lexicon, {}, {"ni3": ["n", "i3"], "hao3": ["h", "ao3"]}):
+        phones = mandarin_to_phones(text, lex)
+        assert phones == jax_mandarin_to_phones(text, lex)
+        ids = text_to_sequence(phones, [])
+        assert ids == jax_text_to_sequence(phones, [])
+        assert len(ids) >= len(text.split())
+
+
+def test_hanzi_without_pypinyin_raises_as_in_jax(monkeypatch):
+    from fastspeech2_tpu.text.g2p import (
+        mandarin_to_phones as jax_mandarin_to_phones,
+    )
+    from fastspeech2_tpu_torch.text.g2p import mandarin_to_phones
+
+    monkeypatch.setitem(sys.modules, "pypinyin", None)
+    messages = []
+    for fn in (jax_mandarin_to_phones, mandarin_to_phones):
+        with pytest.raises(RuntimeError, match="pypinyin is unavailable") as e:
+            fn("你好世界", {})
+        messages.append(str(e.value))
+    assert messages[0] == messages[1]

@@ -522,3 +522,36 @@ def test_evaluate_cli_matches_jax_cli(tmp_path, capsys):
     trained = evaluate_cli.main(args + ["--restore_step", "2",
                                         "--device", "cpu"])
     assert np.isfinite(trained).all() and trained != got
+
+
+def test_evaluate_cli_reads_a_reference_torch_ckpt(tmp_path):
+    """--torch_ckpt, through the loader the synthesize CLI shares: a
+    .pth.tar written by the JAX package's exporter gives the JAX evaluate
+    CLI's losses (1e-4) and the port's --weights_npz losses exactly."""
+    from fastspeech2_tpu.cli.evaluate_cli import main as jax_main
+    from fastspeech2_tpu.configs.config import (
+        FastSpeech2Config as JaxFastSpeech2Config,
+    )
+    from fastspeech2_tpu.configs.config import load_yaml_configs
+    from fastspeech2_tpu.convert.to_torch import save_torch_checkpoint
+    from fastspeech2_tpu.utils.params_io import (
+        load_variables_npz,
+        save_variables_npz,
+    )
+    from fastspeech2_tpu_torch.cli import evaluate_cli
+
+    args, _ = _tiny_workspace(tmp_path)
+    pre, model_cfg, _ = load_yaml_configs(*args[1::2])
+    jax_cfg = JaxFastSpeech2Config.build(pre, model_cfg)
+    npz = str(tmp_path / "acoustic.npz")
+    save_variables_npz(npz, dict(init_variables(
+        JaxFastSpeech2(jax_cfg), synthetic_batch(jax_cfg, seed=7), seed=7)))
+    # the checkpoint holds the snapshot's (fp16-rounded) values
+    ckpt = str(tmp_path / "reference.pth.tar")
+    save_torch_checkpoint(ckpt, load_variables_npz(npz), jax_cfg)
+    ref = jax_main(args + ["--torch_ckpt", ckpt])
+    got = evaluate_cli.main(args + ["--torch_ckpt", ckpt, "--device", "cpu"])
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=0)
+    from_npz = evaluate_cli.main(args + ["--weights_npz", npz,
+                                         "--device", "cpu"])
+    assert got == from_npz

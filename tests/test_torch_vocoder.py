@@ -1,8 +1,9 @@
-"""PyTorch port, the parity HiFi-GAN slice, against the JAX package on the
-CPU: K4's plain version against the Pallas kernel in interpret mode and
-against ``xla_resblock``; the full-width parity generator on one random init;
-the C8C2I generator on its tracked weights; a reference ``.pth.tar`` with
-weight norm loaded into both packages; and ``get_vocoder``'s dispatch.
+"""PyTorch port, the vocoders, against the JAX package on the CPU: K4's
+plain version against the Pallas kernel in interpret mode and against
+``xla_resblock``; the full-width parity generator on one random init; the
+C8C2I generator on its tracked weights; a reference ``.pth.tar`` with
+weight norm loaded into both packages; MelGAN on its tracked weights and
+from a melgan-neurips ``.pth.tar``; and ``get_vocoder``'s dispatch.
 
 Inputs come from numpy seeds.  Tolerances, absolute in float32: 1e-4 on
 ResBlock outputs of O(1) (the same sums of up to 2816 terms in another
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from fastspeech2_tpu.convert.from_torch import melgan_params_from_torch
 from fastspeech2_tpu.convert.to_torch import hifigan_state_dict_to_torch
 from fastspeech2_tpu.models.hifigan import (
     HiFiGANGenerator as JaxHiFiGANGenerator,
@@ -29,6 +31,7 @@ from fastspeech2_tpu.ops.pallas_resblock import (
 from fastspeech2_tpu.synthesis.vocoder import get_vocoder as jax_get_vocoder
 from fastspeech2_tpu_torch.models.hifigan import HiFiGANGenerator, ResBlock
 from fastspeech2_tpu_torch.models.hifigan_istft import HiFiGANiSTFTGenerator
+from fastspeech2_tpu_torch.models.melgan import MelGANGenerator
 from fastspeech2_tpu_torch.ops.cuda_resblock import (
     fused_resblock,
     pack_resblock_weights,
@@ -36,12 +39,20 @@ from fastspeech2_tpu_torch.ops.cuda_resblock import (
 )
 from fastspeech2_tpu_torch.ops.tf32_pack import tf32_round, unpack_fragments
 from fastspeech2_tpu_torch.synthesis import vocoder as vocoder_mod
-from fastspeech2_tpu_torch.synthesis.vocoder import get_vocoder
+from fastspeech2_tpu_torch.synthesis.vocoder import (
+    GriffinLimVocoder,
+    MelGANVocoder,
+    get_vocoder,
+)
 from fastspeech2_tpu_torch.tools.kernel_bounds import (
     parity_resblock_shapes,
     resblock_bound_ms,
 )
-from fastspeech2_tpu_torch.utils.params_io import hifigan_from_jax_params
+from fastspeech2_tpu_torch.utils.params_io import (
+    hifigan_from_jax_params,
+    load_variables_npz,
+    melgan_from_jax_params,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DILS = (1, 3, 5)
@@ -190,20 +201,21 @@ def test_c8c2i_vocoder_matches_jax():
     ref = np.asarray(jax_get_vocoder(model_config, None, path)(
         jnp.asarray(mel)))
     with torch.inference_mode():
-        got = get_vocoder(model_config, path, "cpu")(
+        got = get_vocoder(model_config, None, path, "cpu")(
             torch.from_numpy(mel)).numpy()
     assert got.shape == ref.shape == (1, 40 * 256)
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
 
 
-def _weight_norm_split(sd, rng):
+def _weight_norm_split(sd, rng, plain=("conv_post",)):
     """Every conv weight w -> (weight_g, weight_v) with v = w * s for a
-    random positive s per output channel and g = ||w||, so that
-    g * v / ||v|| = w; conv_post keeps a plain .weight."""
+    random positive s per slice of axis 0 and g = ||w||, so that
+    g * v / ||v|| = w; weights whose names start with one of ``plain``
+    keep a plain .weight."""
     out = {}
     for key, value in sd.items():
         w = value.numpy()
-        if key.endswith(".weight") and not key.startswith("conv_post"):
+        if key.endswith(".weight") and not key.startswith(plain):
             axes = tuple(range(1, w.ndim))
             s = rng.uniform(0.5, 2.0, (w.shape[0],) + (1,) * (w.ndim - 1))
             prefix = key[:-len(".weight")]
@@ -229,11 +241,11 @@ def test_torch_checkpoint_with_weight_norm_loads_into_both(jax_parity,
     ref = np.asarray(jax_get_vocoder(model_config, None, path)(
         jnp.asarray(mel)))
     with torch.inference_mode():
-        got = get_vocoder(model_config, path, "cpu")(
+        got = get_vocoder(model_config, None, path, "cpu")(
             torch.from_numpy(mel)).numpy()
         # the same weights as a bare state dict
         torch.save(sd, path)
-        bare = get_vocoder(model_config, path, "cpu")(
+        bare = get_vocoder(model_config, None, path, "cpu")(
             torch.from_numpy(mel)).numpy()
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
     np.testing.assert_array_equal(bare, got)
@@ -241,7 +253,7 @@ def test_torch_checkpoint_with_weight_norm_loads_into_both(jax_parity,
 
 def test_get_vocoder_without_weights(tmp_path, monkeypatch):
     model_config = {"vocoder": {"model": "HiFi-GAN", "speaker": "test"}}
-    a, b = (get_vocoder(model_config, None, "cpu").state_dict()
+    a, b = (get_vocoder(model_config, None, None, "cpu").state_dict()
             for _ in range(2))
     assert all(torch.equal(a[k], b[k]) for k in a)   # a seeded init
     # generator_<speaker>.pth.tar beside the port's config is taken first
@@ -251,20 +263,35 @@ def test_get_vocoder_without_weights(tmp_path, monkeypatch):
     scaled = {k: v * 0.5 for k, v in a.items()}
     torch.save({"generator": scaled}, tmp_path / "generator_test.pth.tar")
     monkeypatch.setattr(vocoder_mod, "_HIFIGAN_DIR", str(tmp_path))
-    got = get_vocoder(model_config, None, "cpu").state_dict()
+    got = get_vocoder(model_config, None, None, "cpu").state_dict()
     assert all(torch.equal(got[k], scaled[k]) for k in got)
     # the iSTFT generators never take the parity speaker's weights
     istft = get_vocoder({"vocoder": {"model": "HiFi-GAN-iSTFT",
-                                     "speaker": "test"}}, None, "cpu")
+                                     "speaker": "test"}}, None, None, "cpu")
     assert isinstance(istft, HiFiGANiSTFTGenerator)
 
 
 def test_get_vocoder_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="M8"):
-        get_vocoder({"vocoder": {"model": "HiFi-GAN"}}, str(tmp_path), "cpu")
-    for name in ("MelGAN", "Griffin-Lim"):
-        with pytest.raises(NotImplementedError, match="M6"):
-            get_vocoder({"vocoder": {"model": name}}, None, "cpu")
+    """Only the JAX vocoder trainer's orbax directories are refused (they
+    wait for M8), for HiFi-GAN and MelGAN alike; MelGAN and every other
+    name (the tracked configs' ``none``: Griffin-Lim) are built."""
+    for name in ("HiFi-GAN", "MelGAN"):
+        with pytest.raises(NotImplementedError, match="M8"):
+            get_vocoder({"vocoder": {"model": name}}, None, str(tmp_path),
+                        "cpu")
+    pre = {"preprocessing": {
+        "audio": {"sampling_rate": 22050},
+        "stft": {"filter_length": 1024, "hop_length": 256,
+                 "win_length": 1024},
+        "mel": {"n_mel_channels": 80, "mel_fmin": 0, "mel_fmax": 8000}}}
+    melgan = get_vocoder({"vocoder": {"model": "MelGAN"}}, pre, None, "cpu")
+    assert isinstance(melgan, MelGANVocoder)
+    assert not melgan.training
+    for name in ("none", "Griffin-Lim"):
+        gl = get_vocoder({"vocoder": {"model": name}}, pre, None, "cpu")
+        assert isinstance(gl, GriffinLimVocoder)
+        assert (gl.n_fft, gl.hop, gl.win, gl.n_iters) == (1024, 256, 1024,
+                                                          30)
 
 
 def test_kernel_bounds_count_all_twelve_resblocks():
@@ -278,3 +305,98 @@ def test_kernel_bounds_count_all_twelve_resblocks():
     flops = sum(resblock_bound_ms(1, L, C, k)[3] for C, L, k in shapes)
     assert abs(total - 8.8738) < 1e-3
     assert abs(flops - 594.5e9) < 0.1e9
+
+
+# ---- MelGAN ----------------------------------------------------------------
+
+MELGAN_NPZ = os.path.join(REPO, "weights", "vocoder_melgan_30k.npz")
+MELGAN = {"vocoder": {"model": "MelGAN"}}
+
+
+@pytest.fixture(scope="module")
+def jax_melgan():
+    """The JAX package's MelGAN vocoder on the tracked snapshot (ngf 32,
+    rates 8, 8, 2, 2: full width)."""
+    return jax_get_vocoder(MELGAN, None, MELGAN_NPZ)
+
+
+@pytest.mark.parametrize("frames", [8, 200])
+def test_melgan_generator_matches_jax(jax_melgan, frames):
+    mel = _mel(frames, frames + 1) / np.float32(np.log(10.0))
+    ref = np.asarray(jax.jit(jax_melgan.generator.apply)(
+        jax_melgan.params, jnp.asarray(mel)))
+    gen = MelGANGenerator()
+    gen.load_state_dict(melgan_from_jax_params(load_variables_npz(
+        MELGAN_NPZ)))
+    with torch.inference_mode():
+        got = gen.eval()(torch.from_numpy(mel)).numpy()
+    assert got.shape == ref.shape == (1, frames * 256)
+    assert np.abs(ref).max() > 1e-2
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+def test_melgan_vocoder_takes_log10_mels(jax_melgan):
+    """MelGANVocoder divides the log-e mel by ln 10 before the generator,
+    as the JAX package's does."""
+    mel = _mel(16, 5)
+    ref = np.asarray(jax_melgan(jnp.asarray(mel)))
+    vocoder = get_vocoder(MELGAN, None, MELGAN_NPZ, "cpu")
+    assert isinstance(vocoder, MelGANVocoder)
+    with torch.inference_mode():
+        got = vocoder(torch.from_numpy(mel)).numpy()
+        direct = vocoder.generator(torch.from_numpy(mel) / np.log(10.0))
+        undivided = vocoder.generator(torch.from_numpy(mel)).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(got, direct.numpy())
+    assert np.abs(undivided - ref).max() > 100 * ATOL
+
+
+def test_melgan_npz_maps_every_array():
+    """Every array of the snapshot is mapped (an array left over raises,
+    the strict load catches a missing one), and the JAX package's
+    melgan-neurips importer reads the port's state dict back into the
+    snapshot's tree: the names and the flipped transposed-conv kernels
+    agree."""
+    variables = load_variables_npz(MELGAN_NPZ)
+    sd = melgan_from_jax_params(variables)
+    result = MelGANGenerator().load_state_dict(sd, strict=True)
+    assert not result.missing_keys and not result.unexpected_keys
+    assert sd["model.3.weight"].shape == (512, 256, 16)   # [in, out, 2r]
+    back = melgan_params_from_torch(sd)["params"]
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                       else {prefix + k: np.asarray(v)})
+        return out
+
+    ref, got = flat(variables["params"]), flat(back)
+    assert set(got) == set(ref) and len(ref) == 84
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("layout", ["model_g", "mel2wav"])
+def test_melgan_torch_checkpoint_loads_into_both(tmp_path, layout):
+    """A melgan-neurips generator with weight norm on every conv (as
+    tests/test_melgan.py builds it), saved as a training checkpoint's
+    ``model_g`` or as a bare state dict with the hub model's ``mel2wav.``
+    prefix, gives the same wav in both packages."""
+    sd = _weight_norm_split(
+        melgan_from_jax_params(load_variables_npz(MELGAN_NPZ)),
+        np.random.default_rng(1), plain=())
+    assert "model.3.weight_g" in sd and "model.24.weight_v" in sd
+    ckpt = ({"model_g": sd, "optimizer_g": {}} if layout == "model_g"
+            else {"mel2wav." + k: v for k, v in sd.items()})
+    path = str(tmp_path / "melgan.pth.tar")
+    torch.save(ckpt, path)
+    mel = _mel(8, 7)
+    ref = np.asarray(jax_get_vocoder(MELGAN, None, path)(jnp.asarray(mel)))
+    with torch.inference_mode():
+        got = get_vocoder(MELGAN, None, path, "cpu")(
+            torch.from_numpy(mel)).numpy()
+        npz = get_vocoder(MELGAN, None, MELGAN_NPZ, "cpu")(
+            torch.from_numpy(mel)).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, npz, atol=ATOL, rtol=0)
