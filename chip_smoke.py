@@ -63,7 +63,20 @@ exits non-zero):
              --restore_step;
 12. repro    5 training steps twice from one seed through train(): every
              parameter must agree exactly;
-13. kernels  one JSON line describing K1, K2, K3 and K4.
+13. kernels  one JSON line describing K1, K2, K3 and K4 and the bfloat16
+             instances of K1, K2 and K3.
+
+The bfloat16 instances (--dtype bfloat16, the JAX train CLI's default) run
+through the same script: the build reports their registers, spills and
+HMMA counts; after phase 5, K1, K2 and K3 at bfloat16 are held against
+their plain versions at every path shape, each launched twice (bitwise
+equal); after phase 8, the README sentence goes through the synthesize
+CLI's main with --dtype bfloat16 (10 bfloat16 K1 and K2 per forward, no
+float32 ones; the mel against the same forward with the plain versions);
+phase 9 times the bfloat16 instances beside SDPA at bfloat16; after phase
+12, the train CLI trains 20 steps at its default dtype (bfloat16; 10
+bfloat16 K1 and K3 per step) and 5 steps twice from one seed must agree
+exactly.
 
 The last line is {"ok": true, "device": {...}}.  Outputs go to a temporary
 directory.  Without a CUDA device, or outside a checkout of the repository,
@@ -128,16 +141,41 @@ TRAIN_STEPS = 20
 # NVIDIA's data sheet)
 BOUND_BASIS = ("3xTF32 on the tensor cores: max(3 x operations / 495 "
                "TFLOP/s, bytes / 3.35 TB/s)")
+BOUND_BASIS_BF16 = ("BF16 on the tensor cores: max(operations / 989 "
+                    "TFLOP/s, bytes of bfloat16 / 3.35 TB/s)")
+BOUND_BASIS_K3_BF16 = ("BF16 for S and dP, 2xTF32 for the products with "
+                       "P and dS (a float32 operand times a bfloat16 one): "
+                       "max(2/5 x operations / 989 TFLOP/s + 2 x 3/5 x "
+                       "operations / 495 TFLOP/s, bytes of bfloat16 / 3.35 "
+                       "TB/s)")
+# the bfloat16 instances against their plain versions, in ulps of bfloat16
+# at the largest |plain value|: both round at the same points, and a
+# float32 sum in another order may land on the other side of a rounding
+# boundary (one ulp; K1 also rounds its unnormalised P where the plain
+# version rounds the normalised one)
+BF16_ULPS = 2
+# the bfloat16 mel before and after the PostNet, after ten layers of both
+# kernels, kernels against plain versions on one forward whose variance
+# buckets are pinned: the rounding flips of each layer carried through the
+# residual stream (the PostNet is the same code on both sides)
+BF16_MEL_ULPS = 8
 # the attention kernels' SASS functions: K1 and its key-split combine; K3a
 # (D = rowsum(g * out)), K3b (dK, dV and the dQ partials), the dQ reduction
 ATTENTION_KERNELS = ("mha_fwd_f32_kernel", "mha_fwd_combine_kernel",
                      "mha_bwd_rowdot_kernel", "mha_bwd_dkdv_kernel",
-                     "mha_bwd_dq_reduce_kernel")
+                     "mha_bwd_dq_reduce_kernel", "mha_fwd_bf16_kernel",
+                     "mha_bwd_rowterm_bf16_kernel",
+                     "mha_bwd_dkdv_bf16_kernel")
 # the convolution kernels' SASS functions (templates: several instances
 # each): K4's one-launch dilation unit and its two-launch conv, K2's two
 # convs (its LayerNorm kernel does no product)
 CONV_KERNELS = ("resblock_unit_kernel", "resblock_conv_kernel",
-                "ffn_conv1_kernel", "ffn_conv2_kernel")
+                "ffn_conv1_kernel", "ffn_conv2_kernel",
+                "ffn_conv1_bf16_kernel", "ffn_conv2_bf16_kernel")
+# the kernels that multiply, each of which must hold HMMA instructions
+MMA_KERNELS = ("mha_fwd_f32_kernel", "mha_bwd_dkdv_kernel",
+               "mha_fwd_bf16_kernel", "mha_bwd_rowterm_bf16_kernel",
+               "mha_bwd_dkdv_bf16_kernel") + CONV_KERNELS
 # K2's shapes on the paths: (B, L, k2) of the README sentence's encoder
 # and decoder, the re-dispatch bucket, one frame, a 3-tap second conv, and
 # the validation forward at batch 10
@@ -164,11 +202,12 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def with_bound(t, bound):
-    """t + the bound of one of tools/kernel_bounds.py's functions: 3xTF32
-    on the tensor cores, the SIMT float32 bound beside it."""
+def with_bound(t, bound, basis=BOUND_BASIS):
+    """t + the bound of one of tools/kernel_bounds.py's functions (3xTF32
+    on the tensor cores unless ``basis`` names another), the SIMT float32
+    bound beside it."""
     t["bound_ms"], t["bound_by"], t["simt_bound_ms"] = bound[:3]
-    t["bound_basis"] = BOUND_BASIS
+    t["bound_basis"] = basis
     return t
 
 
@@ -268,7 +307,8 @@ def resblock_inputs(C, L, k, device, seed, bias=0.5):
 
 
 def launch_counts():
-    """-> {kernel: launches so far} of the four wrappers."""
+    """-> {kernel: launches so far} of the four wrappers, each dtype
+    instance apart."""
     from fastspeech2_tpu_torch.ops import (
         cuda_attention,
         cuda_ffn,
@@ -276,7 +316,10 @@ def launch_counts():
     )
 
     return {"K1": cuda_attention.launches, "K2": cuda_ffn.launches,
-            "K3": cuda_attention.bwd_launches, "K4": cuda_resblock.launches}
+            "K3": cuda_attention.bwd_launches, "K4": cuda_resblock.launches,
+            "K1_bf16": cuda_attention.launches_bf16,
+            "K2_bf16": cuda_ffn.launches_bf16,
+            "K3_bf16": cuda_attention.bwd_launches_bf16}
 
 
 def zero_counts():
@@ -288,6 +331,17 @@ def zero_counts():
 
     cuda_attention.launches = cuda_attention.bwd_launches = 0
     cuda_ffn.launches = cuda_resblock.launches = 0
+    cuda_attention.launches_bf16 = cuda_attention.bwd_launches_bf16 = 0
+    cuda_ffn.launches_bf16 = 0
+
+
+def bf16_ulps(got, ref):
+    """max |got - ref| in ulps of bfloat16 at the largest |ref|."""
+    import torch
+
+    ref = ref.float()
+    unit = 2.0 ** (torch.floor(torch.log2(ref.abs().max())).item() - 7)
+    return (got.float() - ref).abs().max().item() / unit
 
 
 @contextlib.contextmanager
@@ -356,6 +410,95 @@ def batch_shapes(preprocess_config):
                           for i in range(0, len(lens), BATCH_SIZE))]
 
 
+def bf16_kernel_checks(device, bshapes, k2_shapes):
+    """K1, K2 and K3 at bfloat16 against their plain versions on the card,
+    at every path shape, each launched twice on the same inputs (bitwise
+    equal): K1 at the README sentence's and batch mode's shapes and at the
+    training shapes with the row statistics; K2 at every shape K2_SHAPES
+    and batch mode give; K3 at the training shapes.  Raises on a failed
+    gate -> {kernel: (largest error in ulps, largest absolute error)}."""
+    import torch
+
+    from fastspeech2_tpu_torch.ops import cuda_attention, cuda_ffn
+    from fastspeech2_tpu_torch.ops.attention import (
+        multi_head_attention,
+        plain_attention_backward,
+    )
+
+    bf16 = torch.bfloat16
+    found = {name: [0.0, 0.0] for name in ("K1", "K2", "K3")}
+    repeat = {name: True for name in found}
+
+    def record(name, got, again, ref, where):
+        if not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"{name} bfloat16 output not finite at "
+                               f"{where}")
+        repeat[name] = repeat[name] and torch.equal(got, again)
+        found[name][0] = max(found[name][0], bf16_ulps(got, ref))
+        found[name][1] = max(found[name][1],
+                             (got.float() - ref.float()).abs().max().item())
+
+    k1_shapes = ([(L, lens) for L, partial in ((32, 31), (48, 33),
+                                               (1000, 253))
+                  for lens in ([partial], [L, 0])]
+                 + [(L, B) for B, enc, _ in bshapes for L in (enc, 1000)])
+    for L, lens in k1_shapes:
+        if isinstance(lens, int):
+            q, k, v, mask, _ = attention_grad_inputs(L, device, seed=L + lens,
+                                                     B=lens)
+        else:
+            q, k, v, mask = attention_inputs(lens, L, device, seed=L)
+        q, k, v = (t.to(bf16) for t in (q, k, v))
+        got = cuda_attention.fused_attention(q, k, v, mask)
+        again = cuda_attention.fused_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        record("K1", got, again, multi_head_attention(q, k, v, mask),
+               f"[{q.shape[0]}, 2, {L}, 128]")
+    for L in (1000, 768, 128):
+        q, k, v, mask, g = (t.to(bf16) if t.is_floating_point() else t
+                            for t in attention_grad_inputs(L, device,
+                                                           seed=L + 21))
+        fwd = [cuda_attention._launch_forward(q, k, v, mask, True)
+               for _ in range(2)]
+        bwd = [cuda_attention.fused_attention_backward(q, k, v, mask,
+                                                       *fwd[0], g)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        where = f"[{TRAIN_BATCH}, 2, {L}, 128]"
+        record("K1", fwd[0][0], fwd[1][0], multi_head_attention(q, k, v,
+                                                                mask), where)
+        repeat["K1"] = repeat["K1"] and all(
+            torch.equal(a, b) for a, b in zip(fwd[0][1:], fwd[1][1:]))
+        for a, b, ref in zip(*bwd, plain_attention_backward(q, k, v, mask,
+                                                            g)):
+            record("K3", a, b, ref, where)
+    for B, L, k2 in k2_shapes:
+        args = ffn_inputs(L, device, seed=L + k2 + B + 1, k2=k2, B=B)
+        args = (args[0].to(bf16),) + args[1:]
+        got = cuda_ffn.fused_conv_ffn(*args)
+        again = cuda_ffn.fused_conv_ffn(*args)
+        torch.cuda.synchronize()
+        record("K2", got, again, cuda_ffn.plain_conv_ffn(*args),
+               f"[{B}, {L}, 256], k2={k2}")
+    say(f"[bf16] K1 at [1|2, 2, 32|48|1000, 128] (partly and fully padded "
+        f"rows), batch mode's [B, 2, L, 128] and [10, 2, 1000|768|128, "
+        f"128] with the row statistics; K2 at (B, L, k2) in {k2_shapes}; "
+        f"K3 at [10, 2, 1000|768|128, 128]; each against its plain "
+        f"version at bfloat16 on the card: largest error in ulps of "
+        f"bfloat16 at the largest |plain value| (tolerance {BF16_ULPS}) "
+        f"and absolute: "
+        + "; ".join(f"{n} {u:.2f} ulp, {a:.3e}" for n, (u, a) in
+                    found.items())
+        + f"; two launches bitwise equal: {repeat}")
+    for name, (ulps, _) in found.items():
+        if not ulps <= BF16_ULPS:
+            raise RuntimeError(f"{name}'s bfloat16 instance disagrees with "
+                               "its plain version")
+    if not all(repeat.values()):
+        raise RuntimeError("a bfloat16 instance is not bitwise repeatable")
+    return {name: tuple(v) for name, v in found.items()}
+
+
 def inference_options(device, card, preprocess_config, model_config,
                       readme_wav, transformer, cuda_ffn, plain_attention):
     """The synthesize CLI's inference options on the card, each through its
@@ -393,7 +536,8 @@ def inference_options(device, card, preprocess_config, model_config,
             2 if int(c["out"].duration_rounded.sum(dim=1).max())
             > model_config["max_seq_len"] else 1 for c in calls)
         expected = {"K1": 10 * forwards, "K2": 10 * forwards, "K3": 0,
-                    "K4": k4_per_vocoder * vocoders}
+                    "K4": k4_per_vocoder * vocoders, "K1_bf16": 0,
+                    "K2_bf16": 0, "K3_bf16": 0}
         if launches != expected:
             raise RuntimeError(f"[{path}] launches {launches}, expected "
                                f"{expected}")
@@ -711,7 +855,10 @@ def main():
         f"(nvcc {info['seconds']:.2f} s); ptxas: {' | '.join(ptxas)}")
     lib = cuda_build.load_library()
     occupancy = {"mha_fwd_f32_kernel": lib.fs2_mha_fwd_blocks_per_sm(),
-                 "mha_bwd_dkdv_kernel": lib.fs2_mha_bwd_blocks_per_sm()}
+                 "mha_bwd_dkdv_kernel": lib.fs2_mha_bwd_blocks_per_sm(),
+                 "mha_fwd_bf16_kernel": lib.fs2_mha_fwd_bf16_blocks_per_sm(),
+                 "mha_bwd_dkdv_bf16_kernel":
+                     lib.fs2_mha_bwd_bf16_blocks_per_sm()}
     per_kernel = ptxas_by_kernel(info.get("ptxas", ""),
                                  ATTENTION_KERNELS + CONV_KERNELS)
     for name, row in per_kernel.items():
@@ -727,8 +874,8 @@ def main():
     say(f"[build] HMMA (tensor-core) instructions in the SASS (summed over "
         f"a template's instances): "
         f"{'not measured (no cuobjdump)' if hmma is None else hmma}")
-    if hmma is not None and not all(hmma.get(n, 0) > 0 for n in (
-            "mha_fwd_f32_kernel", "mha_bwd_dkdv_kernel") + CONV_KERNELS):
+    if hmma is not None and not all(hmma.get(n, 0) > 0
+                                    for n in MMA_KERNELS):
         raise RuntimeError("a kernel that multiplies has no tensor-core "
                            "instruction")
     k1_grids = {(B, L): cuda_attention.forward_plan(B, 2, L)[0]
@@ -897,6 +1044,9 @@ def main():
         f"bitwise equal (K1, K3): {repeat}")
     if not all(all(v) for v in repeat.values()):
         raise RuntimeError("K1 or K3 is not bitwise repeatable")
+
+    # the bfloat16 instances of K1, K2 and K3 against their plain versions
+    bf16_errors = bf16_kernel_checks(device, bshapes, k2_shapes)
 
     # 6. K4 vs plain at the 12 ResBlock shapes of a 1000-frame parity
     #    forward, at L = 8 (a 1-frame mel at C = 256: the halo is wider than
@@ -1090,6 +1240,109 @@ def main():
     if not wav_err <= WAV_ATOL:
         raise RuntimeError("the K4 vocoder's wav disagrees with plain")
 
+    # the README sentence at --dtype bfloat16 through the CLI's main, the
+    # counts set to 0 just before and read just after
+    with tempfile.TemporaryDirectory() as tmp:
+        (b_wavs, b_out, _), b_launches, b_calls, _, b_cli_s = drive_cli([
+            "--mode", "single", "--text", README_SENTENCE,
+            "--weights_npz", ACOUSTIC_NPZ, "--vocoder_ckpt", VOCODER_NPZ,
+            "-p", f"{CONFIG}/preprocess.yaml", "-m", f"{CONFIG}/model.yaml",
+            "-t", f"{CONFIG}/train.yaml", "--result_path", tmp,
+            "--dtype", "bfloat16"])
+    b_need = int(b_out.duration_rounded.sum(dim=1).max())
+    b_forwards = 2 if b_need > model_config["max_seq_len"] else 1
+    expected = {"K1": 0, "K2": 0, "K3": 0, "K4": 6,
+                "K1_bf16": 10 * b_forwards, "K2_bf16": 10 * b_forwards,
+                "K3_bf16": 0}
+    b_mel_len = int(b_out.mel_len[0])
+    b_synth = b_calls[0]["synth"]
+    saved = transformer.fused_attention, transformer.fused_conv_ffn
+    transformer.fused_attention = multi_head_attention
+    transformer.fused_conv_ffn = cuda_ffn.plain_conv_ffn
+    try:
+        b_plain = b_synth.infer_ids(*b_calls[0]["args"],
+                                    **b_calls[0]["kwargs"])
+    finally:
+        transformer.fused_attention, transformer.fused_conv_ffn = saved
+    b_same_d = torch.equal(b_out.duration_rounded, b_plain.duration_rounded)
+    # the pitch and energy embeddings bucketize the predictions: an ulp of
+    # difference at a bin edge picks another embedding, and that phone's
+    # frames then differ by O(1).  So the kernels are held on the same
+    # forward teacher-forced on the CLI run's own durations and
+    # predictions, which pins every bucket, with the kernels and with the
+    # plain versions
+    adaptor = b_synth.model.variance_adaptor
+    flipped = {
+        name: int((torch.searchsorted(bins, getattr(b_out, pred).float())
+                   != torch.searchsorted(bins, getattr(b_plain, pred).float())
+                   ).sum())
+        for name, pred, bins in (
+            ("pitch", "pitch_prediction", adaptor.pitch_bins),
+            ("energy", "energy_prediction", adaptor.energy_bins))}
+    b_spk, b_texts, b_src_lens = b_synth._pack_batch(*b_calls[0]["args"][:2])
+
+    def pinned_forward():
+        with torch.inference_mode():
+            return b_synth.model(
+                b_spk, b_texts, b_src_lens, mel_lens=b_out.mel_len,
+                max_mel_len=b_out.mel.shape[1],
+                p_targets=b_out.pitch_prediction.float(),
+                e_targets=b_out.energy_prediction.float(),
+                d_targets=b_out.duration_rounded)
+
+    pinned = pinned_forward()
+    transformer.fused_attention = multi_head_attention
+    transformer.fused_conv_ffn = cuda_ffn.plain_conv_ffn
+    try:
+        pinned_plain = pinned_forward()
+    finally:
+        transformer.fused_attention, transformer.fused_conv_ffn = saved
+    frames = min(b_mel_len, mel_len)
+    diffs = {}
+    for name in ("mel", "postnet_mel"):
+        got, plain = getattr(pinned, name), getattr(pinned_plain, name)
+        diffs[name] = dict(
+            ulps=bf16_ulps(got[0, :b_mel_len], plain[0, :b_mel_len]),
+            plain=(got.float() - plain.float()).abs().max().item(),
+            cli=(getattr(b_out, name).float() - getattr(
+                b_plain, name).float()).abs().max().item(),
+            f32=(getattr(b_out, name)[0, :frames].float()
+                 - getattr(kern, name)[0, :frames]).abs().max().item())
+    b_mel_ulps = max(diffs["mel"]["ulps"], diffs["postnet_mel"]["ulps"])
+    say(f"[bf16 synthesis] {README_SENTENCE!r} with --dtype bfloat16: "
+        f"{len(b_wavs[0])} samples = mel_len {b_mel_len} x hop {hop} "
+        f"(float32: {mel_len}); mel {b_out.postnet_mel.dtype}, finite: "
+        f"{bool(torch.isfinite(b_out.postnet_mel.float()).all())}; "
+        f"{b_forwards} acoustic forward(s); launches {b_launches}; CLI "
+        f"main {b_cli_s:.2f} s; kernels vs plain versions at bfloat16 on "
+        f"the card: the inference forwards' durations equal {b_same_d}, "
+        f"phones whose pitch / energy bucket differs {flipped}, mel "
+        f"max_abs_diff before / after the PostNet "
+        f"{diffs['mel']['cli']:.3e} / {diffs['postnet_mel']['cli']:.3e}; "
+        f"the forward teacher-forced on the CLI run's durations and "
+        f"predictions: mel before the PostNet max_abs_diff="
+        f"{diffs['mel']['plain']:.3e} ({diffs['mel']['ulps']:.2f} ulp of "
+        f"bfloat16 at its largest |value| over the {b_mel_len} spoken "
+        f"frames), after the PostNet {diffs['postnet_mel']['plain']:.3e} "
+        f"({diffs['postnet_mel']['ulps']:.2f} ulp), tolerance "
+        f"{BF16_MEL_ULPS} for both; largest difference of "
+        f"the CLI's bfloat16 mel from the float32 run's over the first "
+        f"{frames} frames: before the PostNet {diffs['mel']['f32']:.3e}, "
+        f"after {diffs['postnet_mel']['f32']:.3e}")
+    if b_launches != expected:
+        raise RuntimeError(f"bfloat16 synthesis launched {b_launches}, "
+                           f"expected {expected}")
+    with torch.inference_mode():   # the vocoder's float wav, before int16
+        b_wav_finite = bool(torch.isfinite(vocoder(
+            b_out.postnet_mel.float())).all())
+    if (len(b_wavs[0]) != b_mel_len * hop or b_mel_len <= 0
+            or b_out.postnet_mel.dtype != torch.bfloat16
+            or not torch.isfinite(b_out.postnet_mel.float()).all()
+            or not b_wav_finite):
+        raise RuntimeError("the bfloat16 synthesis's mel or wav is wrong")
+    if not (b_same_d and b_mel_ulps <= BF16_MEL_ULPS):
+        raise RuntimeError("the bfloat16 forward's mel disagrees with plain")
+
     # the inference options of the synthesize CLI, each through its main
     # with the counts set to 0 just before and read just after
     options = inference_options(device, card, preprocess_config,
@@ -1162,10 +1415,13 @@ def main():
     voc = host_ms(lambda: vocoder_infer(kern.postnet_mel, vocoder,
                                         preprocess_config,
                                         lengths=kern.mel_len.cpu().numpy()))
+    b_fwd = host_ms(lambda: b_synth.infer_ids(*b_calls[0]["args"],
+                                              **b_calls[0]["kwargs"]))
     say(f"[timing] text->wav end to end: median {e2e[0]:.2f} ms over 5 "
         f"(min {e2e[1]:.2f}) for {len(wav) / sr:.3f} s of audio; parts "
         f"(median ms): frontend with neural G2P {front[0]:.2f}, acoustic "
-        f"forward {fwd[0]:.2f}, vocoder on the {kern.mel.shape[1]}-frame "
+        f"forward {fwd[0]:.2f} (at bfloat16: {b_fwd[0]:.2f}, min "
+        f"{b_fwd[1]:.2f}), vocoder on the {kern.mel.shape[1]}-frame "
         f"mel + int16 trim {voc[0]:.2f}; on {card}")
 
     # K4 at the 12 ResBlock shapes of a 1000-frame parity forward; the
@@ -1252,6 +1508,73 @@ def main():
             f"({t['bound_by']}, 3xTF32); SIMT bound "
             f"{t['simt_bound_ms']:.3e} ms on {card}")
 
+    # the bfloat16 instances at the same shapes, their plain versions at
+    # bfloat16, and SDPA at bfloat16 with the same additive mask (its
+    # backward for K3)
+    bf = torch.bfloat16
+    bf16_timings = {}
+    for B, L, partial in ((1, enc_len, ids.shape[0]), (1, 1000, mel_len)):
+        q, k, v, mask = attention_inputs([partial], L, device, seed=7)
+        q, k, v = (t.to(bf) for t in (q, k, v))
+        additive = torch.zeros(1, 1, 1, L, device=device).masked_fill(
+            mask[:, None, None, :], -1e9).to(bf)
+        bf16_timings[("K1", 1, L)] = with_bound(dict(
+            ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
+                q, k, v, mask)),
+            plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v, mask)),
+            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=additive))),
+            attention_bound_ms(1, 2, L, dtype="bfloat16"), BOUND_BASIS_BF16)
+    for L in (1000, 768, 128):
+        q, k, v, mask, g = attention_grad_inputs(L, device, seed=L)
+        q, k, v, g = (t.to(bf) for t in (q, k, v, g))
+        out, row_max, row_sum = cuda_attention._launch_forward(
+            q, k, v, mask, True)
+        additive = torch.zeros(TRAIN_BATCH, 1, 1, L, device=device
+                               ).masked_fill(mask[:, None, None, :],
+                                             -1e9).to(bf)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves,
+                                                  attn_mask=additive)
+        bf16_timings[("K3", TRAIN_BATCH, L)] = with_bound(dict(
+            ms=cuda_time_ms(lambda: cuda_attention.fused_attention_backward(
+                q, k, v, mask, out, row_max, row_sum, g)),
+            plain_ms=cuda_time_ms(lambda: plain_attention_backward(
+                q, k, v, mask, g)),
+            library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                sdpa_out, leaves, g, retain_graph=True))),
+            attention_bound_ms(TRAIN_BATCH, 2, L, backward=True,
+                               dtype="bfloat16"), BOUND_BASIS_K3_BF16)
+        bf16_timings[("K1", TRAIN_BATCH, L)] = with_bound(dict(
+            ms=cuda_time_ms(lambda: cuda_attention._launch_forward(
+                q, k, v, mask, True)),
+            plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v,
+                                                               mask)),
+            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=additive))),
+            attention_bound_ms(TRAIN_BATCH, 2, L, dtype="bfloat16"),
+            BOUND_BASIS_BF16)
+        del sdpa_out, leaves
+    for B, L in ((1, enc_len), (1, 1000), (TRAIN_BATCH, 128),
+                 (TRAIN_BATCH, 1000)):
+        args = ffn_inputs(L, device, seed=9, B=B)
+        args = (args[0].to(bf),) + args[1:]
+        packed = cuda_ffn.pack_ffn_weights(args[1], args[3], bf)
+        with torch.inference_mode():
+            bf16_timings[("K2", B, L)] = with_bound(dict(
+                ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(
+                    *args, packed=packed)),
+                plain_ms=cuda_time_ms(lambda: cuda_ffn.plain_conv_ffn(*args)),
+                library_ms=None), ffn_bound_ms(B, L, dtype="bfloat16"),
+                BOUND_BASIS_BF16)
+    for (name, B, L), t in sorted(bf16_timings.items()):
+        lib = ("null" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
+        say(f"[timing] {name} bfloat16 B={B} L={L}: kernel {t['ms']:.4f} "
+            f"ms, plain {t['plain_ms']:.4f} ms, library (bfloat16) {lib}, "
+            f"bound {t['bound_ms']:.3e} ms ({t['bound_by']}; "
+            f"{t['bound_basis']}) on {card}")
+
     # 8. training at full width: 20 steps + one validation pass through the
     #    port's train(), counts set to 0 just before and read just after
     from fastspeech2_tpu_torch.data.synthetic import (
@@ -1293,13 +1616,16 @@ def main():
             losses_seen.append([float(v) for v in losses])
 
         torch.cuda.reset_peak_memory_stats()
-        cuda_attention.launches = cuda_attention.bwd_launches = 0
-        cuda_ffn.launches = cuda_resblock.launches = 0
+        # what earlier phases still hold; the step's own share is above it
+        base_gib = torch.cuda.memory_allocated() / 2 ** 30
+        zero_counts()
         t0 = time.perf_counter()
         _, _, final_step = train(pre_cfg, model_config, train_cfg, log=log,
                                  device=device, step_hook=hook)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+        train_bf16 = {k: n for k, n in launch_counts().items()
+                      if k.endswith("_bf16")}
         train_launches = {"K1": cuda_attention.launches,
                           "K3": cuda_attention.bwd_launches,
                           "K2": cuda_ffn.launches,
@@ -1325,13 +1651,15 @@ def main():
         say(f"[train] {final_step} steps at batch {TRAIN_BATCH} (encoder L "
             f"128, decoder L 1000) in {train_s:.2f} s: median "
             f"{median_step:.2f} ms per step over steps 2-{final_step} (host "
-            f"clock, device synchronised); peak memory {peak_gib:.2f} GiB; "
+            f"clock, device synchronised); peak memory {peak_gib:.2f} GiB, "
+            f"{peak_gib - base_gib:.2f} above the {base_gib:.2f} held "
+            f"before; "
             f"K1 + K3 at these shapes {attn_ms:.2f} ms = "
             f"{100 * attn_ms / median_step:.1f}% of a step; total loss "
             f"mean of the first 5 steps {first5:.4f}, of the last 5 "
             f"{last5:.4f}; launches per step (K1, K3, K2, K4) "
-            f"{sorted(set(per_step))}, per eval forward {eval_counts}; on "
-            f"{card}")
+            f"{sorted(set(per_step))}, per eval forward {eval_counts}, "
+            f"bfloat16 instances {train_bf16}; on {card}")
         if final_step != TRAIN_STEPS or len(losses_seen) != TRAIN_STEPS:
             raise RuntimeError(f"trained {final_step} steps, expected "
                                f"{TRAIN_STEPS}")
@@ -1345,6 +1673,9 @@ def main():
         if eval_counts != (10, 0, 10, 0):
             raise RuntimeError(f"launches in the validation pass "
                                f"{eval_counts}, expected 10 K1 + 10 K2")
+        if any(train_bf16.values()):
+            raise RuntimeError(f"the float32 training launched bfloat16 "
+                               f"kernels: {train_bf16}")
         if not any(ln.startswith(f"Validation Step {TRAIN_STEPS}")
                    for ln in lines):
             raise RuntimeError("no validation line")
@@ -1366,8 +1697,8 @@ def main():
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "fastspeech2_tpu_torch.cli.train_cli",
-             *paths, "--restore_step", "-1"], capture_output=True, text=True,
-            timeout=600)
+             *paths, "--restore_step", "-1", "--dtype", "float32"],
+            capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(f"train CLI failed:\n{proc.stdout}\n"
@@ -1379,7 +1710,8 @@ def main():
         saved = os.path.exists(os.path.join(
             train_cfg["path"]["ckpt_path"], f"{TRAIN_STEPS + 2}.pth.tar"))
         say(f"[train] python -m fastspeech2_tpu_torch.cli.train_cli "
-            f"--restore_step -1: resumed at step {TRAIN_STEPS}: {resumed}; "
+            f"--restore_step -1 --dtype float32: resumed at step "
+            f"{TRAIN_STEPS}: {resumed}; "
             f"step {TRAIN_STEPS + 2} logged: {stepped}; its checkpoint "
             f"written: {saved}; {cli_s:.2f} s")
         if not (resumed and stepped and saved):
@@ -1404,14 +1736,14 @@ def main():
 
         # 12. reproducibility: REPRO_STEPS steps twice from one seed through
         #     train(), with no duty but the final checkpoint
-        def trained_params(run):
+        def trained_params(run, dtype=torch.float32):
             cfg = dict(train_cfg, path={
                 k: os.path.join(tmp, f"repro{run}", k) for k in
                 ("ckpt_path", "log_path", "result_path")})
             cfg["step"] = dict(cfg["step"], total_step=REPRO_STEPS,
                                log_step=REPRO_STEPS, val_step=10 ** 9,
                                save_step=10 ** 9)
-            model, _, step = train(pre_cfg, model_config, cfg,
+            model, _, step = train(pre_cfg, model_config, cfg, dtype=dtype,
                                    log=lambda line: None, device=device)
             if step != REPRO_STEPS:
                 raise RuntimeError(f"the repro run stopped at step {step}")
@@ -1427,6 +1759,108 @@ def main():
             f"tensors differ)")
         if repro_diff != 0.0:
             raise RuntimeError("two trainings from one seed differ")
+
+        # the train CLI at its default dtype, bfloat16: TRAIN_STEPS steps
+        # through its main in this process; each step's launches and its
+        # end (device synchronised) recorded around training.loop's
+        # train_step, the counts set to 0 just before main
+        from fastspeech2_tpu_torch.cli import train_cli
+        from fastspeech2_tpu_torch.training import loop as train_loop
+
+        bf_paths = []
+        bf_train = dict(train_cfg, path={
+            k: os.path.join(tmp, "bf16", k) for k in
+            ("ckpt_path", "log_path", "result_path")})
+        for name, cfg in (("preprocess", pre_cfg), ("model", model_config),
+                          ("train", bf_train)):
+            path = os.path.join(tmp, f"bf16_{name}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            bf_paths += [f"-{name[0]}", path]
+        bf_steps = []
+        inner_step = train_loop.train_step
+
+        def recorded_step(model, optimizer, batch, step, grad_acc_step=1):
+            before = launch_counts()
+            losses = inner_step(model, optimizer, batch, step, grad_acc_step)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            bf_steps.append(dict(
+                end=time.perf_counter(), dtype=model.dtype,
+                launches={k: after[k] - before[k] for k in after},
+                losses=[float(v) for v in losses]))
+            return losses
+
+        printed = io.StringIO()
+        train_loop.train_step = recorded_step
+        del first, second
+        torch.cuda.reset_peak_memory_stats()
+        bf_base_gib = torch.cuda.memory_allocated() / 2 ** 30
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                _, _, bf_final = train_cli.main(bf_paths)
+        finally:
+            train_loop.train_step = inner_step
+        torch.cuda.synchronize()
+        bf_train_s = time.perf_counter() - t0
+        bf_totals = launch_counts()
+        bf_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        bf_lines = printed.getvalue().splitlines()
+        bf_per_step = {tuple(sorted(r["launches"].items()))
+                       for r in bf_steps}
+        bf_eval = {k: bf_totals[k] - sum(r["launches"][k] for r in bf_steps)
+                   for k in bf_totals}
+        bf_step_ms = [(b["end"] - a["end"]) * 1e3
+                      for a, b in zip(bf_steps, bf_steps[1:])]
+        bf_median = statistics.median(bf_step_ms)
+        bf_totals_loss = [r["losses"][0] for r in bf_steps]
+        bf_first5 = statistics.mean(bf_totals_loss[:5])
+        bf_last5 = statistics.mean(bf_totals_loss[-5:])
+        say(f"[train bf16] python -m fastspeech2_tpu_torch.cli.train_cli at "
+            f"its default dtype: {bf_final} steps at batch {TRAIN_BATCH} in "
+            f"{bf_train_s:.2f} s, compute dtype {bf_steps[0]['dtype']}: "
+            f"median {bf_median:.2f} ms per step over steps 2-{bf_final} "
+            f"(host clock, device synchronised; float32 above: "
+            f"{median_step:.2f} ms); peak memory {bf_peak_gib:.2f} GiB, "
+            f"{bf_peak_gib - bf_base_gib:.2f} above the {bf_base_gib:.2f} "
+            f"held before (float32: {peak_gib - base_gib:.2f} above "
+            f"{base_gib:.2f}); total loss mean of the first 5 "
+            f"steps {bf_first5:.4f}, of the last 5 {bf_last5:.4f}; launches "
+            f"per step {[dict(t) for t in bf_per_step]}; in the validation "
+            f"pass {bf_eval}; last line {bf_lines[-1]!r}; on {card}")
+        if bf_final != TRAIN_STEPS or len(bf_steps) != TRAIN_STEPS:
+            raise RuntimeError(f"the bfloat16 CLI trained {bf_final} steps, "
+                               f"expected {TRAIN_STEPS}")
+        if bf_steps[0]["dtype"] != torch.bfloat16:
+            raise RuntimeError("the train CLI's default is not bfloat16")
+        if not all(math.isfinite(v) for r in bf_steps for v in r["losses"]):
+            raise RuntimeError("a bfloat16 training loss is not finite")
+        if not bf_last5 < bf_first5:
+            raise RuntimeError("the bfloat16 training loss did not fall")
+        want = {k: 0 for k in bf_totals}
+        if bf_per_step != {tuple(sorted(dict(want, K1_bf16=10,
+                                             K3_bf16=10).items()))}:
+            raise RuntimeError(f"launches per bfloat16 train step "
+                               f"{bf_per_step}, expected 10 bfloat16 K1 + "
+                               "10 bfloat16 K3 and nothing else")
+        if bf_eval != dict(want, K1_bf16=10, K2_bf16=10):
+            raise RuntimeError(f"launches in the bfloat16 validation pass "
+                               f"{bf_eval}, expected 10 bfloat16 K1 + 10 "
+                               "bfloat16 K2")
+
+        # ... and REPRO_STEPS steps twice from one seed at bfloat16
+        first, second = (trained_params(run, torch.bfloat16)
+                         for run in (2, 3))
+        diffs = {n: (first[n] - second[n]).abs().max().item() for n in first}
+        bf_repro_diff = max(diffs.values())
+        say(f"[repro bf16] {REPRO_STEPS} training steps twice from one seed "
+            f"at bfloat16 through train(): max |parameter difference| "
+            f"{bf_repro_diff:.3e} ({sum(v > 0 for v in diffs.values())} of "
+            f"{len(diffs)} tensors differ)")
+        if bf_repro_diff != 0.0:
+            raise RuntimeError("two bfloat16 trainings from one seed differ")
 
     # 13. kernels line
     sources = {"K1": ("fused_attention", "fastspeech2_tpu_torch/csrc/attention.cu",
@@ -1463,7 +1897,7 @@ def main():
         n = train_launches[name] if name == "K3" else launches[name]
         kernels.append({
             "name": f"{name} {fn}", "route": "cuda", "source": src,
-            "replaces": replaces, "launches": n,
+            "replaces": replaces, "launches": n, "dtype": "float32",
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1482,6 +1916,7 @@ def main():
         "source": "fastspeech2_tpu_torch/csrc/resblock.cu",
         "replaces": "fastspeech2_tpu/ops/pallas_resblock.py:122",
         "launches": parity_launches["K4"], "max_abs_err": k4_err,
+        "dtype": "float32",
         "ms": k4_total["ms"], "plain_ms": k4_total["plain_ms"],
         "bound_ms": k4_total["bound_ms"],
         "bound_by": "/".join(sorted({t["bound_by"] for t in k4_timings})),
@@ -1498,6 +1933,31 @@ def main():
                              **{path: n["K4"] for path, n in
                                 options["launches"].items()},
                              "training": train_launches["K4"]}})
+    # the bfloat16 instances: launches on the bfloat16 synthesis path (K1
+    # and K2, one acoustic forward) and the bfloat16 training path (K3,
+    # TRAIN_STEPS steps)
+    bf_launches = {"K1": b_launches["K1_bf16"], "K2": b_launches["K2_bf16"],
+                   "K3": sum(r["launches"]["K3_bf16"] for r in bf_steps)}
+    for name in ("K1", "K2", "K3"):
+        fn, src, replaces, shape = sources[name]
+        t = bf16_timings[(name, TRAIN_BATCH, 1000) if name == "K3"
+                         else (name, 1, 1000)]
+        per = [dict(shape=[B, 2, L, 128] if name != "K2" else [B, L, 256],
+                    **{key: v[key] for key in keys})
+               for (n, B, L), v in sorted(bf16_timings.items()) if n == name]
+        kernels.append({
+            "name": f"{name} {fn} bfloat16", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": bf_launches[name],
+            "dtype": "bfloat16", "max_abs_err": bf16_errors[name][1],
+            "max_err_bf16_ulps": bf16_errors[name][0], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "bound_basis": t["bound_basis"],
+            "simt_bound_ms": t.get("simt_bound_ms"),
+            "shape": shape.replace("f32", "bf16"), "per_shape": per,
+            "launches_by_path": {
+                "bf16 synthesis": b_launches[f"{name}_bf16"],
+                "bf16 training": bf_totals[f"{name}_bf16"]}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

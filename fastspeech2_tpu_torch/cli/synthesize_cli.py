@@ -27,9 +27,10 @@ ResBlocks run K4 on the card), MelGAN, or Griffin-Lim for any other name;
 Mandarin tone-numbered pinyin for a ``language: zh`` preprocess config.
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given; asking for CUDA without a card raises.  Computes in float32 with
-TF32 off for matrix products and cuDNN convolutions (the JAX CLI's default
-is --dtype float32; --dtype bfloat16 is not ported).
+is given; asking for CUDA without a card raises.  The acoustic model
+computes at ``--dtype`` (float32 by default, as in the JAX CLI, or
+bfloat16), with TF32 off for float32 matrix products and cuDNN
+convolutions; the vocoder stays float32 and reads the mel upcast.
 """
 
 import argparse
@@ -39,6 +40,7 @@ import os
 import numpy as np
 import torch
 
+from fastspeech2_tpu_torch.cli.common import add_dtype_arg, dtype_from_flag
 from fastspeech2_tpu_torch.configs.config import (
     FastSpeech2Config,
     load_yaml_configs,
@@ -61,14 +63,14 @@ BATCH_SIZE = 8   # rows per forward in batch mode, as upstream
 
 def load_model_for_inference(preprocess_config, model_config, weights_npz,
                              device, train_config=None, restore_step=0,
-                             torch_ckpt=None):
-    """FastSpeech2 in eval mode on ``device`` with the weights of a tracked
-    npz snapshot, of the port's checkpoint of ``restore_step`` under
-    train_config's ckpt_path, or of a reference-format ``.pth.tar``
-    (``{"model": state_dict, ...}`` or a bare state_dict) -> (model,
-    config)."""
+                             torch_ckpt=None, dtype=torch.float32):
+    """FastSpeech2 in eval mode on ``device`` at the compute ``dtype`` with
+    the weights of a tracked npz snapshot, of the port's checkpoint of
+    ``restore_step`` under train_config's ckpt_path, or of a
+    reference-format ``.pth.tar`` (``{"model": state_dict, ...}`` or a bare
+    state_dict) -> (model, config)."""
     cfg = FastSpeech2Config.build(preprocess_config, model_config)
-    model = FastSpeech2(cfg)
+    model = FastSpeech2(cfg, dtype=dtype)
     if restore_step:
         state = load_checkpoint(train_config["path"]["ckpt_path"],
                                 restore_step)["model"]
@@ -137,6 +139,7 @@ def build_parser():
                              "configs/hifigan/generator_<speaker>.pth.tar "
                              "for HiFi-GAN where it exists, else a seeded "
                              "random init; Griffin-Lim takes none)")
+    add_dtype_arg(parser, "float32")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--result_path", default=None,
@@ -164,7 +167,7 @@ def main(argv=None):
     model, cfg = load_model_for_inference(
         preprocess_config, model_config, args.weights_npz, device,
         train_config=train_config, restore_step=args.restore_step,
-        torch_ckpt=args.torch_ckpt)
+        torch_ckpt=args.torch_ckpt, dtype=dtype_from_flag(args.dtype))
     vocoder = get_vocoder(model_config, preprocess_config, args.vocoder_ckpt,
                           device)
     synthesizer = Synthesizer(model, cfg, preprocess_config, device,

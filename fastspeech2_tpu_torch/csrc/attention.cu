@@ -55,6 +55,21 @@
 // this kernel's P.  They are kept apart, not folded into a log-sum-exp: for
 // a fully padded row m = -1e9, and -1e9 + log(L) rounds back to -1e9 in
 // float32.  Inference passes null.
+//
+// The bfloat16 instance (mha_fwd_bf16_kernel, fs2_mha_fwd_bf16) computes
+// what the TPU kernel computes on bfloat16 q, k, v: S = Q K^T with float32
+// accumulation (one m16n8k16 bfloat16 product per k-step, exact products:
+// score_tile_bf16), the scale after the product, the -1e9 mask and a
+// float32 online softmax; P rounded to bfloat16 (the TPU kernel's
+// p.astype(v.dtype)) and multiplied by V on the same instruction into a
+// float32 accumulator; the output rounded to bfloat16.  The rounded P is
+// the running exp(s - m), the normaliser 1/l applied to the float32 sum at
+// the end (the TPU kernel rounds the normalised P: the two differ by less
+// than an ulp of bfloat16 in each term).  Tiles, grid, plan, key split and
+// combine (float32 partials) are the float32 instance's; Q, K and V sit in
+// shared memory as bfloat16 (52,224 bytes).  Its bound on an H100 is the
+// bfloat16 tensor cores' 989 TFLOP/s against 2-byte tensors: at L = 1000
+// ~500 operations per byte, above the ridge (~295), so operations.
 
 #include <cuda_runtime.h>
 
@@ -72,20 +87,80 @@ constexpr int kWarps = kBM / 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBlocksPerSM = 2;   // what the shared memory below allows
 
-// Q, then two stages of (K, V)
-constexpr size_t kSmemBytes = sizeof(float) * kStride * (kBM + 4 * kBN);
+// Q, then two stages of (K, V), as T
+template <typename T>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * tile_stride<T>() * (kBM + 4 * kBN);
+}
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const unsigned char* __restrict__ key_pad,
-                   float* __restrict__ out, float* __restrict__ row_max,
-                   float* __restrict__ row_sum, float* __restrict__ part_o,
-                   float* __restrict__ part_m, float* __restrict__ part_l,
-                   int H, int L, float scale, int tiles_per_chunk) {
+// O += P V for float32: P's C fragments as A (keys in the permuted order),
+// V as B, 3xTF32, eight output column groups at a time
+__device__ __forceinline__ void pv_product(const float* Vs,
+                                           const float s[4][4], int lane,
+                                           float o[16][4]) {
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t ab[4], as[4];
+    c_as_a(s[j], ab, as);
+#pragma unroll
+    for (int n0 = 0; n0 < 16; n0 += 8) {
+      uint32_t bb[8][2], bs[8][2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        load_b_perm(Vs + 8 * j * kStride + 8 * (n0 + n), kStride, g, t,
+                    bb[n], bs[n]);
+      mma_3xtf32_n<8>(o + n0, ab, as, bb, bs);
+    }
+  }
+}
+
+// O += P V for bfloat16, over the tile's two 16-key k-steps: P's C
+// fragments of keys 16kk..16kk+7 and 16kk+8..16kk+15, rounded to bfloat16,
+// are the A fragment as they stand; V's B fragments come by
+// ldmatrix.trans, blocks (keys 0-7 | 8-15) x (d 0-7 | 8-15) -> b0, b1 of
+// n-tile n, then of n-tile n + 1
+__device__ __forceinline__ void pv_product(const bf16* Vs,
+                                           const float s[4][4], int lane,
+                                           float o[16][4]) {
+  const int blk = lane / 8;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint32_t a[4] = {
+        pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    const bf16* vk = Vs + (16 * kk + lane % 8 + 8 * (blk & 1)) * kStrideH +
+                     8 * (blk >> 1);
+#pragma unroll
+    for (int n = 0; n < 16; n += 2) {
+      uint32_t r[4];
+      ldmatrix_b16<true>(r, vk + 8 * n);
+      const uint32_t b0[2] = {r[0], r[1]};
+      const uint32_t b1[2] = {r[2], r[3]};
+      mma_bf16(o[n], a, b0);
+      mma_bf16(o[n + 1], a, b1);
+    }
+  }
+}
+
+// The block's work for T = float or bf16 (q, k, v and out of type T; the
+// row statistics and the partials float32): the tile loads, score_tile
+// and pv_product are T's overloads, the rest is shared
+template <typename T>
+__device__ __forceinline__ void mha_fwd_block(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const unsigned char* __restrict__ key_pad,
+    T* __restrict__ out, float* __restrict__ row_max,
+    float* __restrict__ row_sum, float* __restrict__ part_o,
+    float* __restrict__ part_m, float* __restrict__ part_l, int H, int L,
+    float scale, int tiles_per_chunk) {
+  constexpr int kS = tile_stride<T>();
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [kBM][kStride]
-  float* stage_base = Qs + kBM * kStride;        // per stage: K then V
+  T* Qs = reinterpret_cast<T*>(smem4);   // [kBM][kS]
+  T* stage_base = Qs + kBM * kS;         // per stage: K then V
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -94,8 +169,8 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t_begin = blockIdx.z * tiles_per_chunk;
   const int t_end = min(n_tiles, t_begin + tiles_per_chunk);
   const size_t base = static_cast<size_t>(bh) * L * kDh;
-  const float* kp = k + base;
-  const float* vp = v + base;
+  const T* kp = k + base;
+  const T* vp = v + base;
   const unsigned char* pad = key_pad + static_cast<size_t>(b) * L;
 
   const int tid = threadIdx.x;
@@ -106,8 +181,8 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile_async<kBM, kThreads>(Qs, q + base, q0, L, tid);
   load_tile_async<kBN, kThreads>(stage_base, kp, t_begin * kBN, L, tid);
-  load_tile_async<kBN, kThreads>(stage_base + kBN * kStride, vp,
-                                 t_begin * kBN, L, tid);
+  load_tile_async<kBN, kThreads>(stage_base + kBN * kS, vp, t_begin * kBN,
+                                 L, tid);
   cp_async_commit();
 
   // rows g and g + 8 of the warp's 16: running max, running sum, and the
@@ -120,22 +195,22 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
 
-  const float* Qw = Qs + warp * 16 * kStride;
+  const T* Qw = Qs + warp * 16 * kS;
   for (int kt = t_begin; kt < t_end; ++kt) {
     const int stage = (kt - t_begin) & 1;
     if (kt + 1 < t_end) {
-      float* next = stage_base + (stage ^ 1) * 2 * kBN * kStride;
+      T* next = stage_base + (stage ^ 1) * 2 * kBN * kS;
       load_tile_async<kBN, kThreads>(next, kp, (kt + 1) * kBN, L, tid);
-      load_tile_async<kBN, kThreads>(next + kBN * kStride, vp,
-                                     (kt + 1) * kBN, L, tid);
+      load_tile_async<kBN, kThreads>(next + kBN * kS, vp, (kt + 1) * kBN, L,
+                                     tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* Ks = stage_base + stage * 2 * kBN * kStride;
-    const float* Vs = Ks + kBN * kStride;
+    const T* Ks = stage_base + stage * 2 * kBN * kS;
+    const T* Vs = Ks + kBN * kS;
 
     float s[4][4];
     score_tile(Qw, Ks, lane, s);
@@ -186,22 +261,7 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       o[n][3] *= alpha[1];
     }
 
-    // O += P V: P's C fragments as A (keys in the permuted order), V as B,
-    // eight output column groups at a time
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t ab[4], as[4];
-      c_as_a(s[j], ab, as);
-#pragma unroll
-      for (int n0 = 0; n0 < 16; n0 += 8) {
-        uint32_t bb[8][2], bs[8][2];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          load_b_perm(Vs + 8 * j * kStride + 8 * (n0 + n), kStride, g, t,
-                      bb[n], bs[n]);
-        mma_3xtf32_n<8>(o + n0, ab, as, bb, bs);
-      }
-    }
+    pv_product(Vs, s, lane, o);
     __syncthreads();   // this stage is refilled by the next iteration
   }
 
@@ -212,11 +272,10 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t row = static_cast<size_t>(bh) * L + r;
     if (part_o == nullptr) {
       const float inv = 1.f / l[h];
-      float* op = out + row * kDh + 2 * t;
+      T* op = out + row * kDh + 2 * t;
 #pragma unroll
       for (int n = 0; n < 16; ++n)
-        *reinterpret_cast<float2*>(op + 8 * n) =
-            make_float2(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+        store2(op + 8 * n, o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
       if (row_max != nullptr && t == 0) {
         row_max[row] = m[h];
         row_sum[row] = l[h];
@@ -227,8 +286,7 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* op = part_o + prow * kDh + 2 * t;
 #pragma unroll
       for (int n = 0; n < 16; ++n)
-        *reinterpret_cast<float2*>(op + 8 * n) =
-            make_float2(o[n][2 * h], o[n][2 * h + 1]);
+        store2(op + 8 * n, o[n][2 * h], o[n][2 * h + 1]);
       if (t == 0) {
         part_m[prow] = m[h];
         part_l[prow] = l[h];
@@ -237,12 +295,39 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// the two instances, named apart for the build report
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const unsigned char* __restrict__ key_pad,
+                   float* __restrict__ out, float* __restrict__ row_max,
+                   float* __restrict__ row_sum, float* __restrict__ part_o,
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   int H, int L, float scale, int tiles_per_chunk) {
+  mha_fwd_block(q, k, v, key_pad, out, row_max, row_sum, part_o, part_m,
+                part_l, H, L, scale, tiles_per_chunk);
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+mha_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const unsigned char* __restrict__ key_pad,
+                    bf16* __restrict__ out, float* __restrict__ row_max,
+                    float* __restrict__ row_sum, float* __restrict__ part_o,
+                    float* __restrict__ part_m, float* __restrict__ part_l,
+                    int H, int L, float scale, int tiles_per_chunk) {
+  mha_fwd_block(q, k, v, key_pad, out, row_max, row_sum, part_o, part_m,
+                part_l, H, L, scale, tiles_per_chunk);
+}
+
 // One warp per row: combines the chunks' partials in the order 0, 1, ...
+// and writes the output as Out (float, or bf16 rounded to nearest even)
+template <typename Out>
 __global__ void __launch_bounds__(256)
 mha_fwd_combine_kernel(const float* __restrict__ part_o,
                        const float* __restrict__ part_m,
                        const float* __restrict__ part_l, int n_chunks,
-                       long rows, float* __restrict__ out,
+                       long rows, Out* __restrict__ out,
                        float* __restrict__ row_max,
                        float* __restrict__ row_sum) {
   const long row = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x)
@@ -264,8 +349,8 @@ mha_fwd_combine_kernel(const float* __restrict__ part_o,
     acc.w += a.w * w;
   }
   const float inv = 1.f / lsum;
-  reinterpret_cast<float4*>(out + row * kDh)[lane] =
-      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  store4(out + row * kDh + 4 * lane,
+         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
   if (row_max != nullptr && lane == 0) {
     row_max[row] = mx;
     row_sum[row] = lsum;
@@ -316,6 +401,61 @@ void plan(int B, int H, int L, int grid[3], int* tiles_per_chunk) {
   grid[2] = (n_tiles + per - 1) / per;
 }
 
+template <typename T>
+using FwdKernel = void (*)(const T*, const T*, const T*,
+                           const unsigned char*, T*, float*, float*, float*,
+                           float*, float*, int, int, float, int);
+
+// K1's launches for T (fs2_mha_fwd_f32's contract below)
+template <typename T>
+int mha_fwd(FwdKernel<T> kernel, const void* q, const void* k,
+            const void* v, const void* key_pad, void* out, void* row_max,
+            void* row_sum, void* scratch, int B, int H, int L, int D,
+            float scale, void* stream) {
+  if (D != kDh || B <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
+  if ((row_max == nullptr) != (row_sum == nullptr)) return cudaErrorInvalidValue;
+  int grid[3], tiles_per_chunk;
+  plan(B, H, L, grid, &tiles_per_chunk);
+  const bool split = grid[2] > 1;
+  if (split && scratch == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err =
+      set_smem(reinterpret_cast<const void*>(kernel), smem_bytes<T>());
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long rows = static_cast<long>(B) * H * L;
+  float* part_o = split ? static_cast<float*>(scratch) : nullptr;
+  float* part_m = split ? part_o + grid[2] * rows * kDh : nullptr;
+  float* part_l = split ? part_m + grid[2] * rows : nullptr;
+  kernel<<<dim3(grid[0], grid[1], grid[2]), kThreads, smem_bytes<T>(),
+           st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const unsigned char*>(key_pad),
+      static_cast<T*>(out), static_cast<float*>(row_max),
+      static_cast<float*>(row_sum), part_o, part_m, part_l, H, L, scale,
+      tiles_per_chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  const int warps_per_block = 256 / 32;
+  mha_fwd_combine_kernel<T>
+      <<<(rows + warps_per_block - 1) / warps_per_block, 256, 0, st>>>(
+          part_o, part_m, part_l, grid[2], rows, static_cast<T*>(out),
+          static_cast<float*>(row_max), static_cast<float*>(row_sum));
+  return cudaGetLastError();
+}
+
+// resident blocks per SM of K1's main kernel for T at its launch shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on an error
+template <typename T>
+int blocks_per_sm(FwdKernel<T> kernel) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int n = 0;
+  if (set_smem(fn, smem_bytes<T>()) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fn, kThreads, smem_bytes<T>()) != cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace
 
 // The grid K1 launches for [B, H, L, 128] (written to grid[3]: query tiles,
@@ -340,55 +480,27 @@ extern "C" int fs2_mha_fwd_f32(const void* q, const void* k, const void* v,
                                const void* key_pad, void* out, void* row_max,
                                void* row_sum, void* scratch, int B, int H,
                                int L, int D, float scale, void* stream) {
-  if (D != kDh || B <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
-  if ((row_max == nullptr) != (row_sum == nullptr)) return cudaErrorInvalidValue;
-  int grid[3], tiles_per_chunk;
-  plan(B, H, L, grid, &tiles_per_chunk);
-  const bool split = grid[2] > 1;
-  if (split && scratch == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mha_fwd_f32_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long rows = static_cast<long>(B) * H * L;
-  float* part_o = split ? static_cast<float*>(scratch) : nullptr;
-  float* part_m = split ? part_o + grid[2] * rows * kDh : nullptr;
-  float* part_l = split ? part_m + grid[2] * rows : nullptr;
-  mha_fwd_f32_kernel<<<dim3(grid[0], grid[1], grid[2]), kThreads, kSmemBytes,
-                       st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v),
-      static_cast<const unsigned char*>(key_pad), static_cast<float*>(out),
-      static_cast<float*>(row_max), static_cast<float*>(row_sum), part_o,
-      part_m, part_l, H, L, scale, tiles_per_chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !split) return err;
-  const int warps_per_block = 256 / 32;
-  mha_fwd_combine_kernel<<<(rows + warps_per_block - 1) / warps_per_block,
-                           256, 0, st>>>(
-      part_o, part_m, part_l, grid[2], rows, static_cast<float*>(out),
-      static_cast<float*>(row_max), static_cast<float*>(row_sum));
-  return cudaGetLastError();
+  return mha_fwd<float>(mha_fwd_f32_kernel, q, k, v, key_pad, out, row_max,
+                        row_sum, scratch, B, H, L, D, scale, stream);
 }
 
-// Resident blocks per SM of K1's main kernel at its launch shape
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for the build report;
-// -1 on an error.
+// fs2_mha_fwd_f32's contract for the bfloat16 instance: q, k, v, out
+// bfloat16 [B, H, L, 128]; row_max, row_sum and the scratch float32.
+extern "C" int fs2_mha_fwd_bf16(const void* q, const void* k, const void* v,
+                                const void* key_pad, void* out, void* row_max,
+                                void* row_sum, void* scratch, int B, int H,
+                                int L, int D, float scale, void* stream) {
+  return mha_fwd<bf16>(mha_fwd_bf16_kernel, q, k, v, key_pad, out, row_max,
+                       row_sum, scratch, B, H, L, D, scale, stream);
+}
+
+// Resident blocks per SM of K1's main kernel, for the build report; -1 on
+// an error.
 extern "C" int fs2_mha_fwd_blocks_per_sm() {
-  int n = 0;
-  if (cudaFuncSetAttribute(mha_fwd_f32_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kSmemBytes)) != cudaSuccess ||
-      cudaFuncSetAttribute(mha_fwd_f32_kernel,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, mha_fwd_f32_kernel, kThreads, kSmemBytes) != cudaSuccess)
-    return -1;
-  return n;
+  return blocks_per_sm<float>(mha_fwd_f32_kernel);
+}
+
+// The same for the bfloat16 instance; -1 on an error.
+extern "C" int fs2_mha_fwd_bf16_blocks_per_sm() {
+  return blocks_per_sm<bf16>(mha_fwd_bf16_kernel);
 }

@@ -49,14 +49,34 @@
 // (against plain float32, on an H100) with one level.  No atomics: the
 // partials are summed in a fixed order, and two launches on the same
 // inputs agree bit for bit.
+//
+// The bfloat16 instance (fs2_conv_ffn_fwd_bf16) computes what the TPU
+// kernel computes on a bfloat16 x: both convs on the bfloat16 tensor cores
+// (m16n8k16, exact products, float32 accumulation) with the weights
+// rounded to bfloat16 (the TPU kernel's w.astype(x.dtype)) and packed in
+// the A fragments' order ([M/16][T][K/16][32 lanes][8 values],
+// ops/tf32_pack.py::pack_fragments_bf16); h = ReLU(sum + b1) with float32
+// b1, rounded to bfloat16; b2 and x added in float32; the LayerNorm in
+// float32; the output rounded to bfloat16.  The plan and the three
+// launches are the float32 instance's.  (a) stages the whole window of x
+// (BN + taps - 1 rows of 256 channels) in shared memory at once by
+// cp.async, as bfloat16; (b) rounds h to bfloat16 where the float32
+// instance splits it.  One level of sums: a bfloat16 h and output carry
+// 2^-9 of rounding, far above the tensor cores' accumulation error.  Its
+// bound on an H100 is the bfloat16 tensor cores' 989 TFLOP/s against the
+// 2-byte x, output and weights.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "conv_tiles.cuh"
 
 namespace {
 
 using namespace fs2_conv;
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kD = 256;
 constexpr int kMaxSmem = 227 * 1024;   // a block's dynamic shared memory
@@ -169,16 +189,121 @@ ffn_conv1_kernel(const float* __restrict__ x, const float4* __restrict__ w1,
       }
 }
 
+// ---- bfloat16 fragments ---------------------------------------------------
+
+// A fragment of one 16 x 16 block of bfloat16 packed weights: 8 values per
+// lane, one 16-byte load
+__device__ __forceinline__ void load_a_bf16(const uint4* p, int lane,
+                                            uint32_t a[4]) {
+  const uint4 w = __ldg(p + lane);
+  a[0] = w.x;
+  a[1] = w.y;
+  a[2] = w.z;
+  a[3] = w.w;
+}
+
+// the B fragment of positions (rows) col.. at channels c0.. of a
+// channels-last bfloat16 plane: b0 = channels c0 + 2t, +1 of row col + g,
+// b1 = channels c0 + 8 + 2t, +1
+__device__ __forceinline__ void load_b_bf16(const bf16* plane, int stride,
+                                            int row, int c0, int t,
+                                            uint32_t b[2]) {
+  const bf16* p = plane + row * stride + c0 + 2 * t;
+  b[0] = *reinterpret_cast<const uint32_t*>(p);
+  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+}
+
+constexpr int kStrideXH = kD + 8;   // bf16 row stride of x's window
+
+// (a) for bfloat16 x: as ffn_conv1_kernel, with the window of x staged at
+// once and the bfloat16 weights [H/16][k1][D/16][32][8]
+template <int MT, int WN>
+__global__ void __launch_bounds__(kThreadsA)
+ffn_conv1_bf16_kernel(const bf16* __restrict__ x,
+                      const uint4* __restrict__ w1, float* __restrict__ part,
+                      int B, int L, int H, int k1, int splits) {
+  constexpr int WM = kBM_A / (16 * MT);
+  constexpr int BN = 32 * WN;
+  static_assert(WM * WN * 32 == kThreadsA, "4 warps");
+  extern __shared__ __align__(16) float smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);   // [span][kStrideXH]
+
+  const int l0 = blockIdx.x * BN;
+  const int n0 = blockIdx.y * kBM_A;
+  const int b = blockIdx.z / splits;
+  const int sp = blockIdx.z % splits;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp % WM;
+  const int wn = warp / WM;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int per = (k1 + splits - 1) / splits;
+  const int j0 = min(sp * per, k1);
+  const int j1 = min(j0 + per, k1);
+  const int win0 = l0 + j0 - (k1 - 1) / 2;
+  const int span = BN + (j1 > j0 ? j1 - j0 - 1 : 0);
+  const bf16* xb = x + static_cast<size_t>(b) * L * kD;
+  // 16 x 16 blocks of the packed weights: per tap D/16, per m-tile k1 D/16
+  const int wf_mt = k1 * (kD / 16) * 32;
+  const uint4* wf = w1 + (n0 / 16 + wm * MT) * wf_mt;
+
+  float acc[MT][4][4];
+  zero(acc);
+  if (j1 > j0) {
+    for (int i = tid; i < span * (kD / 8); i += kThreadsA) {
+      const int row = i / (kD / 8);
+      const int c = (i % (kD / 8)) * 8;
+      const int pos = win0 + row;
+      const bool ok = pos >= 0 && pos < L;
+      cp_async16(reinterpret_cast<float*>(xs + row * kStrideXH + c),
+                 reinterpret_cast<const float*>(
+                     ok ? xb + static_cast<size_t>(pos) * kD + c : xb),
+                 ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 1
+    for (int j = j0; j < j1; ++j) {
+#pragma unroll 4
+      for (int ks = 0; ks < kD / 16; ++ks) {
+        uint32_t a[MT][4], bfr[4][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          load_a_bf16(wf + mt * wf_mt + (j * (kD / 16) + ks) * 32, lane,
+                      a[mt]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          load_b_bf16(xs, kStrideXH, wn * 32 + 8 * nt + g + (j - j0),
+                      16 * ks, t, bfr[nt]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], bfr[nt]);
+      }
+    }
+  }
+
+  float* pout = part + static_cast<size_t>(sp * B + b) * L * H;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = n0 + 16 * (wm * MT + mt) + g + (i >= 2 ? 8 : 0);
+        const int l = l0 + wn * 32 + 8 * nt + 2 * t + (i & 1);
+        if (l < L) pout[static_cast<size_t>(l) * H + n] = acc[mt][nt][i];
+      }
+}
+
 // ---- (b) ypart[g] = hidden group g's share of conv_k2(ReLU(sum part + b1))
 constexpr int kThreadsB = 256;
 constexpr int kBN_B = 16;       // rows per block
 constexpr int kSliceB = 64;     // hidden channels per staged slice
 constexpr int kStrideB = 68;    // 4 mod 32, 16-byte rows
-
-int smem_b(int splits, int k2) {
-  const int span = kBN_B + k2 - 1;
-  return 4 * (2 * splits + 2) * span * kStrideB;
-}
 
 // rows [win0, win0 + span) of the hidden channels [c0, c0 + 64) of each of
 // the splits partial planes (plane floats apart, rows H apart) into dst
@@ -200,12 +325,33 @@ __device__ __forceinline__ void stage_rows_b(float* dst, const float* part,
     }
 }
 
+// the bfloat16 row stride of h's staged slice
+constexpr int kStrideHH = kSliceB + 8;
+
+// W: the packed weights' 16-byte word, float4 for the float32 instance
+// ([D/16][k2][H/8][32][8] floats: h split into TF32 big and small planes,
+// 3xTF32, each slice's products summed from 0 and added to the running sum
+// on the CUDA cores), uint4 for the bfloat16 one ([D/16][k2][H/16][32][8]
+// bfloat16 values: h rounded to bfloat16, the bfloat16 tensor cores
+// accumulating into the running sum)
+template <typename W>
+constexpr bool kBf16W = std::is_same<W, uint4>::value;
+
+template <typename W>
+int smem_b(int splits, int k2) {
+  const int span = kBN_B + k2 - 1;
+  return kBf16W<W> ? 4 * 2 * splits * span * kStrideB + 2 * span * kStrideHH
+                   : 4 * (2 * splits + 2) * span * kStrideB;
+}
+
 // grid (row tiles, groups, B): 16 rows x all 256 columns (8 warps of 32) x
 // the hidden channels [g H / groups, (g + 1) H / groups)
-__global__ void __launch_bounds__(kThreadsB)
-ffn_conv2_kernel(const float* __restrict__ part, const float* __restrict__ b1,
-                 const float4* __restrict__ w2, float* __restrict__ ypart,
-                 int B, int L, int H, int k2, int splits) {
+template <typename W>
+__device__ __forceinline__ void ffn_conv2_block(
+    const float* __restrict__ part, const float* __restrict__ b1,
+    const W* __restrict__ w2, float* __restrict__ ypart, int B, int L, int H,
+    int k2, int splits) {
+  constexpr bool kBf16 = kBf16W<W>;
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z;
   const int grp = blockIdx.y;
@@ -217,9 +363,8 @@ ffn_conv2_kernel(const float* __restrict__ part, const float* __restrict__ b1,
   const int t = lane & 3;
   const int span = kBN_B + k2 - 1;
   const int win0 = l0 - (k2 - 1) / 2;
-  const int wf_mt = k2 * (H / 8) * kFrag4;
-  const int tap4 = (H / 8) * kFrag4;
-  const float4* wf = w2 + 2 * warp * wf_mt;
+  const int wf_mt = kBf16 ? k2 * (H / 16) * 32 : k2 * (H / 8) * kFrag4;
+  const W* wf = w2 + 2 * warp * wf_mt;
   const size_t plane = static_cast<size_t>(B) * L * H;   // floats per split
   const float* pb0 = part + static_cast<size_t>(b) * L * H;
   const int slices = H / kSliceB / gridDim.y;
@@ -227,8 +372,11 @@ ffn_conv2_kernel(const float* __restrict__ part, const float* __restrict__ b1,
 
   float* raw = smem;        // [2][splits][span][68]
   const int buf = splits * span * kStrideB;
+  // float32: h's big, then small plane, [span][68] each; bfloat16: h
+  // [span][kStrideHH]
   uint32_t* pb = reinterpret_cast<uint32_t*>(smem + 2 * buf);
   uint32_t* ps = pb + span * kStrideB;
+  bf16* hs = reinterpret_cast<bf16*>(smem + 2 * buf);
 
   float acc[2][2][4];
   zero(acc);
@@ -256,17 +404,43 @@ ffn_conv2_kernel(const float* __restrict__ part, const float* __restrict__ b1,
           sum += src[(s * span + row) * kStrideB + c];
         v = fmaxf(sum + __ldg(b1 + sl * kSliceB + c), 0.f);
       }
-      split(v, pb[row * kStrideB + c], ps[row * kStrideB + c]);
+      if constexpr (kBf16)
+        hs[row * kStrideHH + c] = __float2bfloat16_rn(v);
+      else
+        split(v, pb[row * kStrideB + c], ps[row * kStrideB + c]);
     }
     __syncthreads();
-    float part_acc[2][2][4];
-    zero(part_acc);
+    if constexpr (kBf16) {
 #pragma unroll 1
-    for (int j = 0; j < k2; ++j)
-      mma_tap<2, 2, kSliceB / 8, true>(
-          part_acc, pb, ps, kStrideB, j,
-          wf + j * tap4 + sl * (kSliceB / 8) * kFrag4, wf_mt, lane);
-    add(acc, part_acc);
+      for (int j = 0; j < k2; ++j)
+#pragma unroll
+        for (int ks = 0; ks < kSliceB / 16; ++ks) {
+          uint32_t a[2][4], bfr[2][2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            load_a_bf16(wf + mt * wf_mt +
+                            (j * (H / 16) + sl * (kSliceB / 16) + ks) * 32,
+                        lane, a[mt]);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            load_b_bf16(hs, kStrideHH, 8 * nt + g + j, 16 * ks, t, bfr[nt]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+              mma_bf16(acc[mt][nt], a[mt], bfr[nt]);
+        }
+    } else {
+      const int tap4 = (H / 8) * kFrag4;
+      float part_acc[2][2][4];
+      zero(part_acc);
+#pragma unroll 1
+      for (int j = 0; j < k2; ++j)
+        mma_tap<2, 2, kSliceB / 8, true>(
+            part_acc, pb, ps, kStrideB, j,
+            wf + j * tap4 + sl * (kSliceB / 8) * kFrag4, wf_mt, lane);
+      add(acc, part_acc);
+    }
   }
 
   float* yb = ypart + (static_cast<size_t>(grp) * B + b) * L * kD;
@@ -282,13 +456,38 @@ ffn_conv2_kernel(const float* __restrict__ part, const float* __restrict__ b1,
       }
 }
 
+// the two instances, named apart for the build report
+__global__ void __launch_bounds__(kThreadsB)
+ffn_conv2_kernel(const float* __restrict__ part, const float* __restrict__ b1,
+                 const float4* __restrict__ w2, float* __restrict__ ypart,
+                 int B, int L, int H, int k2, int splits) {
+  ffn_conv2_block(part, b1, w2, ypart, B, L, H, k2, splits);
+}
+
+__global__ void __launch_bounds__(kThreadsB)
+ffn_conv2_bf16_kernel(const float* __restrict__ part,
+                      const float* __restrict__ b1,
+                      const uint4* __restrict__ w2, float* __restrict__ ypart,
+                      int B, int L, int H, int k2, int splits) {
+  ffn_conv2_block(part, b1, w2, ypart, B, L, H, k2, splits);
+}
+
 // ---- (c) out = LN(sum of the groups' ypart + b2 + x) over D = 256 ---------
 constexpr int kThreadsC = 256;   // one warp per row
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// T: the type of x and the output (float, or bf16 rounded to nearest even)
+template <typename T>
 __global__ void __launch_bounds__(kThreadsC)
 ffn_ln_kernel(const float* __restrict__ ypart, const float* __restrict__ b2,
-              const float* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, float* __restrict__ out,
+              const T* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, T* __restrict__ out,
               int rows, int groups) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * (kThreadsC / 32) + (threadIdx.x >> 5);
@@ -307,7 +506,7 @@ ffn_ln_kernel(const float* __restrict__ ypart, const float* __restrict__ b2,
   float s = 0.f, sq = 0.f;
 #pragma unroll
   for (int u = 0; u < kD / 32; ++u) {
-    y[u] = y[u] + __ldg(b2 + lane + 32 * u) + x[at + 32 * u];
+    y[u] = y[u] + __ldg(b2 + lane + 32 * u) + to_f32(x[at + 32 * u]);
     s += y[u];
     sq = fmaf(y[u], y[u], sq);
   }
@@ -322,7 +521,7 @@ ffn_ln_kernel(const float* __restrict__ ypart, const float* __restrict__ b2,
 #pragma unroll
   for (int u = 0; u < kD / 32; ++u) {
     const int n = lane + 32 * u;
-    out[at + 32 * u] = (y[u] - mean) * inv * gamma[n] + beta[n];
+    store(out + at + 32 * u, (y[u] - mean) * inv * gamma[n] + beta[n]);
   }
 }
 
@@ -344,6 +543,83 @@ cudaError_t launch_a(const float* x, const float4* w1, float* part, int B,
   const dim3 grid((L + BN - 1) / BN, H / kBM_A, B * splits);
   ffn_conv1_kernel<MT, WN><<<grid, kThreadsA, smem, s>>>(x, w1, part, B, L,
                                                           H, k1, splits);
+  return cudaGetLastError();
+}
+
+template <int MT, int WN>
+cudaError_t launch_a(const bf16* x, const uint4* w1, float* part, int B,
+                     int L, int H, int k1, int splits, cudaStream_t s) {
+  constexpr int BN = 32 * WN;
+  const int per = (k1 + splits - 1) / splits;
+  const int smem = 2 * (BN + per - 1) * kStrideXH;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ffn_conv1_bf16_kernel<MT, WN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid((L + BN - 1) / BN, H / kBM_A, B * splits);
+  ffn_conv1_bf16_kernel<MT, WN><<<grid, kThreadsA, smem, s>>>(
+      x, w1, part, B, L, H, k1, splits);
+  return cudaGetLastError();
+}
+
+// K2's three launches for X = float (W = float4, fs2_conv_ffn_fwd_f32's
+// contract below) or bf16 (W = uint4)
+template <typename X, typename W>
+int conv_ffn_fwd(void (*conv2)(const float*, const float*, const W*, float*,
+                               int, int, int, int, int),
+                 const void* x, const void* w1, const void* b1,
+                 const void* w2, const void* b2, const void* gamma,
+                 const void* beta, void* scratch, void* out, int B, int L,
+                 int D, int H, int k1, int k2, int bn, int splits,
+                 int groups, void* stream) {
+  if (D != kD || H <= 0 || H % kBM_A != 0 || B <= 0 || L <= 0 || k1 <= 0 ||
+      k2 <= 0 || splits <= 0 || splits > k1 || groups <= 0 ||
+      (H / kSliceB) % groups != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const X* xs = static_cast<const X*>(x);
+  const W* w1s = static_cast<const W*>(w1);
+  float* part = static_cast<float*>(scratch);
+  float* ypart = part + static_cast<size_t>(splits) * B * L * H;
+  cudaError_t err;
+  switch (bn) {
+    case 128:
+      err = launch_a<4, 4>(xs, w1s, part, B, L, H, k1, splits, s);
+      break;
+    case 64:
+      err = launch_a<2, 2>(xs, w1s, part, B, L, H, k1, splits, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  const int smem = smem_b<W>(splits, k2);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    err = cudaFuncSetAttribute(conv2,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid_b((L + kBN_B - 1) / kBN_B, groups, B);
+  conv2<<<grid_b, kThreadsB, smem, s>>>(part, static_cast<const float*>(b1),
+                                        static_cast<const W*>(w2), ypart, B,
+                                        L, H, k2, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rows = B * L;
+  const dim3 grid_c((rows + kThreadsC / 32 - 1) / (kThreadsC / 32));
+  ffn_ln_kernel<X><<<grid_c, kThreadsC, 0, s>>>(
+      ypart, static_cast<const float*>(b2), xs,
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<X*>(out), rows, groups);
   return cudaGetLastError();
 }
 
@@ -398,48 +674,23 @@ extern "C" int fs2_conv_ffn_fwd_f32(const void* x, const void* w1,
                                     void* out, int B, int L, int D, int H,
                                     int k1, int k2, int bn, int splits,
                                     int groups, void* stream) {
-  if (D != kD || H <= 0 || H % kBM_A != 0 || B <= 0 || L <= 0 || k1 <= 0 ||
-      k2 <= 0 || splits <= 0 || splits > k1 || groups <= 0 ||
-      (H / kSliceB) % groups != 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float4* w1f = static_cast<const float4*>(w1);
-  float* part = static_cast<float*>(scratch);
-  float* ypart = part + static_cast<size_t>(splits) * B * L * H;
-  cudaError_t err;
-  switch (bn) {
-    case 128:
-      err = launch_a<4, 4>(xf, w1f, part, B, L, H, k1, splits, s);
-      break;
-    case 64:
-      err = launch_a<2, 2>(xf, w1f, part, B, L, H, k1, splits, s);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return err;
-  const int smem = smem_b(splits, k2);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  static bool opted_in = false;
-  if (!opted_in) {
-    err = cudaFuncSetAttribute(ffn_conv2_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
-  const dim3 grid_b((L + kBN_B - 1) / kBN_B, groups, B);
-  ffn_conv2_kernel<<<grid_b, kThreadsB, smem, s>>>(
-      part, static_cast<const float*>(b1), static_cast<const float4*>(w2),
-      ypart, B, L, H, k2, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int rows = B * L;
-  const dim3 grid_c((rows + kThreadsC / 32 - 1) / (kThreadsC / 32));
-  ffn_ln_kernel<<<grid_c, kThreadsC, 0, s>>>(
-      ypart, static_cast<const float*>(b2), xf,
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<float*>(out), rows, groups);
-  return cudaGetLastError();
+  return conv_ffn_fwd<float>(ffn_conv2_kernel, x, w1, b1, w2, b2, gamma,
+                             beta, scratch, out, B, L, D, H, k1, k2, bn,
+                             splits, groups, stream);
+}
+
+// fs2_conv_ffn_fwd_f32's contract for the bfloat16 instance: x and out
+// bfloat16; w1, w2 the bfloat16 packs of conv1 ([H/16][k1][D/16][32][8]
+// values) and conv2 ([D/16][k2][H/16][32][8]); b1, b2, gamma, beta and the
+// scratch (fs2_conv_ffn_plan's floats) float32.
+extern "C" int fs2_conv_ffn_fwd_bf16(const void* x, const void* w1,
+                                     const void* b1, const void* w2,
+                                     const void* b2, const void* gamma,
+                                     const void* beta, void* scratch,
+                                     void* out, int B, int L, int D, int H,
+                                     int k1, int k2, int bn, int splits,
+                                     int groups, void* stream) {
+  return conv_ffn_fwd<bf16>(ffn_conv2_bf16_kernel, x, w1, b1, w2, b2, gamma,
+                            beta, scratch, out, B, L, D, H, k1, k2, bn,
+                            splits, groups, stream);
 }

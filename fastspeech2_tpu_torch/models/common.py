@@ -3,6 +3,16 @@
 Activations are [B, L, C] at every public function, as in the JAX package;
 convolutions transpose to PyTorch's [B, C, L] inside.
 
+The compute dtype (float32, or bfloat16 for the JAX package's --dtype
+bfloat16) is the activations' dtype: it is set where the activations are
+made (``FastSpeech2(cfg, dtype=...)``) and flows from layer to layer.
+Parameters stay float32.  :class:`Linear` and :class:`Conv` compute as
+Flax's Dense and Conv do at their dtype: the float32 weight and bias cast
+to the input's dtype, the product rounded to it, then the bias added in
+it.  :class:`LayerNorm` computes in float32 and casts back, as the JAX
+package's TorchLayerNorm does.  The cast of a weight passes its gradient
+back to the float32 parameter.
+
 Dropout draws its masks from the generator that
 :func:`set_dropout_generator` gives it (the training step gives one
 seeded from the training seed and the step, as the JAX step folds its
@@ -11,6 +21,7 @@ dropout key on the step), or from PyTorch's default generator.
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 
 def set_dropout_generator(model, generator):
@@ -55,11 +66,19 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        dt, x = x.dtype, x.float()
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
                           min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((x - mean) * mul + self.bias).to(dt)
+
+
+class Linear(nn.Linear):
+    """nn.Linear at its input's dtype (module docstring)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
 
 
 class Conv(nn.Module):
@@ -76,5 +95,8 @@ class Conv(nn.Module):
                               dilation=dilation)
 
     def forward(self, x):
-        return self.conv(x.transpose(1, 2)).transpose(1, 2)
+        conv = self.conv
+        y = F.conv1d(x.transpose(1, 2), conv.weight.to(x.dtype),
+                     padding=conv.padding, dilation=conv.dilation)
+        return (y + conv.bias.to(x.dtype)[:, None]).transpose(1, 2)
 

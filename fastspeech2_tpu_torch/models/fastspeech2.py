@@ -6,7 +6,10 @@ mel linear -> PostNet residual.  The caller fixes the phone length P and
 the frame length T; the data's lengths travel as length vectors + masks.
 ``model.train()`` is the JAX package's ``train=True``: dropout on, the
 PostNet's BatchNorm on masked batch statistics; ``model.eval()`` is
-``train=False``.
+``train=False``.  ``dtype`` is the JAX model's compute dtype (float32 or
+bfloat16; parameters stay float32): the activations are made at it and
+every layer computes at it (models/common.py), so the mel and the
+predictions come out at it.
 """
 
 from typing import NamedTuple
@@ -14,6 +17,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from fastspeech2_tpu_torch.models.common import Linear
 from fastspeech2_tpu_torch.models.postnet import PostNet
 from fastspeech2_tpu_torch.models.transformer import Decoder, Encoder
 from fastspeech2_tpu_torch.models.variance import VarianceAdaptor
@@ -37,13 +41,14 @@ class FastSpeech2Output(NamedTuple):
 
 class FastSpeech2(nn.Module):
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.encoder = Encoder(cfg)
+        self.dtype = dtype
+        self.encoder = Encoder(cfg, dtype)
         self.variance_adaptor = VarianceAdaptor(cfg)
         self.decoder = Decoder(cfg)
-        self.mel_linear = nn.Linear(cfg.decoder_hidden, cfg.n_mel_channels)
+        self.mel_linear = Linear(cfg.decoder_hidden, cfg.n_mel_channels)
         self.postnet = PostNet(cfg.n_mel_channels, cfg.postnet_embedding_dim,
                                cfg.postnet_kernel_size,
                                cfg.postnet_n_convolutions)
@@ -66,7 +71,7 @@ class FastSpeech2(nn.Module):
 
         x = self.encoder(texts, src_pad_mask)
         if self.cfg.multi_speaker:
-            x = x + self.speaker_emb(speakers)[:, None, :]
+            x = x + self.speaker_emb(speakers).to(x.dtype)[:, None, :]
 
         (x, pitch_prediction, energy_prediction, log_duration_prediction,
          duration_rounded, mel_len, mel_pad_mask) = self.variance_adaptor(

@@ -8,7 +8,9 @@ length behaves like the reference's exact-length batch
 
 The BatchNorm is :class:`MaskedBatchNorm`: in eval mode it uses its running
 statistics; in training mode its batch statistics exclude the frames past
-the batch's max mel length, which ``nn.BatchNorm1d`` cannot do.
+the batch's max mel length, which ``nn.BatchNorm1d`` cannot do.  The convs
+run at the activations' dtype, the BatchNorm in float32 with its output
+cast back (postnet.py:100-118).
 """
 
 import torch
@@ -42,7 +44,9 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x, keep=None):
         """x: [B, T, C]; keep: [B, T] bool, True = frame in the statistics
-        (None: every frame)."""
+        (None: every frame).  Computes in float32; the output has x's
+        dtype."""
+        dt, x = x.dtype, x.float()
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
@@ -65,8 +69,8 @@ class MaskedBatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var
                                        + self.momentum * unbiased)
                 self.num_batches_tracked += 1
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
-            + self.bias
+        return ((x - mean) * torch.rsqrt(var + self.eps) * self.weight
+                + self.bias).to(dt)
 
 
 class PostNet(nn.Module):

@@ -15,17 +15,23 @@ dropout after the second conv, as the JAX package's training path does
 wrappers always launch their kernels; on CPU tensors they compute their
 plain versions.  Dropout follows the attention's output projection, in
 training mode only.
+
+Everything runs at the activations' dtype, which the Encoder sets
+(models/common.py): in bfloat16, the residual adds round to bfloat16, the
+LayerNorms run in float32 and cast back, and the position encodings are
+added in bfloat16, at the JAX modules' cast points.
 """
 
 import torch
 from torch import nn
 
-from fastspeech2_tpu_torch.models.common import Dropout, LayerNorm
+from fastspeech2_tpu_torch.models.common import Dropout, LayerNorm, Linear
 from fastspeech2_tpu_torch.ops.cuda_attention import fused_attention
 from fastspeech2_tpu_torch.ops.cuda_ffn import (
+    conv1d_same,
     fused_conv_ffn,
     pack_ffn_weights,
-    plain_conv_ffn,
+    residual_layer_norm,
 )
 from fastspeech2_tpu_torch.ops.masking import fill_masked
 from fastspeech2_tpu_torch.ops.positional import sinusoid_position_encoding
@@ -40,10 +46,10 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.n_head = n_head
         self.d_head = d_model // n_head
-        self.w_qs = nn.Linear(d_model, n_head * self.d_head)
-        self.w_ks = nn.Linear(d_model, n_head * self.d_head)
-        self.w_vs = nn.Linear(d_model, n_head * self.d_head)
-        self.fc = nn.Linear(n_head * self.d_head, d_model)
+        self.w_qs = Linear(d_model, n_head * self.d_head)
+        self.w_ks = Linear(d_model, n_head * self.d_head)
+        self.w_vs = Linear(d_model, n_head * self.d_head)
+        self.fc = Linear(n_head * self.d_head, d_model)
         self.layer_norm = LayerNorm(d_model)
         self.dropout = Dropout(dropout)
 
@@ -60,12 +66,25 @@ class MultiHeadAttention(nn.Module):
         return self.layer_norm(self.dropout(self.fc(out)) + x)
 
 
+def ffn_train(x, w1, b1, w2, b2, ln_scale, ln_bias, dropout):
+    """The FFN sublayer in training mode, as the JAX package's training
+    path computes it (fastspeech2_tpu/models/transformer.py:171-189): each
+    conv's product rounded to x's dtype and its bias added in it, dropout
+    at x's dtype, the residual and the LayerNorm in float32, the output
+    rounded to x's dtype.  (K2 and its plain version add b1 in float32 and
+    round only h: in bfloat16 the two paths round differently.)"""
+    dt = x.dtype
+    y = torch.relu(conv1d_same(x, w1.to(dt)) + b1.to(dt))
+    y = conv1d_same(y, w2.to(dt)) + b2.to(dt)
+    return residual_layer_norm(dropout(y), x, ln_scale, ln_bias)
+
+
 class PositionwiseFeedForward(nn.Module):
     """conv1d(k0) -> ReLU -> conv1d(k1) -> dropout -> post-LN residual
-    (reference transformer/SubLayers.py:60-93): kernel K2 in eval mode, the
-    plain path with dropout in training mode.  K2's weight pack is made
-    once for the no-grad forwards and again only when a weight is
-    replaced, moved or changed in place."""
+    (reference transformer/SubLayers.py:60-93): kernel K2 in eval mode,
+    :func:`ffn_train` in training mode.  K2's weight pack is made once for
+    the no-grad forwards and again only when a weight is replaced, moved or
+    changed in place, or the dtype changes."""
 
     def __init__(self, d_model, d_inner, kernel_size, dropout):
         super().__init__()
@@ -82,11 +101,12 @@ class PositionwiseFeedForward(nn.Module):
         self._pack = self._pack_key = None
         return super()._apply(fn, *args, **kwargs)
 
-    def _packed(self, w1, w2):
-        key = tuple((t.data_ptr(), t._version)
-                    for t in (self.w_1.weight, self.w_2.weight))
+    def _packed(self, w1, w2, dtype):
+        key = (dtype,) + tuple((t.data_ptr(), t._version)
+                               for t in (self.w_1.weight, self.w_2.weight))
         if key != self._pack_key:
-            self._pack, self._pack_key = pack_ffn_weights(w1, w2), key
+            self._pack = pack_ffn_weights(w1, w2, dtype)
+            self._pack_key = key
         return self._pack
 
     def forward(self, x):
@@ -96,11 +116,11 @@ class PositionwiseFeedForward(nn.Module):
         args = (x, w1, self.w_1.bias, w2, self.w_2.bias,
                 self.layer_norm.weight, self.layer_norm.bias)
         if self.training:
-            return plain_conv_ffn(*args, dropout=self.dropout)
+            return ffn_train(*args, dropout=self.dropout)
         packed = None
         if x.device.type == "cuda" and not (torch.is_grad_enabled() and any(
                 t.requires_grad for t in args)):
-            packed = self._packed(w1, w2)
+            packed = self._packed(w1, w2, x.dtype)
         return fused_conv_ffn(*args, packed=packed)
 
 
@@ -128,10 +148,13 @@ def _blocks(cfg, n_layers, n_head, d_model, dropout):
 
 class Encoder(nn.Module):
     """Phone embedding + PE + N x FFTBlock (reference
-    transformer/Models.py:33-100)."""
+    transformer/Models.py:33-100).  The embedding and the position
+    encoding are cast to ``dtype``, the compute dtype of everything
+    after."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.d_model = cfg.encoder_hidden
         self.src_word_emb = nn.Embedding(cfg.vocab_size, cfg.encoder_hidden,
                                          padding_idx=PAD_ID)
@@ -140,8 +163,9 @@ class Encoder(nn.Module):
 
     def forward(self, src_seq, src_pad_mask):
         pe = sinusoid_position_encoding(src_seq.shape[1], self.d_model,
+                                        dtype=self.dtype,
                                         device=src_seq.device)
-        x = self.src_word_emb(src_seq) + pe[None]
+        x = self.src_word_emb(src_seq).to(self.dtype) + pe[None]
         for block in self.layer_stack:
             x = block(x, src_pad_mask)
         return x
@@ -165,7 +189,7 @@ class Decoder(nn.Module):
             # contiguous: K1 takes the mask as a dense [B, L] array
             mel_pad_mask = mel_pad_mask[:, : self.max_seq_len].contiguous()
         pe = sinusoid_position_encoding(x.shape[1], self.d_model,
-                                        device=x.device)
+                                        dtype=x.dtype, device=x.device)
         x = x + pe[None]
         for block in self.layer_stack:
             x = block(x, mel_pad_mask)

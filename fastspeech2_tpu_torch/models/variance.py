@@ -8,13 +8,23 @@ Kept exactly as the JAX package has it:
 * pitch/energy bucketize with searchsorted(side="left") (:100, :110);
 * the energy branch honours e_control (the reference passes p_control
   there, model/modules.py:124,146; the JAX package fixes that, :8-11).
+
+At the compute dtype (models/common.py) the predictors run at the
+activations' dtype, the embeddings are cast to it, and the bucketize and
+the duration rounding read their values in float32 (:100, :110,
+:152-168).
 """
 
 import numpy as np
 import torch
 from torch import nn
 
-from fastspeech2_tpu_torch.models.common import Conv, Dropout, LayerNorm
+from fastspeech2_tpu_torch.models.common import (
+    Conv,
+    Dropout,
+    LayerNorm,
+    Linear,
+)
 from fastspeech2_tpu_torch.ops.length_regulator import length_regulate
 from fastspeech2_tpu_torch.ops.masking import (
     fill_masked,
@@ -48,7 +58,7 @@ class VariancePredictor(nn.Module):
     def __init__(self, d_in, filter_size, kernel_size, dropout):
         super().__init__()
         self.conv_layer = _ConvLayer(d_in, filter_size, kernel_size, dropout)
-        self.linear_layer = nn.Linear(filter_size, 1)
+        self.linear_layer = Linear(filter_size, 1)
 
     def forward(self, x, pad_mask):
         y = self.linear_layer(self.conv_layer(x)).squeeze(-1)
@@ -93,8 +103,8 @@ class VarianceAdaptor(nn.Module):
             # reference; offset (default 0) lets callers express absolute
             # control on z-scored features (synthesis/pipeline.py)
             prediction = prediction * control + offset
-            ids = torch.searchsorted(bins, prediction.contiguous())
-        return prediction, embed(ids)
+            ids = torch.searchsorted(bins, prediction.float().contiguous())
+        return prediction, embed(ids).to(x.dtype)
 
     def forward(self, x, src_pad_mask, mel_pad_mask=None, max_mel_len=None,
                 pitch_target=None, energy_target=None, duration_target=None,
@@ -122,7 +132,8 @@ class VarianceAdaptor(nn.Module):
             # round FIRST, then scale and floor (reference
             # model/modules.py:132-135 and LengthRegulator's int())
             duration_rounded = torch.floor(torch.clamp(
-                torch.round(torch.exp(log_duration_prediction) - 1.0)
+                torch.round(torch.exp(log_duration_prediction.float())
+                            - 1.0)
                 * d_control, min=0.0)).to(torch.int32)
             duration_rounded = duration_rounded.masked_fill(src_pad_mask, 0)
         if max_mel_len is None:

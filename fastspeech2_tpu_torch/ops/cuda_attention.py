@@ -4,12 +4,17 @@ hand-written CUDA for Hopper (``csrc/attention.cu``,
 ``fastspeech2_tpu/ops/pallas_attention.py::_mha_kernel`` and
 ``::_mha_bwd_kernel`` (the ``fused_multi_head_attention`` custom VJP).
 
-:func:`fused_attention` is the one entry point.  For tensors on the CPU it
-computes the plain forward (``ops/attention.py``), so autograd runs through
-plain ops.  For CUDA tensors it launches K1, and when a gradient is wanted
-it goes through :class:`FusedAttention`, whose backward launches K3; a
-shape either kernel does not take raises.  There is no fallback from CUDA
-to the plain version.
+:func:`fused_attention` is the one entry point.  For CUDA tensors it
+launches K1, and when a gradient is wanted it goes through
+:class:`FusedAttention`, whose backward launches K3; a shape or dtype
+either kernel does not take raises.  There is no fallback from CUDA to the
+plain version.  For tensors on the CPU the same two steps compute the
+plain versions (``ops/attention.py``): the forward, and the TPU kernel's
+backward formula.
+
+Each kernel has a float32 and a bfloat16 instance (the JAX package's
+--dtype bfloat16), chosen by the tensors' dtype; q, k and v share it.
+Each instance counts its own launches.
 """
 
 import ctypes
@@ -18,15 +23,22 @@ import math
 
 import torch
 
-from fastspeech2_tpu_torch.ops.attention import multi_head_attention
+from fastspeech2_tpu_torch.ops.attention import (
+    multi_head_attention,
+    plain_attention_backward,
+)
 from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
 
 HEAD_DIM = 128
 
 # K1 calls (one launch, or two on the key-split path) and K3 calls (three
-# launches each: K3a, K3b, K3c) since the counts were last set to 0
+# launches each) since the counts were last set to 0: float32, bfloat16
 launches = 0
 bwd_launches = 0
+launches_bf16 = 0
+bwd_launches_bf16 = 0
+
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_inputs(name, q, k, v, key_pad_mask):
@@ -36,9 +48,12 @@ def _check_inputs(name, q, k, v, key_pad_mask):
         raise ValueError(f"{name}: q must be [B, H, L, Dh], got "
                          f"{tuple(q.shape)}")
     B, H, L, D = q.shape
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got "
+                         f"{q.dtype}")
     for arg, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} must be float32 on "
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {arg} must be {q.dtype} on "
                              f"{q.device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != (B, H, L, D) or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous "
@@ -74,8 +89,9 @@ def forward_plan(B, H, L):
 def _launch_forward(q, k, v, key_pad_mask, with_stats):
     """K1 -> out, or (out, row_max, row_sum) with the softmax statistics
     the backward reads."""
-    global launches
+    global launches, launches_bf16
     _check_inputs("fused_attention", q, k, v, key_pad_mask)
+    bf16 = q.dtype == torch.bfloat16
     B, H, L, D = q.shape
     lib = load_library()
     out = torch.empty_like(q)
@@ -89,15 +105,19 @@ def _launch_forward(q, k, v, key_pad_mask, with_stats):
         scratch = (torch.empty(n_scratch, device=q.device,
                                dtype=torch.float32) if n_scratch else None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fs2_mha_fwd_f32(
+        name = "fs2_mha_fwd_bf16" if bf16 else "fs2_mha_fwd_f32"
+        err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad_mask.data_ptr(),
             out.data_ptr(),
             None if row_max is None else row_max.data_ptr(),
             None if row_sum is None else row_sum.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             B, H, L, D, 1.0 / math.sqrt(D), stream)
-    check(err, "fs2_mha_fwd_f32")
-    launches += 1
+    check(err, name)
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return (out, row_max, row_sum) if with_stats else out
 
 
@@ -105,64 +125,91 @@ def fused_attention_backward(q, k, v, key_pad_mask, out, row_max, row_sum,
                              g):
     """K3: (dq, dk, dv) of the attention whose K1 forward gave ``out``,
     ``row_max`` and ``row_sum``, for the incoming gradient ``g`` (made
-    contiguous here: autograd may hand over a strided one)."""
-    global bwd_launches
+    contiguous here: autograd may hand over a strided one).  The bfloat16
+    instance does not read ``out``: it forms D = rowsum(dP * P) as the TPU
+    kernel does (csrc/attention_bwd.cu says why)."""
+    global bwd_launches, bwd_launches_bf16
     _check_inputs("fused_attention_backward", q, k, v, key_pad_mask)
     B, H, L, D = q.shape
+    bf16 = q.dtype == torch.bfloat16
     g = g.contiguous()
-    for name, t, shape in (("out", out, (B, H, L, D)), ("g", g, (B, H, L, D)),
-                           ("row_max", row_max, (B, H, L)),
-                           ("row_sum", row_sum, (B, H, L))):
-        if (t.device != q.device or t.dtype != torch.float32
+    for name, t, shape, dtype in (
+            ("out", out, (B, H, L, D), q.dtype),
+            ("g", g, (B, H, L, D), q.dtype),
+            ("row_max", row_max, (B, H, L), torch.float32),
+            ("row_sum", row_sum, (B, H, L), torch.float32)):
+        if (t.device != q.device or t.dtype != dtype
                 or tuple(t.shape) != shape or not t.is_contiguous()
                 or t.data_ptr() % 16):
             raise ValueError(f"fused_attention_backward: {name} must be a "
-                             f"contiguous, 16-byte aligned float32 {shape} "
+                             f"contiguous, 16-byte aligned {dtype} {shape} "
                              f"tensor on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     lib = load_library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # the dQ partial of each 64-key tile, and D = rowsum(g * out)
+    # the dQ partial of each 64-key tile, and D
     scratch = torch.empty(lib.fs2_mha_bwd_scratch_floats(B, H, L),
                           device=q.device, dtype=torch.float32)
+    scale = 1.0 / math.sqrt(D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fs2_mha_bwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad_mask.data_ptr(),
-            out.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
-            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            scratch.data_ptr(), B, H, L, D, 1.0 / math.sqrt(D), stream)
-    check(err, "fs2_mha_bwd_f32")
-    bwd_launches += 1
+        if bf16:
+            name = "fs2_mha_bwd_bf16"
+            err = lib.fs2_mha_bwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                key_pad_mask.data_ptr(), row_max.data_ptr(),
+                row_sum.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, H, L, D,
+                scale, stream)
+        else:
+            name = "fs2_mha_bwd_f32"
+            err = lib.fs2_mha_bwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                key_pad_mask.data_ptr(), out.data_ptr(), row_max.data_ptr(),
+                row_sum.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, H, L, D,
+                scale, stream)
+    check(err, name)
+    if bf16:
+        bwd_launches_bf16 += 1
+    else:
+        bwd_launches += 1
     return dq, dk, dv
 
 
 class FusedAttention(torch.autograd.Function):
     """K1 forward, K3 backward (the custom VJP of
-    ``fastspeech2_tpu/ops/pallas_attention.py:227-251``); the mask gets no
-    gradient, as in ``_bwd``."""
+    ``fastspeech2_tpu/ops/pallas_attention.py:227-251``), or their plain
+    versions for CPU tensors; the mask gets no gradient, as in ``_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_pad_mask):
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, key_pad_mask)
+            return multi_head_attention(q, k, v, key_pad_mask)
         out, row_max, row_sum = _launch_forward(q, k, v, key_pad_mask, True)
         ctx.save_for_backward(q, k, v, key_pad_mask, out, row_max, row_sum)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        dq, dk, dv = fused_attention_backward(*ctx.saved_tensors, g)
+        saved = ctx.saved_tensors
+        if saved[0].device.type == "cpu":
+            dq, dk, dv = plain_attention_backward(*saved, g)
+        else:
+            dq, dk, dv = fused_attention_backward(*saved, g)
         return dq, dk, dv, None
 
 
 def fused_attention(q, k, v, key_pad_mask):
     """softmax(where(pad_key, -1e9, QK^T/sqrt(Dh))) V over [B, H, L, Dh].
 
-    q, k, v: float32 [B, H, L, 128]; key_pad_mask: bool [B, L], True =
-    padded key.
+    q, k, v: float32 or bfloat16 [B, H, L, 128]; key_pad_mask: bool
+    [B, L], True = padded key.  The output has q's dtype.
     """
-    if q.device.type == "cpu":
-        return multi_head_attention(q, k, v, key_pad_mask)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FusedAttention.apply(q, k, v, key_pad_mask)
+    if q.device.type == "cpu":
+        return multi_head_attention(q, k, v, key_pad_mask)
     return _launch_forward(q, k, v, key_pad_mask, False)

@@ -36,18 +36,24 @@ _SIGNATURES = {
     # q, k, v, key_pad, out, row_max, row_sum, scratch, B, H, L, D, scale,
     # stream
     "fs2_mha_fwd_f32": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+    "fs2_mha_fwd_bf16": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
     # B, H, L, grid (int[3], written) -> scratch floats (long long)
     "fs2_mha_fwd_plan": [_I] * 3 + [_P],
     "fs2_mha_fwd_blocks_per_sm": [],
     "fs2_mha_bwd_blocks_per_sm": [],
+    "fs2_mha_fwd_bf16_blocks_per_sm": [],
+    "fs2_mha_bwd_bf16_blocks_per_sm": [],
     # q, k, v, key_pad, out, row_max, row_sum, g, dq, dk, dv, scratch,
     # B, H, L, D, scale, stream
     "fs2_mha_bwd_f32": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
+    # the same without out (the bfloat16 instance forms D from S and dP)
+    "fs2_mha_bwd_bf16": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
     # B, H, L -> scratch floats (long long)
     "fs2_mha_bwd_scratch_floats": [_I] * 3,
     # x, w1, b1, w2, b2, gamma, beta, scratch, out, B, L, D, H, k1, k2, bn,
     # splits, groups, stream
     "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 9 + [_P],
+    "fs2_conv_ffn_fwd_bf16": [_P] * 9 + [_I] * 9 + [_P],
     # B, L, H, k1, cfg (int[3], written) -> scratch floats (long long)
     "fs2_conv_ffn_plan": [_I] * 4 + [_P],
     # x, out, w1, b1, w2, b2, B, C, L, k, d, bn, stream

@@ -14,14 +14,21 @@ gradient is wanted it goes through :class:`FusedConvFFN`: K2 forward, and
 a backward that recomputes the plain version from the saved inputs and
 differentiates it, as the JAX package's custom VJP does with its XLA
 reference (``fastspeech2_tpu/ops/pallas_ffn.py:194-204``).  Training mode
-does not come here: the model's FFN runs its plain path with dropout
+does not come here: the model's FFN runs its own plain path with dropout
 there, as the JAX package does (``models/transformer.py:162-189``).
 
-The kernel's products run as 3xTF32, within ~1e-5 of float32.  It reads
-both convs' weights split into TF32 planes in the tensor cores' fragment
-order (:func:`pack_ffn_weights`, ``ops/tf32_pack.py``); the model keeps
-that pack for its no-grad forwards and rebuilds it only when a weight
-changes.  Without a pack, a call packs the weights it is given.
+x's dtype picks the instance: float32, whose products run as 3xTF32
+(within ~1e-5 of float32), or bfloat16 (the JAX package's --dtype
+bfloat16), which computes what the TPU kernel computes on a bfloat16 x:
+the weights rounded to bfloat16, float32 accumulation from float32 b1, h
+rounded to bfloat16, b2, the residual and the LayerNorm in float32, the
+output rounded to bfloat16.  The biases and the LayerNorm's parameters
+stay float32.  Each instance counts its own launches.  The kernel reads
+both convs' weights packed in the tensor cores' fragment order
+(:func:`pack_ffn_weights`, ``ops/tf32_pack.py``: TF32 planes, or
+bfloat16); the model keeps that pack for its no-grad forwards and rebuilds
+it only when a weight or the dtype changes.  Without a pack, a call packs
+the weights it is given.
 """
 
 import ctypes
@@ -31,17 +38,22 @@ import torch
 from torch.nn import functional as F
 
 from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
-from fastspeech2_tpu_torch.ops.tf32_pack import pack_fragments
+from fastspeech2_tpu_torch.ops.tf32_pack import (
+    pack_fragments,
+    pack_fragments_bf16,
+)
 
 MODEL_DIM = 256
 
 # fused_conv_ffn calls that launched the kernel since the count was last
 # set to 0 (each call is three launches: the first conv's partial sums, the
-# second conv's group shares, the residual and LayerNorm)
+# second conv's group shares, the residual and LayerNorm): float32,
+# bfloat16
 launches = 0
+launches_bf16 = 0
 
 
-def _conv1d_same(x, w):
+def conv1d_same(x, w):
     """x [B, L, C] (*) w [k, C, N] with SAME zero padding ((k-1)//2 before,
     k//2 after, as XLA's "SAME") -> [B, L, N]."""
     k = w.shape[0]
@@ -50,11 +62,14 @@ def _conv1d_same(x, w):
     return F.conv1d(xt, w.permute(2, 1, 0)).transpose(1, 2)
 
 
-def pack_ffn_weights(w1, w2):
-    """w1 [k1, D, H], w2 [k2, H, D] (JAX layouts, any strides) -> (w1p
-    [H/16, k1, D/8, 32, 8], w2p [D/16, k2, H/8, 32, 8]): what K2 reads."""
-    return (pack_fragments(w1.detach().permute(0, 2, 1)),
-            pack_fragments(w2.detach().permute(0, 2, 1)))
+def pack_ffn_weights(w1, w2, dtype=torch.float32):
+    """w1 [k1, D, H], w2 [k2, H, D] (JAX layouts, any strides) -> what K2's
+    ``dtype`` instance reads: float32 (w1p [H/16, k1, D/8, 32, 8], w2p
+    [D/16, k2, H/8, 32, 8]) or bfloat16 (w1p [H/16, k1, D/16, 32, 8], w2p
+    [D/16, k2, H/16, 32, 8])."""
+    pack = pack_fragments_bf16 if dtype == torch.bfloat16 else pack_fragments
+    return (pack(w1.detach().permute(0, 2, 1)),
+            pack(w2.detach().permute(0, 2, 1)))
 
 
 @functools.lru_cache(maxsize=256)
@@ -67,22 +82,31 @@ def forward_plan(B, L, H, k1):
     return tuple(cfg)
 
 
-def plain_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, dropout=None,
-                   packed=None):
-    """Plain PyTorch version (cf. ``xla_conv_ffn``,
-    fastspeech2_tpu/ops/pallas_ffn.py:41-58).  ``dropout``, a callable, is
-    applied to the second conv's output before the residual add (the
-    training path, fastspeech2_tpu/models/transformer.py:169-189).
-    ``packed`` is ignored (it reads w1 and w2), so that this function can
-    stand in for :func:`fused_conv_ffn`."""
-    y = torch.relu(_conv1d_same(x, w1) + b1)
-    y = _conv1d_same(y, w2) + b2
-    if dropout is not None:
-        y = dropout(y)
-    y = y + x
-    mu = y.mean(dim=-1, keepdim=True)
-    var = (y * y).mean(dim=-1, keepdim=True) - mu * mu
-    return (y - mu) * torch.rsqrt(var + 1e-5) * ln_scale + ln_bias
+def plain_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, packed=None):
+    """Plain PyTorch version (``xla_conv_ffn``,
+    fastspeech2_tpu/ops/pallas_ffn.py:41-58) at x's dtype: the convs in
+    float32 from their operands at x's dtype (a bfloat16 product is exact
+    in float32), h rounded to x's dtype, the output too.  ``packed`` is
+    ignored (it reads w1 and w2), so that this function can stand in for
+    :func:`fused_conv_ffn`."""
+    dt = x.dtype
+
+    def up(w):   # w at x's dtype, in float32
+        return w.to(dt).float()
+
+    h = torch.relu(conv1d_same(x.float(), up(w1)) + b1.float()).to(dt)
+    return residual_layer_norm(conv1d_same(h.float(), up(w2)) + b2.float(),
+                               x, ln_scale, ln_bias)
+
+
+def residual_layer_norm(y, x, ln_scale, ln_bias):
+    """LN(y + x) over the last axis, in float32 as K2 forms it (the
+    variance E[z^2] - E[z]^2, eps 1e-5), rounded to x's dtype."""
+    z = y.float() + x.float()
+    mu = z.mean(dim=-1, keepdim=True)
+    var = (z * z).mean(dim=-1, keepdim=True) - mu * mu
+    return ((z - mu) * torch.rsqrt(var + 1e-5) * ln_scale
+            + ln_bias).to(x.dtype)
 
 
 class FusedConvFFN(torch.autograd.Function):
@@ -92,7 +116,8 @@ class FusedConvFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *args):
         ctx.save_for_backward(*args)
-        return _launch(*args, packed=pack_ffn_weights(args[1], args[3]))
+        return _launch(*args, packed=pack_ffn_weights(args[1], args[3],
+                                                      args[0].dtype))
 
     @staticmethod
     def backward(ctx, g):
@@ -106,28 +131,33 @@ class FusedConvFFN(torch.autograd.Function):
 
 
 def fused_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, packed=None):
-    """x: float32 [B, L, 256]; w1 [k1, 256, H]; b1 [H]; w2 [k2, H, 256];
-    b2, ln_scale, ln_bias [256]; H a multiple of 64; ``packed``: the
-    weights' :func:`pack_ffn_weights`, made here when not given (and on
-    the gradient path, from the saved weights)."""
+    """x: float32 or bfloat16 [B, L, 256]; the rest float32: w1 [k1, 256,
+    H]; b1 [H]; w2 [k2, H, 256]; b2, ln_scale, ln_bias [256]; H a multiple
+    of 64; ``packed``: the weights' :func:`pack_ffn_weights` at x's dtype,
+    made here when not given (and on the gradient path, from the saved
+    weights).  The output has x's dtype."""
     args = (x, w1, b1, w2, b2, ln_scale, ln_bias)
     if x.device.type == "cpu":
         return plain_conv_ffn(*args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return FusedConvFFN.apply(*args)
     if packed is None:
-        packed = pack_ffn_weights(w1, w2)
+        packed = pack_ffn_weights(w1, w2, x.dtype)
     return _launch(*args, packed=packed)
 
 
 def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
     """``plan``: (positions per block, tap splits, hidden groups) for
     measurement; the kernel's own :func:`forward_plan` by default."""
-    global launches
+    global launches, launches_bf16
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_ffn: unsupported device {x.device}")
     if x.dim() != 3 or w1.dim() != 3 or w2.dim() != 3:
         raise ValueError("fused_conv_ffn: x, w1, w2 must be 3-D")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_conv_ffn: x must be float32 or bfloat16, "
+                         f"got {x.dtype}")
+    bf16 = x.dtype == torch.bfloat16
     B, L, D = x.shape
     k1, _, H = w1.shape
     k2 = w2.shape[0]
@@ -135,14 +165,17 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
         raise ValueError(f"fused_conv_ffn: hidden width {H} is not a "
                          "multiple of 64")
     w1p, w2p = packed
-    shapes = {"x": (x, (B, L, MODEL_DIM)),
-              "w1": (w1p, (H // 16, k1, D // 8, 32, 8)),
-              "b1": (b1, (H,)), "w2": (w2p, (D // 16, k2, H // 8, 32, 8)),
-              "b2": (b2, (D,)), "ln_scale": (ln_scale, (D,)),
-              "ln_bias": (ln_bias, (D,))}
-    for name, (t, shape) in shapes.items():
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(f"fused_conv_ffn: {name} must be float32 on "
+    kd = 16 if bf16 else 8   # the depth of a packed fragment
+    f32 = torch.float32
+    shapes = {"x": (x, (B, L, MODEL_DIM), x.dtype),
+              "w1": (w1p, (H // 16, k1, D // kd, 32, 8), x.dtype),
+              "b1": (b1, (H,), f32),
+              "w2": (w2p, (D // 16, k2, H // kd, 32, 8), x.dtype),
+              "b2": (b2, (D,), f32), "ln_scale": (ln_scale, (D,), f32),
+              "ln_bias": (ln_bias, (D,), f32)}
+    for name, (t, shape, dtype) in shapes.items():
+        if t.device != x.device or t.dtype != dtype:
+            raise ValueError(f"fused_conv_ffn: {name} must be {dtype} on "
                              f"{x.device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"fused_conv_ffn: {name} must be contiguous "
@@ -158,11 +191,15 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fs2_conv_ffn_fwd_f32(
+        name = "fs2_conv_ffn_fwd_bf16" if bf16 else "fs2_conv_ffn_fwd_f32"
+        err = getattr(lib, name)(
             x.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
             b2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), B, L, D, H, k1, k2, bn,
             splits, groups, stream)
-    check(err, "fs2_conv_ffn_fwd_f32")
-    launches += 1
+    check(err, name)
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out

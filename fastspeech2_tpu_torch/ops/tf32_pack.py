@@ -1,5 +1,6 @@
 """Weights for the convolution kernels K2 and K4, split for 3xTF32 and laid
-out as the tensor cores' A fragments read them (``csrc/conv_tiles.cuh``).
+out as the tensor cores' A fragments read them (``csrc/conv_tiles.cuh``),
+and K2's bfloat16 pack (:func:`pack_fragments_bf16`).
 
 A conv with T taps is T matrices A_j [M, K] (M output channels, K input
 channels).  Each float32 weight w is split into big = tf32(w) and small =
@@ -53,3 +54,22 @@ def unpack_fragments(packed):
         return p.reshape(T, mb * 16, kb * 8)
 
     return plane(packed[..., :4]), plane(packed[..., 4:])
+
+
+def pack_fragments_bf16(a):
+    """a: [T, M, K], M and K multiples of 16 -> [M/16, T, K/16, 32, 8]
+    bfloat16, contiguous: ``a`` rounded to bfloat16 (to nearest even, as
+    JAX's astype rounds) in the order of the A fragments of
+    mma.m16n8k16.bf16 (``csrc/tf32_mma.cuh``): for each 16 x 16 block,
+    lane (g, t) holds A[g, 2t], A[g, 2t+1], A[g+8, 2t], A[g+8, 2t+1],
+    A[g, 2t+8], A[g, 2t+9], A[g+8, 2t+8], A[g+8, 2t+9]."""
+    T, M, K = a.shape
+    if M % 16 or K % 16:
+        raise ValueError(f"pack_fragments_bf16: [T, M, K] = {tuple(a.shape)}"
+                         " needs M and K multiples of 16")
+    # rows m = 16 mb + 8 rh + g, columns k = 16 kb + 8 kh + 2 t + e
+    p = a.detach().to(torch.bfloat16).reshape(T, M // 16, 2, 8, K // 16, 2,
+                                              4, 2)
+    # -> [mb, T, kb, g, t, kh, rh, e]
+    return p.permute(1, 0, 4, 3, 6, 5, 2, 7).reshape(
+        M // 16, T, K // 16, 32, 8).contiguous()

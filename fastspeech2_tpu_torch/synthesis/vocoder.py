@@ -178,12 +178,14 @@ def get_vocoder(model_config, preprocess_config, ckpt_path, device):
 
 def vocoder_infer(mels, vocoder, preprocess_config, lengths=None):
     """[B, T, n_mels] -> list of int16 numpy waveforms, each trimmed to
-    lengths[i] * hop_length."""
+    lengths[i] * hop_length.  The vocoders compute in float32: a bfloat16
+    mel is upcast first, as the JAX vocoder's first conv promotes it
+    (fastspeech2_tpu/synthesis/vocoder.py:249-262)."""
     pp = preprocess_config["preprocessing"]
     max_wav_value = pp["audio"]["max_wav_value"]
     hop = pp["stft"]["hop_length"]
     with torch.inference_mode():
-        wavs = vocoder(mels).float().cpu().numpy()
+        wavs = vocoder(mels.float()).float().cpu().numpy()
     wavs = np.clip(wavs * max_wav_value, -32768, 32767).astype(np.int16)
     out = []
     for i in range(wavs.shape[0]):

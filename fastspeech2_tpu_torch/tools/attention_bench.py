@@ -9,7 +9,9 @@ Three parts, each optional:
   over 20 calls after 3 warm-up calls, as ``chip_smoke.py`` times them.
   ``--root DIR`` times the kernels of the port in another checkout (for
   example an unpacked parent commit): its ``fastspeech2_tpu_torch`` is
-  imported instead of this one, and built there.
+  imported instead of this one, and built there.  ``--dtype bfloat16``
+  times the kernels' bfloat16 instances (inputs, and SDPA's, in
+  bfloat16).
 - ``--split-sweep 1,2,4,8,16``: K1 built once for each fixed count of key
   chunks (``-DFS2_MHA_FWD_CHUNKS=c``, into ``_build/sweep/``), timed at
   K1's path shapes and held against the plain version, beside the chunk
@@ -22,7 +24,8 @@ Three parts, each optional:
 
 Run from a checkout's root:
 ``python fastspeech2_tpu_torch/tools/attention_bench.py --timings
---errors --split-sweep 1,2,4,8,16 [--root DIR] [--json FILE]``.
+--errors --split-sweep 1,2,4,8,16 [--root DIR] [--dtype bfloat16]
+[--json FILE]``.
 """
 
 import argparse
@@ -85,22 +88,24 @@ def additive(mask):
                            mask[:, None, None, :], -1e9)
 
 
-def timings(attn, plain):
-    """K1 and K3 against plain and SDPA at the path shapes."""
+def timings(attn, plain, dtype="float32"):
+    """K1 and K3 against plain and SDPA at the path shapes, at ``dtype``."""
     import torch
     import torch.nn.functional as F
 
+    dt = getattr(torch, dtype)
     rows = []
     for name, B, L, lens in K1_SHAPES:
         q, k, v, g, mask = inputs(B, L, lens, seed=L + B, device="cuda")
-        bias = additive(mask)
+        q, k, v, g = (t.to(dt) for t in (q, k, v, g))
+        bias = additive(mask).to(dt)
         if B == 1:   # inference: no statistics
             kernel = lambda: attn.fused_attention(q, k, v, mask)  # noqa: E731
         else:        # training: the statistics K3 reads
             kernel = lambda: attn._launch_forward(  # noqa: E731
                 q, k, v, mask, True)
         rows.append(dict(
-            kernel="K1", shape=[B, 2, L, 128], path=name,
+            kernel="K1", shape=[B, 2, L, 128], path=name, dtype=dtype,
             ms=cuda_time_ms(kernel),
             plain_ms=cuda_time_ms(
                 lambda: plain.multi_head_attention(q, k, v, mask)),
@@ -108,12 +113,13 @@ def timings(attn, plain):
                 q, k, v, attn_mask=bias))))
     for L in K3_LENGTHS:
         q, k, v, g, mask = inputs(BATCH, L, None, seed=L, device="cuda")
+        q, k, v, g = (t.to(dt) for t in (q, k, v, g))
         out, row_max, row_sum = attn._launch_forward(q, k, v, mask, True)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        sdpa_out = F.scaled_dot_product_attention(*leaves,
-                                                  attn_mask=additive(mask))
+        sdpa_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=additive(mask).to(dt))
         rows.append(dict(
-            kernel="K3", shape=[BATCH, 2, L, 128], path="train",
+            kernel="K3", shape=[BATCH, 2, L, 128], path="train", dtype=dtype,
             ms=cuda_time_ms(lambda: attn.fused_attention_backward(
                 q, k, v, mask, out, row_max, row_sum, g)),
             plain_ms=cuda_time_ms(lambda: plain.plain_attention_backward(
@@ -269,6 +275,9 @@ def main(argv=None):
     ap.add_argument("--split-sweep", default="",
                     help="comma-separated fixed key-chunk counts for K1")
     ap.add_argument("--errors", action="store_true")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="the kernels' instance --timings times")
     ap.add_argument("--json", default=None, help="also write results here")
     args = ap.parse_args(argv)
 
@@ -291,9 +300,10 @@ def main(argv=None):
     result = dict(root=os.path.abspath(args.root), card=card)
     print(f"[bench] {card}; port from {result['root']}", flush=True)
     if args.timings:
-        result["timings"] = timings(attn, plain)
+        result["timings"] = timings(attn, plain, args.dtype)
         for r in result["timings"]:
-            print(f"[bench] {r['kernel']} {r['shape']} ({r['path']}): "
+            print(f"[bench] {r['kernel']} {r['dtype']} {r['shape']} "
+                  f"({r['path']}): "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"SDPA {r['sdpa_ms']:.4f} ms", flush=True)
     if args.split_sweep:

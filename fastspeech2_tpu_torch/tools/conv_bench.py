@@ -12,7 +12,8 @@ Three parts, each optional:
   as ``chip_smoke.py`` times them.  ``--root DIR`` times the kernels of the
   port in another checkout (for example an unpacked parent commit): its
   ``fastspeech2_tpu_torch`` is imported instead of this one, and built
-  there.
+  there.  ``--dtype bfloat16`` times K2's bfloat16 instance (x in
+  bfloat16; K4 has none: the vocoder stays float32).
 - ``--sweep``: K4 at its 12 shapes by route (one launch per dilation unit,
   or two conv launches) and the unit kernel's tile width (64 or 128
   positions; tile 0 is the conv kernel's one tile of 64), and K2's
@@ -28,7 +29,8 @@ Three parts, each optional:
   against the tensor cores' own float32 accumulation.
 
 Run from a checkout's root: ``python fastspeech2_tpu_torch/tools/conv_bench.py
---timings --sweep --profile --errors [--root DIR] [--json FILE]``.
+--timings --sweep --profile --errors [--root DIR] [--dtype bfloat16]
+[--json FILE]``.
 """
 
 import argparse
@@ -99,19 +101,24 @@ def ffn_inputs(B, L, seed, device="cuda", k2=1):
 
 
 def ffn_kernel_call(ffn, args):
-    """K2 as the model calls it: with its weight pack made once, where the
-    port has one."""
+    """K2 as the model calls it: with its weight pack made once (at x's
+    dtype), where the port has one."""
     if "packed" in inspect.signature(ffn.fused_conv_ffn).parameters:
-        packed = ffn.pack_ffn_weights(args[1], args[3])
+        if args[0].dtype != args[1].dtype:   # the bfloat16 instance
+            packed = ffn.pack_ffn_weights(args[1], args[3], args[0].dtype)
+        else:
+            packed = ffn.pack_ffn_weights(args[1], args[3])
         return lambda: ffn.fused_conv_ffn(*args, packed=packed)
     return lambda: ffn.fused_conv_ffn(*args)
 
 
-def timings(resblock, ffn, bounds):
+def timings(resblock, ffn, bounds, dtype="float32"):
+    """K4 (float32) and K2 at ``dtype`` against their plain versions."""
     import torch
 
     rows = []
-    for C, L, k in bounds.parity_resblock_shapes(1000):
+    for C, L, k in (bounds.parity_resblock_shapes(1000)
+                    if dtype == "float32" else ()):
         rb = resblock_inputs(C, L, k, seed=C + k)
         packed = resblock.pack_resblock_weights(*rb[1:])
         with torch.inference_mode():
@@ -129,9 +136,10 @@ def timings(resblock, ffn, bounds):
         rows.append(row)
     for B, L in K2_SHAPES:
         args = ffn_inputs(B, L, seed=L + B)
+        args = (args[0].to(getattr(torch, dtype)),) + args[1:]
         with torch.inference_mode():
             rows.append(dict(
-                kernel="K2", shape=[B, L, 256],
+                kernel="K2", shape=[B, L, 256], dtype=dtype,
                 ms=cuda_time_ms(ffn_kernel_call(ffn, args)),
                 plain_ms=cuda_time_ms(lambda: ffn.plain_conv_ffn(*args))))
     return rows
@@ -279,6 +287,9 @@ def main(argv=None):
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--errors", action="store_true")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="K2's instance --timings times (bfloat16: K2 only)")
     ap.add_argument("--json", default=None, help="also write results here")
     args = ap.parse_args(argv)
 
@@ -303,11 +314,11 @@ def main(argv=None):
     result = dict(root=os.path.abspath(args.root), card=card)
     print(f"[bench] {card}; port from {result['root']}", flush=True)
     if args.timings:
-        result["timings"] = timings(resblock, ffn, bounds)
+        result["timings"] = timings(resblock, ffn, bounds, args.dtype)
         for r in result["timings"]:
             extra = (f", cuDNN autotuned {r['cudnn_autotuned_ms']:.4f} ms"
                      if "cudnn_autotuned_ms" in r else "")
-            k = f" k={r['k']}" if "k" in r else ""
+            k = f" k={r['k']}" if "k" in r else f" {r['dtype']}"
             print(f"[bench] {r['kernel']} {r['shape']}{k}: kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{extra}",
                   flush=True)
@@ -315,6 +326,8 @@ def main(argv=None):
         istft = [r for r in k4 if r["shape"][1] in ISTFT_CHANNELS]
         for name, rows in (("the 12 parity calls", k4),
                            ("the iSTFT vocoder's 6 shapes", istft)):
+            if not rows:
+                continue
             print(f"[bench] K4 summed over {name}: kernel "
                   f"{sum(r['ms'] for r in rows):.4f} ms, plain (cuDNN at "
                   f"the inference settings) "

@@ -25,13 +25,25 @@ bound (max(operations / 67 TFLOP/s, bytes / 3.35 TB/s), the CUDA cores'
 float32 peak) is given beside it for the record.  Bytes: K1 reads q, k, v
 and the mask and writes the output; K3 reads q, k, v, the incoming
 gradient and the mask and writes dq, dk and dv.  Peaks: H100 SXM data
-sheet (dense TF32 without sparsity; HBM3 3.35 TB/s).
+sheet (dense TF32 and BF16 without sparsity; HBM3 3.35 TB/s).
+
+The bfloat16 instances (``dtype="bfloat16"``) move 2-byte activations
+(and K2 2-byte weights; biases and LayerNorm parameters stay 4-byte).
+K1's and K2's products are single bfloat16 products: max(operations /
+989 TFLOP/s, bytes / 3.35 TB/s).  K3's five products are of two kinds:
+S = Q K^T and dP = G V^T (4 B H L^2 Dh operations) have two bfloat16
+operands, exact in one bfloat16 product at 989 TFLOP/s; dV = P^T G,
+dK = dS^T Q and dQ = dS K (6 B H L^2 Dh) have one float32 operand (P or
+dS) and one bfloat16 operand, exact in TF32, so a float32-accurate product
+takes two TF32 passes (the float32 operand's big and small parts) at 495
+TFLOP/s.  Its operations term is the sum of the two.
 """
 
 import argparse
 
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 # 3xTF32: big*small + small*big + big*big for each float32-accurate product
 TF32_PASSES = 3
 PEAK_HBM_BYTES = 3.35e12
@@ -48,10 +60,20 @@ FFN_DIM = 1024
 FFN_TAPS = (9, 1)
 
 
-def _bound(flops, nbytes):
-    """-> (3xTF32 bound in ms, "operations" | "bytes", SIMT float32 bound
-    in ms, operations, bytes)."""
-    t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
+def _tf32_ms(flops, passes=TF32_PASSES):
+    """ms of ``flops`` float32-accurate operations at ``passes`` TF32
+    products each."""
+    return passes * flops / PEAK_TF32_FLOPS * 1e3
+
+
+def _bf16_ms(flops):
+    """ms of ``flops`` operations as single bfloat16 products."""
+    return flops / PEAK_BF16_FLOPS * 1e3
+
+
+def _bound(flops, nbytes, t_ops):
+    """-> (bound in ms: max(``t_ops``, the bytes' time); "operations" |
+    "bytes"; SIMT float32 bound in ms; operations; bytes)."""
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_simt = max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes)
     if t_ops >= t_bytes:
@@ -64,26 +86,42 @@ def resblock_bound_ms(B, L, C, k, units=3, itemsize=4):
     "bytes", the SIMT float32 bound in ms, operations, bytes)."""
     flops = units * 2 * (2.0 * k * C * C) * B * L
     nbytes = itemsize * (2 * B * L * C + units * 2 * (k * C * C + C))
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, _tf32_ms(flops))
 
 
-def ffn_bound_ms(B, L, D=MODEL_DIM, H=FFN_DIM, taps=FFN_TAPS):
-    """K2 on x [B, L, D] -> (bound in ms on the 3xTF32 basis, "operations"
-    | "bytes", the SIMT float32 bound in ms, operations, bytes)."""
+def ffn_bound_ms(B, L, D=MODEL_DIM, H=FFN_DIM, taps=FFN_TAPS,
+                 dtype="float32"):
+    """K2 on x [B, L, D] at ``dtype`` -> (bound in ms on the 3xTF32 basis,
+    or bfloat16's; "operations" | "bytes"; the SIMT float32 bound in ms;
+    operations; bytes)."""
     k1, k2 = taps
+    size = 2 if dtype == "bfloat16" else 4
     flops = 2.0 * B * L * D * H * (k1 + k2)
-    nbytes = 4 * (2 * B * L * D + k1 * D * H + k2 * H * D + H + 3 * D)
-    return _bound(flops, nbytes)
+    nbytes = (size * (2 * B * L * D + k1 * D * H + k2 * H * D)
+              + 4 * (H + 3 * D))
+    return _bound(flops, nbytes, _bf16_ms(flops) if dtype == "bfloat16"
+                  else _tf32_ms(flops))
 
 
-def attention_bound_ms(B, H, L, backward=False, D=HEAD_DIM):
-    """K1 (forward) or K3 (``backward``) on [B, H, L, D] float32 ->
-    (bound in ms on the 3xTF32 basis, "operations" | "bytes", the SIMT
-    float32 bound in ms, operations, bytes)."""
-    flops = (10.0 if backward else 4.0) * B * H * L * L * D
+def attention_bound_ms(B, H, L, backward=False, D=HEAD_DIM,
+                       dtype="float32"):
+    """K1 (forward) or K3 (``backward``) on [B, H, L, D] at ``dtype`` ->
+    (bound in ms: 3xTF32 at float32; at bfloat16 bfloat16 products for K1,
+    and for K3 bfloat16 products for S and dP with two TF32 passes for the
+    rest; "operations" | "bytes"; the SIMT float32 bound in ms; operations;
+    bytes)."""
+    product = 2.0 * B * H * L * L * D   # one L x L x D product
+    flops = (5 if backward else 2) * product
     tensors = 7 if backward else 4
-    nbytes = 4 * tensors * B * H * L * D + B * L
-    return _bound(flops, nbytes)
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = size * tensors * B * H * L * D + B * L
+    if dtype != "bfloat16":
+        t_ops = _tf32_ms(flops)
+    elif backward:
+        t_ops = _bf16_ms(2 * product) + _tf32_ms(3 * product, passes=2)
+    else:
+        t_ops = _bf16_ms(flops)
+    return _bound(flops, nbytes, t_ops)
 
 
 def parity_resblock_shapes(frames):
@@ -112,22 +150,27 @@ def main(argv=None):
     print(f"K4, the {len(shapes)} calls of one parity-vocoder forward on a "
           f"{args.frames}-frame mel: {total_flops:.4g} operations, bound "
           f"{total:.4f} ms (3xTF32); SIMT float32 bound {total_simt:.4f} ms")
-    for B, L in ((1, 32), (1, 1000), (10, 1000)):
-        ms, by, simt, flops, nbytes = ffn_bound_ms(B, L)
-        print(f"K2 x [{B}, {L}, {MODEL_DIM}] -> {FFN_DIM}, taps "
-              f"{FFN_TAPS}: {flops:.4g} operations, {nbytes:.4g} bytes -> "
-              f"bound {ms:.4e} ms ({by}, 3xTF32 on the tensor cores); SIMT "
-              f"float32 bound {simt:.4e} ms")
-    for B, L in ATTENTION_SHAPES:
-        for name, backward in (("K1", False), ("K3", True)):
-            if backward and B == 1:
-                continue
-            ms, by, simt, flops, nbytes = attention_bound_ms(B, 2, L,
-                                                             backward)
-            print(f"{name} x [{B}, 2, {L}, {HEAD_DIM}]: {flops:.4g} "
-                  f"operations, {nbytes:.4g} bytes -> bound {ms:.4e} ms "
-                  f"({by}, 3xTF32 on the tensor cores); SIMT float32 bound "
-                  f"{simt:.4e} ms")
+    for dtype in ("float32", "bfloat16"):
+        for B, L in ((1, 32), (1, 1000), (10, 1000)):
+            ms, by, simt, flops, nbytes = ffn_bound_ms(B, L, dtype=dtype)
+            basis = "BF16" if dtype == "bfloat16" else "3xTF32"
+            print(f"K2 {dtype} x [{B}, {L}, {MODEL_DIM}] -> {FFN_DIM}, taps "
+                  f"{FFN_TAPS}: {flops:.4g} operations, {nbytes:.4g} bytes "
+                  f"-> bound {ms:.4e} ms ({by}, {basis} on the tensor "
+                  f"cores); SIMT float32 bound {simt:.4e} ms")
+        for B, L in ATTENTION_SHAPES:
+            for name, backward in (("K1", False), ("K3", True)):
+                if backward and B == 1:
+                    continue
+                ms, by, simt, flops, nbytes = attention_bound_ms(
+                    B, 2, L, backward, dtype=dtype)
+                basis = ("3xTF32" if dtype != "bfloat16" else
+                         "BF16 for S and dP, 2xTF32 for the rest" if backward
+                         else "BF16")
+                print(f"{name} {dtype} x [{B}, 2, {L}, {HEAD_DIM}]: "
+                      f"{flops:.4g} operations, {nbytes:.4g} bytes -> bound "
+                      f"{ms:.4e} ms ({by}, {basis} on the tensor cores); "
+                      f"SIMT float32 bound {simt:.4e} ms")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """Where the time of one training step goes, on the card:
 
-    python -m fastspeech2_tpu_torch.tools.profile_train [--steps 5]
+    python -m fastspeech2_tpu_torch.tools.profile_train [--steps 5] \
+        [--dtype float32|bfloat16]
 
 Trains at full model width (``config/LJSpeech10/model.yaml``, train.yaml's
 optimizer, batch 10) on the synthetic corpus ``chip_smoke.py`` trains on
 (30 utterances of 60-120 phones, 10 held out; text bucket 128, mel bucket
-1024: encoder L 128, decoder L 1000), warms up 3 steps, then traces
+1024: encoder L 128, decoder L 1000) at the compute ``--dtype``
+(parameters float32), warms up 3 steps, then traces
 ``--steps`` steps with ``torch.profiler`` and prints: the host time per
 step with the profiler off and on, the device's busy share (the sum of
 kernel times over the traced window's wall time; one stream), the kernel
@@ -34,7 +36,7 @@ from fastspeech2_tpu_torch.utils.device import resolve_device
 CONFIG = "config/LJSpeech10"
 GROUPS = (("K1 attention forward", ("mha_fwd",)),
           ("K3 attention backward", ("mha_bwd",)),
-          ("K2 conv FFN", ("conv_relu_f32", "conv_residual_ln")),
+          ("K2 conv FFN", ("ffn_conv", "ffn_ln")),
           ("cuDNN convolutions", ("conv", "cudnn", "implicit", "dgrad",
                                   "wgrad", "xmma")),
           ("cuBLAS GEMMs", ("gemm", "cutlass", "sm90_", "ampere_")))
@@ -48,9 +50,10 @@ def group_of(name):
     return "other (elementwise, reductions, copies, optimizer)"
 
 
-def init_synthetic_training(device):
-    """-> (model in train mode, optim_cfg, optimizer, the first epoch's
-    batches on ``device``), at full width on the synthetic corpus."""
+def init_synthetic_training(device, dtype=torch.float32):
+    """-> (model in train mode at the compute ``dtype``, optim_cfg,
+    optimizer, the first epoch's batches on ``device``), at full width on
+    the synthetic corpus."""
     _, model_config, train_config = load_yaml_configs(
         f"{CONFIG}/preprocess.yaml", f"{CONFIG}/model.yaml",
         f"{CONFIG}/train.yaml")
@@ -59,7 +62,7 @@ def init_synthetic_training(device):
                         n_mels=80, seed=5, val_size=10)
         pre = synthetic_preprocess_config(tmp, n_mels=80)
         model, cfg, optim_cfg, optimizer = init_training(
-            pre, model_config, train_config, device=device)
+            pre, model_config, train_config, device=device, dtype=dtype)
         loader = BucketedLoader(
             FeatureDataset("train.txt", pre), batch_size=optim_cfg.batch_size,
             group_size=4, shuffle=True, drop_last=True,
@@ -71,10 +74,13 @@ def init_synthetic_training(device):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"),
+                        default="float32")
     args = parser.parse_args(argv)
     device = resolve_device("cuda")
     card = torch.cuda.get_device_name(0)
-    model, optim_cfg, optimizer, batches = init_synthetic_training(device)
+    model, optim_cfg, optimizer, batches = init_synthetic_training(
+        device, getattr(torch, args.dtype))
     step = 0
 
     def run(n):
@@ -102,7 +108,7 @@ def main(argv=None):
         by_group[group_of(e.key)] += e.self_device_time_total / 1e3
     kernel_ms = total_ms / args.steps
     print(f"[profile] {args.steps} train steps at batch "
-          f"{optim_cfg.batch_size}: {plain_ms:.2f} ms per step (host clock, "
+          f"{optim_cfg.batch_size}, {args.dtype}: {plain_ms:.2f} ms per step (host clock, "
           f"profiler off), {wall_ms / args.steps:.2f} ms with it on; "
           f"kernels {kernel_ms:.2f} ms per step; device busy "
           f"{100 * kernel_ms / plain_ms:.1f}% of a step without the "

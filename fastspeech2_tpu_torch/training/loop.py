@@ -63,9 +63,11 @@ class _TextLog:
 
 
 def init_training(preprocess_config, model_config, train_config,
-                  restore_step=0, device="cuda", seed=TRAIN_SEED):
-    """-> (model, cfg, optim_cfg, optimizer), the model on ``device`` with
-    weights drawn from ``seed`` or restored from ``restore_step``."""
+                  restore_step=0, device="cuda", seed=TRAIN_SEED,
+                  dtype=torch.float32):
+    """-> (model, cfg, optim_cfg, optimizer), the model on ``device`` at
+    the compute ``dtype`` with weights drawn from ``seed`` or restored from
+    ``restore_step``."""
     cfg = FastSpeech2Config.build(preprocess_config, model_config)
     optim_cfg = OptimConfig.build(train_config)
     # a step is reproducible on the card: cuDNN takes its deterministic
@@ -75,7 +77,7 @@ def init_training(preprocess_config, model_config, train_config,
     torch.backends.cudnn.benchmark = False
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = FastSpeech2(cfg)
+        model = FastSpeech2(cfg, dtype=dtype)
     model.to(device)
     optimizer = NoamAdam(model.parameters(), optim_cfg, cfg.encoder_hidden)
     if restore_step:
@@ -106,8 +108,10 @@ def evaluate(model, val_dataset, batch_size, cfg, device):
 
 
 def train(preprocess_config, model_config, train_config, restore_step=0,
-          max_steps=None, log=print, device="cuda", step_hook=None):
-    """The reference's main() loop (train.py:21-169) on ``device``.
+          dtype=torch.float32, max_steps=None, log=print, device="cuda",
+          step_hook=None):
+    """The reference's main() loop (train.py:21-169) on ``device`` at the
+    compute ``dtype`` (parameters and optimizer state stay float32).
 
     step_hook: called as step_hook(step, losses) after every update (for
     measurements).  Returns (model, optimizer, step).
@@ -117,7 +121,7 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
     total_step = min(steps.total_step, max_steps or steps.total_step)
     model, cfg, optim_cfg, optimizer = init_training(
         preprocess_config, model_config, train_config, restore_step,
-        device=device)
+        device=device, dtype=dtype)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"Number of FastSpeech2 Parameters: {n_params}")
 
@@ -183,8 +187,11 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
             save_checkpoint(ckpt_dir, model, optimizer, step)
             log(f"Saved checkpoint at step {step}")
 
+    mel_bf16 = bool(train_config.get("transfer", {}).get("mel_bf16",
+                                                         False))
+
     def to_device(batch):
-        return batch, batch_to_device(batch, device)
+        return batch, batch_to_device(batch, device, mel_bf16)
 
     step = restore_step
     epoch = epoch_batches = 0

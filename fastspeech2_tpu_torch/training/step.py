@@ -21,19 +21,29 @@ BATCH_KEYS = ("speakers", "texts", "src_lens", "mels", "mel_lens",
               "pitches", "energies", "durations")
 
 
-def batch_to_device(batch, device):
+def batch_to_device(batch, device, mel_bf16=False):
     """The model's arrays of a loader batch -> tensors on ``device``
-    (integer arrays as int64, float arrays as float32)."""
+    (integer arrays as int64, float arrays as float32; with ``mel_bf16``
+    the mels rounded to bfloat16 on the host and sent as bfloat16, train.yaml
+    ``transfer: {mel_bf16: true}``, fastspeech2_tpu/training/loop.py:263-276)."""
     out = {}
     for key in BATCH_KEYS:
         t = torch.as_tensor(batch[key])
-        t = t.long() if not t.is_floating_point() else t.float()
+        if not t.is_floating_point():
+            t = t.long()
+        else:
+            t = t.to(torch.bfloat16 if mel_bf16 and key == "mels"
+                     else torch.float32)
         out[key] = t.to(device, non_blocking=True)
     return out
 
 
 def apply_model(model, cfg, batch, row_keep=None):
-    """Teacher-forced forward + losses -> (LossOutput, FastSpeech2Output)."""
+    """Teacher-forced forward + losses -> (LossOutput, FastSpeech2Output).
+    Mels that arrive as bfloat16 are upcast to float32 on the device first:
+    the loss targets are float32 (fastspeech2_tpu/training/step.py:20-24)."""
+    if batch["mels"].dtype != torch.float32:
+        batch = dict(batch, mels=batch["mels"].float())
     out = model(batch["speakers"], batch["texts"], batch["src_lens"],
                 mel_lens=batch["mel_lens"],
                 max_mel_len=batch["mels"].shape[1],

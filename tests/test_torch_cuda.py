@@ -15,6 +15,12 @@ imports no JAX, so it also runs on a GPU host without JAX:
 Tolerance 1e-4 absolute in float32: the same sums in another order (up to
 2304 terms for K2's first conv) on O(1) values; K4's outputs are held to
 1e-4 of their largest |value| (sums of up to 2816 terms through six convs).
+
+The bfloat16 instances of K1, K2 and K3 are held to 2 ulps of bfloat16 at
+the largest |plain value|: kernel and plain version round at the same
+points, and a float32 sum in another order may land on the other side of a
+rounding boundary (one ulp; K1 also rounds its unnormalised P, the plain
+version the normalised one).
 """
 
 import pytest
@@ -510,3 +516,103 @@ def test_resblock_kernel_is_bitwise_repeatable(device, C, L, k):
                for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(*got)
+
+
+# ---- the bfloat16 instances --------------------------------------------------
+
+def _assert_bf16_close(got, ref, ulps=2):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    unit = 2.0 ** (torch.floor(torch.log2(ref.float().abs().max())).item()
+                   - 7)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= ulps * unit, (err, unit)
+
+
+@pytest.mark.parametrize("L,lens", [
+    (32, [31, 0]), (1000, [253]), (1000, TRAIN_LENS), (128, [128, 70, 0]),
+    (768, [768, 0, 500]), (63, [63, 40, 0]), (1, [1, 0]),
+])
+def test_attention_kernels_bf16_match_plain(device, L, lens):
+    q, k, v, mask = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                     for t in _attention_inputs(lens, L, device, seed=L))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(L)).to(
+        device).to(torch.bfloat16)
+    before = (cuda_attention.launches, cuda_attention.launches_bf16,
+              cuda_attention.bwd_launches, cuda_attention.bwd_launches_bf16)
+    out, row_max, row_sum = cuda_attention._launch_forward(q, k, v, mask,
+                                                           True)
+    again = cuda_attention.fused_attention(q, k, v, mask)
+    grads = [cuda_attention.fused_attention_backward(
+        q, k, v, mask, out, row_max, row_sum, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (cuda_attention.launches, cuda_attention.launches_bf16,
+            cuda_attention.bwd_launches,
+            cuda_attention.bwd_launches_bf16) == (
+        before[0], before[1] + 2, before[2], before[3] + 2)
+    assert torch.equal(out, again)
+    _assert_bf16_close(out, multi_head_attention(q, k, v, mask))
+    for a, b, c in zip(*grads, plain_attention_backward(q, k, v, mask, g)):
+        assert torch.equal(a, b)
+        _assert_bf16_close(a, c)
+
+
+@pytest.mark.parametrize("B,L,k2", [(1, 1000, 1), (1, 32, 1), (1, 48, 3),
+                                    (10, 128, 1), (10, 1000, 1), (1, 1, 1)])
+def test_conv_ffn_kernel_bf16_matches_plain(device, B, L, k2):
+    args = _ffn_inputs(L, device, k2=k2, seed=L, B=B)
+    args[0] = args[0].to(torch.bfloat16)
+    before = (cuda_ffn.launches, cuda_ffn.launches_bf16)
+    got = cuda_ffn.fused_conv_ffn(*args)
+    again = cuda_ffn.fused_conv_ffn(*args)
+    torch.cuda.synchronize()
+    assert (cuda_ffn.launches, cuda_ffn.launches_bf16) == (before[0],
+                                                           before[1] + 2)
+    assert torch.equal(got, again)
+    _assert_bf16_close(got, cuda_ffn.plain_conv_ffn(*args))
+
+
+def test_model_bf16_goes_through_the_bf16_kernels(device):
+    """A bfloat16 model's forward launches the bfloat16 K1 and K2 only, and
+    a training step the bfloat16 K1 and K3; the weight pack follows the
+    dtype."""
+    from fastspeech2_tpu_torch.configs.config import OptimConfig
+    from fastspeech2_tpu_torch.training.optim import NoamAdam
+    from fastspeech2_tpu_torch.training.step import train_step
+
+    cfg = FastSpeech2Config(encoder_layer=1, decoder_layer=2, max_seq_len=128,
+                            n_mel_channels=16)
+    torch.manual_seed(0)
+    model = FastSpeech2(cfg, dtype=torch.bfloat16).to(device).eval()
+    B, P, T = 2, 16, 96
+    durations = torch.tensor([[6] * 16, [5] * 12 + [0] * 4])
+    batch = {
+        "speakers": torch.zeros(B, dtype=torch.long),
+        "texts": torch.randint(1, 300, (B, P)) * (durations > 0),
+        "src_lens": torch.tensor([16, 12]),
+        "mels": torch.randn(B, T, 16),
+        "mel_lens": durations.sum(1),
+        "pitches": torch.rand(B, P),
+        "energies": torch.rand(B, P),
+        "durations": durations,
+    }
+    batch = {k: v.to(device) for k, v in batch.items()}
+    cuda_attention.launches = cuda_attention.launches_bf16 = 0
+    cuda_ffn.launches = cuda_ffn.launches_bf16 = 0
+    with torch.inference_mode():
+        out = model(batch["speakers"], batch["texts"], batch["src_lens"],
+                    max_mel_len=128)
+    assert out.postnet_mel.dtype == torch.bfloat16
+    assert (cuda_attention.launches, cuda_attention.launches_bf16,
+            cuda_ffn.launches, cuda_ffn.launches_bf16) == (0, 3, 0, 3)
+    model.train()
+    opt = NoamAdam(model.parameters(), OptimConfig(batch_size=2),
+                   cfg.encoder_hidden)
+    cuda_attention.launches_bf16 = cuda_attention.bwd_launches_bf16 = 0
+    cuda_attention.bwd_launches = 0
+    losses = train_step(model, opt, batch, 0)
+    torch.cuda.synchronize()
+    assert (cuda_attention.launches_bf16, cuda_attention.bwd_launches_bf16,
+            cuda_attention.bwd_launches) == (3, 3, 0)
+    assert all(torch.isfinite(v) for v in losses)
+    assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -435,10 +435,15 @@ def _tiny_workspace(tmp_path, n_mels=8, total_step=4, val_size=4):
 
 
 def test_train_cli_logs_checkpoints_and_resumes(tmp_path, capsys):
+    """At the CLI's default dtype, bfloat16 as in the JAX train CLI: the
+    model computes at bfloat16, its parameters and checkpoints stay
+    float32."""
     args, train_cfg = _tiny_workspace(tmp_path)
     model, _, step = train_cli.main(args + ["--device", "cpu",
                                             "--max_steps", "2"])
     out = capsys.readouterr().out
+    assert model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
     assert step == 2
     assert "Step 1/2, Total Loss: " in out and "Step 2/2, " in out
     assert "Validation Step 2, Total Loss: " in out
@@ -456,8 +461,12 @@ def test_train_cli_logs_checkpoints_and_resumes(tmp_path, capsys):
     assert "Step 2/4" not in out
     assert step == 4 and opt.count == 4
     assert latest_step(ckpt) == 4
-    with pytest.raises(SystemExit, match="float32"):
-        train_cli.main(args + ["--device", "cpu", "--dtype", "bfloat16"])
+    state = torch.load(os.path.join(ckpt, "4.pth.tar"), weights_only=True)
+    assert all(v.dtype != torch.bfloat16 for v in state["model"].values())
+    model, _, _ = train_cli.main(args + ["--device", "cpu", "--dtype",
+                                         "float32", "--restore_step", "4",
+                                         "--max_steps", "4"])
+    assert model.dtype == torch.float32
 
 
 def test_synthesize_from_a_port_checkpoint(tmp_path, monkeypatch):
