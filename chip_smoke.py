@@ -29,7 +29,11 @@ exits non-zero):
              the tracked weights (HiFi-GAN-iSTFT); the kernels' launch
              counts over that run (6 K4 per iSTFT forward); the mel against
              the same forward with the plain versions, the iSTFT wav
-             against the same vocoder with its plain ResBlocks;
+             against the same vocoder with its plain ResBlocks; the
+             sentence's float32 forward against the JAX package's on the
+             CPU (the committed reference_data/readme_sentence_jax.npz):
+             IDs, durations and bucket ids exactly, the mel to
+             README_MEL_ATOL;
 8. parity    the same sentence through the CLI's main with
              config/LJSpeech/model.yaml: the parity HiFi-GAN from its seeded
              random init; launch counts (12 K4 per vocoder forward); the wav
@@ -57,13 +61,31 @@ exits non-zero):
              MelGAN's and Griffin-Lim's forward on the 1000-frame mel;
 10. training 20 steps at full model width (config/LJSpeech10, batch 10) on
              a synthetic corpus through the port's train(), with one
-             validation pass; launch counts per step and per eval forward;
+             validation pass (its losses' forward and one sample's figure);
+             launch counts per step and in the validation pass; the
+             first input at each kernel, dtype and shape held against the
+             plain version (so in the bfloat16 training below);
              then a resume from the checkpoint through the train CLI;
 11. synthesis from the trained checkpoint through the synthesize CLI's
              --restore_step;
 12. repro    5 training steps twice from one seed through train(): every
              parameter must agree exactly;
-13. kernels  one JSON line describing K1, K2, K3 and K4 and the bfloat16
+13. prep     data preparation from the tracked clips: the align CLI's
+             align_corpus on the card (loglik and time of each EM
+             iteration; durations partition every clip; boundaries near
+             the tracked TextGrids' reported), the preprocess CLI on the
+             card from the tracked TextGrids (stats.json against the
+             tracked one; mel, energy and DIO's voicing against the CPU),
+             PREP_STEPS steps through the train CLI at its default dtype
+             on those features with the synth_step duty (10 bfloat16 K1 +
+             K2 and 12 K4 each, wavs mel_len*hop long) and --profile_dir
+             (the trace names K1 and K3), and evaluate --synth on the last
+             checkpoint; each EM stage's and Preprocessor stage's time and
+             kernels from a second run in a torch.profiler window; the
+             first input at each kernel, dtype and shape of the training,
+             its duties and evaluate --synth launched again and held
+             against the plain version;
+14. kernels  one JSON line describing K1, K2, K3 and K4 and the bfloat16
              instances of K1, K2 and K3.
 
 The bfloat16 instances (--dtype bfloat16, the JAX train CLI's default) run
@@ -73,7 +95,8 @@ their plain versions at every path shape, each launched twice (bitwise
 equal); after phase 8, the README sentence goes through the synthesize
 CLI's main with --dtype bfloat16 (10 bfloat16 K1 and K2 per forward, no
 float32 ones; the mel against the same forward with the plain versions);
-phase 9 times the bfloat16 instances beside SDPA at bfloat16; after phase
+phase 9 times the bfloat16 instances beside SDPA at bfloat16 (K1 and K2
+at batch mode's shapes and K2 at the re-dispatch's too); after phase
 12, the train CLI trains 20 steps at its default dtype (bfloat16; 10
 bfloat16 K1 and K3 per step) and 5 steps twice from one seed must agree
 exactly.
@@ -88,6 +111,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -134,6 +158,30 @@ K4_RTOL = 1e-4
 WAV_ATOL = 1e-4
 DILATIONS = (1, 3, 5)
 REPRO_STEPS = 5
+# the README sentence's float32 mel on the card against the JAX package's
+# on the CPU (the committed fixture): 3xTF32 kernels against XLA's float32
+# through 10 FFT blocks and the PostNet, as MEL_ATOL holds the kernels
+# against their plain versions (the port on the CPU lies within 5.7e-06)
+README_MEL_ATOL = 1e-3
+# the data-preparation phase: the tracked clips, TextGrids and stats
+PREP_RAW = "raw_data/LJSpeech10/LJSpeech"
+PREP_TEXTGRIDS = "preprocessed_data/LJSpeech10/TextGrid/LJSpeech"
+PREP_STATS = "preprocessed_data/LJSpeech10/stats.json"
+# stats.json made on the card from the tracked TextGrids against the
+# tracked one: calibrated on the CPU, where the JAX package's Preprocessor
+# reproduces the tracked file exactly and the port's lies within 3.503e-05
+# of it (the pitch mean, in Hz; the other seven numbers within 2.8e-05);
+# the card adds cuFFT's rounding to PocketFFT's
+PREP_STATS_ATOL = 1e-3
+# the card's features against the port's own CPU run (cuFFT against
+# PocketFFT): the mel before its log relative to its largest value, and
+# the normalized phone energy, absolute (the log-mel is printed: the log
+# of bins near the 1e-5 clamp magnifies the FFTs' ~1e-8 differences)
+PREP_FEATURE_TOL = 1e-4
+# DIO on the card against the CPU: frames whose voicing agrees
+F0_VOICING_SHARE = 0.99
+PREP_STEPS = 20
+PREP_SYNTH_STEP = 10
 # training: the decoder's and encoder's L at LJSpeech lengths
 TRAIN_BATCH = 10
 TRAIN_STEPS = 20
@@ -368,6 +416,178 @@ def record_forwards():
         yield calls
     finally:
         Synthesizer.infer_ids = inner
+
+
+@contextlib.contextmanager
+def record_kernel_inputs():
+    """Wrap the launch points of K1, K3 and K2 and the parity-net ResBlock's
+    call of K4: a copy of the inputs of the first launch at each (kernel,
+    dtype, shape), so that every shape a driven path gave a kernel can be
+    held against its plain version afterwards (check_recorded_inputs)
+    -> {key: inputs}."""
+    import torch
+
+    from fastspeech2_tpu_torch.models import hifigan
+    from fastspeech2_tpu_torch.ops import cuda_attention, cuda_ffn
+
+    seen = {}
+
+    def keep(key, *args):
+        if key not in seen:
+            seen[key] = [[t.detach().clone() for t in a]
+                         if isinstance(a, (list, tuple))
+                         else a.detach().clone() for a in args]
+
+    k1, k3, k2, k4 = (cuda_attention._launch_forward,
+                      cuda_attention.fused_attention_backward, cuda_ffn._launch,
+                      hifigan.fused_resblock)
+
+    def forward(q, k, v, mask, with_stats):
+        keep(("K1", q.dtype, tuple(q.shape)), q, k, v, mask)
+        return k1(q, k, v, mask, with_stats)
+
+    def backward(q, k, v, mask, out, row_max, row_sum, g):
+        keep(("K3", q.dtype, tuple(q.shape)), q, k, v, mask, g)
+        return k3(q, k, v, mask, out, row_max, row_sum, g)
+
+    def ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
+        keep(("K2", x.dtype, tuple(x.shape), w2.shape[0]), x, w1, b1, w2, b2,
+             ln_scale, ln_bias)
+        return k2(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan)
+
+    def resblock(x, w1, b1, w2, b2, dilations, packed=None):
+        keep(("K4", x.dtype, tuple(x.shape), w1[0].shape[-1],
+              tuple(dilations)), x, w1, b1, w2, b2)
+        return k4(x, w1, b1, w2, b2, dilations, packed=packed)
+
+    cuda_attention._launch_forward = forward
+    cuda_attention.fused_attention_backward = backward
+    cuda_ffn._launch = ffn
+    hifigan.fused_resblock = resblock
+    try:
+        yield seen
+    finally:
+        cuda_attention._launch_forward = k1
+        cuda_attention.fused_attention_backward = k3
+        cuda_ffn._launch = k2
+        hifigan.fused_resblock = k4
+
+
+def check_recorded_inputs(seen, where, card):
+    """Each recorded kernel input (record_kernel_inputs) launched again on
+    the card and held against the plain version on the same tensors:
+    float32 K1 and K2 to KERNEL_ATOL absolute, K3 to K3_RTOL and K4 to
+    K4_RTOL of the largest |plain value|, bfloat16 to BF16_ULPS.  Raises on
+    a failed gate -> {key: error}."""
+    import torch
+
+    from fastspeech2_tpu_torch.ops import (
+        cuda_attention,
+        cuda_ffn,
+        cuda_resblock,
+    )
+    from fastspeech2_tpu_torch.ops.attention import (
+        multi_head_attention,
+        plain_attention_backward,
+    )
+
+    errors, failed = {}, []
+    extra = {"K1": (), "K3": (), "K2": ("k2",), "K4": ("k", "dilations")}
+    for key, args in seen.items():
+        name, dtype = key[0], key[1]
+        if name == "K1":
+            got = [cuda_attention._launch_forward(*args, False)]
+            ref = [multi_head_attention(*args)]
+        elif name == "K3":
+            q, k, v, mask, g = args
+            fwd = cuda_attention._launch_forward(q, k, v, mask, True)
+            got = cuda_attention.fused_attention_backward(q, k, v, mask,
+                                                          *fwd, g)
+            ref = plain_attention_backward(q, k, v, mask, g)
+        elif name == "K2":
+            packed = cuda_ffn.pack_ffn_weights(args[1], args[3], dtype)
+            got = [cuda_ffn._launch(*args, packed=packed)]
+            ref = [cuda_ffn.plain_conv_ffn(*args)]
+        else:
+            with torch.inference_mode():
+                got = [cuda_resblock.fused_resblock(*args, key[4])]
+                ref = [cuda_resblock.plain_resblock(*args, key[4])]
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            err = max(bf16_ulps(a, b) for a, b in zip(got, ref))
+            tol = BF16_ULPS
+        elif name in ("K1", "K2"):
+            err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+            tol = KERNEL_ATOL
+        else:
+            err = max(((a - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(got, ref))
+            tol = K3_RTOL if name == "K3" else K4_RTOL
+        finite = all(torch.isfinite(a.float()).all() for a in got)
+        errors[key] = err
+        if not (finite and err <= tol):
+            failed.append((key, err, tol))
+    say(f"[{where}] every kernel input the path gave, launched again and "
+        f"held against its plain version on the card (float32 K1, K2 "
+        f"absolute, tolerance {KERNEL_ATOL:g}; K3, K4 relative to the "
+        f"largest |value|, {K3_RTOL:g}, {K4_RTOL:g}; bfloat16 in ulps at "
+        f"the largest |value|, {BF16_ULPS}): "
+        + "; ".join(f"{k[0]} {str(k[1])[6:]} {list(k[2])}"
+                    f"{''.join(f' {n}={x}' for n, x in zip(extra[k[0]], k[3:]))}"
+                    f" {e:.3g}" for k, e in errors.items()) + f" on {card}")
+    if failed:
+        raise RuntimeError(f"[{where}] kernels disagree with their plain "
+                           f"versions at the path's inputs: {failed}")
+    return errors
+
+
+def profiled_stages(fn, names, path):
+    """fn() once in a torch.profiler window that records Python calls
+    -> (its result, {name: calls, host ms, kernels launched and their
+    device ms}, kernels in the window, their device ms).  A stage is every
+    call of the Python function of that name; its kernels are those
+    launched inside one of its calls.  The trace goes to ``path`` and is
+    removed."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    spans = {n: [] for n in names}
+    for e in events:
+        if e.get("cat") == "python_function":
+            n = e.get("name", "").rsplit(": ", 1)[-1]
+            if n in spans:
+                spans[n].append((e["ts"], e["ts"] + e["dur"]))
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") == "cuda_runtime"
+                   and "correlation" in e.get("args", {})}
+    kernels = [(launched_at.get(e.get("args", {}).get("correlation")),
+                e["dur"]) for e in events if e.get("cat") == "kernel"]
+    stages = {}
+    for n, ss in spans.items():
+        ss.sort()
+        starts = [s for s, _ in ss]
+
+        def inside(ts):
+            if ts is None:
+                return False
+            i = bisect.bisect_right(starts, ts) - 1
+            return i >= 0 and ts <= ss[i][1]
+
+        mine = [d for ts, d in kernels if inside(ts)]
+        stages[n] = dict(calls=len(ss),
+                         host_ms=sum(e - s for s, e in ss) / 1e3,
+                         launches=len(mine), device_ms=sum(mine) / 1e3)
+    return out, stages, len(kernels), sum(d for _, d in kernels) / 1e3
 
 
 def drive_cli(argv):
@@ -793,6 +1013,477 @@ def inference_options(device, card, preprocess_config, model_config,
     return {"launches": found, "timings": timings, "errors": errors}
 
 
+def readme_fixture_check(device, card):
+    """The README sentence's float32 acoustic forward on the card against
+    the JAX package's float32 result on the CPU (the committed
+    reference_data/readme_sentence_jax.npz): IDs and durations exactly,
+    bucket ids exactly unless JAX's value lies within
+    readme_reference.BOUNDARY_MARGIN of a bin edge, the mel within
+    README_MEL_ATOL.  Raises on a failed gate -> the report."""
+    from fastspeech2_tpu_torch.tools import readme_reference
+
+    got, bins = readme_reference.port_forward(device)
+    report = readme_reference.compare(got, readme_reference.load_fixture(),
+                                      bins)
+    say(f"[readme fixture] {README_SENTENCE!r} on {ACOUSTIC_NPZ}, float32 "
+        f"forward on the card against the JAX package's on the CPU "
+        f"({os.path.relpath(readme_reference.FIXTURE)}): IDs equal "
+        f"{report['ids_equal']}, durations equal "
+        f"{report['durations_equal']}, bucket ids that differ (phone, "
+        f"JAX's margin to the bin edge) {report['bucket_flips']} (allowed "
+        f"only within {readme_reference.BOUNDARY_MARGIN:g} of an edge), "
+        f"frames {report['mel_frames']}, mel after the PostNet "
+        f"max_abs_diff={report['mel_max_abs_diff']:.3e} (tolerance "
+        f"{README_MEL_ATOL:g}); on {card}")
+    if not (report["ids_equal"] and report["durations_equal"]
+            and report["flips_near_edge"]
+            and report["mel_frames"][0] == report["mel_frames"][1]
+            and report["mel_max_abs_diff"] <= README_MEL_ATOL):
+        raise RuntimeError(f"the card's README forward disagrees with the "
+                           f"JAX fixture: {report}")
+    return report
+
+
+def _frames(tier, sr, hop):
+    """Each interval's frames, rounded as the Preprocessor rounds them."""
+    return [int(round(iv.end_time * sr / hop) - round(iv.start_time * sr / hop))
+            for iv in tier.intervals]
+
+
+def _boundaries(tier, sr, hop):
+    return [int(round(iv.end_time * sr / hop)) for iv in tier.intervals[:-1]]
+
+
+def data_preparation(device, card):
+    """The data-preparation phase on the card, from the tracked raw clips
+    to a trained step and the synthesized samples: the align CLI's
+    align_corpus, the preprocess CLI (on the tracked TextGrids; also on
+    the CPU, and DIO alone on both), PREP_STEPS steps through the train
+    CLI at its default dtype on those features with the synth_step duty
+    and --profile_dir, and evaluate --synth on the last checkpoint.  Each
+    driven path has the launch counts set to 0 just before and read just
+    after.  Raises on a failed gate -> {"launches": {path: counts},
+    "timings": {...}}."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fastspeech2_tpu_torch.audio.dio import dio_f0
+    from fastspeech2_tpu_torch.audio.wav import load_wav
+    from fastspeech2_tpu_torch.cli import (
+        align_cli,
+        evaluate_cli,
+        preprocess_cli,
+        train_cli,
+    )
+    from fastspeech2_tpu_torch.models.hifigan_istft import (
+        HiFiGANiSTFTGenerator,
+    )
+    from fastspeech2_tpu_torch.preprocessing.preprocessor import Preprocessor
+    from fastspeech2_tpu_torch.preprocessing.textgrid import read_textgrid
+    from fastspeech2_tpu_torch.training import loop as train_loop
+
+    with open(f"{CONFIG}/preprocess.yaml") as f:
+        base = yaml.safe_load(f)
+    with open(f"{CONFIG}/train.yaml") as f:
+        base_train = yaml.safe_load(f)
+    pp = base["preprocessing"]
+    hop, sr = pp["stft"]["hop_length"], pp["audio"]["sampling_rate"]
+    clips = sorted(n[:-4] for n in os.listdir(PREP_RAW) if n.endswith(".wav"))
+    launches, timings = {}, {}
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as recording:
+        raw = os.path.join(tmp, "raw")
+        shutil.copytree(PREP_RAW, os.path.join(raw, "LJSpeech"))
+
+        def config(name, textgrids=True, **preprocessing):
+            cfg = copy.deepcopy(base)
+            cfg["path"].update(raw_path=raw, preprocessed_path=os.path.join(
+                tmp, name))
+            cfg["preprocessing"].update(preprocessing)
+            if textgrids:
+                shutil.copytree(os.path.dirname(PREP_TEXTGRIDS), os.path.join(
+                    tmp, name, "TextGrid"))
+            path = os.path.join(tmp, f"{name}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            return cfg, path
+
+        # 1. the forced aligner on the card, phones from the .lab files
+        #    through the lexicon and the neural G2P; each EM iteration's
+        #    loglik and time from its verbose lines
+        cfg, _ = config("aligned", textgrids=False)
+        printed = io.StringIO()
+        zero_counts()
+        t0 = synced()
+        with contextlib.redirect_stdout(printed):
+            written = align_cli.align_corpus(cfg, device=device)
+        timings["align_s"] = synced() - t0
+        launches["prep align"] = launch_counts()
+        history = [(int(it), float(ll), float(ms)) for it, ll, ms in
+                   re.findall(r"\[align\] iter (\d+): loglik (-?[\d.]+) "
+                              r"\(([\d.]+) ms\)", printed.getvalue())]
+        for it, ll, ms in history:
+            say(f"[prep align] EM iteration {it}: total loglik {ll:.1f}, "
+                f"{ms:.2f} ms (emissions, Viterbi, backtrack, statistics) "
+                f"on {card}")
+        # the same run again in a profiler window: each EM stage's host
+        # time per iteration and the kernels it launched
+        cfg, _ = config("aligned_profiled", textgrids=False)
+        _, em_stages, em_kernels, em_device_ms = profiled_stages(
+            lambda: align_cli.align_corpus(cfg, device=device,
+                                           verbose=False),
+            ("_emissions", "_viterbi_forward", "_backtrack", "_accumulate"),
+            os.path.join(tmp, "align_trace.json"))
+        timings["em_stages"] = {
+            k[1:]: {m: v[m] / max(v["calls"], 1) for m in
+                    ("host_ms", "launches", "device_ms")}
+            for k, v in em_stages.items()}
+        near = total = 0
+        for path in written:
+            clip = os.path.basename(path)[: -len(".TextGrid")]
+            n = len(load_wav(os.path.join(PREP_RAW, f"{clip}.wav"), sr)[0])
+            tier = read_textgrid(path).get_tier_by_name("phones")
+            frames = _frames(tier, sr, hop)
+            if sum(frames) != n // hop + 1 or min(frames) <= 0:
+                raise RuntimeError(f"[prep align] {clip}: durations {frames} "
+                                   f"do not partition {n // hop + 1} frames")
+            mine = _boundaries(tier, sr, hop)
+            ref = _boundaries(read_textgrid(os.path.join(
+                PREP_TEXTGRIDS, f"{clip}.TextGrid")).get_tier_by_name(
+                    "phones"), sr, hop)
+            total += len(ref)
+            near += sum(any(abs(b - m) <= 1 for m in mine) for b in ref)
+        lls = [ll for _, ll, _ in history]
+        timings["em_iteration_ms"] = statistics.median(
+            ms for _, _, ms in history)
+        timings["boundary_share"] = near / max(total, 1)
+        say(f"[prep align] align_cli.align_corpus on the card: "
+            f"{len(written)} clips, {len(history)} EM iterations, "
+            f"{timings['align_s']:.2f} s in all (features, G2P, EM, "
+            f"TextGrids), median {timings['em_iteration_ms']:.2f} ms per "
+            f"iteration; again under torch.profiler, per EM iteration, "
+            f"each stage's host ms, kernels launched and their device ms "
+            f"{({k: {m: round(x, 3) for m, x in v.items()} for k, v in timings['em_stages'].items()})}"
+            f" ({em_kernels} kernels, {em_device_ms:.2f} ms of device "
+            f"time in that whole run); durations partition every clip's "
+            f"frames; "
+            f"{near} of {total} tracked phone boundaries "
+            f"({100 * timings['boundary_share']:.1f}%) within 1 frame of "
+            f"this alignment's (not gated: flat-start EM is sensitive to "
+            f"its platform); launches {launches['prep align']} on {card}")
+        if (len(written) != len(clips) or not history
+                or not all(map(math.isfinite, lls))):
+            raise RuntimeError(f"[prep align] {len(written)} TextGrids, "
+                               f"logliks {lls}")
+
+        # 2. the preprocess CLI on the card from the tracked TextGrids,
+        #    the Preprocessor on the CPU, and DIO alone on both
+        card_cfg, card_yaml = config("card")
+        cpu_cfg, _ = config("cpu")
+        zero_counts()
+        t0 = synced()
+        with contextlib.redirect_stdout(io.StringIO()):
+            preprocess_cli.main([card_yaml])
+        timings["preprocess_card_s"] = synced() - t0
+        launches["prep preprocess"] = launch_counts()
+        # the same clips again in a profiler window, into the copy that
+        # evaluate --synth reads (2 clips held out): each stage's host time
+        # and the kernels it launched
+        eval_cfg, eval_yaml = config("eval", val_size=2)
+        t0 = synced()
+        _, stage_s, prep_kernels, prep_device_ms = profiled_stages(
+            lambda: preprocess_cli.main([eval_yaml]),
+            ("_prepare_utterance", "_dsp_batch", "dio_f0",
+             "_finalize_utterance"), os.path.join(tmp, "prep_trace.json"))
+        timings["preprocess_profiled_s"] = synced() - t0
+        timings["preprocess_stages"] = stage_s
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            Preprocessor(cpu_cfg, "cpu").build_from_path()
+        timings["preprocess_cpu_s"] = time.perf_counter() - t0
+
+        def stats(cfg):
+            with open(os.path.join(cfg["path"]["preprocessed_path"],
+                                   "stats.json")) as f:
+                return json.load(f)
+
+        with open(PREP_STATS) as f:
+            tracked = json.load(f)
+        got = stats(card_cfg)
+        stats_err = max(abs(a - b) for k in tracked
+                        for a, b in zip(got[k], tracked[k]))
+        feature_err = {"mel": 0.0, "log_mel": 0.0, "energy": 0.0,
+                       "pitch": 0.0}
+        durations_equal = True
+
+        def feature(cfg, kind, clip):
+            return np.load(os.path.join(cfg["path"]["preprocessed_path"],
+                                        kind, f"LJSpeech-{kind}-{clip}.npy"))
+
+        for clip in clips:
+            durations_equal &= np.array_equal(
+                feature(card_cfg, "duration", clip),
+                feature(cpu_cfg, "duration", clip))
+            a, b = (feature(c, "mel", clip).astype(np.float64)
+                    for c in (card_cfg, cpu_cfg))
+            feature_err["log_mel"] = max(feature_err["log_mel"],
+                                         float(np.abs(a - b).max()))
+            feature_err["mel"] = max(feature_err["mel"], float(
+                np.abs(np.exp(a) - np.exp(b)).max() / np.exp(b).max()))
+            for kind in ("energy", "pitch"):
+                a, b = (feature(c, kind, clip) for c in (card_cfg, cpu_cfg))
+                feature_err[kind] = max(feature_err[kind],
+                                        float(np.abs(a - b).max()))
+        # DIO on each clip's padded, trimmed wav: the card against the CPU
+        prep = Preprocessor(card_cfg, device)
+        wavs = [prep._prepare_utterance("LJSpeech", c)["wav_padded"]
+                for c in clips]
+        dio_f0(torch.as_tensor(wavs[0], dtype=torch.float32, device=device),
+               sr, hop)     # cuFFT's plans
+        voiced_same = frames_all = 0
+        f0_rel = 0.0
+        dio_ms = []
+        for w in wavs:
+            y = torch.as_tensor(w, dtype=torch.float32, device=device)
+            t0 = synced()
+            f0 = dio_f0(y, sr, hop)
+            dio_ms.append((synced() - t0) * 1e3)
+            ref = dio_f0(y.cpu(), sr, hop).numpy()
+            f0 = f0.cpu().numpy()
+            voiced_same += int(((f0 > 0) == (ref > 0)).sum())
+            frames_all += len(ref)
+            both = (f0 > 0) & (ref > 0)
+            if both.any():
+                f0_rel = max(f0_rel, float((np.abs(f0[both] - ref[both])
+                                            / ref[both]).max()))
+        voicing = voiced_same / frames_all
+        timings["dio_ms"] = statistics.median(dio_ms)
+        say(f"[prep preprocess] python -m fastspeech2_tpu_torch.cli."
+            f"preprocess_cli on the card, {len(clips)} clips from the "
+            f"tracked TextGrids: {timings['preprocess_card_s']:.2f} s "
+            f"(the Preprocessor on the CPU: "
+            f"{timings['preprocess_cpu_s']:.2f} s); again under "
+            f"torch.profiler ({timings['preprocess_profiled_s']:.2f} s, "
+            f"{prep_kernels} kernels, {prep_device_ms:.2f} ms of device "
+            f"time), each stage's calls, host ms, kernels launched and "
+            f"their device ms "
+            f"{({k: {m: round(x, 3) for m, x in v.items()} for k, v in stage_s.items()})}"
+            f"; stats.json against the "
+            f"tracked {PREP_STATS}: max_abs_diff={stats_err:.3e} (tolerance "
+            f"{PREP_STATS_ATOL:g}); card against CPU: durations equal "
+            f"{durations_equal}, the mel before its log "
+            f"{feature_err['mel']:.3e} of its largest value and the phone "
+            f"energy {feature_err['energy']:.3e} (tolerance "
+            f"{PREP_FEATURE_TOL:g} each), log-mel "
+            f"{feature_err['log_mel']:.3e} and phone pitch "
+            f"{feature_err['pitch']:.3e} (printed); DIO alone on the "
+            f"{len(clips)} padded wavs: voicing agrees on "
+            f"{100 * voicing:.2f}% of {frames_all} frames (at least "
+            f"{100 * F0_VOICING_SHARE:g}%), F0 on jointly voiced frames "
+            f"within {f0_rel:.3e} relative, dio_f0 per clip median "
+            f"{timings['dio_ms']:.2f} ms (min {min(dio_ms):.2f}, max "
+            f"{max(dio_ms):.2f}) on {card}")
+        if not (stats_err <= PREP_STATS_ATOL and durations_equal
+                and feature_err["mel"] <= PREP_FEATURE_TOL
+                and feature_err["energy"] <= PREP_FEATURE_TOL
+                and voicing >= F0_VOICING_SHARE):
+            raise RuntimeError("[prep preprocess] the card's features "
+                               "disagree")
+
+        # 3. PREP_STEPS steps through the train CLI at its default dtype on
+        #    the card's features: synth_step duty every PREP_SYNTH_STEP
+        #    steps with the iSTFT vocoder, --profile_dir
+        train_cfg = copy.deepcopy(base_train)
+        train_cfg["path"] = {k: os.path.join(tmp, "train", k) for k in
+                             ("ckpt_path", "log_path", "result_path")}
+        train_cfg["step"].update(total_step=PREP_STEPS, log_step=1,
+                                 synth_step=PREP_SYNTH_STEP,
+                                 val_step=10 ** 9, save_step=PREP_STEPS)
+        train_yaml = os.path.join(tmp, "train.yaml")
+        with open(train_yaml, "w") as f:
+            yaml.safe_dump(train_cfg, f)
+        profile_dir = os.path.join(tmp, "profile")
+        steps, duties, vocoded = [], [], []
+        inner_step, inner_synth = train_loop.train_step, \
+            train_loop.synth_one_sample
+
+        def recorded_step(model, optimizer, batch, step, grad_acc_step=1):
+            before, t0 = launch_counts(), synced()
+            losses = inner_step(model, optimizer, batch, step, grad_acc_step)
+            end = synced()
+            after = launch_counts()
+            steps.append(dict(ms=(end - t0) * 1e3, shape=tuple(
+                batch["mels"].shape[:2]) + (batch["texts"].shape[1],),
+                launches={k: after[k] - before[k] for k in after},
+                losses=[float(v) for v in losses]))
+            return losses
+
+        def recorded_synth(model, batch, *args, **kwargs):
+            before, t0 = launch_counts(), synced()
+            out = inner_synth(model, batch, *args, **kwargs)
+            end = synced()
+            after = launch_counts()
+            duties.append(dict(ms=(end - t0) * 1e3, out=out,
+                               mel_len=int(batch["mel_lens"][0]),
+                               launches={k: after[k] - before[k]
+                                         for k in after}))
+            return out
+
+        def vocoder_hook(module, args, output):
+            if isinstance(module, HiFiGANiSTFTGenerator):
+                vocoded.append(bool(torch.isfinite(output).all()))
+
+        # every kernel input of the training, its duties and evaluate
+        # --synth, held against the plain versions after evaluate
+        seen = recording.enter_context(record_kernel_inputs())
+        train_loop.train_step = recorded_step
+        train_loop.synth_one_sample = recorded_synth
+        hook = torch.nn.modules.module.register_module_forward_hook(
+            vocoder_hook)
+        printed = io.StringIO()
+        zero_counts()
+        t0 = synced()
+        try:
+            with contextlib.redirect_stdout(printed):
+                _, _, final = train_cli.main([
+                    "-p", card_yaml, "-m", f"{CONFIG}/model.yaml",
+                    "-t", train_yaml, "--profile_dir", profile_dir,
+                    "--vocoder_ckpt", VOCODER_NPZ])
+        finally:
+            train_loop.train_step = inner_step
+            train_loop.synth_one_sample = inner_synth
+            hook.remove()
+        timings["train_s"] = synced() - t0
+        launches["prep training"] = launch_counts()
+        lines = printed.getvalue().splitlines()
+        totals = [r["losses"][0] for r in steps]
+        first5, last5 = (statistics.mean(totals[:5]),
+                         statistics.mean(totals[-5:]))
+        # steps 2-PREP_SYNTH_STEP: after the first, before the profiler
+        # (steps 11-20) and with no duty inside the timed span
+        timings["step_ms"] = statistics.median(
+            r["ms"] for r in steps[1:PREP_SYNTH_STEP])
+        timings["duty_ms"] = [d["ms"] for d in duties]
+        per_step = {tuple(sorted(r["launches"].items())) for r in steps}
+        want = {k: 0 for k in launches["prep training"]}
+        step_want = tuple(sorted(dict(want, K1_bf16=10, K3_bf16=10).items()))
+        duty_want = dict(want, K1_bf16=10, K2_bf16=10, K4=12)
+        traces = (os.listdir(profile_dir) if os.path.isdir(profile_dir)
+                  else [])
+        kernel_names = set()
+        n_kernel_events = 0
+        kernel_us = {"K1": 0.0, "K3": 0.0, "all": 0.0}
+        for name in traces:
+            with open(os.path.join(profile_dir, name)) as f:
+                events = json.load(f).get("traceEvents", [])
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            n_kernel_events += len(kernels)
+            kernel_names |= {e.get("name", "") for e in kernels}
+            for e in kernels:
+                kernel_us["all"] += e.get("dur", 0.0)
+                for k, p in (("K1", "mha_fwd"), ("K3", "mha_bwd")):
+                    if p in e.get("name", ""):
+                        kernel_us[k] += e.get("dur", 0.0)
+        # the traced window holds PREP_STEPS - PREP_SYNTH_STEP steps
+        timings["kernel_ms_per_step"] = {
+            k: v / 1e3 / (PREP_STEPS - PREP_SYNTH_STEP)
+            for k, v in kernel_us.items()}
+        # the trace names each kernel by its demangled signature
+        named = {k: sorted(n for n in kernel_names if p in n)
+                 for k, p in (("K1", "mha_fwd"), ("K3", "mha_bwd"))}
+        shapes = sorted({r["shape"] for r in steps})
+        say(f"[prep train] python -m fastspeech2_tpu_torch.cli.train_cli at "
+            f"its default dtype on the card's features: {final} steps at "
+            f"(batch, mel frames, phones) {shapes} in "
+            f"{timings['train_s']:.2f} s; median {timings['step_ms']:.2f} ms "
+            f"per step over steps 2-{PREP_SYNTH_STEP} (host clock, device "
+            f"synchronised); total loss mean of the first 5 steps "
+            f"{first5:.4f}, of the last 5 {last5:.4f}; launches per step "
+            f"{[{k: v for k, v in t if v} for t in per_step]}; synth_step "
+            f"duties {len(duties)}: "
+            f"{[dict(ms=round(d['ms'], 2), launches={k: v for k, v in d['launches'].items() if v}, wav=len(d['out'][2]), mel_len=d['mel_len']) for d in duties]}, "
+            f"vocoder outputs finite {vocoded}; trace {traces} with "
+            f"{n_kernel_events} kernel events of {len(kernel_names)} names, "
+            f"device time per traced step (ms) "
+            f"{({k: round(v, 3) for k, v in timings['kernel_ms_per_step'].items()})}, "
+            f"naming K1 {named['K1']} and K3 {named['K3']}; last line "
+            f"{lines[-1]!r}; on {card}")
+        if final != PREP_STEPS or len(steps) != PREP_STEPS:
+            raise RuntimeError(f"[prep train] trained {final} steps")
+        if not all(math.isfinite(v) for r in steps for v in r["losses"]):
+            raise RuntimeError("[prep train] a loss is not finite")
+        if not last5 < first5:
+            raise RuntimeError("[prep train] the loss did not fall")
+        if per_step != {step_want}:
+            raise RuntimeError(f"[prep train] launches per step {per_step}")
+        if (len(duties) != PREP_STEPS // PREP_SYNTH_STEP
+                or any(d["launches"] != duty_want for d in duties)):
+            raise RuntimeError(f"[prep train] synth_step duties "
+                               f"{[d['launches'] for d in duties]}, "
+                               f"expected {duty_want} each")
+        for d in duties:
+            _, wav_rec, wav_pred = d["out"]
+            if not (len(wav_rec) == len(wav_pred) == d["mel_len"] * hop
+                    and np.abs(wav_pred).max() > 0):
+                raise RuntimeError(f"[prep train] duty wavs "
+                                   f"{len(wav_rec)}, {len(wav_pred)} for "
+                                   f"mel_len {d['mel_len']}")
+        if len(vocoded) != 2 * len(duties) or not all(vocoded):
+            raise RuntimeError(f"[prep train] vocoder outputs {vocoded}")
+        if not (traces and named["K1"] and named["K3"]):
+            raise RuntimeError(f"[prep train] the trace {traces} does not "
+                               f"name K1 and K3; its kernels: "
+                               f"{sorted(kernel_names)[:20]}")
+        launches["prep synth duty"] = duties[0]["launches"]
+
+        # 4. evaluate --synth on the last checkpoint, with the preprocess
+        #    config copy that holds out 2 clips (preprocessed again on the
+        #    card above: the same features, another split)
+        printed = io.StringIO()
+        zero_counts()
+        t0 = synced()
+        with contextlib.redirect_stdout(printed):
+            losses = evaluate_cli.main([
+                "-p", eval_yaml, "-m", f"{CONFIG}/model.yaml", "-t",
+                train_yaml, "--restore_step", str(PREP_STEPS), "--synth",
+                "--vocoder_ckpt", VOCODER_NPZ])
+        timings["evaluate_s"] = synced() - t0
+        launches["prep evaluate --synth"] = launch_counts()
+        base_name = os.path.join(train_cfg["path"]["result_path"],
+                                 f"val_step_{PREP_STEPS}")
+        wav_lens = []
+        for kind in ("reconstructed", "synthesized"):
+            with wave.open(f"{base_name}_{kind}.wav", "rb") as f:
+                wav_lens.append(f.getnframes())
+        eval_want = dict(want, K1=20, K2=20, K4=12)
+        say(f"[prep evaluate] python -m fastspeech2_tpu_torch.cli."
+            f"evaluate_cli --restore_step {PREP_STEPS} --synth on a copy "
+            f"with val_size 2: losses "
+            f"{[round(v, 4) for v in losses]}, wavs of {wav_lens} samples, "
+            f"launches {launches['prep evaluate --synth']} (expected "
+            f"{ {k: v for k, v in eval_want.items() if v} }: the validation "
+            f"forward, the sample's forward, two iSTFT vocoder forwards), "
+            f"{timings['evaluate_s']:.2f} s; {printed.getvalue().splitlines()[-1]!r}"
+            f" on {card}")
+        if launches["prep evaluate --synth"] != eval_want:
+            raise RuntimeError("[prep evaluate] launches differ")
+        if not (wav_lens[0] == wav_lens[1] > 0 and wav_lens[0] % hop == 0):
+            raise RuntimeError(f"[prep evaluate] wavs {wav_lens}")
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"[prep evaluate] losses {losses}")
+        recording.close()
+        check_recorded_inputs(seen, "prep kernels", card)
+    return dict(launches=launches, timings=timings)
+
+
 def main():
     import torch
 
@@ -1176,6 +1867,10 @@ def main():
     if not istft_err <= WAV_ATOL:
         raise RuntimeError("the iSTFT vocoder's K4 wav disagrees with plain")
 
+    # the same sentence's float32 forward against the JAX package's result
+    # on the CPU (the committed fixture)
+    readme_fixture_check(device, card)
+
     # 8. the parity HiFi-GAN through the CLI's main, from its seeded random
     #    init (no --vocoder_ckpt); counts from this run only
     with tempfile.TemporaryDirectory() as tmp:
@@ -1364,19 +2059,23 @@ def main():
             plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v, mask)),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=additive))), attention_bound_ms(1, 2, L))
-    # ... and at batch mode's batch-8 shapes (one full, one fully padded
-    #    and partly padded rows)
+    # ... and at batch mode's shapes, batch 8 and 2 (one full, one fully
+    #    padded and partly padded rows)
     B8, enc8, _ = bshapes[0]
-    for L in (enc8, 1000):
-        q, k, v, mask, _ = attention_grad_inputs(L, device, seed=8, B=B8)
-        additive = torch.zeros(B8, 1, 1, L, device=device).masked_fill(
-            mask[:, None, None, :], -1e9)
-        timings[("K1", B8, L)] = with_bound(dict(
-            ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
-                q, k, v, mask)),
-            plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v, mask)),
-            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=additive))), attention_bound_ms(B8, 2, L))
+    for B, enc, _ in bshapes:
+        for L in (enc, 1000):
+            q, k, v, mask, _ = attention_grad_inputs(L, device, seed=8, B=B)
+            additive = torch.zeros(B, 1, 1, L, device=device).masked_fill(
+                mask[:, None, None, :], -1e9)
+            timings[("K1", B, L)] = with_bound(dict(
+                ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
+                    q, k, v, mask)),
+                plain_ms=cuda_time_ms(lambda: multi_head_attention(
+                    q, k, v, mask)),
+                library_ms=cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=additive))),
+                attention_bound_ms(B, 2, L))
     # K2 as the model calls it, its weight pack made once: the README
     # sentence's encoder and decoder, batch mode's batch-8 forward, the
     # validation forward at batch 10
@@ -1555,8 +2254,29 @@ def main():
             attention_bound_ms(TRAIN_BATCH, 2, L, dtype="bfloat16"),
             BOUND_BASIS_BF16)
         del sdpa_out, leaves
-    for B, L in ((1, enc_len), (1, 1000), (TRAIN_BATCH, 128),
-                 (TRAIN_BATCH, 1000)):
+    # ... K1 at batch mode's shapes ([8, 2, 128|1000, 128], [2, 2,
+    #     112|1000, 128]; one full, one fully padded and partly padded rows)
+    for B, enc, _ in bshapes:
+        for L in (enc, 1000):
+            q, k, v, mask, _ = attention_grad_inputs(L, device, seed=8, B=B)
+            q, k, v = (t.to(bf) for t in (q, k, v))
+            additive = torch.zeros(B, 1, 1, L, device=device).masked_fill(
+                mask[:, None, None, :], -1e9).to(bf)
+            bf16_timings[("K1", B, L)] = with_bound(dict(
+                ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
+                    q, k, v, mask)),
+                plain_ms=cuda_time_ms(lambda: multi_head_attention(
+                    q, k, v, mask)),
+                library_ms=cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=additive))),
+                attention_bound_ms(B, 2, L, dtype="bfloat16"),
+                BOUND_BASIS_BF16)
+    # ... and K2 at every shape of the bfloat16 paths, the re-dispatch's
+    #     [1, 1536] and batch mode's batch-8 forward included
+    for B, L in sorted({(1, enc_len), (1, 1000), (1, 1536), (B8, enc8),
+                        (B8, 1000), (TRAIN_BATCH, 128),
+                        (TRAIN_BATCH, 1000)}):
         args = ffn_inputs(L, device, seed=9, B=B)
         args = (args[0].to(bf),) + args[1:]
         packed = cuda_ffn.pack_ffn_weights(args[1], args[3], bf)
@@ -1620,8 +2340,9 @@ def main():
         base_gib = torch.cuda.memory_allocated() / 2 ** 30
         zero_counts()
         t0 = time.perf_counter()
-        _, _, final_step = train(pre_cfg, model_config, train_cfg, log=log,
-                                 device=device, step_hook=hook)
+        with record_kernel_inputs() as train_inputs:
+            _, _, final_step = train(pre_cfg, model_config, train_cfg,
+                                     log=log, device=device, step_hook=hook)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         train_bf16 = {k: n for k, n in launch_counts().items()
@@ -1640,6 +2361,10 @@ def main():
         # the first step pays cuDNN's and the allocator's first calls
         step_ms = [(b - a) * 1e3 for a, b in zip(step_times, step_times[1:])]
         median_step = statistics.median(step_ms)
+        # the steps' and the validation pass's kernel inputs (its sample's
+        # forward at batch 1 and collate's buckets) against the plain
+        # versions, after the counts are read
+        check_recorded_inputs(train_inputs, "train kernels", card)
         attn_ms = sum(n * (train_timings[("K1", L)]["ms"]
                            + train_timings[("K3", L)]["ms"])
                       for n, L in ((model_config["transformer"][
@@ -1658,7 +2383,7 @@ def main():
             f"{100 * attn_ms / median_step:.1f}% of a step; total loss "
             f"mean of the first 5 steps {first5:.4f}, of the last 5 "
             f"{last5:.4f}; launches per step (K1, K3, K2, K4) "
-            f"{sorted(set(per_step))}, per eval forward {eval_counts}, "
+            f"{sorted(set(per_step))}, in the validation pass {eval_counts}, "
             f"bfloat16 instances {train_bf16}; on {card}")
         if final_step != TRAIN_STEPS or len(losses_seen) != TRAIN_STEPS:
             raise RuntimeError(f"trained {final_step} steps, expected "
@@ -1670,9 +2395,11 @@ def main():
         if set(per_step) != {(10, 10, 0, 0)}:
             raise RuntimeError(f"launches per train step {set(per_step)}, "
                                "expected 10 K1 + 10 K3 + 0 K2 + 0 K4")
-        if eval_counts != (10, 0, 10, 0):
+        # the validation forward and the validation sample's forward
+        if eval_counts != (20, 0, 20, 0):
             raise RuntimeError(f"launches in the validation pass "
-                               f"{eval_counts}, expected 10 K1 + 10 K2")
+                               f"{eval_counts}, expected 20 K1 + 20 K2 "
+                               "(the losses' forward and the sample's)")
         if any(train_bf16.values()):
             raise RuntimeError(f"the float32 training launched bfloat16 "
                                f"kernels: {train_bf16}")
@@ -1799,7 +2526,8 @@ def main():
         zero_counts()
         t0 = time.perf_counter()
         try:
-            with contextlib.redirect_stdout(printed):
+            with contextlib.redirect_stdout(printed), \
+                    record_kernel_inputs() as bf_inputs:
                 _, _, bf_final = train_cli.main(bf_paths)
         finally:
             train_loop.train_step = inner_step
@@ -1818,6 +2546,7 @@ def main():
         bf_totals_loss = [r["losses"][0] for r in bf_steps]
         bf_first5 = statistics.mean(bf_totals_loss[:5])
         bf_last5 = statistics.mean(bf_totals_loss[-5:])
+        check_recorded_inputs(bf_inputs, "train bf16 kernels", card)
         say(f"[train bf16] python -m fastspeech2_tpu_torch.cli.train_cli at "
             f"its default dtype: {bf_final} steps at batch {TRAIN_BATCH} in "
             f"{bf_train_s:.2f} s, compute dtype {bf_steps[0]['dtype']}: "
@@ -1845,10 +2574,11 @@ def main():
             raise RuntimeError(f"launches per bfloat16 train step "
                                f"{bf_per_step}, expected 10 bfloat16 K1 + "
                                "10 bfloat16 K3 and nothing else")
-        if bf_eval != dict(want, K1_bf16=10, K2_bf16=10):
+        if bf_eval != dict(want, K1_bf16=20, K2_bf16=20):
             raise RuntimeError(f"launches in the bfloat16 validation pass "
-                               f"{bf_eval}, expected 10 bfloat16 K1 + 10 "
-                               "bfloat16 K2")
+                               f"{bf_eval}, expected 20 bfloat16 K1 + 20 "
+                               "bfloat16 K2 (the losses' forward and the "
+                               "sample's)")
 
         # ... and REPRO_STEPS steps twice from one seed at bfloat16
         first, second = (trained_params(run, torch.bfloat16)
@@ -1862,7 +2592,11 @@ def main():
         if bf_repro_diff != 0.0:
             raise RuntimeError("two bfloat16 trainings from one seed differ")
 
-    # 13. kernels line
+    # 13. data preparation: align, preprocess, train with the duties and
+    #     evaluate --synth on the tracked clips
+    prep = data_preparation(device, card)
+
+    # 14. kernels line
     sources = {"K1": ("fused_attention", "fastspeech2_tpu_torch/csrc/attention.cu",
                       "fastspeech2_tpu/ops/pallas_attention.py:93",
                       "[1, 2, 1000, 128] f32"),
@@ -1909,7 +2643,9 @@ def main():
                                      name, 0),
                                  **{path: n[name] for path, n in
                                     options["launches"].items()},
-                                 "training": train_launches[name]}})
+                                 "training": train_launches[name],
+                                 **{path: n[name] for path, n in
+                                    prep["launches"].items()}}})
     # K4: the sums over the 12 calls of one 1000-frame parity forward
     kernels.append({
         "name": "K4 fused_resblock", "route": "cuda",
@@ -1932,7 +2668,9 @@ def main():
                              "parity synthesis": parity_launches["K4"],
                              **{path: n["K4"] for path, n in
                                 options["launches"].items()},
-                             "training": train_launches["K4"]}})
+                             "training": train_launches["K4"],
+                             **{path: n["K4"] for path, n in
+                                prep["launches"].items()}}})
     # the bfloat16 instances: launches on the bfloat16 synthesis path (K1
     # and K2, one acoustic forward) and the bfloat16 training path (K3,
     # TRAIN_STEPS steps)
@@ -1957,7 +2695,9 @@ def main():
             "shape": shape.replace("f32", "bf16"), "per_shape": per,
             "launches_by_path": {
                 "bf16 synthesis": b_launches[f"{name}_bf16"],
-                "bf16 training": bf_totals[f"{name}_bf16"]}})
+                "bf16 training": bf_totals[f"{name}_bf16"],
+                **{path: n[f"{name}_bf16"] for path, n in
+                   prep["launches"].items()}}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

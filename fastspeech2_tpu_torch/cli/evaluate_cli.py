@@ -4,18 +4,24 @@
     python -m fastspeech2_tpu_torch.cli.evaluate_cli -p PRE.yaml \\
         -m MODEL.yaml -t TRAIN.yaml \\
         (--restore_step N | --weights_npz F | --torch_ckpt F) \\
-        [--dtype float32|bfloat16] [--device cuda|cpu]
+        [--synth [--vocoder_ckpt F]] [--dtype float32|bfloat16] \\
+        [--device cuda|cpu]
 
 Prints the sample-weighted mean teacher-forced losses over val.txt in eval
 mode (the loader's duplicate rows left out), one "Validation Step" line,
 from the port's own checkpoint ``<ckpt_path>/<N>.pth.tar``, a tracked
 npz snapshot or a reference-format ``.pth.tar``.  Runs on the card unless
 ``--device cpu`` is given, at the compute ``--dtype`` (float32 by
-default, as in the JAX CLI).  Not ported yet: --synth and --objective
-(with --split, --save_dir, --vocoder_ckpt).
+default, as in the JAX CLI).  ``--synth`` also writes the first
+validation utterance's synthesized sample to result_path, as the training
+loop's duty makes it: ``val_step_<N>.png`` (where matplotlib is
+installed) and, through model.yaml's vocoder (``--vocoder_ckpt`` or its
+seeded init), ``val_step_<N>_{reconstructed,synthesized}.wav``.  Not
+ported yet: --objective (with --split and --save_dir).
 """
 
 import argparse
+import os
 
 from fastspeech2_tpu_torch.cli.common import add_dtype_arg, dtype_from_flag
 from fastspeech2_tpu_torch.cli.synthesize_cli import (
@@ -38,6 +44,11 @@ def build_parser():
     parser.add_argument("-t", "--train_config", required=True)
     add_weights_args(parser)
     add_dtype_arg(parser, "float32")
+    parser.add_argument("--synth", action="store_true",
+                        help="also write a synth-sample figure and wavs to "
+                             "result_path, like the in-loop duty")
+    parser.add_argument("--vocoder_ckpt", default=None,
+                        help="vocoder weights for --synth (npz or .pth.tar)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     return parser
@@ -53,11 +64,48 @@ def main(argv=None):
         preprocess_config, model_config, args.weights_npz, device,
         train_config=train_config, restore_step=args.restore_step,
         torch_ckpt=args.torch_ckpt, dtype=dtype_from_flag(args.dtype))
-    losses = evaluate(model, FeatureDataset("val.txt", preprocess_config),
+    val_dataset = FeatureDataset("val.txt", preprocess_config)
+    losses = evaluate(model, val_dataset,
                       OptimConfig.build(train_config).batch_size, cfg,
                       device)
     print(loss_line(f"Validation Step {args.restore_step or 0}", losses))
+    if args.synth:
+        write_synth_sample(args, preprocess_config, model_config,
+                           train_config, model, cfg, val_dataset, device)
     return losses
+
+
+def write_synth_sample(args, preprocess_config, model_config, train_config,
+                       model, cfg, val_dataset, device):
+    """The first validation utterance through synth_one_sample
+    (fastspeech2_tpu/cli/evaluate_cli.py:79-104) -> the written paths."""
+    from scipy.io import wavfile
+
+    from fastspeech2_tpu_torch.data.dataset import collate_batch
+    from fastspeech2_tpu_torch.synthesis.vocoder import get_vocoder
+    from fastspeech2_tpu_torch.training.loop import synth_one_sample
+
+    vocoder = get_vocoder(model_config, preprocess_config, args.vocoder_ckpt,
+                          device)
+    batch = collate_batch([val_dataset[0]], max_mel_len=cfg.max_seq_len)
+    fig, wav_rec, wav_pred = synth_one_sample(model, batch,
+                                              preprocess_config, vocoder)
+    result_path = train_config["path"]["result_path"]
+    os.makedirs(result_path, exist_ok=True)
+    base = os.path.join(result_path, f"val_step_{args.restore_step or 0}")
+    written = []
+    if fig is not None:
+        from matplotlib import pyplot as plt
+
+        fig.savefig(base + ".png")
+        plt.close(fig)
+        written.append(base + ".png")
+    sr = preprocess_config["preprocessing"]["audio"]["sampling_rate"]
+    for name, wav in (("reconstructed", wav_rec), ("synthesized", wav_pred)):
+        wavfile.write(f"{base}_{name}.wav", sr, wav)
+        written.append(f"{base}_{name}.wav")
+    print(f"Synth sample written to {', '.join(written)}")
+    return written
 
 
 if __name__ == "__main__":

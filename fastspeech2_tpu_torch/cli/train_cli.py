@@ -3,7 +3,8 @@
 
     python -m fastspeech2_tpu_torch.cli.train_cli -p PRE.yaml -m MODEL.yaml \\
         -t TRAIN.yaml [--restore_step N|-1] [--max_steps N] \\
-        [--dtype bfloat16|float32] [--device cuda|cpu]
+        [--dtype bfloat16|float32] [--profile_dir DIR] [--vocoder_ckpt F] \\
+        [--device cuda|cpu]
 
 Prints loss lines every log_step and validation lines every val_step, and
 writes ``<ckpt_path>/<step>.pth.tar`` every save_step and at the end.
@@ -11,6 +12,10 @@ writes ``<ckpt_path>/<step>.pth.tar`` every save_step and at the end.
 the card (``--device cuda``, the default) unless ``--device cpu`` is given.
 ``--dtype`` is the compute dtype, bfloat16 by default as in the JAX CLI;
 parameters, checkpoints and the optimizer stay float32.
+``--profile_dir`` writes a torch.profiler trace of steps 11-20 there.
+The synth_step duty draws the mel figure; with ``--vocoder_ckpt`` it also
+vocodes the sample through model.yaml's vocoder on those weights (the JAX
+CLI passes no vocoder, so its duty draws the figure only).
 """
 
 import argparse
@@ -33,6 +38,13 @@ def build_parser():
     parser.add_argument("--max_steps", type=int, default=None,
                         help="stop early after this many steps")
     add_dtype_arg(parser, "bfloat16")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of steps 11-20 "
+                             "there")
+    parser.add_argument("--vocoder_ckpt", default=None,
+                        help="vocoder weights for the synth_step duty's "
+                             "wavs (npz or .pth.tar; without it the duty "
+                             "draws the figure only)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     return parser
@@ -48,9 +60,16 @@ def main(argv=None):
     if restore_step == -1:
         restore_step = latest_step(configs[2]["path"]["ckpt_path"]) or 0
         print(f"Resuming from step {restore_step}")
+    vocoder = None
+    if args.vocoder_ckpt:
+        from fastspeech2_tpu_torch.synthesis.vocoder import get_vocoder
+
+        vocoder = get_vocoder(configs[1], configs[0], args.vocoder_ckpt,
+                              device)
     return train(*configs, restore_step=restore_step,
                  dtype=dtype_from_flag(args.dtype), max_steps=args.max_steps,
-                 device=device)
+                 device=device, vocoder=vocoder,
+                 profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ import torch
 from fastspeech2_tpu_torch.synthesis.plotting import (
     expand_by_duration,
     plot_mel,
+    plot_stats,
 )
 from fastspeech2_tpu_torch.synthesis.vocoder import vocoder_infer
 from fastspeech2_tpu_torch.text import text_to_sequence
@@ -219,15 +220,7 @@ class Synthesizer:
             return paths
         from matplotlib import pyplot as plt
 
-        stats_path = os.path.join(
-            self.preprocess_config["path"]["preprocessed_path"],
-            "stats.json")
-        if os.path.exists(stats_path):
-            with open(stats_path) as f:
-                stats = json.load(f)
-            stats = stats["pitch"] + stats["energy"][:2]
-        else:
-            stats = [0.0, 1.0, 0.0, 1.0, 0.0, 1.0]
+        stats = plot_stats(self.preprocess_config)
         postnet_mel = out.postnet_mel.float().cpu().numpy()
         durations = out.duration_rounded.cpu().numpy()
         pitches = out.pitch_prediction.float().cpu().numpy()

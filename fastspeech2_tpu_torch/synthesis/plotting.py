@@ -8,7 +8,22 @@ without matplotlib still imports the port, and
 ``Synthesizer.save_results`` writes the wavs and skips the figure there.
 """
 
+import json
+import os
+
 import numpy as np
+
+
+def plot_stats(preprocess_config):
+    """stats.json's [pitch min, max, mean, std, energy min, max] for
+    :func:`plot_mel`, or the identity when the corpus has no stats.json."""
+    path = os.path.join(preprocess_config["path"]["preprocessed_path"],
+                        "stats.json")
+    if not os.path.exists(path):
+        return [0.0, 1.0, 0.0, 1.0, 0.0, 1.0]
+    with open(path) as f:
+        stats = json.load(f)
+    return stats["pitch"] + stats["energy"][:2]
 
 
 def expand_by_duration(values, durations):

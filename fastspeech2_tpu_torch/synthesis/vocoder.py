@@ -70,10 +70,19 @@ def build_generator(config):
         gen_istft_hop_size=config["gen_istft_hop_size"], **common)
 
 
+def _weak_scalar(value, like):
+    """A Python float as JAX's weakly typed constant meets ``like``: rounded
+    to its dtype first (``jnp.log(10.0)`` becomes a bfloat16 2.296875 next
+    to a bfloat16 mel)."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
 class MelGANVocoder(nn.Module):
     """The MelGAN generator fed log10 mels: the reference divides the log-e
     mel by ln 10 before the network (utils/model.py:78;
-    ``fastspeech2_tpu/synthesis/vocoder.py:122-125``)."""
+    ``fastspeech2_tpu/synthesis/vocoder.py:122-125``).  The division runs at
+    the mel's dtype, as the JAX vocoder's does, and its result is then
+    upcast to the generator's float32."""
 
     def __init__(self, generator):
         super().__init__()
@@ -81,7 +90,8 @@ class MelGANVocoder(nn.Module):
 
     def forward(self, mels):
         """[B, T, n_mels] log-e mels -> [B, T * 256] waveform."""
-        return self.generator(mels / math.log(10.0))
+        log10 = mels / _weak_scalar(math.log(10.0), mels)
+        return self.generator(log10.float())
 
 
 class GriffinLimVocoder(nn.Module):
@@ -106,7 +116,9 @@ class GriffinLimVocoder(nn.Module):
             np.linalg.pinv(basis).astype(np.float32)))
 
     def forward(self, mels):
-        mag = torch.einsum("fm,btm->bft", self.inv_basis, torch.exp(mels))
+        # exp at the mel's dtype (``:155``), then the float32 product
+        mag = torch.einsum("fm,btm->bft", self.inv_basis,
+                           torch.exp(mels).float())
         return griffin_lim(torch.clamp(mag, min=0.0), self.n_fft, self.hop,
                            self.win, n_iters=self.n_iters)
 
@@ -178,14 +190,19 @@ def get_vocoder(model_config, preprocess_config, ckpt_path, device):
 
 def vocoder_infer(mels, vocoder, preprocess_config, lengths=None):
     """[B, T, n_mels] -> list of int16 numpy waveforms, each trimmed to
-    lengths[i] * hop_length.  The vocoders compute in float32: a bfloat16
-    mel is upcast first, as the JAX vocoder's first conv promotes it
-    (fastspeech2_tpu/synthesis/vocoder.py:249-262)."""
+    lengths[i] * hop_length.  The vocoders compute in float32.  A bfloat16
+    mel reaches the HiFi-GAN generators upcast, as the JAX generator's first
+    conv promotes it (fastspeech2_tpu/synthesis/vocoder.py:249-262);
+    MelGAN and Griffin-Lim take it at its dtype, since the JAX package
+    divides it by ln 10 or applies exp in bfloat16 before its first float32
+    operation (``:124-125``, ``:155``)."""
     pp = preprocess_config["preprocessing"]
     max_wav_value = pp["audio"]["max_wav_value"]
     hop = pp["stft"]["hop_length"]
+    if not isinstance(vocoder, (MelGANVocoder, GriffinLimVocoder)):
+        mels = mels.float()
     with torch.inference_mode():
-        wavs = vocoder(mels.float()).float().cpu().numpy()
+        wavs = vocoder(mels).float().cpu().numpy()
     wavs = np.clip(wavs * max_wav_value, -32768, 32767).astype(np.int16)
     out = []
     for i in range(wavs.shape[0]):

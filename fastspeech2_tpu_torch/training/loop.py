@@ -1,15 +1,19 @@
 """Training orchestration (port of ``fastspeech2_tpu/training/loop.py``).
 
 Builds the model and optimizer, runs :func:`training.step.train_step` over
-bucketed batches and does the periodic duties: the loss line every
-log_step, a validation pass every val_step, a checkpoint every save_step,
-a checkpoint on SIGTERM/SIGUSR1 (preemption) and at the end.  Lines go to
-``log`` and to ``<log_path>/{train,val}/log.txt``.
-
-Not ported yet: the synth_step duty (``synth_one_sample``'s figure and
-audio), TensorBoard output and ``profile_dir``.  ``scan_step > 1`` (the JAX
-package's device-resident scan over K steps) runs the per-step path, whose
-numerics are the same (fastspeech2_tpu/training/step.py:122-140).
+bucketed batches and does the periodic duties: the loss line and the
+TensorBoard scalars every log_step, one synthesized sample every
+synth_step (:func:`synth_one_sample`: the mel figure and, with a vocoder,
+the reconstructed and synthesized wavs), a validation pass every val_step
+(with one validation sample's figure), a checkpoint every save_step, a
+checkpoint on SIGTERM/SIGUSR1 (preemption) and at the end.  Lines go to
+``log`` and to ``<log_path>/{train,val}/log.txt``; figures, audio and
+scalars to TensorBoard through :class:`utils.logging.TrainLogger`.
+``profile_dir`` records a ``torch.profiler`` trace of the 11th to 20th
+steps of the run.
+``scan_step > 1`` (the JAX package's device-resident scan over K steps)
+runs the per-step path, whose numerics are the same
+(fastspeech2_tpu/training/step.py:122-140).
 """
 
 import os
@@ -34,11 +38,13 @@ from fastspeech2_tpu_torch.training.checkpoint import (
 )
 from fastspeech2_tpu_torch.training.optim import NoamAdam
 from fastspeech2_tpu_torch.training.step import (
+    BATCH_KEYS,
     TRAIN_SEED,
     batch_to_device,
     eval_step,
     train_step,
 )
+from fastspeech2_tpu_torch.utils.logging import TrainLogger
 
 LOSS_NAMES = ("Total Loss", "Mel Loss", "Mel PostNet Loss", "Pitch Loss",
               "Energy Loss", "Duration Loss")
@@ -48,18 +54,6 @@ def loss_line(prefix, vals):
     """'<prefix>, Total Loss: x, Mel Loss: x, ...' as the JAX loop logs."""
     return prefix + ", " + ", ".join(
         f"{n}: {v:.4f}" for n, v in zip(LOSS_NAMES, vals))
-
-
-class _TextLog:
-    """Appends lines to <path>/log.txt."""
-
-    def __init__(self, path):
-        os.makedirs(path, exist_ok=True)
-        self.path = os.path.join(path, "log.txt")
-
-    def message(self, text):
-        with open(self.path, "a") as f:
-            f.write(text + "\n")
 
 
 def init_training(preprocess_config, model_config, train_config,
@@ -107,14 +101,125 @@ def evaluate(model, val_dataset, batch_size, cfg, device):
     return (sums / max(count, 1)).tolist()
 
 
+def synth_one_sample(model, batch, preprocess_config, vocoder=None,
+                     log=print):
+    """The first row of a loader batch through the model in eval mode,
+    teacher-forced on its durations, pitch and energy (reference
+    utils/tools.py:109-161; fastspeech2_tpu/training/loop.py:101-160) ->
+    (figure of the synthesized and ground-truth mels, the reconstructed
+    wav, the synthesized wav).
+
+    The wavs are None without a vocoder.  The figure is None, and one line
+    says so, where matplotlib is not installed: that is the only failure
+    this function absorbs.  A fault of the forward or the vocoder raises.
+    """
+    from fastspeech2_tpu_torch.synthesis.plotting import (
+        expand_by_duration,
+        plot_mel,
+        plot_stats,
+    )
+    from fastspeech2_tpu_torch.synthesis.vocoder import vocoder_infer
+
+    device = next(model.parameters()).device
+    row = batch_to_device({k: batch[k][:1] for k in BATCH_KEYS}, device)
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            out = model(row["speakers"], row["texts"], row["src_lens"],
+                        mel_lens=row["mel_lens"],
+                        max_mel_len=batch["mels"].shape[1],
+                        p_targets=row["pitches"], e_targets=row["energies"],
+                        d_targets=row["durations"])
+    finally:
+        model.train(was_training)
+    mel_len = int(out.mel_len[0])
+    src_len = int(batch["src_lens"][0])
+    mel_pred = out.postnet_mel[0, :mel_len].float().cpu().numpy().T
+    mel_target = np.asarray(batch["mels"][0, :mel_len], np.float32).T
+    duration = batch["durations"][0, :src_len]
+    pp = preprocess_config["preprocessing"]
+    pitch = batch["pitches"][0]
+    energy = batch["energies"][0]
+    if pp["pitch"]["feature"] == "phoneme_level":
+        pitch = expand_by_duration(pitch[:src_len], duration)
+    else:
+        pitch = pitch[:mel_len]
+    if pp["energy"]["feature"] == "phoneme_level":
+        energy = expand_by_duration(energy[:src_len], duration)
+    else:
+        energy = energy[:mel_len]
+    try:
+        fig = plot_mel(
+            [(mel_pred, pitch, energy), (mel_target, pitch, energy)],
+            plot_stats(preprocess_config),
+            ["Synthesized Spectrogram", "Ground-Truth Spectrogram"])
+    except ImportError:
+        fig = None
+        log("matplotlib is not installed: the synthesized sample's mel "
+            "figure is not drawn")
+
+    wav_reconstruction = wav_prediction = None
+    if vocoder is not None:
+        wav_reconstruction = vocoder_infer(
+            row["mels"], vocoder, preprocess_config, lengths=[mel_len])[0]
+        # upcast first, as the JAX loop does: a bfloat16 mel would reach
+        # MelGAN's division by ln 10 and Griffin-Lim's exp in bfloat16
+        wav_prediction = vocoder_infer(
+            out.postnet_mel[:1].float(), vocoder, preprocess_config,
+            lengths=[mel_len])[0]
+    return fig, wav_reconstruction, wav_prediction
+
+
+def log_sample(logger, tag, sample, sampling_rate):
+    """A synth_one_sample result to the logger: the figure under ``tag``,
+    the wavs under ``tag``_reconstructed and ``tag``_synthesized."""
+    fig, wav_rec, wav_pred = sample
+    if fig is not None:
+        from matplotlib import pyplot as plt
+
+        logger.figure(tag, fig)
+        plt.close(fig)
+    if wav_rec is not None:
+        logger.audio(f"{tag}_reconstructed", wav_rec.astype(np.float32),
+                     sampling_rate)
+        logger.audio(f"{tag}_synthesized", wav_pred.astype(np.float32),
+                     sampling_rate)
+
+
+def _start_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _write_trace(prof, profile_dir, log):
+    """Stop the profiler of steps 11-20 (the JAX loop's window,
+    fastspeech2_tpu/training/loop.py:409-415) and write its Chrome trace."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace_steps_11-20.json")
+    prof.export_chrome_trace(path)
+    log(f"Profile of steps 11-20 written to {path}")
+
+
 def train(preprocess_config, model_config, train_config, restore_step=0,
           dtype=torch.float32, max_steps=None, log=print, device="cuda",
-          step_hook=None):
+          step_hook=None, vocoder=None, profile_dir=None):
     """The reference's main() loop (train.py:21-169) on ``device`` at the
     compute ``dtype`` (parameters and optimizer state stay float32).
 
     step_hook: called as step_hook(step, losses) after every update (for
-    measurements).  Returns (model, optimizer, step).
+    measurements).  vocoder: the synth_step duty's (None: the figure
+    only, as the JAX train CLI runs it).  profile_dir: where the trace of
+    the run's 11th to 20th steps goes.  Returns (model, optimizer, step).
     """
     device = torch.device(device)
     steps = StepConfig.build(train_config)
@@ -133,10 +238,10 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
         text_bucket=bucket_cfg.get("text", 32),
         mel_bucket=bucket_cfg.get("mel", 160))
     val_dataset = FeatureDataset("val.txt", preprocess_config)
-    logger = _TextLog(os.path.join(train_config["path"]["log_path"],
-                                   "train"))
-    val_logger = _TextLog(os.path.join(train_config["path"]["log_path"],
-                                       "val"))
+    logger = TrainLogger(os.path.join(train_config["path"]["log_path"],
+                                      "train"), log)
+    val_logger = TrainLogger(os.path.join(train_config["path"]["log_path"],
+                                          "val"), lambda line: None)
     ckpt_dir = train_config["path"]["ckpt_path"]
 
     acc = optim_cfg.grad_acc_step
@@ -147,9 +252,9 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
     if scan_step > 1:
         log(f"scan_step {scan_step}: the port runs the per-step path (the "
             "same numerics, one update per batch)")
-    if steps.synth_step <= total_step:
-        log("synth_step: the synthesized-sample duty is not ported yet; "
-            "skipped")
+    sampling_rate = preprocess_config["preprocessing"]["audio"][
+        "sampling_rate"]
+    profiler = None
 
     preempted = threading.Event()
 
@@ -166,7 +271,7 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
     t0 = t_rate = time.time()
     frames_done = 0
 
-    def run_duties(step, losses, frames):
+    def run_duties(step, losses, batch, frames):
         nonlocal frames_done, t_rate
         frames_done += frames
         if step % steps.log_step == 0:
@@ -177,12 +282,30 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
             msg = loss_line(f"Step {step}/{total_step}", vals)
             log(msg + f" ({now - t0:.1f}s, {rate:.0f} mel frames/s)")
             logger.message(msg)
+            logger.scalars(step, vals)
+        if step % steps.synth_step == 0:
+            log_sample(logger, f"Training/step_{step}_{batch['ids'][0]}",
+                       synth_one_sample(model, batch, preprocess_config,
+                                        vocoder, log), sampling_rate)
         if step % steps.val_step == 0:
             vals = evaluate(model, val_dataset, optim_cfg.batch_size, cfg,
                             device)
             msg = loss_line(f"Validation Step {step}", vals)
             log(msg)
             val_logger.message(msg)
+            val_logger.scalars(step, vals)
+            if len(val_dataset):
+                # one validation sample's figure (reference
+                # evaluate.py:57-84); the JAX loop vocodes it too and logs
+                # no wav, so it goes without the vocoder here
+                val_batch = next(iter(BucketedLoader(
+                    val_dataset, batch_size=1, group_size=1, shuffle=False,
+                    drop_last=False, max_mel_len=cfg.max_seq_len).epoch(0)))
+                log_sample(val_logger,
+                           f"Validation/step_{step}_{val_batch['ids'][0]}",
+                           synth_one_sample(model, val_batch,
+                                            preprocess_config, None, log),
+                           sampling_rate)
         if step % steps.save_step == 0:
             save_checkpoint(ckpt_dir, model, optimizer, step)
             log(f"Saved checkpoint at step {step}")
@@ -211,17 +334,26 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
                     save_checkpoint(ckpt_dir, model, optimizer, step)
                     log(f"Preemption checkpoint saved at step {step}")
                     break
+                if profile_dir and step - restore_step == 10:
+                    profiler = _start_profiler()
                 losses = train_step(model, optimizer, device_batch, step,
                                     grad_acc_step=acc)
                 step += 1
+                if profiler is not None and step - restore_step == 20:
+                    _write_trace(profiler, profile_dir, log)
+                    profiler = None
                 epoch_batches += 1
                 if step_hook is not None:
                     step_hook(step, losses)
-                run_duties(step, losses, int(batch["mel_lens"].sum()))
+                run_duties(step, losses, batch, int(batch["mel_lens"].sum()))
             epoch += 1
     finally:
+        if profiler is not None:    # the run ended inside the window
+            profiler.stop()
         for sig, prev in installed:
             signal.signal(sig, prev)
     save_checkpoint(ckpt_dir, model, optimizer, step)
+    logger.close()
+    val_logger.close()
     return model, optimizer, step
 

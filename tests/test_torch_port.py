@@ -45,6 +45,7 @@ def test_imports_without_jax():
             "sys.modules['flax'] = None\n"
             "sys.modules['fastspeech2_tpu'] = None\n"
             "sys.modules['matplotlib'] = None\n"
+            "sys.modules['tensorboardX'] = None\n"
             "import fastspeech2_tpu_torch\n"
             "import fastspeech2_tpu_torch.cli.synthesize_cli\n"
             "import fastspeech2_tpu_torch.cli.train_cli\n"
@@ -71,6 +72,20 @@ def test_imports_without_jax():
             "import fastspeech2_tpu_torch.text.pinyin_g2p\n"
             "import fastspeech2_tpu_torch.synthesis.plotting\n"
             "import fastspeech2_tpu_torch.synthesis.pipeline\n"
+            "import fastspeech2_tpu_torch.audio.wav\n"
+            "import fastspeech2_tpu_torch.audio.dio\n"
+            "import fastspeech2_tpu_torch.audio.f0\n"
+            "import fastspeech2_tpu_torch.preprocessing.textgrid\n"
+            "import fastspeech2_tpu_torch.preprocessing.corpora\n"
+            "import fastspeech2_tpu_torch.preprocessing.mfa\n"
+            "import fastspeech2_tpu_torch.preprocessing.preprocessor\n"
+            "import fastspeech2_tpu_torch.align.features\n"
+            "import fastspeech2_tpu_torch.align.aligner\n"
+            "import fastspeech2_tpu_torch.align.textgrid_writer\n"
+            "import fastspeech2_tpu_torch.cli.preprocess_cli\n"
+            "import fastspeech2_tpu_torch.cli.align_cli\n"
+            "import fastspeech2_tpu_torch.utils.logging\n"
+            "import fastspeech2_tpu_torch.tools.readme_reference\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
             "'fastspeech2_tpu.')) for m in sys.modules if sys.modules[m])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
