@@ -86,7 +86,27 @@ exits non-zero):
              its duties and evaluate --synth launched again and held
              against the plain version;
 14. kernels  one JSON line describing K1, K2, K3 and K4 and the bfloat16
-             instances of K1, K2 and K3.
+             instances of K1, K2 and K3, with their launches on every
+             driven path, phase 15's included;
+15. vocoder  vocoder training at full width on phase 13's features (run
+             before phase 14's line): export_mels through its CLI (10 K1 +
+             10 K2 per forward, each forward's mel against the plain
+             versions to MEL_ATOL, 10 files of [mel_len, 80]; again at
+             bfloat16, bfloat16 instances only); VOC_STEPS GAN steps
+             through the train_vocoder CLI on the documented recipe
+             (config_istft.json, --init_gen_npz, --mel_source mixed,
+             --mel_weight 135, batch 16 x 8192, the default MPD and MSD):
+             finite losses, no kernel launch in a GAN step, the step's
+             median time and the peak memory; a resume for
+             VOC_RESUME_STEPS steps in a torch.profiler window (kernel time
+             by group, the device's busy share); the parity, MelGAN,
+             gt_wav-with-augmentation and scan modes briefly; two
+             trainings from one seed bitwise equal; the README sentence
+             through the synthesize CLI on the trained checkpoint (6 K4,
+             the wav against the plain ResBlocks to WAV_ATOL), its lean
+             export (the same wav bit for bit), and phase 13's acoustic
+             checkpoint through export_cli and --torch_ckpt (the
+             --restore_step wav bit for bit).
 
 The bfloat16 instances (--dtype bfloat16, the JAX train CLI's default) run
 through the same script: the build reports their registers, spills and
@@ -182,6 +202,21 @@ PREP_FEATURE_TOL = 1e-4
 F0_VOICING_SHARE = 0.99
 PREP_STEPS = 20
 PREP_SYNTH_STEP = 10
+# vocoder training (phase 15) at full width, the CLI's defaults (batch 16,
+# 8192-sample segments) on the documented fine-tuning recipe: C8C8I at 512
+# channels from the tracked snapshot, the default MPD and MSD, mixed mels
+VOC_CONFIG = "fastspeech2_tpu_torch/configs/hifigan/config_istft.json"
+VOC_PARITY_CONFIG = "fastspeech2_tpu_torch/configs/hifigan/config.json"
+VOC_MELGAN_CONFIG = "fastspeech2_tpu_torch/configs/hifigan/config_melgan.json"
+VOC_MEL_WEIGHT = 135
+VOC_BATCH, VOC_SEGMENT = 16, 8192
+VOC_STEPS = 20
+# the resumed run's steps, all inside one torch.profiler window
+VOC_RESUME_STEPS = 5
+# the other generator families and modes, briefly
+VOC_BRIEF_STEPS = 3
+VOC_SCAN_STEP, VOC_SCAN_TOTAL = 5, 10
+VOC_REPRO_STEPS = 5
 # training: the decoder's and encoder's L at LJSpeech lengths
 TRAIN_BATCH = 10
 TRAIN_STEPS = 20
@@ -1054,16 +1089,18 @@ def _boundaries(tier, sr, hop):
     return [int(round(iv.end_time * sr / hop)) for iv in tier.intervals[:-1]]
 
 
-def data_preparation(device, card):
-    """The data-preparation phase on the card, from the tracked raw clips
-    to a trained step and the synthesized samples: the align CLI's
+def data_preparation(device, card, tmp):
+    """The data-preparation phase on the card, in the directory ``tmp``,
+    from the tracked raw clips to a trained step and the synthesized
+    samples: the align CLI's
     align_corpus, the preprocess CLI (on the tracked TextGrids; also on
     the CPU, and DIO alone on both), PREP_STEPS steps through the train
     CLI at its default dtype on those features with the synth_step duty
     and --profile_dir, and evaluate --synth on the last checkpoint.  Each
     driven path has the launch counts set to 0 just before and read just
     after.  Raises on a failed gate -> {"launches": {path: counts},
-    "timings": {...}}."""
+    "timings": {...}, "features": the card's preprocess yaml, the train
+    yaml and the step of the acoustic checkpoint it wrote}."""
     import copy
     import shutil
 
@@ -1098,8 +1135,7 @@ def data_preparation(device, card):
         torch.cuda.synchronize()
         return time.perf_counter()
 
-    with tempfile.TemporaryDirectory() as tmp, \
-            contextlib.ExitStack() as recording:
+    with contextlib.ExitStack() as recording:
         raw = os.path.join(tmp, "raw")
         shutil.copytree(PREP_RAW, os.path.join(raw, "LJSpeech"))
 
@@ -1481,6 +1517,458 @@ def data_preparation(device, card):
             raise RuntimeError(f"[prep evaluate] losses {losses}")
         recording.close()
         check_recorded_inputs(seen, "prep kernels", card)
+    return dict(launches=launches, timings=timings, features=dict(
+        preprocess_yaml=card_yaml, train_yaml=train_yaml,
+        step=PREP_STEPS))
+
+
+def _kernel_group(name):
+    """A device kernel's group in the GAN step's breakdown."""
+    low = name.lower()
+    if "multi_tensor" in low or "foreach" in low:
+        return "optimizer (foreach AdamW)"
+    if "fft" in low:
+        return "cuFFT (STFT)"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "implicit",
+                              "wgrad", "dgrad", "winograd", "cutlass")):
+        return "cuDNN convolutions and cuBLAS GEMMs"
+    return "elementwise, reductions and copies"
+
+
+def _merged_us(intervals):
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def vocoder_training(device, card, features, tmp):
+    """Phase 15, vocoder training at full width on phase 13's features (the
+    tracked clips preprocessed on the card, trimmed wavs kept): export_mels
+    through its CLI at float32 and bfloat16, VOC_STEPS GAN steps through
+    the train_vocoder CLI on the documented recipe, a resume under
+    torch.profiler, the other generator families and modes briefly, two
+    trainings from one seed, and synthesis from the trained vocoder, its
+    lean export and phase 13's exported acoustic checkpoint.  Each driven
+    path has the launch counts set to 0 just before and read just after.
+    Raises on a failed gate -> {"launches": {path: counts}, "timings":
+    {...}}."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fastspeech2_tpu_torch.cli import (
+        export_cli,
+        export_mels_cli,
+        train_vocoder_cli,
+    )
+    from fastspeech2_tpu_torch.configs.config import load_yaml_configs
+    from fastspeech2_tpu_torch.models import transformer
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.models.hifigan import ResBlock
+    from fastspeech2_tpu_torch.ops import cuda_ffn
+    from fastspeech2_tpu_torch.ops.attention import multi_head_attention
+    from fastspeech2_tpu_torch.synthesis.vocoder import get_vocoder
+    from fastspeech2_tpu_torch.training import vocoder as voc
+
+    pre_yaml, train_yaml = features["preprocess_yaml"], features["train_yaml"]
+    with open(pre_yaml) as f:
+        corpus = yaml.safe_load(f)["path"]["preprocessed_path"]
+    launches, timings = {}, {}
+    none = {k: 0 for k in launch_counts()}
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # 1. export_mels through its CLI's main, teacher-forced on durations:
+    #    each acoustic forward recorded with its launches, then run again
+    #    with the plain K1/K2; bfloat16 first, so that mel_pred/ holds the
+    #    float32 mels the training reads
+    mel_dir, pred_dir = (os.path.join(corpus, d) for d in ("mel", "mel_pred"))
+    for dtype in ("bfloat16", "float32"):
+        calls = []
+        inner = FastSpeech2.forward
+
+        def forward(self, *args, **kwargs):
+            before = launch_counts()
+            out = inner(self, *args, **kwargs)
+            after = launch_counts()
+            calls.append(dict(model=self, args=args, kwargs=kwargs, out=out,
+                              launches={k: after[k] - before[k]
+                                        for k in after}))
+            return out
+
+        FastSpeech2.forward = forward
+        printed = io.StringIO()
+        zero_counts()
+        t0 = synced()
+        try:
+            with contextlib.redirect_stdout(printed):
+                written = export_mels_cli.main([
+                    "-p", pre_yaml, "-m", f"{CONFIG}/model.yaml",
+                    "-t", train_yaml, "--weights_npz", ACOUSTIC_NPZ,
+                    "--teacher_force", "d", "--dtype", dtype])
+        finally:
+            FastSpeech2.forward = inner
+        timings[f"export_mels_{dtype}_s"] = synced() - t0
+        path = f"export_mels {dtype}"
+        launches[path] = launch_counts()
+        names = sorted(os.listdir(pred_dir))
+        shapes_ok = all(
+            np.load(os.path.join(pred_dir, n)).shape
+            == np.load(os.path.join(mel_dir, n)).shape
+            and np.load(os.path.join(pred_dir, n)).shape[1] == 80
+            for n in names)
+        per_forward = dict(none, **({"K1": 10, "K2": 10} if dtype == "float32"
+                                    else {"K1_bf16": 10, "K2_bf16": 10}))
+        mel_errs = []
+        if dtype == "float32":
+            saved = transformer.fused_attention, transformer.fused_conv_ffn
+            transformer.fused_attention = multi_head_attention
+            transformer.fused_conv_ffn = cuda_ffn.plain_conv_ffn
+            try:
+                with torch.inference_mode():
+                    for c in calls:
+                        plain = c["model"](*c["args"], **c["kwargs"])
+                        mel_errs.append((c["out"].postnet_mel
+                                         - plain.postnet_mel).abs().max()
+                                        .item())
+            finally:
+                (transformer.fused_attention,
+                 transformer.fused_conv_ffn) = saved
+        finite = all(torch.isfinite(c["out"].postnet_mel).all()
+                     for c in calls)
+        say(f"[vocoder export_mels] python -m fastspeech2_tpu_torch.cli."
+            f"export_mels_cli --teacher_force d --dtype {dtype} over "
+            f"train.txt of the card's features: {written} mels written, "
+            f"{len(names)} files in mel_pred/ of [mel_len, 80] each equal to "
+            f"the ground-truth mel's shape: {shapes_ok}; {len(calls)} "
+            f"forward(s) at (batch, frames) "
+            f"{[tuple(c['out'].postnet_mel.shape[:2]) for c in calls]}, "
+            f"launches per forward "
+            f"{[{k: v for k, v in c['launches'].items() if v} for c in calls]}"
+            + (f", each forward's mel against the same forward with the "
+               f"plain K1/K2 max_abs_diff {[f'{e:.3e}' for e in mel_errs]} "
+               f"(tolerance {MEL_ATOL:g})" if mel_errs else "")
+            + f"; {timings[f'export_mels_{dtype}_s']:.2f} s for the CLI's "
+            f"main (load, features, forwards, files) on {card}")
+        if not (written == len(names) == 10 and shapes_ok and finite
+                and calls and all(c["launches"] == per_forward
+                                  for c in calls)):
+            raise RuntimeError(f"[vocoder export_mels] {dtype}: {written} "
+                               f"written, launches "
+                               f"{[c['launches'] for c in calls]}")
+        if not all(e <= MEL_ATOL for e in mel_errs):
+            raise RuntimeError("[vocoder export_mels] the kernel forward's "
+                               "mel disagrees with the plain versions'")
+        del calls
+
+    # 2. the GAN steps through the train_vocoder CLI's main; every step
+    #    timed (device synchronised), its launches and losses recorded
+    steps = []
+    inner_make = voc.make_vocoder_train_step
+
+    def make(*args, **kwargs):
+        step = inner_make(*args, **kwargs)
+
+        def recorded(state, *a, **kw):
+            with record_function("vocoder_gan_step"):
+                before, t0 = launch_counts(), synced()
+                state, losses = step(state, *a, **kw)
+                end = synced()
+            after = launch_counts()
+            steps.append(dict(ms=(end - t0) * 1e3, launches={
+                k: after[k] - before[k] for k in after},
+                losses={k: float(v) for k, v in losses.items()}))
+            return state, losses
+        return recorded
+
+    def train(name, argv):
+        """train_vocoder_cli.main(argv) with the counts set to 0 just
+        before -> (its state, its printed lines, its steps)."""
+        steps.clear()
+        printed = io.StringIO()
+        voc.make_vocoder_train_step = make
+        zero_counts()
+        t0 = synced()
+        try:
+            with contextlib.redirect_stdout(printed):
+                state = train_vocoder_cli.main(argv)
+        finally:
+            voc.make_vocoder_train_step = inner_make
+        timings[f"{name}_s"] = synced() - t0
+        launches[f"vocoder {name}"] = launch_counts()
+        lines = printed.getvalue().splitlines()
+        recorded = list(steps)
+        bad = [r for r in recorded if r["launches"] != none
+               or not all(map(math.isfinite, r["losses"].values()))]
+        if not recorded or bad:
+            raise RuntimeError(f"[vocoder {name}] steps with a kernel "
+                               f"launch or a loss not finite: {bad[:3]}")
+        return state, lines, recorded
+
+    out_dir = os.path.join(tmp, "vocoder")
+    recipe = ["--finetune_from", corpus, "--mel_source", "mixed",
+              "--config", VOC_CONFIG, "--init_gen_npz", VOCODER_NPZ,
+              "--mel_weight", str(VOC_MEL_WEIGHT), "--log_step", "1",
+              "--batch_size", str(VOC_BATCH),
+              "--segment_size", str(VOC_SEGMENT)]
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    state, lines, main_steps = train("train", recipe + [
+        "--out_dir", out_dir, "--total_steps", str(VOC_STEPS),
+        "--save_step", str(VOC_STEPS)])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_gen = sum(p.numel() for p in state.gen.parameters())
+    n_disc = sum(p.numel() for p in state.disc.parameters())
+    widths = (state.gen.conv_pre.out_channels,
+              [len(d.convs) for d in state.disc.mpd.discriminators],
+              len(state.disc.msd.discriminators))
+    del state
+    log_lines = [ln for ln in lines if ln.startswith("Vocoder step")]
+    timings["step_ms"] = statistics.median(r["ms"] for r in main_steps[1:])
+    first, last = main_steps[0]["losses"], main_steps[-1]["losses"]
+    say(f"[vocoder train] python -m fastspeech2_tpu_torch.cli."
+        f"train_vocoder_cli --finetune_from <card features> --mel_source "
+        f"mixed --config {VOC_CONFIG} --init_gen_npz {VOCODER_NPZ} "
+        f"--mel_weight {VOC_MEL_WEIGHT} (batch {VOC_BATCH} x {VOC_SEGMENT} "
+        f"samples, C8C8I "
+        f"conv_pre {widths[0]} channels, {n_gen} generator and {n_disc} "
+        f"discriminator parameters, MPD periods 2-11 with "
+        f"{widths[1][0]}-conv stacks, MSD {widths[2]} scales): "
+        f"{len(main_steps)} steps in {timings['train_s']:.2f} s, median "
+        f"{timings['step_ms']:.2f} ms per GAN step over steps "
+        f"2-{len(main_steps)} (host clock, device synchronised; min "
+        f"{min(r['ms'] for r in main_steps[1:]):.2f}, first step "
+        f"{main_steps[0]['ms']:.2f}); peak device memory {peak_gib:.2f} GiB "
+        f"({peak_gib - base_gib:.2f} above the {base_gib:.2f} held before); "
+        f"losses at step 1 "
+        f"{ {k: round(v, 4) for k, v in first.items()} }, at step "
+        f"{len(main_steps)} {({k: round(v, 4) for k, v in last.items()})}; "
+        f"kernel launches per step {main_steps[0]['launches']} (K4 is "
+        f"inference-only: the trainer's ResBlocks are plain); "
+        f"{len(log_lines)} log lines, the last {log_lines[-1]!r} on {card}")
+    if len(main_steps) != VOC_STEPS or len(log_lines) != VOC_STEPS:
+        raise RuntimeError(f"[vocoder train] {len(main_steps)} steps, "
+                           f"{len(log_lines)} log lines")
+    if not os.path.exists(os.path.join(out_dir, f"{VOC_STEPS}.pth.tar")):
+        raise RuntimeError("[vocoder train] no checkpoint written")
+    timings["peak_gib"] = peak_gib
+
+    # ... resumed for VOC_RESUME_STEPS more steps inside a torch.profiler
+    #     window: each kernel's device time by group, the device's busy
+    #     share within the steps and over the window
+    total = VOC_STEPS + VOC_RESUME_STEPS
+    trace = os.path.join(tmp, "vocoder_trace.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, lines, resumed = train("resume", recipe + [
+            "--out_dir", out_dir, "--total_steps", str(total),
+            "--save_step", str(total)])
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(trace)
+    resumed_step = state.step
+    del state
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == "vocoder_gan_step"
+                   and e.get("cat") == "user_annotation")
+    kernel_events = [(e["ts"], e["ts"] + e["dur"], e.get("name", ""),
+                      e.get("args", {}).get("stream"))
+                     for e in events if e.get("cat") == "kernel"]
+    kernels = sorted({k[:3] for k in kernel_events})
+    # kernels per stream inside the steps: (launches, ms per step)
+    by_stream = {}
+
+    def inside(a):
+        return any(s <= a <= e for s, e in spans)
+
+    in_steps = [k for k in kernels if inside(k[0])]
+    for a, b, _, stream in kernel_events:
+        if inside(a):
+            v = by_stream.setdefault(str(stream), [0, 0.0])
+            v[0] += 1
+            v[1] += (b - a) / 1e3 / max(len(spans), 1)
+    groups = {}
+    for a, b, name in in_steps:
+        g = groups.setdefault(_kernel_group(name), [0, 0.0])
+        g[0] += 1
+        g[1] += (b - a) / 1e3 / max(len(spans), 1)
+    step_us = sum(e - s for s, e in spans)
+    busy_steps = _merged_us([(a, b) for a, b, _ in in_steps]) / max(
+        step_us, 1e-9)
+    window_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    busy_window = _merged_us([(a, b) for a, b, _ in kernels
+                              if spans and spans[0][0] <= a <= spans[-1][1]]
+                             ) / max(window_us, 1e-9)
+    kernel_ms = sum(v[1] for v in groups.values())
+    union_ms = _merged_us([(a, b) for a, b, _ in in_steps]) / 1e3 / max(
+        len(spans), 1)
+    timings.update(resume_step_ms=statistics.median(
+        r["ms"] for r in resumed), profiled_kernel_ms=kernel_ms,
+        profiled_union_ms=union_ms, busy_share=busy_steps, busy_share_window=busy_window,
+        kernel_groups={k: dict(launches=v[0] / max(len(spans), 1), ms=v[1])
+                       for k, v in groups.items()})
+    say(f"[vocoder resume] train_vocoder_cli to --total_steps {total} on "
+        f"the same --out_dir: {lines[0]!r}, trained to step {resumed_step} "
+        f"({len(resumed)} steps, median {timings['resume_step_ms']:.2f} ms "
+        f"each under torch.profiler); per GAN step in that window, "
+        f"{kernel_ms:.2f} ms of device kernels summed, {union_ms:.2f} ms "
+        f"of device time covered by a kernel ({len(kernel_events)} kernel "
+        f"events, {len(kernel_events) - len(kernels)} duplicates dropped; "
+        f"per stream (launches, ms) "
+        f"{({k: (v[0], round(v[1], 3)) for k, v in sorted(by_stream.items(), key=lambda kv: -kv[1][1])})}"
+        f"), by group (launches, ms) "
+        f"{({k: (round(v['launches'], 1), round(v['ms'], 3)) for k, v in timings['kernel_groups'].items()})}; "
+        f"device busy {100 * busy_steps:.1f}% of the steps' time "
+        f"({len(spans)} steps, {step_us / 1e3:.2f} ms), "
+        f"{100 * busy_window:.1f}% from the first step's start to the "
+        f"last's end (the loop's sampling and logging between steps "
+        f"included) on {card}")
+    if not (lines[0] == f"Resumed vocoder training from step {VOC_STEPS}"
+            and resumed_step == total and len(resumed) == VOC_RESUME_STEPS
+            and len(spans) == VOC_RESUME_STEPS and in_steps):
+        raise RuntimeError(f"[vocoder resume] {lines[:2]}, step "
+                           f"{resumed_step}, {len(spans)} traced steps")
+
+    # 3. the other generator families and modes, briefly
+    brief = {
+        "parity": ["--config", VOC_PARITY_CONFIG, "--mel_source", "mixed"],
+        "melgan": ["--config", VOC_MELGAN_CONFIG, "--mel_source", "mixed",
+                   "--init_gen_npz", MELGAN_NPZ],
+        "gt_wav augmented": ["--config", VOC_CONFIG, "--mel_source",
+                             "gt_wav", "--aug_gain_db", "6", "--aug_speed",
+                             "0.9,1.1"],
+        "scan": ["--config", VOC_CONFIG, "--mel_source", "mixed",
+                 "--scan_step", str(VOC_SCAN_STEP)],
+    }
+    for name, extra in brief.items():
+        n = VOC_SCAN_TOTAL if name == "scan" else VOC_BRIEF_STEPS
+        log_step = VOC_SCAN_STEP if name == "scan" else 1
+        run_dir = os.path.join(tmp, f"vocoder_{name.split()[0]}")
+        state, lines, run = train(name, [
+            "--finetune_from", corpus, "--out_dir", run_dir,
+            "--total_steps", str(n), "--log_step", str(log_step),
+            "--save_step", str(n), "--batch_size", str(VOC_BATCH),
+            "--segment_size", str(VOC_SEGMENT)] + extra)
+        kind = type(state.gen).__name__
+        del state
+        shutil.rmtree(run_dir)
+        logged = [ln for ln in lines if ln.startswith("Vocoder step")]
+        say(f"[vocoder {name}] {' '.join(extra)}: {kind}, {len(run)} steps, "
+            f"median {statistics.median(r['ms'] for r in run):.2f} ms per "
+            f"step; {len(logged)} log lines, the last {logged[-1]!r}"
+            + (f"; {lines[0]!r}" if name == "scan" else "")
+            + f"; kernel launches {launches[f'vocoder {name}']} on {card}")
+        if len(run) != n or len(logged) != n // log_step or (
+                name == "scan" and not lines[0].startswith(
+                    "vocoder scan mode:")):
+            raise RuntimeError(f"[vocoder {name}] {len(run)} steps, lines "
+                               f"{lines[:3]}")
+
+    # 4. two trainings of VOC_REPRO_STEPS steps from one seed
+    params = []
+    for run in range(2):
+        run_dir = os.path.join(tmp, f"vocoder_repro{run}")
+        state, _, _ = train("repro", recipe + [
+            "--out_dir", run_dir, "--total_steps", str(VOC_REPRO_STEPS),
+            "--save_step", str(VOC_REPRO_STEPS)])
+        params.append({f"{net}.{k}": v.detach().clone() for net, module in
+                       (("gen", state.gen), ("disc", state.disc))
+                       for k, v in module.state_dict().items()})
+        del state
+        shutil.rmtree(run_dir)
+    diffs = {k: (params[0][k] - params[1][k]).abs().max().item()
+             for k in params[0]}
+    repro_diff = max(diffs.values())
+    say(f"[vocoder repro] {VOC_REPRO_STEPS} GAN steps twice from one seed "
+        f"through train_vocoder_cli (cuDNN deterministic, TF32 off): max "
+        f"|parameter difference| {repro_diff:.3e} over {len(diffs)} tensors "
+        f"of both networks ({sum(v > 0 for v in diffs.values())} differ)")
+    if repro_diff != 0.0:
+        raise RuntimeError("[vocoder repro] two trainings from one seed "
+                           "differ")
+    del params
+
+    # 5. synthesis from the trained vocoder through the synthesize CLI, its
+    #    lean export, and phase 13's acoustic checkpoint exported
+    ckpt = os.path.join(out_dir, f"{total}.pth.tar")
+    lean = os.path.join(tmp, "generator_lean.pth.tar")
+    acoustic = os.path.join(tmp, "acoustic_export.pth.tar")
+    result = os.path.join(tmp, "vocoder_result")
+
+    def synth(vocoder_ckpt, acoustic_args, pre=f"{CONFIG}/preprocess.yaml",
+              train=f"{CONFIG}/train.yaml"):
+        return drive_cli(["--mode", "single", "--text", README_SENTENCE,
+                          "--vocoder_ckpt", vocoder_ckpt, "-p", pre,
+                          "-m", f"{CONFIG}/model.yaml", "-t", train,
+                          "--result_path", result] + acoustic_args)
+
+    (wavs, out, _), synth_launches, _, _, synth_s = synth(
+        ckpt, ["--weights_npz", ACOUSTIC_NPZ])
+    launches["vocoder synthesis"] = synth_launches
+    preprocess_config, model_config, _ = load_yaml_configs(
+        f"{CONFIG}/preprocess.yaml", f"{CONFIG}/model.yaml",
+        f"{CONFIG}/train.yaml")
+    vocoder = get_vocoder(model_config, preprocess_config, ckpt, device)
+    blocks = [m for m in vocoder.modules() if isinstance(m, ResBlock)]
+    with torch.inference_mode():
+        fused = vocoder(out.postnet_mel.float())
+        for m in blocks:
+            m.fused = False
+        plain = vocoder(out.postnet_mel.float())
+    wav_err = (fused - plain).abs().max().item()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        export_cli.main(["--vocoder_ckpt", ckpt, "-o", lean])
+        export_cli.main(["--restore_step", str(features["step"]), "-p",
+                         pre_yaml, "-m", f"{CONFIG}/model.yaml", "-t",
+                         train_yaml, "-o", acoustic])
+    (lean_wavs, _, _), _, _, _, _ = synth(lean,
+                                          ["--weights_npz", ACOUSTIC_NPZ])
+    (exp_wavs, _, _), exp_launches, _, _, _ = synth(
+        ckpt, ["--torch_ckpt", acoustic], pre=pre_yaml, train=train_yaml)
+    (ref_wavs, _, _), _, _, _, _ = synth(
+        ckpt, ["--restore_step", str(features["step"])], pre=pre_yaml,
+        train=train_yaml)
+    sizes = {os.path.basename(p): os.path.getsize(p) / 1e6
+             for p in (ckpt, lean, acoustic)}
+    say(f"[vocoder synthesis] the README sentence through the synthesize "
+        f"CLI with --vocoder_ckpt <out_dir>/{total}.pth.tar: {len(wavs[0])} "
+        f"samples, launches {synth_launches}, {synth_s:.2f} s; the trained "
+        f"vocoder's wav with K4 against its plain ResBlocks "
+        f"max_abs_diff={wav_err:.3e} (tolerance {WAV_ATOL:g}); "
+        f"{printed.getvalue().splitlines()[0]!r}; the lean export's wav "
+        f"equal bit for bit: {np.array_equal(lean_wavs[0], wavs[0])}; "
+        f"export_cli --restore_step {features['step']} on phase 13's "
+        f"acoustic checkpoint read through --torch_ckpt: wav equal bit for "
+        f"bit to --restore_step's: {np.array_equal(exp_wavs[0], ref_wavs[0])} "
+        f"(launches {exp_launches}); file sizes (MB) "
+        f"{({k: round(v, 1) for k, v in sizes.items()})} on {card}")
+    if synth_launches != dict(none, K1=10, K2=10, K4=6):
+        raise RuntimeError(f"[vocoder synthesis] launches {synth_launches}, "
+                           "expected 10 K1 + 10 K2 + 6 K4")
+    if not (wav_err <= WAV_ATOL and torch.isfinite(fused).all()
+            and np.abs(wavs[0].astype(np.int32)).max() > 0):
+        raise RuntimeError("[vocoder synthesis] the trained vocoder's K4 "
+                           "wav disagrees with its plain ResBlocks")
+    if not np.array_equal(lean_wavs[0], wavs[0]):
+        raise RuntimeError("[vocoder synthesis] the lean export's wav "
+                           "differs from the train state's")
+    if not (np.array_equal(exp_wavs[0], ref_wavs[0])
+            and exp_launches["K4"] == 6):
+        raise RuntimeError("[vocoder synthesis] the exported acoustic "
+                           "checkpoint's wav differs")
+    timings["synthesis_s"] = synth_s
     return dict(launches=launches, timings=timings)
 
 
@@ -2593,8 +3081,12 @@ def main():
             raise RuntimeError("two bfloat16 trainings from one seed differ")
 
     # 13. data preparation: align, preprocess, train with the duties and
-    #     evaluate --synth on the tracked clips
-    prep = data_preparation(device, card)
+    #     evaluate --synth on the tracked clips; 15. vocoder training on
+    #     those features (before phase 14's line, which counts its launches)
+    with tempfile.TemporaryDirectory() as prep_tmp:
+        prep = data_preparation(device, card, prep_tmp)
+        voc = vocoder_training(device, card, prep["features"], prep_tmp)
+    path_launches = dict(prep["launches"], **voc["launches"])
 
     # 14. kernels line
     sources = {"K1": ("fused_attention", "fastspeech2_tpu_torch/csrc/attention.cu",
@@ -2645,7 +3137,7 @@ def main():
                                     options["launches"].items()},
                                  "training": train_launches[name],
                                  **{path: n[name] for path, n in
-                                    prep["launches"].items()}}})
+                                    path_launches.items()}}})
     # K4: the sums over the 12 calls of one 1000-frame parity forward
     kernels.append({
         "name": "K4 fused_resblock", "route": "cuda",
@@ -2670,7 +3162,7 @@ def main():
                                 options["launches"].items()},
                              "training": train_launches["K4"],
                              **{path: n["K4"] for path, n in
-                                prep["launches"].items()}}})
+                                path_launches.items()}}})
     # the bfloat16 instances: launches on the bfloat16 synthesis path (K1
     # and K2, one acoustic forward) and the bfloat16 training path (K3,
     # TRAIN_STEPS steps)
@@ -2697,7 +3189,7 @@ def main():
                 "bf16 synthesis": b_launches[f"{name}_bf16"],
                 "bf16 training": bf_totals[f"{name}_bf16"],
                 **{path: n[f"{name}_bf16"] for path, n in
-                   prep["launches"].items()}}})
+                   path_launches.items()}}})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,20 @@ def _hann(win_length, n_fft):
 @functools.lru_cache(maxsize=None)
 def _window(win_length, n_fft, device):
     """The window on ``device``, made once: a copy from the host in every
-    STFT would make the host wait for the card each time."""
-    return torch.as_tensor(_hann(win_length, n_fft), device=device)
+    STFT would make the host wait for the card each time.  It is made
+    outside inference mode even when first asked for inside it, so a
+    later STFT that autograd differentiates (vocoder training) can save
+    it for its backward."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_hann(win_length, n_fft), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mel_basis(sampling_rate, n_fft, n_mels, fmin, fmax, device):
+    """The filterbank on ``device``, made once, as :func:`_window` is."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(mel_filterbank(sampling_rate, n_fft, n_mels,
+                                              fmin, fmax), device=device)
 
 
 def frame_signal(y, n_fft, hop_length):
@@ -83,9 +95,9 @@ class MelSpectrogram:
     mel_fmax: float = 8000.0
 
     def mel_basis(self, device="cpu"):
-        return torch.as_tensor(mel_filterbank(
-            self.sampling_rate, self.filter_length, self.n_mel_channels,
-            self.mel_fmin, self.mel_fmax), device=device)
+        return _mel_basis(self.sampling_rate, self.filter_length,
+                          self.n_mel_channels, self.mel_fmin, self.mel_fmax,
+                          torch.device(device))
 
     def __call__(self, y):
         """y: [B, T] in [-1, 1] -> (mel [B, n_mels, F], energy [B, F])."""

@@ -13,7 +13,8 @@ CUDA, the plain version on the CPU.  The JAX package resolves its
 ``resblock_backend="auto"`` to XLA from a TPU v5e measurement
 (``hifigan.py:52-63``); the port sends the parity generator, and the
 iSTFT generators (``models/hifigan_istft.py``), to K4 on the H100, where
-it is faster than cuDNN's chain of float32 convs (PERF.md).
+it is faster than cuDNN's chain of float32 convs (PERF.md).  Training
+builds them with ``fused=False`` (K4 is inference-only).
 """
 
 import torch
@@ -113,20 +114,23 @@ def run_stages(x, ups, resblocks):
 class HiFiGANGenerator(nn.Module):
     """The parity generator.  Module names follow the reference HiFi-GAN
     state dict: conv_pre, ups.{i}, resblocks.{i}.convs{1,2}.{j},
-    conv_post."""
+    conv_post.  ``fused`` (the default) sends the ResBlocks through K4;
+    the vocoder trainer builds with ``fused=False``, the plain ResBlocks
+    autograd differentiates, as the JAX trainer pins its ResBlocks to XLA
+    (``fastspeech2_tpu/training/vocoder.py:472-476``)."""
 
     def __init__(self, upsample_rates=(8, 8, 2, 2),
                  upsample_kernel_sizes=(16, 16, 4, 4),
                  upsample_initial_channel=512,
                  resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-                 n_mel_channels=80):
+                 n_mel_channels=80, fused=True):
         super().__init__()
         self.conv_pre = nn.Conv1d(n_mel_channels, upsample_initial_channel, 7,
                                   padding=3)
         self.ups, self.resblocks, ch = build_stages(
             upsample_rates, upsample_kernel_sizes, upsample_initial_channel,
-            resblock_kernel_sizes, resblock_dilation_sizes, fused=True)
+            resblock_kernel_sizes, resblock_dilation_sizes, fused=fused)
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
 
     def forward(self, mel):

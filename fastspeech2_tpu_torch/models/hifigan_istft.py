@@ -69,12 +69,14 @@ def overlap_add_istft(real, imag, n_fft, hop):
 
 class HiFiGANiSTFTGenerator(nn.Module):
     """Module names follow the reference HiFi-GAN state dict: conv_pre,
-    ups.{i}, resblocks.{i}.convs{1,2}.{j}, conv_post."""
+    ups.{i}, resblocks.{i}.convs{1,2}.{j}, conv_post.  ``fused``: K4
+    ResBlocks (the default) or the plain ones, which training uses."""
 
     def __init__(self, upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
                  upsample_initial_channel=512, resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-                 gen_istft_n_fft=16, gen_istft_hop_size=4, n_mel_channels=80):
+                 gen_istft_n_fft=16, gen_istft_hop_size=4, n_mel_channels=80,
+                 fused=True):
         super().__init__()
         self.n_fft = gen_istft_n_fft
         self.hop = gen_istft_hop_size
@@ -86,7 +88,7 @@ class HiFiGANiSTFTGenerator(nn.Module):
         # float32 convs at these shapes (PERF.md)
         self.ups, self.resblocks, ch = build_stages(
             upsample_rates, upsample_kernel_sizes, upsample_initial_channel,
-            resblock_kernel_sizes, resblock_dilation_sizes, fused=True)
+            resblock_kernel_sizes, resblock_dilation_sizes, fused=fused)
         n_bins = self.n_fft // 2 + 1
         self.conv_post = nn.Conv1d(ch, 2 * n_bins, 7, padding=3)
 

@@ -12,7 +12,9 @@
   pseudo-inverse of the mel filterbank, the JAX package's weights-free
   fallback.
 
-Weights come from a tracked npz snapshot or a reference ``.pth.tar``;
+Weights come from a tracked npz snapshot, a reference ``.pth.tar``, or the
+port's own vocoder checkpoint (the train state of
+``training/vocoder.py`` or its lean export by ``cli/export_cli.py``);
 ``vocoder_infer`` scales to int16 and trims each waveform to
 mel_len * hop_length (reference utils/model.py:74-92).  MelGAN's and
 Griffin-Lim's convolutions and FFTs are cuDNN and cuFFT calls: the JAX
@@ -52,22 +54,48 @@ CONFIGS = {
 RANDOM_INIT_SEED = 0
 
 
-def build_generator(config):
-    """The parity generator, or the iSTFT one when the config has
-    ``gen_istft_n_fft``."""
-    common = dict(
-        upsample_rates=tuple(config["upsample_rates"]),
-        upsample_kernel_sizes=tuple(config["upsample_kernel_sizes"]),
-        upsample_initial_channel=config["upsample_initial_channel"],
-        resblock_kernel_sizes=tuple(config["resblock_kernel_sizes"]),
-        resblock_dilation_sizes=tuple(
-            tuple(d) for d in config["resblock_dilation_sizes"]),
-        n_mel_channels=config["num_mels"])
-    if "gen_istft_n_fft" not in config:
-        return HiFiGANGenerator(**common)
-    return HiFiGANiSTFTGenerator(
-        gen_istft_n_fft=config["gen_istft_n_fft"],
-        gen_istft_hop_size=config["gen_istft_hop_size"], **common)
+# the generator-config keys each family's constructor takes (the upstream
+# config.json schema; ``num_mels`` is passed as n_mel_channels)
+_HIFIGAN_KEYS = ("upsample_rates", "upsample_kernel_sizes",
+                 "upsample_initial_channel", "resblock_kernel_sizes",
+                 "resblock_dilation_sizes")
+_ISTFT_KEYS = ("gen_istft_n_fft", "gen_istft_hop_size")
+_MELGAN_KEYS = ("upsample_rates", "ngf", "n_residual_layers")
+# every key of a config.json that describes the generator
+GENERATOR_KEYS = ("arch",) + _HIFIGAN_KEYS + _ISTFT_KEYS + _MELGAN_KEYS[1:]
+
+
+def _tuples(v):
+    return (tuple(_tuples(x) for x in v) if isinstance(v, (list, tuple))
+            else v)
+
+
+def build_generator(config, fused=True):
+    """MelGAN when the config has ``arch: melgan``, the iSTFT generator
+    when it has ``gen_istft_n_fft``, else the parity generator; keys the
+    config leaves out take the constructor's defaults.  ``fused``: the
+    HiFi-GAN ResBlocks through K4 (inference) or plain (training)."""
+    def kwargs(keys):
+        return {k: _tuples(config[k]) for k in keys if k in config}
+
+    n_mels = config.get("num_mels", 80)
+    if config.get("arch") == "melgan":
+        return MelGANGenerator(**kwargs(_MELGAN_KEYS), n_mel_channels=n_mels)
+    if "gen_istft_n_fft" in config:
+        return HiFiGANiSTFTGenerator(**kwargs(_HIFIGAN_KEYS + _ISTFT_KEYS),
+                                     n_mel_channels=n_mels, fused=fused)
+    return HiFiGANGenerator(**kwargs(_HIFIGAN_KEYS), n_mel_channels=n_mels,
+                            fused=fused)
+
+
+def generator_from_jax_params(variables, config):
+    """The Flax variables of a generator of ``config`` ({"params": ...} or
+    the bare params) -> the state_dict of ``build_generator(config)``."""
+    if config.get("arch") == "melgan":
+        return melgan_from_jax_params(variables)
+    return hifigan_from_jax_params(
+        variables, len(config.get("upsample_rates", (8, 8, 2, 2))),
+        len(config.get("resblock_kernel_sizes", (3, 7, 11))))
 
 
 def _weak_scalar(value, like):
@@ -123,18 +151,16 @@ class GriffinLimVocoder(nn.Module):
                            self.win, n_iters=self.n_iters)
 
 
-def _read_weights(ckpt_path, from_jax, from_torch):
-    """npz snapshot -> from_jax(variables); a directory raises; anything
-    else is a torch checkpoint -> from_torch(loaded dict)."""
-    if ckpt_path.endswith(".npz"):
-        return from_jax(load_variables_npz(ckpt_path))
+def read_torch_checkpoint(ckpt_path):
+    """torch.load of a vocoder checkpoint on the CPU; a directory (an orbax
+    checkpoint of the JAX package) raises."""
     if os.path.isdir(ckpt_path):
         raise NotImplementedError(
-            f"{ckpt_path!r} is a directory: orbax checkpoints of the JAX "
-            "vocoder trainer load once vocoder training (M8) is ported; "
-            "export its generator as an npz or a .pth.tar")
-    return from_torch(torch.load(ckpt_path, map_location="cpu",
-                                 weights_only=True))
+            f"{ckpt_path!r} is a directory: the port does not read the "
+            "orbax checkpoints of the JAX package's vocoder trainer; export "
+            "its generator as an npz or a .pth.tar, or train with the "
+            "port's train_vocoder_cli (<out_dir>/<step>.pth.tar)")
+    return torch.load(ckpt_path, map_location="cpu", weights_only=True)
 
 
 def get_vocoder(model_config, preprocess_config, ckpt_path, device):
@@ -143,48 +169,58 @@ def get_vocoder(model_config, preprocess_config, ckpt_path, device):
 
     ``ckpt_path``: a ``.npz`` snapshot of the JAX package, or a torch
     checkpoint: for HiFi-GAN ``{"generator": state_dict}`` or a bare
-    state_dict, for MelGAN a melgan-neurips state dict (``model_g`` of a
-    training checkpoint taken when present); weight norm is folded at
-    load.  Without one, ``HiFi-GAN`` takes
+    state_dict, for MelGAN a melgan-neurips state dict (``model_g`` or
+    ``generator`` of a training checkpoint taken when present); weight
+    norm is folded at load.  The port's vocoder train state
+    (``training/checkpoint.py::save_vocoder_checkpoint``) holds
+    ``generator`` and the ``generator_config`` it was trained with: the
+    generator is built from that config, whose family must be the one
+    model.yaml names.  Without a checkpoint, ``HiFi-GAN`` takes
     ``configs/hifigan/generator_<speaker>.pth.tar`` where that exists (the
     reference's speaker selection, utils/model.py:58-65); otherwise a
     generator keeps a random init drawn from seed ``RANDOM_INIT_SEED``,
     which keeps the pipeline runnable, as the JAX package's ``PRNGKey(0)``
     init does.  PyTorch's initialisers cannot reproduce Flax's numbers, so
     the two packages' random-init waveforms differ.  Griffin-Lim reads
-    ``preprocess_config`` and no weights.
+    ``preprocess_config`` and no weights.  Orbax directories of the JAX
+    package are not read.
     """
     name = model_config["vocoder"]["model"]
-    if name == "MelGAN":
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(RANDOM_INIT_SEED)
-            generator = MelGANGenerator()
-        if ckpt_path is not None:
-            generator.load_state_dict(_read_weights(
-                ckpt_path, melgan_from_jax_params,
-                melgan_from_torch_state_dict))
-        return MelGANVocoder(generator).to(device).eval()
-    if name not in CONFIGS:
+    if name != "MelGAN" and name not in CONFIGS:
         # the JAX package's fallback for every other name
         return GriffinLimVocoder(preprocess_config).to(device).eval()
-    with open(os.path.join(_HIFIGAN_DIR, CONFIGS[name])) as f:
-        config = json.load(f)
     if ckpt_path is None and name == "HiFi-GAN":
         speaker = model_config["vocoder"].get("speaker", "LJSpeech")
         candidate = os.path.join(_HIFIGAN_DIR,
                                  f"generator_{speaker}.pth.tar")
         if os.path.exists(candidate):
             ckpt_path = candidate
+    npz = ckpt_path is not None and ckpt_path.endswith(".npz")
+    ckpt = (read_torch_checkpoint(ckpt_path)
+            if ckpt_path is not None and not npz else None)
+    if isinstance(ckpt, dict) and "generator_config" in ckpt:
+        config = ckpt["generator_config"]
+        if (config.get("arch") == "melgan") != (name == "MelGAN"):
+            raise ValueError(f"{ckpt_path} holds a generator of config "
+                             f"{config}, not one for vocoder.model {name}")
+    elif name == "MelGAN":
+        config = {"arch": "melgan"}
+    else:
+        with open(os.path.join(_HIFIGAN_DIR, CONFIGS[name])) as f:
+            config = json.load(f)
+    melgan = name == "MelGAN"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(RANDOM_INIT_SEED)
         generator = build_generator(config)
-    if ckpt_path is not None:
-        generator.load_state_dict(_read_weights(
-            ckpt_path,
-            lambda variables: hifigan_from_jax_params(
-                variables, len(config["upsample_rates"]),
-                len(config["resblock_kernel_sizes"])),
-            lambda ckpt: fold_weight_norm(ckpt.get("generator", ckpt))))
+    if npz:
+        generator.load_state_dict(generator_from_jax_params(
+            load_variables_npz(ckpt_path), config))
+    elif ckpt is not None:
+        generator.load_state_dict(
+            melgan_from_torch_state_dict(ckpt) if melgan
+            else fold_weight_norm(ckpt.get("generator", ckpt)))
+    if melgan:
+        return MelGANVocoder(generator).to(device).eval()
     return generator.to(device).eval()
 
 

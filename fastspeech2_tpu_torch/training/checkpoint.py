@@ -2,12 +2,15 @@
 ``fastspeech2_tpu/training/checkpoint.py`` and ``train_state.py``).
 
 One ``torch.save`` file per saved step, ``<ckpt_path>/<step>.pth.tar``
-(the upstream reference's name), holding the model's state dict
-(parameters and the PostNet's BatchNorm buffers), the optimizer's state
-and the step, so ``--restore_step`` resumes the model and the Noam
-schedule together.  The JAX package's orbax checkpoints (directories
-``<ckpt_path>/<step>/``) are not read: their layout needs orbax, which the
-port does not use.
+(the upstream reference's name).  The acoustic trainer's holds the
+model's state dict (parameters and the PostNet's BatchNorm buffers), the
+optimizer's state and the step, so ``--restore_step`` resumes the model
+and the Noam schedule together.  The vocoder trainer's
+(:func:`save_vocoder_checkpoint`) holds the generator's and the
+discriminators' state dicts, both optimizers' states (counts included),
+the step and the generator's config.  The JAX package's orbax checkpoints
+(directories ``<ckpt_path>/<step>/``) are not read: their layout needs
+orbax, which the port does not use.
 """
 
 import os
@@ -26,13 +29,31 @@ def save_checkpoint(ckpt_dir, model, optimizer, step):
     """Write ``<ckpt_dir>/<step>.pth.tar`` atomically; returns its path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, step)
-    state = {"model": model.state_dict(), "step": int(step),
-             "optimizer": None if optimizer is None
-             else optimizer.state_dict()}
+    return _save(path, {"model": model.state_dict(), "step": int(step),
+                        "optimizer": None if optimizer is None
+                        else optimizer.state_dict()})
+
+
+def _save(path, state):
     tmp = path + ".partial"
     torch.save(state, tmp)
     os.replace(tmp, path)
     return path
+
+
+def save_vocoder_checkpoint(out_dir, state, step):
+    """Write the vocoder train state (``training.vocoder.VocoderTrainState``)
+    as ``<out_dir>/<step>.pth.tar`` atomically: ``generator``,
+    ``discriminators``, ``gen_optimizer``, ``disc_optimizer``, ``step`` and
+    ``generator_config`` (from which ``synthesis.vocoder.get_vocoder``
+    rebuilds the generator); returns its path."""
+    os.makedirs(out_dir, exist_ok=True)
+    return _save(checkpoint_path(out_dir, step), {
+        "generator": state.gen.state_dict(),
+        "discriminators": state.disc.state_dict(),
+        "gen_optimizer": state.gen_opt.state_dict(),
+        "disc_optimizer": state.disc_opt.state_dict(),
+        "step": int(step), "generator_config": state.generator_config})
 
 
 def load_checkpoint(ckpt_dir, step):

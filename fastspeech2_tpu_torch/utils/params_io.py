@@ -77,6 +77,12 @@ class _Mapper:
             self.get(path + "/kernel").permute(2, 1, 0).contiguous())
         self.sd[name + ".bias"] = self.get(path + "/bias")
 
+    def conv2d(self, name, path):
+        # flax [kh, kw, in, out] -> torch Conv2d [out, in, kh, kw]
+        self.sd[name + ".weight"] = (
+            self.get(path + "/kernel").permute(3, 2, 0, 1).contiguous())
+        self.sd[name + ".bias"] = self.get(path + "/bias")
+
     def conv_transpose1d(self, name, path):
         # flax ConvTranspose [k, in, out] holds the spatially flipped
         # kernel -> torch ConvTranspose1d [in, out, k]
@@ -176,6 +182,33 @@ def hifigan_from_jax_params(variables, n_upsamples, n_resblock_kernels=3):
     return m.finish()
 
 
+def discriminators_from_jax_params(variables, periods=(2, 3, 5, 7, 11)):
+    """Flax ``HiFiGANDiscriminators`` variables ({"params": ...} or the
+    bare params) -> the state_dict of
+    ``models.hifigan_disc.HiFiGANDiscriminators(periods, ...)``: the MPD
+    branch of ``periods[i]`` is ``mpd.discriminators.{i}``, each scale of
+    the MSD ``msd.discriminators.{i}``; a grouped conv's [k, in/g, out]
+    kernel becomes [out, in/g, k], the groups in the same order.  The layer
+    and scale counts are read off the tree."""
+    tree = variables["params"] if "params" in variables else variables
+    m = _Mapper(tree)
+
+    def stack(name, path, conv):
+        j = 0
+        while m.has(f"{path}/conv_{j}/kernel"):
+            conv(f"{name}.convs.{j}", f"{path}/conv_{j}")
+            j += 1
+        conv(f"{name}.conv_post", f"{path}/conv_post")
+
+    for i, p in enumerate(periods):
+        stack(f"mpd.discriminators.{i}", f"mpd/period_{p}", m.conv2d)
+    i = 0
+    while m.has(f"msd/scale_{i}/conv_post/kernel"):
+        stack(f"msd.discriminators.{i}", f"msd/scale_{i}", m.conv1d)
+        i += 1
+    return m.finish()
+
+
 def melgan_from_jax_params(variables):
     """Flax MelGAN generator variables ({"params": ...} or the bare params)
     -> the state_dict of ``models.melgan.MelGANGenerator``: the
@@ -231,12 +264,15 @@ def fold_weight_norm(state_dict):
 
 def melgan_from_torch_state_dict(state_dict):
     """A melgan-neurips checkpoint -> the port's MelGAN state_dict: the
-    generator of a training checkpoint (``model_g``) when present, the
+    generator of a training checkpoint (``model_g``, or ``generator`` in
+    the port's own vocoder checkpoints and lean exports) when present, the
     ``mel2wav.`` prefix stripped (as ``fastspeech2_tpu/synthesis/
     vocoder.py:114-115`` and ``convert/from_torch.py:199`` do), weight norm
     folded."""
-    if "model_g" in state_dict:
-        state_dict = state_dict["model_g"]
+    for key in ("model_g", "generator"):
+        if key in state_dict:
+            state_dict = state_dict[key]
+            break
     return fold_weight_norm({k.split("mel2wav.")[-1]: v
                              for k, v in state_dict.items()})
 

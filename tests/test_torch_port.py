@@ -43,6 +43,8 @@ def test_imports_without_jax():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['flax'] = None\n"
+            "sys.modules['optax'] = None\n"
+            "sys.modules['orbax'] = None\n"
             "sys.modules['fastspeech2_tpu'] = None\n"
             "sys.modules['matplotlib'] = None\n"
             "sys.modules['tensorboardX'] = None\n"
@@ -86,8 +88,14 @@ def test_imports_without_jax():
             "import fastspeech2_tpu_torch.cli.align_cli\n"
             "import fastspeech2_tpu_torch.utils.logging\n"
             "import fastspeech2_tpu_torch.tools.readme_reference\n"
+            "import fastspeech2_tpu_torch.models.hifigan_disc\n"
+            "import fastspeech2_tpu_torch.training.vocoder\n"
+            "import fastspeech2_tpu_torch.cli.train_vocoder_cli\n"
+            "import fastspeech2_tpu_torch.cli.export_mels_cli\n"
+            "import fastspeech2_tpu_torch.cli.export_cli\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
-            "'fastspeech2_tpu.')) for m in sys.modules if sys.modules[m])\n")
+            "'optax', 'orbax', 'fastspeech2_tpu.')) for m in sys.modules "
+            "if sys.modules[m])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -104,7 +112,8 @@ def test_port_sources_never_import_jax():
                 words = line.split()
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
                     top = words[1].split(".")[0]
-                    assert top not in ("jax", "flax", "fastspeech2_tpu"), \
+                    assert top not in ("jax", "flax", "optax", "orbax",
+                                       "fastspeech2_tpu"), \
                         f"{path}: {line.strip()}"
 
 

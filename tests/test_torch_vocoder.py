@@ -272,11 +272,12 @@ def test_get_vocoder_without_weights(tmp_path, monkeypatch):
 
 
 def test_get_vocoder_refuses_what_is_not_ported(tmp_path):
-    """Only the JAX vocoder trainer's orbax directories are refused (they
-    wait for M8), for HiFi-GAN and MelGAN alike; MelGAN and every other
-    name (the tracked configs' ``none``: Griffin-Lim) are built."""
+    """Only the JAX vocoder trainer's orbax directories are refused (the
+    port reads its own vocoder checkpoints), for HiFi-GAN and MelGAN
+    alike; MelGAN and every other name (the tracked configs' ``none``:
+    Griffin-Lim) are built."""
     for name in ("HiFi-GAN", "MelGAN"):
-        with pytest.raises(NotImplementedError, match="M8"):
+        with pytest.raises(NotImplementedError, match="orbax"):
             get_vocoder({"vocoder": {"model": name}}, None, str(tmp_path),
                         "cpu")
     pre = {"preprocessing": {
