@@ -49,8 +49,9 @@ exits non-zero):
              batch 8 and 2): each forward's mel against the same forward
              with the plain K1/K2, launches per forward, 10 wavs and 10
              pngs (or the line saying matplotlib is missing);
-   long      --long on three sentences: the joined wav is the chunks plus
-             the pauses;
+   long      --long on three sentences, one eager fused text->wav
+             dispatch (a one-shot call makes no CUDA graph): the joined
+             wav is the chunks plus the pauses;
    torch_ckpt  --torch_ckpt on the tracked weights as a reference-format
              .pth.tar: the wav bitwise equal to the --weights_npz run's;
    mandarin  tone-numbered pinyin with a language: zh config, and hanzi
@@ -87,7 +88,8 @@ exits non-zero):
              against the plain version;
 14. kernels  one JSON line describing K1, K2, K3 and K4 and the bfloat16
              instances of K1, K2 and K3, with their launches on every
-             driven path, phase 15's included;
+             driven path, phases 15-17 included (on the serving path: the
+             graphs' replays times the launches each captured);
 15. vocoder  vocoder training at full width on phase 13's features (run
              before phase 14's line): export_mels through its CLI (10 K1 +
              10 K2 per forward, each forward's mel against the plain
@@ -106,7 +108,33 @@ exits non-zero):
              the wav against the plain ResBlocks to WAV_ATOL), its lean
              export (the same wav bit for bit), and phase 13's acoustic
              checkpoint through export_cli and --torch_ckpt (the
-             --restore_step wav bit for bit).
+             --restore_step wav bit for bit);
+16. serve    the serve CLI's build_server on the tracked weights (max
+             batch 16) and warmup(grid="top"): one CUDA graph of the fused
+             text->wav dispatch at batch 16 x text 128 (10 K1 + 10 K2 +
+             6 K4 captured; its capture time and the graphs' pool); the
+             caches of the constants it reads cleared and their memory
+             handed out again; on a
+             [16 x 128] batch of the corpus rows and the README sentence
+             the replay against the eager dispatch (bit for bit) and the
+             plain versions (WAV_ATOL), and K1's, K2's and K4's kernels
+             inside a replay by torch.profiler; HTTP: requests one at a
+             time (latency; each wav the solo dispatch's bit for bit), a
+             burst of 32 concurrent requests with a /synthesize_stream and
+             a long text beside it (coalesced; each wav the solo one's
+             outside the batch-mates' tail), a second burst under the
+             profiler (the device's idle share), 401, 413 and 429; then
+             grid="background" while a burst is in flight (20 graphs;
+             each wav within WAV_ATOL of its solo wav outside the tail)
+             and grid="full" on top; one dispatch timed as a replay and
+             eagerly; K1, K2 and K4 at the batch-16 shapes against their
+             plain versions and timed;
+17. evaluate evaluate --objective 2 --save_dir on phase 13's features
+             with 2 clips held out (finite MCD and F0 rows; 10 K1 + 10 K2
+             per acoustic forward, 6 K4 per vocoder forward) and
+             prosody_sweep at 0.8/1.0/1.2 in both control modes on the
+             README sentence (reported) and on the corpus's first
+             train.txt sentence (verify passes).
 
 The bfloat16 instances (--dtype bfloat16, the JAX train CLI's default) run
 through the same script: the build reports their registers, spills and
@@ -427,15 +455,29 @@ def bf16_ulps(got, ref):
     return (got.float() - ref).abs().max().item() / unit
 
 
+def graph_counts(synth):
+    """-> (the launches its graphs' replays made, what the wrappers counted
+    while its graphs were made) of a Synthesizer; empty without graphs."""
+    graphs = getattr(synth, "graphs", None)
+    if graphs is None:
+        return {}, {}
+    return graphs.launches(), dict(graphs.setup_launches)
+
+
 @contextlib.contextmanager
 def record_forwards():
-    """Wrap ``Synthesizer.infer_ids`` (every acoustic forward of the CLI's
-    modes goes through it): each call's arguments, output and the launches
-    it made (one acoustic forward, or two with a re-dispatch)."""
+    """Wrap ``Synthesizer.infer_ids`` and ``Synthesizer.synthesize_ids`` (the
+    unfused and the fused dispatch: every acoustic forward of the CLI's
+    modes goes through one of them): each call's arguments, output and the
+    launches it made (one acoustic forward, or two with a re-dispatch).  A
+    fused call's launches are its graph replays' (captured launches times
+    replays) plus its eager ones; ``setup`` holds what the wrappers counted
+    while it made a graph (the warm-up run and the capture)."""
     from fastspeech2_tpu_torch.synthesis.pipeline import Synthesizer
 
     calls = []
     inner = Synthesizer.infer_ids
+    inner_fused = Synthesizer.synthesize_ids
 
     def infer_ids(self, *args, **kwargs):
         before = launch_counts()
@@ -446,11 +488,26 @@ def record_forwards():
                                     for k in after}))
         return out
 
+    def synthesize_ids(self, *args, **kwargs):
+        before, (replay0, setup0) = launch_counts(), graph_counts(self)
+        wavs, out = inner_fused(self, *args, **kwargs)
+        after, (replay1, setup1) = launch_counts(), graph_counts(self)
+        setup = {k: setup1.get(k, 0) - setup0.get(k, 0) for k in after}
+        calls.append(dict(
+            synth=self, args=args, kwargs=kwargs, out=out, fused=True,
+            setup=setup,
+            launches={k: after[k] - before[k] - setup[k]
+                      + replay1.get(k, 0) - replay0.get(k, 0)
+                      for k in after}))
+        return wavs, out
+
     Synthesizer.infer_ids = infer_ids
+    Synthesizer.synthesize_ids = synthesize_ids
     try:
         yield calls
     finally:
         Synthesizer.infer_ids = inner
+        Synthesizer.synthesize_ids = inner_fused
 
 
 @contextlib.contextmanager
@@ -964,10 +1021,23 @@ def inference_options(device, card, preprocess_config, model_config,
                 and (n_png == n_rows or (n_png == 0 and no_png))):
             raise RuntimeError(f"[batch] wrote {written}")
 
-        # long: three sentences as one batch, joined with 120 ms pauses
-        ([joined], chunks, [path]), launches, calls, lines, cli_s = \
+        # long: three sentences as one batch, joined with 120 ms pauses: one
+        #    fused text->wav dispatch, eager (no warmup, so no graph)
+        ([joined], chunks, [path]), totals, calls, lines, cli_s = \
             drive_cli(argv(LONG_TEXT) + ["--long"])
-        forwards = check_launches("long", calls, launches, 6, 1)
+        if len(calls) != 1 or not calls[0].get("fused"):
+            raise RuntimeError(f"[long] {len(calls)} dispatches, expected "
+                               "one fused dispatch")
+        launches, setup = calls[0]["launches"], calls[0]["setup"]
+        # the vocoder runs in each fused dispatch, a re-dispatch's too
+        need = int(calls[0]["out"].duration_rounded.sum(dim=1).max())
+        forwards = check_launches(
+            "long", calls, launches, 6,
+            2 if need > model_config["max_seq_len"] else 1)
+        if totals != launches or any(setup.values()):
+            raise RuntimeError(f"[long] the wrappers counted {totals}, "
+                               f"{setup} of them making a graph: expected "
+                               "the eager dispatch's launches and no graph")
         out = calls[0]["out"]
         pause = int(sr * 120.0 / 1000.0)
         lengths = [int(m) * hop for m in out.mel_len[: len(chunks)]]
@@ -1100,7 +1170,8 @@ def data_preparation(device, card, tmp):
     driven path has the launch counts set to 0 just before and read just
     after.  Raises on a failed gate -> {"launches": {path: counts},
     "timings": {...}, "features": the card's preprocess yaml, the train
-    yaml and the step of the acoustic checkpoint it wrote}."""
+    yaml, the step of the acoustic checkpoint it wrote and the copy of
+    the features with 2 clips held out (eval_yaml)}."""
     import copy
     import shutil
 
@@ -1519,7 +1590,7 @@ def data_preparation(device, card, tmp):
         check_recorded_inputs(seen, "prep kernels", card)
     return dict(launches=launches, timings=timings, features=dict(
         preprocess_yaml=card_yaml, train_yaml=train_yaml,
-        step=PREP_STEPS))
+        step=PREP_STEPS, eval_yaml=eval_yaml))
 
 
 def _kernel_group(name):
@@ -1970,6 +2041,753 @@ def vocoder_training(device, card, features, tmp):
                            "checkpoint's wav differs")
     timings["synthesis_s"] = synth_s
     return dict(launches=launches, timings=timings)
+
+
+def batch_tail_frames(model, vocoder):
+    """The frames at the end of an utterance whose samples may depend on its
+    batch-mates in a coalesced dispatch: the PostNet's frame mask is at the
+    batch's largest mel_len (models/fastspeech2.py), so its output moves
+    within its receptive radius (n_conv x (k - 1) / 2 frames) of the row's
+    end, and the vocoder, which runs on the padded frames, spreads that by
+    its own radius (conv_pre, each upsampling stage's transposed conv and
+    widest ResBlock, conv_post and the iSTFT's overlap, at their rates)."""
+    postnet = model.postnet.convolutions
+    radius = len(postnet) * (postnet[0][0].conv.kernel_size[0] - 1) / 2
+    radius += (vocoder.conv_pre.kernel_size[0] - 1) / 2
+    rate = 1
+    n = len(vocoder.resblocks) // len(vocoder.ups)
+    for i, up in enumerate(vocoder.ups):
+        radius += math.ceil(up.kernel_size[0] / up.stride[0]) / rate
+        rate *= up.stride[0]
+        radius += max(
+            sum((block.convs1[0].kernel_size[0] - 1) // 2 * (d + 1)
+                for d in block.dilations)
+            for block in vocoder.resblocks[i * n:(i + 1) * n]) / rate
+    radius += (vocoder.conv_post.kernel_size[0] - 1) / 2 / rate
+    if hasattr(vocoder, "n_fft"):
+        radius += vocoder.n_fft / vocoder.hop / rate
+    return math.ceil(radius)
+
+
+def trace_kernels(fn, tmp, span="window"):
+    """fn() inside a torch.profiler window with a ``span`` annotation around
+    it -> (fn's result, [(start us, end us, kernel name)] of every device
+    kernel, (start, end) of the span)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    trace = os.path.join(tmp, f"{span}_trace.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(span):
+            result = fn()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(trace)
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e.get("name", ""))
+                     for e in events if e.get("cat") == "kernel")
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == span and e.get("cat") == "user_annotation"]
+    return result, kernels, (spans[0] if spans else None)
+
+
+# the kernel-name prefixes of K1's, K2's and K4's launches (K1: the
+# attention and its key-split combine; K2: its two convs and LayerNorm;
+# K4: the one-launch unit and the two-launch conv)
+DISPATCH_KERNELS = {"K1": "mha_fwd_", "K2": "ffn_", "K4": "resblock_"}
+
+
+def kernel_names_by_id(kernels):
+    """-> {K1|K2|K4: {kernel function: launches}} of a profiler window."""
+    found = {}
+    for _, _, name in kernels:
+        fn = re.search(r"(\w+_kernel)\b", name)
+        kid = next((k for k, prefix in DISPATCH_KERNELS.items()
+                    if fn and fn.group(1).startswith(prefix)), None)
+        if kid:
+            by = found.setdefault(kid, {})
+            by[fn.group(1)] = by.get(fn.group(1), 0) + 1
+    return found
+
+
+def serving(device, card, tmp):
+    """Phase 16, serving: the serve CLI's build_server on the tracked
+    weights (max batch 16), warmup(grid="top") (one CUDA graph, batch 16 x
+    text 128), the graph against the eager dispatch (bitwise) and the plain
+    versions (WAV_ATOL) on a [16 x 128] batch, the kernels inside a replay
+    by the profiler (the constants it reads evicted from their caches
+    first), HTTP requests one at a time (each wav bitwise the solo
+    dispatch's) and a burst of concurrent ones (coalesced; each wav the
+    solo one's outside the batch-mates' tail) with a stream and a long text
+    beside it, a burst under the profiler (the device's idle share), 401,
+    413, 429, then grid="background" during a burst (20 graphs) and
+    grid="full"; the dispatch timed as a replay
+    and eagerly, and K1, K2 and K4 at the new shapes against their plain
+    versions.  Raises on a failed gate -> {"launches": {"serving": counts},
+    "timings": {...}, "per_shape": {kernel: [rows]}}."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fastspeech2_tpu_torch.cli import serve_cli
+    from fastspeech2_tpu_torch.cli.synthesize_cli import load_metadata_rows
+    from fastspeech2_tpu_torch.models import hifigan_istft, transformer
+    from fastspeech2_tpu_torch.models.hifigan import ResBlock
+    from fastspeech2_tpu_torch.ops import (
+        cuda_attention,
+        cuda_ffn,
+        cuda_resblock,
+        positional,
+    )
+    from fastspeech2_tpu_torch.ops.attention import multi_head_attention
+    from fastspeech2_tpu_torch.text import text_to_sequence
+    from fastspeech2_tpu_torch.tools.kernel_bounds import (
+        attention_bound_ms,
+        ffn_bound_ms,
+        resblock_bound_ms,
+    )
+
+    token = "chip-smoke-token"
+    t0 = time.perf_counter()
+    server = serve_cli.build_server(serve_cli.build_parser().parse_args([
+        "-p", f"{CONFIG}/preprocess.yaml", "-m", f"{CONFIG}/model.yaml",
+        "-t", f"{CONFIG}/train.yaml", "--weights_npz", ACOUSTIC_NPZ,
+        "--vocoder_ckpt", VOCODER_NPZ, "--port", "0", "--max_batch_size",
+        "16", "--auth_token", token]))
+    build_s = time.perf_counter() - t0
+    batcher, syn = server.batcher, server.batcher.synthesizer
+    graphs, model, vocoder = syn.graphs, syn.model, syn.vocoder
+    pp = syn.preprocess_config["preprocessing"]
+    hop = pp["stft"]["hop_length"]
+    timings = {"build_s": build_s}
+    try:
+        if graphs is None or not syn.fused:
+            raise RuntimeError("[serve] the synthesizer has no CUDA graphs")
+        logs = []
+        t0 = time.perf_counter()
+        batcher.warmup(grid="top", log=logs.append)
+        timings["warmup_top_s"] = time.perf_counter() - t0
+        top = graphs.graphs.get((16, 128))
+        pool = graphs.pool_bytes()
+        timings["pool_top_mb"] = None if pool is None else pool / 2**20
+        say(f"[serve] build_server {build_s:.2f} s; warmup(grid=top) "
+            f"{timings['warmup_top_s']:.2f} s ({graphs.capture_seconds:.2f} s"
+            f" in the warm-up run and the capture); graphs "
+            f"{sorted(graphs.graphs)}; launches captured in the top graph "
+            f"{top.launches if top else None}; the graphs' shared pool "
+            f"{pool} bytes; {logs[0]!r}")
+        per_replay = {"K1": 10, "K1_bf16": 0, "K2": 10, "K2_bf16": 0,
+                      "K4": 6}
+        if sorted(graphs.graphs) != [(16, 128)] or top.launches != \
+                per_replay or syn._warm != {(16, 128)}:
+            raise RuntimeError("[serve] warmup(grid='top') did not capture "
+                               "one [16 x 128] graph of 10 K1 + 10 K2 + 6 "
+                               "K4")
+
+        # the [16 x 128] batch: the 10 train.txt rows' phones + the README
+        # sentence's, through the graph, eagerly and with the plain versions
+        _, _, phones = load_metadata_rows(syn.preprocess_config,
+                                          BATCH_SOURCE)
+        cleaners = pp["text"]["text_cleaners"]
+        ids = [np.asarray(text_to_sequence(t, cleaners), np.int64)
+               for t in phones] + [syn.text_to_ids(README_SENTENCE)[0]]
+        speakers, texts, src_lens = syn._pack_batch(ids, [0] * len(ids),
+                                                    snap=True)
+        if tuple(texts.shape) != (16, 128):
+            raise RuntimeError(f"[serve] the batch packed to "
+                               f"{tuple(texts.shape)}, not [16, 128]")
+        controls = (1.0, 1.0, 1.0, 0.0, 0.0)
+        # the caches of the constants the graph reads (position tables,
+        # the iSTFT's) let go of them, and their memory is handed out
+        # again, filled with NaN: the graph keeps what it reads
+        kept = top.constants
+        sizes = [t.numel() for c in kept
+                 for t in (c if isinstance(c, tuple) else (c,))]
+        for cache in (positional._device_table,
+                      hifigan_istft._istft_constants,
+                      hifigan_istft._window_sum_square):
+            cache.cache_clear()
+        junk = []
+        for stream in (graphs.stream, torch.cuda.current_stream(device)):
+            with torch.cuda.stream(stream):
+                junk += [torch.full((n,), float("nan"), device=device)
+                         for n in sizes for _ in range(4)]
+        wav_g, out_g = graphs.run(speakers, texts, src_lens, controls)
+        del junk
+        say(f"[serve] the top graph keeps the {len(sizes)} cached constants "
+            f"its capture read; their caches cleared and their memory "
+            f"handed out again (NaN) before the replay below")
+        wav_e, out_e = syn.fused_forward(speakers, texts, src_lens, controls)
+        saved = transformer.fused_attention, transformer.fused_conv_ffn
+        resblocks = [m for m in vocoder.modules() if isinstance(m, ResBlock)]
+        transformer.fused_attention = multi_head_attention
+        transformer.fused_conv_ffn = cuda_ffn.plain_conv_ffn
+        for m in resblocks:
+            m.fused = False
+        try:
+            wav_p, out_p = syn.fused_forward(speakers, texts, src_lens,
+                                             controls)
+        finally:
+            transformer.fused_attention, transformer.fused_conv_ffn = saved
+            for m in resblocks:
+                m.fused = True
+        eager_equal = torch.equal(wav_g, wav_e) and all(
+            torch.equal(a, b) for a, b in zip(out_g, out_e))
+        plain_err = (wav_g - wav_p).abs().max().item()
+        mel_len = out_g.mel_len[: len(ids)].tolist()
+        say(f"[serve] [16 x 128] dispatch of the {len(phones)} {BATCH_SOURCE} "
+            f"rows + the README sentence (mel_len {mel_len}): graph replay vs "
+            f"eager kernel dispatch bitwise equal (wav and every output): "
+            f"{eager_equal}; vs the plain versions (plain K1, K2, ResBlocks): "
+            f"durations equal "
+            f"{torch.equal(out_g.duration_rounded, out_p.duration_rounded)},"
+            f" wav max_abs_diff {plain_err:.3e} (tolerance {WAV_ATOL:g}; "
+            f"largest |sample| {wav_p.abs().max().item():.3e}); finite "
+            f"{bool(torch.isfinite(wav_g).all())}")
+        if not eager_equal:
+            raise RuntimeError("[serve] the graph's dispatch is not the eager "
+                               "dispatch bit for bit")
+        if not torch.equal(out_g.duration_rounded, out_p.duration_rounded):
+            raise RuntimeError("[serve] plain versions predict other "
+                               "durations")
+        if not plain_err <= WAV_ATOL or not torch.isfinite(wav_g).all():
+            raise RuntimeError("[serve] the graph's wavs disagree with the "
+                               "plain versions'")
+
+        # the kernels inside one replay, by the profiler
+        (_, kernels, _) = trace_kernels(
+            lambda: graphs.run(speakers, texts, src_lens, controls), tmp,
+            "replay")
+        (_, eager_kernels, _) = trace_kernels(
+            lambda: syn.fused_forward(speakers, texts, src_lens, controls),
+            tmp, "eager")
+        in_replay, in_eager = (kernel_names_by_id(k)
+                               for k in (kernels, eager_kernels))
+        groups = {}
+        for a, b, name in kernels:
+            fn = re.search(r"(\w+_kernel)\b", name)
+            kid = next((k for k, prefix in DISPATCH_KERNELS.items()
+                        if fn and fn.group(1).startswith(prefix)),
+                       _kernel_group(name))
+            groups[kid] = groups.get(kid, 0.0) + (b - a) / 1e3
+        timings["replay_groups_ms"] = groups
+        timings["replay_busy_ms"] = _merged_us(
+            [(a, b) for a, b, _ in kernels]) / 1e3
+        say(f"[serve] torch.profiler around one replay: {len(kernels)} "
+            f"device kernels, {timings['replay_busy_ms']:.3f} ms covered; "
+            f"device ms by group { {k: round(v, 3) for k, v in groups.items()} }"
+            f"; K1/K2/K4 kernels by name {in_replay} (the eager dispatch: "
+            f"{in_eager}, {len(eager_kernels)} kernels)")
+        if sorted(in_replay) != ["K1", "K2", "K4"] or in_replay != in_eager:
+            raise RuntimeError("[serve] the replay does not run the eager "
+                               "dispatch's K1, K2 and K4 kernels")
+
+        # one dispatch timed: a replay against the eager dispatch
+        timings["replay_ms"] = cuda_time_ms(
+            lambda: graphs.run(speakers, texts, src_lens, controls),
+            iters=10, warmup=2)
+        timings["eager_ms"] = cuda_time_ms(
+            lambda: syn.fused_forward(speakers, texts, src_lens, controls),
+            iters=10, warmup=2)
+        say(f"[serve] one [16 x 128] dispatch (CUDA events, 10 after 2; the "
+            f"copies in and out included): replay "
+            f"{timings['replay_ms']:.3f} ms, eager "
+            f"{timings['eager_ms']:.3f} ms on {card}")
+        del wav_e, out_e, wav_p, out_p
+
+        # HTTP: texts whose phones fit the top shape
+        with open(BATCH_SOURCE) as f:
+            raw = [line.rstrip("\n").split("|")[3] for line in f]
+        pool_texts = [t for t in raw + [README_SENTENCE] + LONG_TEXT.split(
+            ". ") if len(syn.text_to_ids(t)[0]) <= 128]
+        solo = {t: syn.synthesize([t])[0][0] for t in pool_texts}
+        tail = batch_tail_frames(model, vocoder)
+        server.start()
+        url = f"http://127.0.0.1:{server.port}"
+
+        def post(payload, path="/synthesize", auth=True, data=None):
+            headers = {"Content-Type": "application/json"}
+            if auth:
+                headers["Authorization"] = f"Bearer {token}"
+            req = urllib.request.Request(
+                url + path, headers=headers,
+                data=data if data is not None else json.dumps(
+                    payload).encode())
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    return r.status, dict(r.headers), r.read()
+            except urllib.error.HTTPError as exc:
+                return exc.code, dict(exc.headers), exc.read()
+
+        def pcm(body):
+            if body[:4] != b"RIFF":
+                raise RuntimeError("[serve] not a RIFF wav")
+            return np.frombuffer(body[44:], np.int16)
+
+        # the references of the stream and the long text, made before the
+        # counts are set to 0
+        stream_text = "They bought their offices. One another!"
+        stream_parts = [syn.synthesize([t])[0][0]
+                        for t in stream_text.split(" One")[:1]
+                        + ["One another!"]]
+        long_want, chunks = syn.synthesize_long(LONG_TEXT)
+
+        graphs.reset_replays()
+        zero_counts()
+        stats0 = batcher.stats()
+        # one at a time: each wav the solo dispatch's, bit for bit
+        lat = []
+        for i in range(12):
+            text = pool_texts[i % len(pool_texts)]
+            t0 = time.perf_counter()
+            code, _, body = post({"text": text, "long": False})
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if code != 200 or not np.array_equal(pcm(body), solo[text]):
+                raise RuntimeError(f"[serve] request {i} ({text!r}): status "
+                                   f"{code}, not the solo dispatch's wav")
+        timings["c1_p50_ms"] = float(np.percentile(lat, 50))
+        timings["c1_max_ms"] = max(lat)
+        stats1 = batcher.stats()
+
+        # a burst of 32 concurrent requests, a stream and a long text
+        results, errors = {}, []
+
+        def call(i):
+            text = pool_texts[i % len(pool_texts)]
+            t1 = time.perf_counter()
+            code, _, body = post({"text": text, "long": False})
+            results[i] = (text, code, body, time.perf_counter() - t1)
+
+        def side(kind):
+            try:
+                if kind == "stream":
+                    results[kind] = post({"text": stream_text},
+                                         "/synthesize_stream")
+                else:
+                    results[kind] = post({"text": LONG_TEXT, "long": True})
+            except Exception as exc:   # reported below
+                errors.append((kind, exc))
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(32)]
+        threads += [threading.Thread(target=side, args=(k,))
+                    for k in ("stream", "long")]
+        # host time in the frontend and in the fused dispatches (the
+        # dispatcher thread runs both, one batch after another)
+        spent = {"text_to_ids": [0.0, 0], "synthesize_ids": [0.0, 0]}
+        spent_lock = threading.Lock()
+
+        def timed(name):
+            inner = getattr(syn, name)
+
+            def fn(*args, **kwargs):
+                t1 = time.perf_counter()
+                try:
+                    return inner(*args, **kwargs)
+                finally:
+                    with spent_lock:
+                        spent[name][0] += time.perf_counter() - t1
+                        spent[name][1] += 1
+            return fn
+
+        for name in spent:
+            setattr(syn, name, timed(name))
+        t0 = time.perf_counter()
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+        finally:
+            for name in spent:
+                delattr(syn, name)
+        burst_s = time.perf_counter() - t0
+        timings["burst_host_s"] = {k: v[0] for k, v in spent.items()}
+        timings["burst_host_calls"] = {k: v[1] for k, v in spent.items()}
+        stats2 = batcher.stats()
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"[serve] burst errors {errors}")
+        n_req = stats2["requests"] - stats1["requests"]
+        n_bat = stats2["batches"] - stats1["batches"]
+        mismatched = []
+        for i in range(32):
+            text, code, body, _ = results[i]
+            got, want = pcm(body), solo[text]
+            head = len(want) - tail * hop
+            if code != 200 or len(got) != len(want) or not np.array_equal(
+                    got[:head], want[:head]):
+                mismatched.append(i)
+        code, headers, body = results["stream"]
+        stream = np.frombuffer(body, np.int16)
+        pause = int(pp["audio"]["sampling_rate"] * 0.12)
+        parts = [len(p) for p in stream_parts]
+        stream_ok = (code == 200 and headers.get("Content-Type", "")
+                     .startswith("audio/L16") and len(stream) == sum(parts)
+                     + pause and np.array_equal(
+                         stream[:parts[0] - tail * hop],
+                         stream_parts[0][:parts[0] - tail * hop]))
+        code_l, _, body_l = results["long"]
+        long_ok = code_l == 200 and np.array_equal(pcm(body_l), long_want)
+        lat32 = [results[i][3] * 1e3 for i in range(32)]
+        timings.update(
+            burst_s=burst_s, burst_utt_per_s=32 / burst_s,
+            burst_mean_batch=n_req / max(n_bat, 1),
+            burst_p50_ms=float(np.percentile(lat32, 50)),
+            burst_max_ms=max(lat32))
+        say(f"[serve] HTTP one at a time, {stats1['requests'] - stats0['requests']}"
+            f" requests ({len(pool_texts)} texts): each wav the solo "
+            f"dispatch's bit for bit; latency p50 {timings['c1_p50_ms']:.2f} "
+            f"ms, max {timings['c1_max_ms']:.2f} ms (host clock, POST to the "
+            f"last byte, frontend included); burst of 32 concurrent + a "
+            f"stream + a long text: {burst_s:.3f} s, "
+            f"{timings['burst_utt_per_s']:.2f} utterances/s, {n_req} "
+            f"requests in {n_bat} dispatches (mean_batch "
+            f"{timings['burst_mean_batch']:.2f}), latency p50 "
+            f"{timings['burst_p50_ms']:.2f} ms, max "
+            f"{timings['burst_max_ms']:.2f} ms (too few requests for a tail "
+            f"percentile: tools/serve_bench.py); host seconds in the "
+            f"frontend (text_to_ids, {spent['text_to_ids'][1]} calls) "
+            f"{spent['text_to_ids'][0]:.3f} and in the fused dispatches "
+            f"(synthesize_ids, {spent['synthesize_ids'][1]} calls, the copy "
+            f"to the host and the int16 trim included) "
+            f"{spent['synthesize_ids'][0]:.3f}; wavs mel_len*hop long and "
+            f"the solo wav's outside the last {tail} frames "
+            f"({tail * hop} samples: the PostNet's and the vocoder's "
+            f"receptive radius): {32 - len(mismatched)} of 32; stream "
+            f"{len(stream)} samples = {parts} + a {pause}-sample pause: "
+            f"{stream_ok}; long text ({len(chunks)} sentences) the solo "
+            f"synthesize_long's bit for bit: {long_ok} on {card}")
+        if mismatched or not stream_ok or not long_ok:
+            raise RuntimeError(f"[serve] burst wavs {mismatched} differ from "
+                               f"solo; stream {stream_ok}; long {long_ok}")
+        if not timings["burst_mean_batch"] > 1:
+            raise RuntimeError("[serve] the burst was not coalesced")
+
+        # a second burst under the profiler: the device's idle share
+        def burst():
+            ts = [threading.Thread(target=call, args=(i,))
+                  for i in range(32)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(300)
+
+        _, kernels, span = trace_kernels(burst, tmp, "serving_burst")
+        inside = [(a, b) for a, b, _ in kernels
+                  if span and span[0] <= a <= span[1]]
+        busy = _merged_us(inside) / max(span[1] - span[0], 1.0)
+        timings["burst_busy"] = busy
+        replays = graphs.replays()
+        dispatch = {k: v for k, v in graphs.launches().items()}
+        eager = launch_counts()
+        launches = {k: eager[k] + dispatch.get(k, 0) for k in eager}
+        say(f"[serve] the second burst under torch.profiler: "
+            f"{(span[1] - span[0]) / 1e3:.2f} ms, {len(inside)} kernels, "
+            f"device busy {busy:.1%}, idle {1 - busy:.1%}; launches on the "
+            f"serving path (both bursts and the requests before): {replays}"
+            f" replays x {per_replay} = {dispatch}, eager (re-dispatches) "
+            f"{eager}")
+        if any(eager[k] for k in eager):
+            raise RuntimeError("[serve] the steady path launched kernels "
+                               "outside the graphs")
+        if any(dispatch[k] != per_replay[k] * replays for k in per_replay) \
+                or not replays:
+            raise RuntimeError("[serve] the replays' launches are not 10 K1 "
+                               "+ 10 K2 + 6 K4 each")
+
+        # 401, 413 and 429
+        c401 = post({"text": "hello"}, auth=False)[0]
+        c413 = post(None, data=json.dumps({"text": "x" * 70000}).encode())[0]
+        batcher.max_pending = 2
+        shed = []
+
+        def shed_call(i):
+            shed.append(post({"text": pool_texts[i % len(pool_texts)],
+                              "long": False})[:2])
+
+        ts = [threading.Thread(target=shed_call, args=(i,))
+              for i in range(12)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300)
+        batcher.max_pending = 256
+        n429 = [h.get("Retry-After") for c, h in shed if c == 429]
+        n200 = sum(c == 200 for c, _ in shed)
+        say(f"[serve] no token -> {c401}; a 70 kB body -> {c413}; 12 "
+            f"concurrent requests at max_pending 2 -> {n200} x 200, "
+            f"{len(n429)} x 429 (Retry-After {set(n429)}); /stats "
+            f"{batcher.stats()}")
+        if (c401, c413) != (401, 413) or not n429 or set(n429) != {"1"} \
+                or n200 + len(n429) != 12:
+            raise RuntimeError("[serve] 401, 413 or 429 missing")
+
+        # grid="background": the other 19 shapes captured in a thread while
+        # a burst of 32 is in flight (each request snaps to what is warm
+        # when it is packed, so the burst's shapes vary): each wav within
+        # WAV_ATOL (in int16 steps, +1 for the rounding) of its solo wav
+        # outside the tail, and as long
+        done = threading.Event()
+
+        def log_background(msg):
+            logs.append(msg)
+            if "grid complete" in msg or "stopped" in msg:
+                done.set()
+
+        results.clear()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(32)]
+        t0 = time.perf_counter()
+        for t in threads[:16]:
+            t.start()
+        batcher.warmup(grid="background", log=log_background)
+        for t in threads[16:]:
+            t.start()
+        for t in threads:
+            t.join(300)
+        done.wait(300)
+        timings["warmup_background_s"] = time.perf_counter() - t0
+        steps = WAV_ATOL * pp["audio"]["max_wav_value"] + 1
+        diffs = []
+        for i in range(32):
+            text, code, body, _ = results[i]
+            got, want = pcm(body), solo[text]
+            head = len(want) - tail * hop
+            diffs.append(np.inf if code != 200 or len(got) != len(want)
+                         else float(np.abs(got[:head].astype(np.int32)
+                                           - want[:head]).max()))
+        say(f"[serve] warmup(grid=background) during a burst of 32: "
+            f"{len(graphs.graphs)} graphs, {logs[-1]!r}; burst and grid "
+            f"{timings['warmup_background_s']:.2f} s; each wav against its "
+            f"solo wav outside the tail: largest difference "
+            f"{max(diffs):g} int16 steps (tolerance {steps:g}); "
+            f"{sum(d == 0 for d in diffs)} of 32 bit for bit")
+        if any(t.is_alive() for t in threads) or not done.is_set():
+            raise RuntimeError("[serve] the background warmup or its burst "
+                               "did not finish")
+        if len(graphs.graphs) != 20 or max(diffs) > steps:
+            raise RuntimeError("[serve] grid=background did not make 20 "
+                               "graphs, or the burst beside it went wrong")
+
+        # grid="full" on top: the whole grid is warm, nothing is captured
+        t0 = time.perf_counter()
+        batcher.warmup(grid="full", log=logs.append)
+        timings["warmup_full_s"] = time.perf_counter() - t0
+        pool = graphs.pool_bytes()
+        timings["pool_full_mb"] = None if pool is None else pool / 2**20
+        say(f"[serve] warmup(grid=full) after it: {len(graphs.graphs)} "
+            f"graphs, {timings['warmup_full_s']:.2f} s; the shared pool "
+            f"{pool} bytes ({torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+            f"reserved in all); {logs[-1]!r}")
+        if len(graphs.graphs) != 20 or len(syn._warm) != 20:
+            raise RuntimeError("[serve] grid=full did not keep 20 graphs")
+        graphs.reset_replays()
+        code, _, body = post({"text": "One.", "long": False})
+        shape = [k for k, g in graphs.graphs.items() if g.replays]
+        say(f"[serve] after the full grid, a one-word request -> {code}, "
+            f"dispatched at {shape}")
+        if code != 200 or len(shape) != 1 or shape[0][0] != 1:
+            raise RuntimeError("[serve] a one-word request did not snap to "
+                               "a batch-1 graph")
+    finally:
+        server.stop()
+
+    # K1, K2 and K4 at serving's shapes against their plain versions
+    per_shape = {"K1": [], "K2": [], "K4": []}
+    errors = {}
+    for L in (128, 1000):
+        lens = [L, 0] + [min(L, L // 2 + 7 * i) for i in range(14)]
+        q, k, v, mask = attention_inputs(lens, L, device, seed=16)
+        additive = torch.zeros(16, 1, 1, L, device=device).masked_fill(
+            mask[:, None, None, :], -1e9)
+        errors[("K1", L)] = (cuda_attention.fused_attention(q, k, v, mask)
+                             - multi_head_attention(q, k, v, mask)
+                             ).abs().max().item()
+        per_shape["K1"].append(with_bound(dict(
+            shape=[16, 2, L, 128],
+            ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
+                q, k, v, mask)),
+            plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v,
+                                                               mask)),
+            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=additive))), attention_bound_ms(16, 2, L)))
+        args = ffn_inputs(L, device, seed=17, B=16)
+        packed = cuda_ffn.pack_ffn_weights(args[1], args[3])
+        with torch.inference_mode():
+            errors[("K2", L)] = (cuda_ffn.fused_conv_ffn(*args, packed=packed)
+                                 - cuda_ffn.plain_conv_ffn(*args)
+                                 ).abs().max().item()
+            per_shape["K2"].append(with_bound(dict(
+                shape=[16, L, 256],
+                ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(
+                    *args, packed=packed)),
+                plain_ms=cuda_time_ms(lambda: cuda_ffn.plain_conv_ffn(*args)),
+                library_ms=None), ffn_bound_ms(16, L)))
+    del q, k, v, mask, additive, args, packed
+    for C, L in ((256, 8000), (128, 64000)):
+        for kk in (3, 7, 11):
+            x, w1, b1, w2, b2 = resblock_inputs(C, L, kk, device,
+                                                seed=C + kk)
+            x = x.expand(16, -1, -1).contiguous()
+            x = x + 0.1 * torch.randn(x.shape, device=device,
+                                      generator=torch.Generator(
+                                          device=device).manual_seed(kk))
+            packed = cuda_resblock.pack_resblock_weights(w1, b1, w2, b2)
+            with torch.inference_mode():
+                got = cuda_resblock.fused_resblock(x, w1, b1, w2, b2,
+                                                   DILATIONS, packed=packed)
+                ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2,
+                                                   DILATIONS)
+                errors[("K4", C, kk)] = ((got - ref).abs().max()
+                                         / ref.abs().max()).item()
+                del got, ref
+                t = dict(shape=[16, C, L], k=kk, ms=cuda_time_ms(
+                    lambda: cuda_resblock.fused_resblock(
+                        x, w1, b1, w2, b2, DILATIONS, packed=packed),
+                    iters=5, warmup=1), plain_ms=cuda_time_ms(
+                    lambda: cuda_resblock.plain_resblock(
+                        x, w1, b1, w2, b2, DILATIONS), iters=5, warmup=1))
+                with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                                deterministic=False,
+                                                allow_tf32=False):
+                    t["library_ms"] = cuda_time_ms(
+                        lambda: cuda_resblock.plain_resblock(
+                            x, w1, b1, w2, b2, DILATIONS), iters=5, warmup=1)
+            per_shape["K4"].append(with_bound(t, resblock_bound_ms(16, L, C,
+                                                                    kk)))
+            del x, packed
+    for name, rows in per_shape.items():
+        for t in rows:
+            lib = ("null" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f} ms")
+            say(f"[timing serve] {name} {t['shape']}"
+                f"{' k=' + str(t['k']) if 'k' in t else ''}: kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{lib}, bound {t['bound_ms']:.3e} ms ({t['bound_by']}; "
+                f"{t['bound_basis']}) on {card}")
+    say(f"[serve] kernels vs plain at serving's shapes (max_abs_diff; K4 "
+        f"relative to the largest |value|): "
+        f"{ {str(k): f'{v:.3e}' for k, v in errors.items()} } (tolerance "
+        f"{KERNEL_ATOL:g})")
+    if not all(v <= KERNEL_ATOL for v in errors.values()):
+        raise RuntimeError("[serve] a kernel disagrees with its plain "
+                           "version at serving's shapes")
+    torch.cuda.empty_cache()
+    return {"launches": {"serving": launches}, "timings": timings,
+            "per_shape": per_shape, "errors": errors}
+
+
+def evaluation(device, card, features, tmp):
+    """Phase 17, objective evaluation: evaluate --objective 2 --save_dir
+    through the evaluate CLI's main on phase 13's features with 2 clips
+    held out (their trimmed wavs; the loss pass over the same 2),
+    the tracked acoustic npz and iSTFT snapshot (finite MCD and F0 rows,
+    10 K1 + 10 K2 per acoustic forward, 6 K4 per vocoder forward), then
+    prosody_sweep's main at 0.8/1.0/1.2 in both control modes on the
+    README sentence (reported) and on the corpus's first train.txt
+    sentence (verify passes).  The counts are set to 0 just before and read just after ->
+    {"launches": {"evaluation": counts}, "timings": {...}}."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_tpu_torch.cli import evaluate_cli
+    from fastspeech2_tpu_torch.evaluation import prosody_sweep
+
+    save_dir = os.path.join(tmp, "objective")
+    printed = io.StringIO()
+    with record_forwards() as calls:
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            evaluate_cli.main([
+                "-p", features["eval_yaml"], "-m",
+                f"{CONFIG}/model.yaml", "-t", features["train_yaml"],
+                "--weights_npz", ACOUSTIC_NPZ, "--vocoder_ckpt",
+                VOCODER_NPZ, "--objective", "2", "--save_dir", save_dir])
+        torch.cuda.synchronize()
+        objective_s = time.perf_counter() - t0
+        totals = launch_counts()
+    lines = printed.getvalue().splitlines()
+    rows = [json.loads(ln) for ln in lines if ln.startswith('{"name"')]
+    per_forward = [c["launches"] for c in calls]
+    loss_pass = {k: totals[k] - sum(c[k] for c in per_forward)
+                 - (6 * len(rows) if k == "K4" else 0) for k in totals}
+    say(f"[evaluate] evaluate_cli --objective 2 --save_dir on phase 13's "
+        f"features, 2 clips held out ({objective_s:.2f} s): rows {rows}; "
+        f"{lines[-1]!r}; launches {totals}: per objective forward "
+        f"{per_forward}, 6 K4 per row's vocoder forward, the loss pass "
+        f"{loss_pass}; written {sorted(os.listdir(save_dir))}")
+    if len(rows) != 2 or not all(
+            math.isfinite(r["mcd_db"]) and r["mcd_db"] > 0
+            and math.isfinite(r["f0_rmse_hz"]) and 0 < r["voicing_f1"] <= 1
+            for r in rows):
+        raise RuntimeError("[evaluate] the objective rows are not two finite "
+                           "MCD and F0 rows")
+    want = dict.fromkeys(totals, 0)
+    for c in calls:
+        need = int(c["out"].duration_rounded.sum(dim=1).max())
+        n = 2 if need > c["synth"].max_mel_len else 1
+        if c["launches"] != dict(want, K1=10 * n, K2=10 * n):
+            raise RuntimeError(f"[evaluate] an objective forward launched "
+                               f"{c['launches']}")
+    if len(calls) != 2 or loss_pass["K4"] != 0 or loss_pass["K1"] <= 0 \
+            or any(v < 0 for v in loss_pass.values()):
+        raise RuntimeError(f"[evaluate] launches {totals} do not split into "
+                           "the loss pass and 10 K1 + 10 K2 + 6 K4 per "
+                           "objective row")
+    if not os.path.exists(os.path.join(save_dir, "metrics.json")):
+        raise RuntimeError("[evaluate] no metrics.json")
+
+    # the sweep on the README sentence (the sweep CLI's default text),
+    # reported, and on the corpus's first train.txt sentence, gated
+    with open(BATCH_SOURCE) as f:
+        corpus_text = f.readline().rstrip("\n").split("|")[3]
+    sweep_launches = dict.fromkeys(totals, 0)
+    sweeps = {}
+    for name, text in (("README", README_SENTENCE), ("corpus", corpus_text)):
+        printed = io.StringIO()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            out = prosody_sweep.main([
+                "-p", f"{CONFIG}/preprocess.yaml", "-m",
+                f"{CONFIG}/model.yaml", "-t", f"{CONFIG}/train.yaml",
+                "--weights_npz", ACOUSTIC_NPZ, "--vocoder_ckpt", VOCODER_NPZ,
+                "--text", text, "--save_dir", os.path.join(tmp, name)])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        after = launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        checks = {mode: m["checks"] for mode, m in out["modes"].items()}
+        voiced = {mode: {r: row.get("wav_f0_frames") for r, row in
+                         m["results"]["pitch"].items()}
+                  for mode, m in out["modes"].items()}
+        say(f"[evaluate] prosody_sweep on the {name} sentence {text!r} at "
+            f"{prosody_sweep.RATIOS} in both modes ({sweep_s:.2f} s): all_ok "
+            f"{out['all_ok']}; checks {checks}; frames voiced in both the "
+            f"x1.0 and each pitch point's wav {voiced}; launches {launched}"
+            f"; index.html "
+            f"{os.path.exists(os.path.join(tmp, name, 'index.html'))}")
+        if launched != dict(want, K1=180, K2=180, K4=108):
+            raise RuntimeError("[evaluate] the sweep's 18 points did not "
+                               "each launch 10 K1 + 10 K2 + 6 K4")
+        sweep_launches = {k: sweep_launches[k] + launched[k]
+                          for k in launched}
+        sweeps[name] = (out["all_ok"], sweep_s)
+    if not sweeps["corpus"][0]:
+        raise RuntimeError("[evaluate] prosody_sweep.verify failed on the "
+                           "corpus sentence")
+    launches = {k: totals[k] + sweep_launches[k] for k in totals}
+    return {"launches": {"evaluation": launches},
+            "timings": {"objective_s": objective_s,
+                        "sweep_s": {k: v[1] for k, v in sweeps.items()},
+                        "sweep_ok": {k: v[0] for k, v in sweeps.items()}}}
 
 
 def main():
@@ -3086,7 +3904,11 @@ def main():
     with tempfile.TemporaryDirectory() as prep_tmp:
         prep = data_preparation(device, card, prep_tmp)
         voc = vocoder_training(device, card, prep["features"], prep_tmp)
-    path_launches = dict(prep["launches"], **voc["launches"])
+        # 16. serving and 17. objective evaluation (on phase 13's features)
+        served = serving(device, card, prep_tmp)
+        evaluated = evaluation(device, card, prep["features"], prep_tmp)
+    path_launches = dict(prep["launches"], **voc["launches"],
+                         **served["launches"], **evaluated["launches"])
 
     # 14. kernels line
     sources = {"K1": ("fused_attention", "fastspeech2_tpu_torch/csrc/attention.cu",
@@ -3113,6 +3935,11 @@ def main():
     per_shape["K2"] = [dict(shape=[B, L, 256], **{key: t[key] for key in keys})
                        for (n, B, L), t in sorted(timings.items())
                        if n == "K2"]
+    # ... and at serving's batch-16 shapes (phase 16)
+    for name in ("K1", "K2"):
+        per_shape[name] += [dict(shape=t["shape"],
+                                 **{key: t.get(key) for key in keys})
+                            for t in served["per_shape"][name]]
     kernels = []
     for name in ("K1", "K2", "K3"):
         fn, src, replaces, shape = sources[name]
@@ -3156,6 +3983,7 @@ def main():
                  "[1, 256|128|64|32, 8000|64000|128000|256000], k = 3, 7, "
                  "11, f32",
         "per_call": k4_timings,
+        "per_call_serving": served["per_shape"]["K4"],
         "launches_by_path": {"synthesis": launches["K4"],
                              "parity synthesis": parity_launches["K4"],
                              **{path: n["K4"] for path, n in

@@ -16,6 +16,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from fastspeech2_tpu_torch.models.hifigan import build_stages, run_stages
+from fastspeech2_tpu_torch.ops.device_cache import cached_constant
 
 
 def _istft_bases(n_fft):
@@ -34,6 +35,33 @@ def _hann_periodic(n):
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * t / n)).astype(np.float32)
 
 
+@cached_constant(maxsize=None)
+def _istft_constants(n_fft, device):
+    """(C, S, window) on ``device``, made once: a copy from the host in
+    every forward would make the host wait for the card, and cannot be
+    captured in a CUDA graph.  Made outside inference mode, so that the
+    vocoder trainer can differentiate through them."""
+    c, s = _istft_bases(n_fft)
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device)
+                     for a in (c, s, _hann_periodic(n_fft)))
+
+
+@cached_constant(maxsize=64)
+def _window_sum_square(n_fft, hop, f, device):
+    """The window-sum-square normaliser of an F-frame overlap-add (1 where
+    it vanishes), on ``device``, made once per F."""
+    wsq = _hann_periodic(n_fft) ** 2
+    n_overlap = n_fft // hop
+    wss = 0.0
+    for j in range(n_overlap):
+        wchunk = np.tile(wsq[j * hop: (j + 1) * hop], (f, 1))
+        wss = wss + np.pad(wchunk, ((j, n_overlap - 1 - j), (0, 0))).reshape(-1)
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.where(wss > 1e-11, wss, 1.0),
+                               dtype=torch.float32, device=device)
+
+
 def overlap_add_istft(real, imag, n_fft, hop):
     """[B, F, n_bins] real/imag -> [B, F*hop] waveform.
 
@@ -42,27 +70,19 @@ def overlap_add_istft(real, imag, n_fft, hop):
     exactly F*hop samples.  The overlap-add is a sum of n_fft//hop shifted
     reshapes, not a scatter loop.
     """
-    c, s = _istft_bases(n_fft)
-    window = _hann_periodic(n_fft)
-    dev = real.device
-    frames = (torch.matmul(real, torch.as_tensor(c, device=dev))
-              + torch.matmul(imag, torch.as_tensor(s, device=dev)))
-    frames = frames * torch.as_tensor(window, device=dev)
+    c, s, window = _istft_constants(n_fft, real.device)
+    frames = torch.matmul(real, c) + torch.matmul(imag, s)
+    frames = frames * window
 
     b, f, _ = frames.shape
     n_overlap = n_fft // hop
-    wsq = window ** 2
     sig = None
-    wss = 0.0
     for j in range(n_overlap):
         chunk = frames[:, :, j * hop: (j + 1) * hop]           # [B, F, hop]
         chunk = F.pad(chunk, (0, 0, j, n_overlap - 1 - j))
         part = chunk.reshape(b, -1)
         sig = part if sig is None else sig + part
-        wchunk = np.tile(wsq[j * hop: (j + 1) * hop], (f, 1))
-        wss = wss + np.pad(wchunk, ((j, n_overlap - 1 - j), (0, 0))).reshape(-1)
-    sig = sig / torch.as_tensor(np.where(wss > 1e-11, wss, 1.0),
-                                dtype=torch.float32, device=dev)
+    sig = sig / _window_sum_square(n_fft, hop, f, real.device)
     trim = (n_fft - hop) // 2
     return sig[:, trim: trim + f * hop]
 

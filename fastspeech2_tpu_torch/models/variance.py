@@ -101,7 +101,13 @@ class VarianceAdaptor(nn.Module):
         else:
             # control scales the predicted (normalized) variance like the
             # reference; offset (default 0) lets callers express absolute
-            # control on z-scored features (synthesis/pipeline.py)
+            # control on z-scored features (synthesis/pipeline.py).  A
+            # float32 tensor control (the fused dispatch's) promotes a
+            # bfloat16 prediction to float32, as the JAX pipeline's
+            # jnp.float32 scalars do
+            if torch.is_tensor(control):
+                prediction = prediction.to(
+                    torch.promote_types(prediction.dtype, control.dtype))
             prediction = prediction * control + offset
             ids = torch.searchsorted(bins, prediction.float().contiguous())
         return prediction, embed(ids).to(x.dtype)

@@ -34,6 +34,7 @@ from fastspeech2_tpu_torch.audio.stft import griffin_lim
 from fastspeech2_tpu_torch.models.hifigan import HiFiGANGenerator
 from fastspeech2_tpu_torch.models.hifigan_istft import HiFiGANiSTFTGenerator
 from fastspeech2_tpu_torch.models.melgan import MelGANGenerator
+from fastspeech2_tpu_torch.ops.device_cache import cached_constant
 from fastspeech2_tpu_torch.utils.params_io import (
     fold_weight_norm,
     hifigan_from_jax_params,
@@ -101,8 +102,15 @@ def generator_from_jax_params(variables, config):
 def _weak_scalar(value, like):
     """A Python float as JAX's weakly typed constant meets ``like``: rounded
     to its dtype first (``jnp.log(10.0)`` becomes a bfloat16 2.296875 next
-    to a bfloat16 mel)."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    to a bfloat16 mel).  Made once per (value, dtype, device): no copy from
+    the host in a forward, which a CUDA graph could not capture."""
+    return _scalar_tensor(value, like.dtype, like.device)
+
+
+@cached_constant(maxsize=None)
+def _scalar_tensor(value, dtype, device):
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=dtype, device=device)
 
 
 class MelGANVocoder(nn.Module):

@@ -23,6 +23,7 @@ rounding boundary (one ulp; K1 also rounds its unnormalised P, the plain
 version the normalised one).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -616,3 +617,117 @@ def test_model_bf16_goes_through_the_bf16_kernels(device):
             cuda_attention.bwd_launches) == (3, 3, 0)
     assert all(torch.isfinite(v) for v in losses)
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def _tiny_fused_synthesizer(device):
+    """A small acoustic model and iSTFT generator behind a Synthesizer on
+    the card, and two phone-ID rows (20 and 9 phones)."""
+    from fastspeech2_tpu_torch.synthesis.pipeline import Synthesizer
+    from fastspeech2_tpu_torch.synthesis.vocoder import build_generator
+
+    cfg = FastSpeech2Config(encoder_layer=1, decoder_layer=2,
+                            max_seq_len=128)
+    torch.manual_seed(0)
+    model = FastSpeech2(cfg).to(device).eval()
+    with torch.no_grad():
+        model.variance_adaptor.duration_predictor.linear_layer.bias.fill_(1.2)
+    gen = build_generator({"upsample_rates": [8, 4],
+                           "upsample_kernel_sizes": [16, 8],
+                           "upsample_initial_channel": 128,
+                           "resblock_kernel_sizes": [3],
+                           "resblock_dilation_sizes": [[1, 3]],
+                           "gen_istft_n_fft": 16, "gen_istft_hop_size": 8})
+    pre = {"preprocessing": {"audio": {"max_wav_value": 32768.0},
+                             "stft": {"hop_length": 256}}}
+    syn = Synthesizer(model, cfg, pre, device, vocoder=gen.to(device).eval())
+    g = torch.Generator().manual_seed(3)
+    ids = [torch.randint(1, 300, (n,), generator=g).numpy() for n in (20, 9)]
+    return syn, ids
+
+
+def test_fused_dispatch_graph_replays_the_eager_dispatch(device):
+    """The fused text->wav dispatch on the card: a shape without a graph
+    is dispatched eagerly and makes none; warm_shape captures one (a
+    warm-up run and the capture count their launches); a dispatch then
+    replays it, and a replay gives the eager dispatch's outputs bit for bit
+    at any control value; the replays are counted."""
+    from fastspeech2_tpu_torch.synthesis.graphs import kernel_counts
+
+    syn, ids = _tiny_fused_synthesizer(device)
+    graphs = syn.graphs
+    before = kernel_counts()
+    wavs_e, _ = syn.synthesize_ids(ids)
+    after = kernel_counts()
+    assert not graphs.graphs and not syn._warm
+    assert {k: after[k] - before[k] for k in after} == {
+        "K1": 3, "K1_bf16": 0, "K2": 3, "K2_bf16": 0, "K4": 2}
+    syn.warm_shape(2, 20)
+    assert sorted(graphs.graphs) == [(2, 32)] and syn._warm == {(2, 32)}
+    captured = graphs.graphs[(2, 32)].launches
+    assert captured == {k: after[k] - before[k] for k in after}
+    assert graphs.setup_launches == {k: 2 * v for k, v in captured.items()}
+    wavs, out = syn.synthesize_ids(ids)
+    assert graphs.replays() == 1 and kernel_counts() == dict(
+        (k, after[k] + 2 * captured[k]) for k in after)
+    assert [len(w) for w in wavs] == [int(m) * 256 for m in out.mel_len]
+    assert all(np.array_equal(a, b) for a, b in zip(wavs, wavs_e))
+    packed = syn._pack_batch(ids, None)
+    for controls in ((1.0, 1.0, 1.0, 0.0, 0.0), (1.2, 0.8, 1.3, 0.1, -0.1)):
+        wav_g, out_g = graphs.run(*packed, controls)
+        wav_e, out_e = syn.fused_forward(*packed, controls)
+        assert torch.equal(wav_g, wav_e)
+        assert all(torch.equal(a, b) for a, b in zip(out_g, out_e))
+    assert graphs.replays() == 3
+    assert graphs.launches() == {k: 3 * v for k, v in captured.items()}
+    assert graphs.pool_bytes() != 0
+    # replays from several threads at once, each at its own duration
+    # control: the lock keeps each one's inputs and outputs its own
+    import threading
+
+    ratios = [0.7 + 0.1 * i for i in range(8)]
+    want = {r: syn.fused_forward(*packed, (1.0, 1.0, r, 0.0, 0.0))[0]
+            for r in ratios}
+    got = {}
+    threads = [threading.Thread(target=lambda r=r: got.__setitem__(
+        r, graphs.run(*packed, (1.0, 1.0, r, 0.0, 0.0))[0]))
+        for r in ratios for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    assert all(torch.equal(got[r], want[r]) for r in ratios)
+
+
+def test_graph_keeps_the_constants_it_reads(device):
+    """A graph reads the cached position tables and iSTFT constants by
+    address at every replay: after the caches drop them and their memory
+    is handed out again (filled with NaN), a replay still gives the eager
+    dispatch's outputs bit for bit."""
+    from fastspeech2_tpu_torch.models import hifigan_istft
+    from fastspeech2_tpu_torch.ops import positional
+
+    syn, ids = _tiny_fused_synthesizer(device)
+    packed = syn._pack_batch(ids, None)
+    controls = (1.0, 1.0, 1.0, 0.0, 0.0)
+    syn.graphs.capture(*packed)
+    constants = syn.graphs.graphs[(2, 32)].constants
+    sizes = [t.numel() for c in constants
+             for t in (c if isinstance(c, tuple) else (c,))]
+    assert len(sizes) >= 5   # two tables, C, S, the window, the wss
+    wav_e, out_e = syn.fused_forward(*packed, controls)
+    for cache in (positional._device_table, hifigan_istft._istft_constants,
+                  hifigan_istft._window_sum_square):
+        cache.cache_clear()
+    del constants
+    # the constants were made in the capture's warm-up run, on its side
+    # stream, where the allocator hands their blocks out again
+    junk = []
+    for stream in (syn.graphs.stream, torch.cuda.current_stream(device)):
+        with torch.cuda.stream(stream):
+            junk += [torch.full((n,), float("nan"), device=device)
+                     for n in sizes for _ in range(8)]
+    wav_g, out_g = syn.graphs.run(*packed, controls)
+    del junk
+    assert torch.equal(wav_g, wav_e)
+    assert all(torch.equal(a, b) for a, b in zip(out_g, out_e))

@@ -93,6 +93,18 @@ def test_imports_without_jax():
             "import fastspeech2_tpu_torch.cli.train_vocoder_cli\n"
             "import fastspeech2_tpu_torch.cli.export_mels_cli\n"
             "import fastspeech2_tpu_torch.cli.export_cli\n"
+            "import fastspeech2_tpu_torch.synthesis.graphs\n"
+            "import fastspeech2_tpu_torch.ops.device_cache\n"
+            "import fastspeech2_tpu_torch.tools.serve_bench\n"
+            "import fastspeech2_tpu_torch.serving\n"
+            "import fastspeech2_tpu_torch.serving.server\n"
+            "import fastspeech2_tpu_torch.cli.serve_cli\n"
+            "import fastspeech2_tpu_torch.evaluation\n"
+            "import fastspeech2_tpu_torch.evaluation.metrics\n"
+            "import fastspeech2_tpu_torch.evaluation.vocoder_eval\n"
+            "import fastspeech2_tpu_torch.evaluation.prosody_sweep\n"
+            "import fastspeech2_tpu_torch.evaluation.align_validation\n"
+            "import fastspeech2_tpu_torch.evaluation.demo_page\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
             "'optax', 'orbax', 'fastspeech2_tpu.')) for m in sys.modules "
             "if sys.modules[m])\n")
