@@ -134,7 +134,31 @@ exits non-zero):
              per acoustic forward, 6 K4 per vocoder forward) and
              prosody_sweep at 0.8/1.0/1.2 in both control modes on the
              README sentence (reported) and on the corpus's first
-             train.txt sentence (verify passes).
+             train.txt sentence (verify passes);
+18. parallel two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+             GPU), full width, phase 13's features, dropout 0, against the
+             one-process steps on the same batches (run on rank 0): PAR_STEPS
+             steps at dp 2 (5 rows a rank) at float32 and bfloat16 and at
+             tp 2 (one head per rank: K1 and K3 at [10, 1, L, 128]), the
+             float32 gradient per tensor against its own noise (two
+             reordered one-process steps), each rank's K1/K3 launches;
+             train() under dp 2 (rank 0 alone logs and writes the whole
+             checkpoint; the preemption check's host time); the GAN step
+             at --data_parallel 2
+             (batch 16 x 8192, 8 a rank); K1 and K3 at one head against
+             their plain versions, timed beside SDPA;
+19. replicas a Synthesizer over [cuda:0, cuda:0]: a [16 x 128] dispatch
+             (one graph per replica at [8 x 128]) against one replica
+             (whole int16 wavs), 10 K1 + 10 K2 + 6 K4 per replica;
+             serve_cli --data_parallel 2 refuses one card;
+20. g2p      mine_lexicon on the tracked metadata; train_g2p on the
+             tracked mined lexicon (G2P_EPOCHS epochs, batch 512, 500
+             held out: greedy, beam-4 and rule accuracy, beam 4 must beat
+             the rules); the written npz through NeuralG2P and the README
+             sentence's frontend;
+21. loo      one leave-one-out fold at a cut through the port's CLIs, then
+             the vocoder ladder on the tracked snapshot and the fold's
+             checkpoint.
 
 The bfloat16 instances (--dtype bfloat16, the JAX train CLI's default) run
 through the same script: the build reports their registers, spills and
@@ -246,6 +270,54 @@ VOC_BRIEF_STEPS = 3
 VOC_SCAN_STEP, VOC_SCAN_TOTAL = 5, 10
 VOC_REPRO_STEPS = 5
 # training: the decoder's and encoder's L at LJSpeech lengths
+# parallel training on one card (phase 18): two ranks on cuda:0 over gloo;
+# the gates against the one-process steps (dropout 0): the six losses'
+# relative error; the first step's gradient, each tensor's error over its
+# largest |value| (floored at 1e-3 of the whole gradient's largest): at
+# float32 within PAR_NOISE_X x that tensor's own float32 noise +
+# PAR_GRAD_ABS, the noise being the largest error of three one-process
+# steps equal to the first in exact arithmetic (the batch's rows reversed;
+# the heads rotated, head and FFN channels shuffled; the convolutions
+# without cuDNN), which must themselves stay within PAR_NOISE_MAX (else a
+# reordering is not the same step); at bfloat16 within PAR_GRAD_TOL_BF16;
+# the gradient's global norm; the state after the first and the last
+# step: at most PAR_SHARE of the parameter
+# elements off by more than PAR_PARAM_TOL of their tensor's largest
+# |value| (Adam divides each gradient element by its own size: an element
+# whose gradient sits at the noise steps either way), the BatchNorm
+# statistics within PAR_PARAM_TOL (the running mean after the last step
+# plus 0.2 x steps x the summed rates: it follows the conv biases of
+# parallel_steps.ZERO_GRADIENT)
+PAR_STEPS = 5
+PAR_LOOP_STEPS = 6
+PAR_GAN_STEPS = 2
+PAR_LOSS_RTOL = 1e-4
+# (a fault of the split, such as a dropped all-reduce, a partial gradient
+# or a bias added twice, changes the function, not the order of a sum;
+# most tensors' noise is 1e-6-1e-4, one reads 5.3e-3: PERF.md, PR 14)
+PAR_NOISE_X = 4
+PAR_GRAD_ABS = 1e-4
+PAR_NOISE_MAX = 5e-2
+PAR_PARAM_TOL = 1e-4
+PAR_SHARE = 1e-2
+# at bfloat16 the rows' activations round apart as the batch is split
+# (cuBLAS picks its kernels by shape): the statistics to a few bfloat16
+# ulps (2^-8)
+PAR_LOSS_RTOL_BF16 = 1e-2
+PAR_GRAD_TOL_BF16 = 5e-2
+PAR_PARAM_TOL_BF16 = 5e-2
+PAR_SHARE_BF16 = 1e-2
+# the GAN step at --data_parallel 2: each parameter's error over its
+# tensor's largest |value| (floored at 1e-3) after PAR_GAN_STEPS steps
+PAR_GAN_TOL = 1e-2
+# serving over two replicas against one (phase 19): int16 LSB
+REPLICA_LSB = 1
+# the G2P trainer (phase 20): cut from the JAX CLI's default 300 epochs
+# to keep the run short (an epoch takes about a second on the H100)
+G2P_EPOCHS = 60
+# leave-one-out at a cut (phase 21): acoustic steps, vocoder steps per stage
+LOO_ACOUSTIC_STEPS = 4
+LOO_VOC_STEPS = 2
 TRAIN_BATCH = 10
 TRAIN_STEPS = 20
 # every kernel's least time (tools/kernel_bounds.py: H100 SXM peaks from
@@ -2790,9 +2862,679 @@ def evaluation(device, card, features, tmp):
                         "sweep_ok": {k: v[0] for k, v in sweeps.items()}}}
 
 
+def host_ms(fn, n=5):
+    """Median and min host ms of ``fn`` over n runs, the card synchronised
+    around each."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times)
+
+
+def _grad_errors(got, ref):
+    """The first step's gradient of a run against another's -> {tensor:
+    its max error over its largest |value|, floored at 1e-3 of the whole
+    gradient's largest}, ZERO_GRADIENT tensors apart."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.tools.parallel_steps import ZERO_GRADIENT
+
+    floor = 1e-3 * max(float(np.abs(g).max()) for g in ref.values())
+    return {k: float(np.abs(got[k] - g).max()
+                     / max(float(np.abs(g).max()), floor))
+            for k, g in ref.items()
+            if not any(re.fullmatch(p, k) for p in ZERO_GRADIENT)}
+
+
+def _step_errors(got, ref, tol):
+    """A parallel run's result against the one-process run's -> {losses:
+    max relative error over the steps' six losses, grads: the largest of
+    _grad_errors and grads_worst, the tensor where it is, per_tensor:
+    _grad_errors, grad_norm: relative, first / last:
+    parallel_steps.state_errors at ``tol`` of the state after the first
+    step and after the last}."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.tools.parallel_steps import state_errors
+
+    per_tensor = _grad_errors(got["grads"], ref["grads"])
+    worst = max(per_tensor, key=per_tensor.get)
+    return {"losses": float(np.max(np.abs(got["losses"] - ref["losses"])
+                                   / np.abs(ref["losses"]))),
+            "grads": per_tensor[worst], "grads_worst": worst,
+            "per_tensor": per_tensor,
+            "grad_norm": abs(got["grad_norm"] / ref["grad_norm"] - 1.0),
+            "first": state_errors(got["after_first"], ref["after_first"],
+                                  tol),
+            "last": state_errors(got["state"], ref["state"], tol)}
+
+
+def _channel_permutation(state, cfg, seed=0):
+    """A symmetry of the model: in every FFT block the attention's heads
+    rotated and each head's channels shuffled (the rows of w_qs and w_ks
+    by one order, of w_vs and the columns of fc by another), and the FFN's
+    hidden channels shuffled (the rows of w_1 and the columns of w_2) ->
+    {state name: (dim, order)}, new = np.take(old, order, dim).  The
+    model computes the same function in exact arithmetic, with every sum
+    over heads, head channels or hidden channels in another order: the
+    sums that tensor parallel splits."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    perms = {}
+    for stack in ("encoder", "decoder"):
+        n_head = getattr(cfg, f"{stack}_head")
+        for i in range(getattr(cfg, f"{stack}_layer")):
+            at = f"{stack}.layer_stack.{i}.slf_attn"
+            ffn = f"{stack}.layer_stack.{i}.pos_ffn"
+            dh = state[f"{at}.w_qs.weight"].shape[0] // n_head
+            heads = np.roll(np.arange(n_head), 1)
+            qk, v = (np.concatenate([h * dh + rng.permutation(dh)
+                                     for h in heads]) for _ in range(2))
+            hidden = rng.permutation(state[f"{ffn}.w_1.weight"].shape[0])
+            for name, dim, order in (
+                    ("w_qs", 0, qk), ("w_ks", 0, qk), ("w_vs", 0, v)):
+                perms[f"{at}.{name}.weight"] = (dim, order)
+                perms[f"{at}.{name}.bias"] = (dim, order)
+            perms[f"{at}.fc.weight"] = (1, v)
+            perms[f"{ffn}.w_1.weight"] = (0, hidden)
+            perms[f"{ffn}.w_1.bias"] = (0, hidden)
+            perms[f"{ffn}.w_2.weight"] = (1, hidden)
+    return perms
+
+
+def reordered_inputs(base, batch, cfg):
+    """Three one-process float32 steps that equal the first step of
+    ``base`` in exact arithmetic and sum in other orders, the float32
+    noise the parallel runs' gradients are held to: "rows" (the batch's
+    rows reversed: the sums over rows that data parallel splits),
+    "channels" (:func:`_channel_permutation`) and "convolutions" (without
+    cuDNN, whose algorithm is chosen by shape, as the ranks' smaller
+    shapes choose theirs) -> ({name: spec for
+    parallel_steps.acoustic_steps}, the permutation, for
+    :func:`permuted_back`)."""
+    import numpy as np
+
+    B = len(batch["mel_lens"])
+    rows = {k: (v[::-1].copy() if isinstance(v, np.ndarray) and v.ndim
+                and v.shape[0] == B else
+                v[::-1] if isinstance(v, list) and len(v) == B else v)
+            for k, v in batch.items()}
+    perms = _channel_permutation(base["state"], cfg)
+    state = {k: np.take(v, perms[k][1], perms[k][0]) if k in perms else v
+             for k, v in base["state"].items()}
+    one = dict(base, data=1, model=1, dtype="float32")
+    return {"rows": dict(one, batches=[rows]),
+            "channels": dict(one, batches=[batch], state=state),
+            "convolutions": dict(one, batches=[batch], cudnn=False)}, perms
+
+
+def permuted_back(grads, perms):
+    """A gradient of the channel-permuted model in the model's order."""
+    import numpy as np
+
+    return {k: np.take(g, np.argsort(perms[k][1]), perms[k][0])
+            if k in perms else g for k, g in grads.items()}
+
+
+def parallel_training(device, card, features, tmp):
+    """Phase 18, data and tensor parallel training on one card: two ranks
+    on cuda:0 over gloo (NCCL refuses two ranks on one GPU), at full width
+    on phase 13's features, against the one-process steps on the same
+    global batches from the same weights, dropout 0 (the rank enters the
+    dropout seed), run on rank 0 of the same world so that every compared
+    step runs in a process of one kind: dp 2 at float32 and bfloat16, tp
+    2 at float32 (K1 and K3 at one head per rank), the float32 gradient
+    per tensor against its noise (:func:`reordered_inputs`), the train
+    loop under dp 2 (rank 0 alone logs and writes the checkpoint), the
+    GAN step at --data_parallel 2.
+    K1 and K3 at [10, 1, L, 128] against their plain versions, timed
+    beside SDPA.  Raises on a failed gate -> {"launches": {path: counts},
+    "timings": {...}, "per_shape": {"K1": [...], "K3": [...]}}."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fastspeech2_tpu_torch.configs.config import (
+        FastSpeech2Config,
+        OptimConfig,
+        load_yaml_configs,
+    )
+    from fastspeech2_tpu_torch.data.dataset import (
+        BucketedLoader,
+        FeatureDataset,
+    )
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.ops import cuda_attention
+    from fastspeech2_tpu_torch.ops.attention import (
+        multi_head_attention,
+        plain_attention_backward,
+    )
+    from fastspeech2_tpu_torch.parallel.launch import run_ranks
+    from fastspeech2_tpu_torch.tools import parallel_steps
+    from fastspeech2_tpu_torch.synthesis.vocoder import GENERATOR_KEYS
+    from fastspeech2_tpu_torch.tools.kernel_bounds import attention_bound_ms
+    from fastspeech2_tpu_torch.training.optim import noam_schedule
+    from fastspeech2_tpu_torch.training.step import TRAIN_SEED
+    from fastspeech2_tpu_torch.utils.params_io import load_variables_npz
+
+    pre, model_cfg, train_cfg = load_yaml_configs(
+        features["preprocess_yaml"], f"{CONFIG}/model.yaml",
+        features["train_yaml"])
+    cfg = FastSpeech2Config.build(pre, model_cfg)
+    train_cfg["optimizer"].update(batch_size=TRAIN_BATCH, grad_acc_step=1)
+    optim = OptimConfig.build(train_cfg)
+    bucket = train_cfg.get("bucket", {})
+    loader = BucketedLoader(
+        FeatureDataset("train.txt", pre), batch_size=TRAIN_BATCH,
+        group_size=4, shuffle=True, drop_last=True,
+        max_mel_len=cfg.max_seq_len, text_bucket=bucket.get("text", 32),
+        mel_bucket=bucket.get("mel", 160))
+    batches = [next(iter(loader.epoch(e))) for e in range(PAR_STEPS)]
+    for b in batches:
+        halves = [b["mel_lens"][:5], b["mel_lens"][5:]]
+        if len(set(b["mel_lens"].tolist())) < 2 or \
+                sum(halves[0]) == sum(halves[1]):
+            raise RuntimeError("[parallel] a batch whose rows or halves do "
+                               "not differ in length hides the traps")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(TRAIN_SEED)
+        state = {k: v.numpy() for k, v in FastSpeech2(cfg).state_dict()
+                 .items()}
+    base = dict(cfg=cfg, optim=optim, state=state, batches=batches,
+                dropout=False, device="cuda:0")
+    shapes = sorted({(int(b["texts"].shape[1]),
+                      min(int(b["mels"].shape[1]), cfg.max_seq_len))
+                     for b in batches})
+    say(f"[parallel] {PAR_STEPS} global batches of {TRAIN_BATCH} from phase "
+        f"13's features (text, frames) {shapes}; mel_len per batch "
+        f"{[b['mel_lens'].tolist() for b in batches]}")
+
+    # the one-process steps and the reordered ones run on rank 0 of the
+    # world (rank 1 sits them out), in a process like the parallel runs'
+    launches, timings = {}, {}
+    noise_specs, perms = reordered_inputs(base, batches[0], cfg)
+
+    # the parallel runs: 2 ranks on cuda:0 over gloo, one world for all
+    with open(VOC_CONFIG) as f:
+        voc_cfg = json.load(f)
+    gan_kw = dict(wav_dir=None,
+                  finetune_from=pre["path"]["preprocessed_path"],
+        out_dir=os.path.join(tmp, "gan_dp"), total_steps=PAR_GAN_STEPS,
+        batch_size=16, segment_size=8192, mel_source="gt",
+        generator_config={k: voc_cfg[k] for k in GENERATOR_KEYS
+                          if k in voc_cfg},
+        init_generator_params=load_variables_npz(VOCODER_NPZ)["params"],
+        log_step=1, save_step=10 ** 6, aug_gain_db=3.0, device="cuda:0")
+    loop_train = dict(train_cfg)
+    loop_train["path"] = dict(train_cfg["path"],
+                              ckpt_path=os.path.join(tmp, "dp_ckpt"),
+                              log_path=os.path.join(tmp, "dp_log"))
+    loop_train["step"] = dict(train_cfg["step"], total_step=PAR_LOOP_STEPS,
+                              save_step=PAR_LOOP_STEPS, log_step=1,
+                              synth_step=10 ** 6, val_step=10 ** 6)
+    tasks = [("acoustic_steps", dict(base, data=1, model=1,
+                                     dtype="float32")),
+             ("acoustic_steps", dict(base, data=1, model=1,
+                                     dtype="bfloat16")),
+             ("acoustic_steps", noise_specs["rows"]),
+             ("acoustic_steps", noise_specs["channels"]),
+             ("acoustic_steps", noise_specs["convolutions"]),
+             ("acoustic_steps", dict(base, data=2, model=1,
+                                     dtype="float32")),
+             ("acoustic_steps", dict(base, data=2, model=1,
+                                     dtype="bfloat16")),
+             ("acoustic_steps", dict(base, data=1, model=2,
+                                     dtype="float32")),
+             ("loop_steps", dict(preprocess_config=pre,
+                                 model_config=model_cfg,
+                                 train_config=loop_train, data=2, model=1,
+                                 device="cuda:0", dtype=torch.bfloat16)),
+             ("vocoder_steps", gan_kw)]
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_steps.run_tasks, 2, (tasks,),
+                      store_dir=tmp, backend="gloo", timeout=900)
+    timings["world_s"] = time.perf_counter() - t0
+    per_task = list(zip(*ranks))
+    ref32, ref16, rows, channels, convs = (r[0] for r in per_task[:5])
+    dp32, dp16, tp32, loop, gan = per_task[5:]
+    ref = {"float32": ref32, "bfloat16": ref16}
+    for dtype, one in ref.items():
+        suffix = "_bf16" if dtype == "bfloat16" else ""
+        launches[f"parallel one-process {dtype}"] = dict(
+            dict.fromkeys(launch_counts(), 0),
+            **{"K1" + suffix: one["launches"][0],
+               "K3" + suffix: one["launches"][1]})
+    # the float32 gradient's own noise, per tensor
+    noise_runs = {
+        "rows": _grad_errors(rows["grads"], ref32["grads"]),
+        "channels": _grad_errors(permuted_back(channels["grads"], perms),
+                                 ref32["grads"]),
+        "convolutions": _grad_errors(convs["grads"], ref32["grads"])}
+    noise = {k: max(e[k] for e in noise_runs.values())
+             for k in noise_runs["rows"]}
+    noise_loss = max(float(np.max(np.abs(r["losses"][0]
+                                         - ref32["losses"][0])
+                                  / np.abs(ref32["losses"][0])))
+                     for r in (rows, channels, convs))
+
+    def top(errors, n=5):
+        return [(k, f"{errors[k]:.3e}") for k in
+                sorted(errors, key=errors.get, reverse=True)[:n]]
+
+    say(f"[parallel] the float32 first step's gradient against itself on "
+        f"inputs equal in exact arithmetic, per tensor, largest first: "
+        f"rows reversed {top(noise_runs['rows'])}; heads and channels "
+        f"permuted {top(noise_runs['channels'])}; convolutions without "
+        f"cuDNN {top(noise_runs['convolutions'])}; their losses within "
+        f"{noise_loss:.3e}; on {card}")
+    if max(noise.values()) > PAR_NOISE_MAX or noise_loss > PAR_LOSS_RTOL:
+        raise RuntimeError("[parallel] a reordered step is not the same "
+                           "step: the noise estimate is void")
+
+    gates = {"float32": (PAR_LOSS_RTOL, PAR_PARAM_TOL, PAR_SHARE),
+             "bfloat16": (PAR_LOSS_RTOL_BF16, PAR_PARAM_TOL_BF16,
+                          PAR_SHARE_BF16)}
+    lr = noam_schedule(cfg.encoder_hidden, optim.warm_up_step,
+                       optim.anneal_steps, optim.anneal_rate)
+    lr_first = float(lr(0))
+    lr_sum = sum(float(lr(i)) for i in range(PAR_STEPS))
+    for name, runs, dtype in (("dp 2", dp32, "float32"),
+                              ("dp 2", dp16, "bfloat16"),
+                              ("tp 2", tp32, "float32")):
+        one = ref[dtype]
+        loss_tol, param_tol, share = gates[dtype]
+        errs = _step_errors(runs[0], one, param_tol)
+        per_tensor = errs.pop("per_tensor")
+        grads_ok = errs["grads"] <= PAR_GRAD_TOL_BF16
+        if dtype == "float32":
+            # each tensor against its own noise
+            excess = {k: e / (PAR_NOISE_X * noise[k] + PAR_GRAD_ABS)
+                      for k, e in per_tensor.items()}
+            k = max(excess, key=excess.get)
+            errs["grads_against_noise"] = dict(
+                worst=k, error=per_tensor[k],
+                **{n: e[k] for n, e in noise_runs.items()},
+                ratio=excess[k])
+            grads_ok = excess[k] <= 1.0
+            say(f"[parallel] {name} {dtype}: gradient error per tensor, "
+                f"largest first {top(per_tensor)}; the largest against "
+                f"{PAR_NOISE_X} x the noise + {PAR_GRAD_ABS}: "
+                f"{errs['grads_against_noise']}; on {card}")
+        same = all(np.array_equal(runs[1]["state"][k], runs[0]["state"][k])
+                   for k in one["state"])
+        step_ms = [1e3 * float(np.median(r["step_s"][1:])) for r in runs]
+        timings[f"{name} {dtype}"] = dict(
+            step_ms=step_ms,
+            one_process_ms=1e3 * float(np.median(one["step_s"][1:])),
+            errors=errs)
+        per_rank = [r["launches"] for r in runs]
+        suffix = "_bf16" if dtype == "bfloat16" else ""
+        launches[f"parallel {name} {dtype}"] = dict(
+            dict.fromkeys(launch_counts(), 0),
+            **{"K1" + suffix: sum(n[0] for n in per_rank),
+               "K3" + suffix: sum(n[1] for n in per_rank)})
+        say(f"[parallel] {name} {dtype}, {PAR_STEPS} steps at batch "
+            f"{TRAIN_BATCH} (ranks {[r['place'] for r in runs]}): losses "
+            f"{runs[0]['losses'][:, 0].tolist()} against one process "
+            f"{one['losses'][:, 0].tolist()}; errors {errs} (learning rate "
+            f"of the first step {lr_first:.3e}, summed {lr_sum:.3e}); "
+            f"ranks' states bitwise equal {same}; median step {step_ms} ms "
+            f"per rank against "
+            f"{timings[f'{name} {dtype}']['one_process_ms']:.2f} in one "
+            f"process; K1, K3 launches per rank {per_rank}; on {card}")
+        first, last = errs["first"], errs["last"]
+        if not (same and errs["losses"] <= loss_tol and grads_ok
+                and errs["grad_norm"] <= loss_tol
+                and first["share"] <= share and last["share"] <= share
+                and first["running_mean"] <= param_tol
+                and max(first["running_var"],
+                        last["running_var"]) <= param_tol
+                and last["running_mean"] <= param_tol + 0.2 * PAR_STEPS
+                * lr_sum):
+            raise RuntimeError(f"[parallel] {name} {dtype} differs from one "
+                               f"process: {errs}")
+        if per_rank != [(10 * PAR_STEPS, 10 * PAR_STEPS)] * 2:
+            raise RuntimeError(f"[parallel] {name} {dtype}: K1, K3 launches "
+                               f"per rank {per_rank}, expected 10 + 10 per "
+                               "step")
+
+    # the train loop under dp 2 with dropout on: rank 0 alone logs and
+    # writes the whole checkpoint
+    ckpts = sorted(os.listdir(loop_train["path"]["ckpt_path"]))
+    timings["loop dp 2 bfloat16"] = dict(
+        step_ms=[1e3 * float(np.median(r["step_s"][1:])) for r in loop],
+        agree_ms=[1e3 * r["agree_s"] for r in loop])
+    say(f"[parallel] train() under dp 2 at bfloat16, {PAR_LOOP_STEPS} "
+        f"steps: rank 0 {loop[0]['log'][-2:]}, rank 1 logged "
+        f"{len(loop[1]['log'])} lines; checkpoints {ckpts}; host ms "
+        f"between updates (median of steps 2-{PAR_LOOP_STEPS}, the log "
+        f"duty included) and of one preemption check (agree) per rank "
+        f"{timings['loop dp 2 bfloat16']}; on {card}")
+    if [r["step"] for r in loop] != [PAR_LOOP_STEPS] * 2 or loop[1]["log"] \
+            or ckpts != [f"{PAR_LOOP_STEPS}.pth.tar"]:
+        raise RuntimeError("[parallel] the loop under dp 2 did not train, "
+                           "log and checkpoint from rank 0 alone")
+    saved = torch.load(os.path.join(loop_train["path"]["ckpt_path"],
+                                    ckpts[0]), map_location="cpu",
+                       weights_only=True)
+    if set(saved["model"]) != set(state):
+        raise RuntimeError("[parallel] the dp checkpoint is not the whole "
+                           "model")
+
+    # the GAN step at --data_parallel 2 against one process
+    t0 = time.perf_counter()
+    gan_one = parallel_steps.vocoder_steps(0, 1, dict(
+        gan_kw, out_dir=os.path.join(tmp, "gan_one")))
+    timings["gan one-process s"] = time.perf_counter() - t0
+    gan_err = {net: max(float(np.abs(gan[0][net][k] - v).max()
+                              / max(float(np.abs(v).max()), 1e-3))
+                        for k, v in gan_one[net].items())
+               for net in ("gen", "disc")}
+    gan_same = all(np.array_equal(gan[0][net][k], gan[1][net][k])
+                   for net in ("gen", "disc") for k in gan_one[net])
+    say(f"[parallel] GAN step at --data_parallel 2, batch 16 x 8192 (8 a "
+        f"rank), gain augmentation on, {PAR_GAN_STEPS} steps: rank 0 "
+        f"{gan[0]['log'][-1]!r}, one process {gan_one['log'][-1]!r}; "
+        f"parameter error {gan_err}; ranks bitwise equal {gan_same}; "
+        f"the world's tasks took {timings['world_s']:.1f} s, one-process "
+        f"GAN {timings['gan one-process s']:.1f} s; on {card}")
+    if not gan_same or max(gan_err.values()) > PAR_GAN_TOL:
+        raise RuntimeError(f"[parallel] the data-parallel GAN step differs "
+                           f"from one process: {gan_err}")
+
+    # K1 and K3 at one head per rank: [10, 1, L, 128] for the path's L
+    per_shape = {"K1": [], "K3": []}
+    for P, T in shapes:
+        for L in sorted({P, T}):
+            if any(r["shape"][2] == L for r in per_shape["K1"]):
+                continue
+            g = torch.Generator(device="cpu").manual_seed(L)
+            q, k, v, grad = (torch.randn(TRAIN_BATCH, 1, L, 128, generator=g)
+                             .to(device) for _ in range(4))
+            lens = torch.randint(L // 2, L + 1, (TRAIN_BATCH,), generator=g)
+            lens[0] = L
+            mask = (torch.arange(L)[None, :] >= lens[:, None]).to(device)
+            out, row_max, row_sum = cuda_attention._launch_forward(
+                q, k, v, mask, True)
+            ref_out = multi_head_attention(q, k, v, mask)
+            dq, dk, dv = cuda_attention.fused_attention_backward(
+                q, k, v, mask, out, row_max, row_sum, grad)
+            rq, rk, rv = plain_attention_backward(q, k, v, mask, grad)
+            k1_err = (out - ref_out).abs().max().item()
+            k3_err = max(((a - b).abs().max() / b.abs().max()).item()
+                         for a, b in ((dq, rq), (dk, rk), (dv, rv)))
+            additive = torch.zeros(TRAIN_BATCH, 1, 1, L, device=device
+                                   ).masked_fill(mask[:, None, None, :], -1e9)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=additive)
+            rows = {
+                "K1": with_bound(dict(
+                    shape=[TRAIN_BATCH, 1, L, 128], max_abs_err=k1_err,
+                    ms=cuda_time_ms(lambda: cuda_attention._launch_forward(
+                        q, k, v, mask, True)),
+                    plain_ms=cuda_time_ms(lambda: multi_head_attention(
+                        q, k, v, mask)),
+                    library_ms=cuda_time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=additive))),
+                    attention_bound_ms(TRAIN_BATCH, 1, L)),
+                "K3": with_bound(dict(
+                    shape=[TRAIN_BATCH, 1, L, 128], max_rel_err=k3_err,
+                    ms=cuda_time_ms(
+                        lambda: cuda_attention.fused_attention_backward(
+                            q, k, v, mask, out, row_max, row_sum, grad)),
+                    plain_ms=cuda_time_ms(lambda: plain_attention_backward(
+                        q, k, v, mask, grad)),
+                    library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                        sdpa, leaves, grad, retain_graph=True))),
+                    attention_bound_ms(TRAIN_BATCH, 1, L, backward=True))}
+            del sdpa, leaves
+            for name, t in rows.items():
+                per_shape[name].append(t)
+                say(f"[parallel] {name} at [{TRAIN_BATCH}, 1, {L}, 128] "
+                    f"(one head per rank): error "
+                    f"{t.get('max_abs_err', t.get('max_rel_err')):.3e}; "
+                    f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms,"
+                    f" SDPA {t['library_ms']:.4f} ms, bound "
+                    f"{t['bound_ms']:.3e} ms ({t['bound_by']}, 3xTF32) on "
+                    f"{card}")
+            if k1_err > KERNEL_ATOL or k3_err > KERNEL_ATOL:
+                raise RuntimeError(f"[parallel] K1/K3 at one head, L {L}: "
+                                   f"{k1_err:.3e}, {k3_err:.3e}")
+    return {"launches": launches, "timings": timings, "per_shape": per_shape}
+
+
+def serving_replicas(device, card):
+    """Phase 19, serving over replicas: a Synthesizer over [cuda:0, cuda:0]
+    (the serve CLI's --data_parallel 2 with one card's two copies) on the
+    tracked weights, warm_shape(16, 128) (one graph per replica at
+    [8 x 128]), a [16 x 128] dispatch of the corpus rows and the README
+    sentence against the one-replica eager dispatch (whole int16 wavs,
+    tails included, within REPLICA_LSB), K1, K2 and K4 launches per
+    replica, both dispatches timed; serve_cli --data_parallel 2 raises
+    with one card visible -> {"launches": {...}, "timings": {...}}."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_tpu_torch.cli import serve_cli
+    from fastspeech2_tpu_torch.cli.synthesize_cli import (
+        load_metadata_rows,
+        load_model_for_inference,
+    )
+    from fastspeech2_tpu_torch.configs.config import load_yaml_configs
+    from fastspeech2_tpu_torch.synthesis.pipeline import Synthesizer
+    from fastspeech2_tpu_torch.synthesis.vocoder import get_vocoder
+    from fastspeech2_tpu_torch.text import text_to_sequence
+
+    pre, model_cfg, train_cfg = load_yaml_configs(
+        f"{CONFIG}/preprocess.yaml", f"{CONFIG}/model.yaml",
+        f"{CONFIG}/train.yaml")
+    model, cfg = load_model_for_inference(pre, model_cfg, ACOUSTIC_NPZ,
+                                          device)
+    vocoder = get_vocoder(model_cfg, pre, VOCODER_NPZ, device)
+    one = Synthesizer(model, cfg, pre, device, vocoder=vocoder)
+    if pre["preprocessing"]["audio"]["max_wav_value"] != 32768.0:
+        raise RuntimeError("[replicas] expected int16 full scale 32768")
+    two = Synthesizer(model, cfg, pre, device, vocoder=vocoder,
+                      devices=[torch.device("cuda:0")] * 2, snap_to_warm=True)
+    t0 = time.perf_counter()
+    two.warm_shape(16, 128)
+    warm_s = time.perf_counter() - t0
+    graphs = [sorted(r.graphs.graphs) for r in two.replicas]
+    _, _, phones = load_metadata_rows(pre, BATCH_SOURCE)
+    cleaners = pre["preprocessing"]["text"]["text_cleaners"]
+    ids = [np.asarray(text_to_sequence(t, cleaners), np.int64)
+           for t in phones] + [one.text_to_ids(README_SENTENCE)[0]]
+    for r in two.replicas:
+        r.launches = dict.fromkeys(r.launches, 0)
+        r.graphs.reset_replays()
+    zero_counts()
+    wavs2, out2 = two.synthesize_ids(ids)
+    torch.cuda.synchronize()
+    per_replica = two.replica_launches()
+    eager_counts = launch_counts()
+    # one replica's eager dispatch at the same packed [16 x 128] shape
+    packed = two._pack_batch(ids, None, snap=True)
+    controls = (1.0, 1.0, 1.0, 0.0, 0.0)
+    wav1, out1 = one.fused_forward(*packed, controls)
+    hop = pre["preprocessing"]["stft"]["hop_length"]
+    wavs1 = [np.clip(w * 32768.0, -32768, 32767).astype(np.int16)[:n * hop]
+             for w, n in zip(wav1.cpu().numpy(), out1.mel_len.tolist())]
+    lsb = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+              for a, b in zip(wavs1, wavs2))
+    lens_equal = [len(a) for a in wavs1[:len(ids)]] == [len(b) for b in
+                                                       wavs2]
+    t_two = host_ms(lambda: two.synthesize_ids(ids))
+    t_one = host_ms(lambda: one.fused_forward(*packed, controls))
+    try:
+        serve_cli.build_server(serve_cli.build_parser().parse_args([
+            "-p", f"{CONFIG}/preprocess.yaml", "-m", f"{CONFIG}/model.yaml",
+            "-t", f"{CONFIG}/train.yaml", "--weights_npz", ACOUSTIC_NPZ,
+            "--vocoder_ckpt", VOCODER_NPZ, "--port", "0",
+            "--data_parallel", "2"]))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    say(f"[replicas] Synthesizer over [cuda:0, cuda:0]: warm_shape(16, 128) "
+        f"{warm_s:.2f} s, graphs per replica {graphs}; a [16 x 128] "
+        f"dispatch of {len(ids)} texts ({tuple(out2.src_pad_mask.shape)}): "
+        f"the int16 wavs against one replica's eager dispatch, whole, tails "
+        f"included: max {lsb} LSB, lengths equal {lens_equal}, mel_len "
+        f"{out2.mel_len[:len(ids)].tolist()}; launches per replica "
+        f"{per_replica} (the eager work counted outside the graphs "
+        f"{eager_counts}); median {t_two[0]:.2f} ms two replicas, "
+        f"{t_one[0]:.2f} ms one replica eagerly; serve_cli --data_parallel 2"
+        f" with one card: {refused!r}; on {card}")
+    want = dict.fromkeys(per_replica[0], 0)
+    if lsb > REPLICA_LSB or not lens_equal:
+        raise RuntimeError(f"[replicas] the replicas' wavs differ by {lsb} "
+                           "LSB from one replica's")
+    if graphs != [[(8, 128)]] * 2 or per_replica != [
+            dict(want, K1=10, K2=10, K4=6)] * 2:
+        raise RuntimeError("[replicas] not one [8 x 128] graph and 10 K1 + "
+                           "10 K2 + 6 K4 per replica")
+    if refused is None or "needs 2 cards, 1 visible" not in refused:
+        raise RuntimeError("[replicas] serve_cli --data_parallel 2 did not "
+                           "refuse one card")
+    launches = {k: sum(r[k] for r in per_replica) for k in per_replica[0]}
+    return {"launches": {"serving replicas": dict(
+                dict.fromkeys(launch_counts(), 0), **launches)},
+            "timings": {"two_ms": t_two, "one_ms": t_one, "warm_s": warm_s,
+                        "lsb": lsb}}
+
+
+def g2p_tooling(device, card, tmp):
+    """Phase 20, the G2P tooling: mine_lexicon on the tracked metadata;
+    train_g2p on the tracked lexicon/ljspeech-mined.txt at the default
+    width, batch 512, 500 held out, G2P_EPOCHS epochs (time per epoch;
+    greedy, beam-4 and rule accuracy and PER, and the tracked npz's on the
+    same words; gate: beam 4 beats the rules); the written npz through
+    NeuralG2P on the card and through the README sentence's frontend ->
+    {"timings": {...}}."""
+    from fastspeech2_tpu_torch.text import mine_lexicon, train_g2p
+    from fastspeech2_tpu_torch.text.g2p import english_to_phones, read_lexicon
+    from fastspeech2_tpu_torch.text.neural_g2p import (
+        DEFAULT_WEIGHTS,
+        NeuralG2P,
+    )
+
+    printed = io.StringIO()
+    lex_out = os.path.join(tmp, "mined.txt")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        mine_lexicon.main(["--out", lex_out, "--eval", BATCH_SOURCE])
+    mine_s = time.perf_counter() - t0
+    say(f"[g2p] mine_lexicon on the tracked metadata ({mine_s:.2f} s): "
+        f"{printed.getvalue().strip().splitlines()}")
+    with open(lex_out) as f:
+        if not sum(1 for _ in f):
+            raise RuntimeError("[g2p] mine_lexicon wrote no words")
+
+    lines = []
+    npz = os.path.join(tmp, "g2p.npz")
+    t0 = time.perf_counter()
+    report = train_g2p.train("lexicon/ljspeech-mined.txt", npz, heldout=500,
+                             epochs=G2P_EPOCHS, batch_size=512,
+                             device=device, log=lines.append)
+    train_s = time.perf_counter() - t0
+    held = train_g2p.split_pairs(train_g2p.load_pairs(
+        "lexicon/ljspeech-mined.txt"), 500, 0)[1]
+    tracked = {f"beam{b}": train_g2p.evaluate(
+        NeuralG2P(DEFAULT_WEIGHTS, beam=b, device=device).batch, held,
+        f"tracked npz beam{b}", lambda *_: None) for b in (1, 4)}
+    say(f"[g2p] train_g2p on lexicon/ljspeech-mined.txt, {G2P_EPOCHS} "
+        f"epochs at batch 512, 500 held out: {train_s:.1f} s, "
+        f"{1e3 * report['epoch_seconds']:.1f} ms per epoch; {lines}; the "
+        f"tracked npz on the same held-out words (it may have trained on "
+        f"them: no gate) {tracked}; on {card}")
+    if not report["beam4"]["word_acc"] > report["rules"]["word_acc"]:
+        raise RuntimeError(f"[g2p] beam 4 ({report['beam4']}) does not beat "
+                           f"the rules ({report['rules']})")
+    g2p = NeuralG2P(npz, beam=4, device=device)
+    with open(f"{CONFIG}/preprocess.yaml") as f:
+        lexicon = read_lexicon(yaml.safe_load(f)["path"]["lexicon_path"])
+    with_lexicon = english_to_phones(README_SENTENCE, lexicon, g2p)
+    neural_only = english_to_phones(README_SENTENCE, {}, g2p)
+    say(f"[g2p] the written npz through NeuralG2P on {device}: "
+        f"{g2p.batch(['hello', 'zyzzyva'])}; the README sentence's "
+        f"frontend with it: {with_lexicon} (every word through it: "
+        f"{neural_only})")
+    if not neural_only or not with_lexicon:
+        raise RuntimeError("[g2p] the written npz gave no phones")
+    return {"timings": {"mine_s": mine_s, "train_s": train_s,
+                        "epoch_s": report["epoch_seconds"],
+                        "report": report, "tracked": tracked}}
+
+
+def leave_one_out(device, card, features, tmp):
+    """Phase 21, leave-one-out at a cut (LOO_* steps) through the port's
+    CLIs on phase 13's features, one fold; then the vocoder ladder on the
+    tracked iSTFT snapshot and the fold's vocoder checkpoint, in one
+    process (6 K4 per copy-synthesis forward) -> {"launches": {...},
+    "timings": {...}}."""
+    from pathlib import Path
+
+    import torch
+
+    from fastspeech2_tpu_torch.tools import leave_one_out as loo
+    from fastspeech2_tpu_torch.tools.score_vocoder_ladder import score_ladder
+
+    with open(features["preprocess_yaml"]) as f:
+        fold_base = yaml.safe_load(f)["path"]["preprocessed_path"]
+    loo.BASE_PRE = Path(fold_base)
+    with open(os.path.join(fold_base, "train.txt")) as f:
+        fold = f.readline().split("|")[0]
+    out_root = os.path.join(tmp, "loo")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        loo.main(["--folds", fold, "--out_root", out_root,
+                  "--acoustic_steps", str(LOO_ACOUSTIC_STEPS),
+                  "--voc_stage_a", str(LOO_VOC_STEPS), "--voc_stage_b",
+                  str(LOO_VOC_STEPS), "--voc_scan", str(LOO_VOC_STEPS),
+                  "--skip_train_eval"])
+    loo_s = time.perf_counter() - t0
+    summary = json.loads(Path(out_root, "summary.json").read_text())
+    result = summary["folds"][f"{fold}:vocoder"]
+    say(f"[loo] one fold ({fold} held out) at a cut: {LOO_ACOUSTIC_STEPS} "
+        f"acoustic steps, {LOO_VOC_STEPS} + {LOO_VOC_STEPS} vocoder steps, "
+        f"through the port's CLIs in {loo_s:.1f} s: held-out "
+        f"{result['heldout'].get('objective_mean')}; copy synthesis "
+        f"{result['copysyn']}")
+    voc_ckpt = os.path.join(out_root, fold, "vocoder",
+                            f"{2 * LOO_VOC_STEPS}.pth.tar")
+    wavs = [result["copysyn"][k]["file"] for k in ("heldout",
+                                                    "train_anchor")]
+    zero_counts()
+    t0 = time.perf_counter()
+    rows = score_ladder("HiFi-GAN-iSTFT", [VOCODER_NPZ, voc_ckpt], wavs,
+                        device=device, log=lambda *_: None)
+    torch.cuda.synchronize()
+    ladder_s = time.perf_counter() - t0
+    counts = launch_counts()
+    say(f"[loo] score_vocoder_ladder on {[VOCODER_NPZ, voc_ckpt]} over "
+        f"{len(wavs)} clips ({ladder_s:.1f} s): {rows}; launches {counts}")
+    if [r["n_files"] for r in rows] != [2, 2] or counts["K4"] != 6 * 4:
+        raise RuntimeError("[loo] the ladder did not score 2 clips per "
+                           "checkpoint with 6 K4 per copy synthesis")
+    if result["copysyn"]["heldout"]["file"] == \
+            result["copysyn"]["train_anchor"]["file"]:
+        raise RuntimeError("[loo] the copy-synthesis rows are one clip")
+    return {"launches": {"vocoder ladder": counts},
+            "timings": {"loo_s": loo_s, "ladder_s": ladder_s}}
+
+
 def main():
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
@@ -3404,16 +4146,6 @@ def main():
             f"{t['bound_ms']:.3e} ms ({t['bound_by']}; {t['bound_basis']}); "
             f"SIMT bound {t['simt_bound_ms']:.3e} ms on {card}")
 
-    def host_ms(fn, n=5):
-        times = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times), min(times)
-
     e2e = host_ms(lambda: synth.synthesize([README_SENTENCE]))
     front = host_ms(lambda: synth.text_to_ids(README_SENTENCE))
     fwd = host_ms(lambda: synth.infer_ids([ids]))
@@ -3907,8 +4639,16 @@ def main():
         # 16. serving and 17. objective evaluation (on phase 13's features)
         served = serving(device, card, prep_tmp)
         evaluated = evaluation(device, card, prep["features"], prep_tmp)
+        # 18. parallel training, 19. serving replicas, 20. the G2P
+        #     tooling, 21. leave-one-out and the vocoder ladder
+        par = parallel_training(device, card, prep["features"], prep_tmp)
+        replicas = serving_replicas(device, card)
+        g2p_tooling(device, card, prep_tmp)
+        loo = leave_one_out(device, card, prep["features"], prep_tmp)
     path_launches = dict(prep["launches"], **voc["launches"],
-                         **served["launches"], **evaluated["launches"])
+                         **served["launches"], **evaluated["launches"],
+                         **par["launches"], **replicas["launches"],
+                         **loo["launches"])
 
     # 14. kernels line
     sources = {"K1": ("fused_attention", "fastspeech2_tpu_torch/csrc/attention.cu",
@@ -3940,6 +4680,11 @@ def main():
         per_shape[name] += [dict(shape=t["shape"],
                                  **{key: t.get(key) for key in keys})
                             for t in served["per_shape"][name]]
+    # ... and at one head per rank under tensor parallel (phase 18)
+    for name in ("K1", "K3"):
+        per_shape[name] += [dict(shape=t["shape"],
+                                 **{key: t.get(key) for key in keys})
+                            for t in par["per_shape"][name]]
     kernels = []
     for name in ("K1", "K2", "K3"):
         fn, src, replaces, shape = sources[name]
@@ -4018,6 +4763,8 @@ def main():
                 "bf16 training": bf_totals[f"{name}_bf16"],
                 **{path: n[f"{name}_bf16"] for path, n in
                    path_launches.items()}}})
+    say(f"[total] the whole run took {time.perf_counter() - started:.1f} s "
+        f"on {card}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,12 +15,16 @@ Then:  curl -X POST localhost:8000/synthesize \\
 Runs on the card unless ``--device cpu`` is given.  Before taking traffic
 it makes the top (batch bucket x text bucket) shape warm (on the card:
 captures its CUDA graph; ``--warmup_grid`` for the rest of the grid,
-``--no_warmup`` for none).  ``--data_parallel`` above 1 is not ported yet
-and raises.
+``--no_warmup`` for none).  ``--data_parallel N`` serves with one model
+replica on each of ``cuda:0`` ... ``cuda:N-1``, in this one process
+(``synthesis/pipeline.py``); it raises where fewer cards are visible, or
+with ``--device cpu``.
 """
 
 import argparse
 import os
+
+import torch
 
 from fastspeech2_tpu_torch.cli.common import add_dtype_arg, dtype_from_flag
 from fastspeech2_tpu_torch.cli.synthesize_cli import (
@@ -37,11 +41,16 @@ from fastspeech2_tpu_torch.utils.device import resolve_device
 def build_server(args):
     """-> a TTSServer (not started) over a BatchingSynthesizer over a
     snapping Synthesizer with the weights and vocoder ``args`` name."""
-    if args.data_parallel and args.data_parallel > 1:
-        raise NotImplementedError(
-            "data_parallel > 1: multi-device serving is ROADMAP queue 1 "
-            "item 5 (multi-device), not ported yet; run with 1")
     device = resolve_device(args.device)
+    devices = None
+    if args.data_parallel and args.data_parallel > 1:
+        n = args.data_parallel
+        visible = torch.cuda.device_count() if device.type == "cuda" else 0
+        if visible < n:
+            raise ValueError(f"--data_parallel {n} needs {n} cards, "
+                             f"{visible} visible on {device.type}")
+        devices = [torch.device(f"cuda:{i}") for i in range(n)]
+        device = devices[0]
     preprocess_config, model_config, train_config = load_yaml_configs(
         args.preprocess_config, args.model_config, args.train_config)
     model, cfg = load_model_for_inference(
@@ -51,7 +60,8 @@ def build_server(args):
     vocoder = get_vocoder(model_config, preprocess_config, args.vocoder_ckpt,
                           device)
     synthesizer = Synthesizer(model, cfg, preprocess_config, device,
-                              vocoder=vocoder, snap_to_warm=True)
+                              vocoder=vocoder, snap_to_warm=True,
+                              devices=devices)
     batcher = BatchingSynthesizer(
         synthesizer, max_batch_size=args.max_batch_size,
         max_wait_ms=args.max_wait_ms, max_pending=args.max_pending)
@@ -93,8 +103,8 @@ def build_parser():
                              "'background' fills the grid in a thread, "
                              "'full' fills it blocking before traffic")
     parser.add_argument("--data_parallel", type=int, default=None,
-                        help="shard inference batches over N devices (not "
-                             "ported yet: values above 1 raise)")
+                        help="one model replica on each of N cards; each "
+                             "dispatch's rows split over them")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     return parser

@@ -16,12 +16,24 @@ parameters, checkpoints and the optimizer stay float32.
 The synth_step duty draws the mel figure; with ``--vocoder_ckpt`` it also
 vocodes the sample through model.yaml's vocoder on those weights (the JAX
 CLI passes no vocoder, so its duty draws the figure only).
+
+Data parallel, as the JAX CLI spreads the batch over every device it
+sees: start one process per card under ``torchrun``,
+
+    torchrun --standalone --nproc_per_node 4 \
+        -m fastspeech2_tpu_torch.cli.train_cli -p ... -m ... -t ...
+
+Each rank takes ``cuda:<LOCAL_RANK>`` and joins an NCCL world (gloo with
+``--device cpu``); the data axis is gcd(micro-batch, world)
+(``training/loop.py``).  Without torchrun (no WORLD_SIZE) it runs in one
+process as before.
 """
 
 import argparse
 
 from fastspeech2_tpu_torch.cli.common import add_dtype_arg, dtype_from_flag
 from fastspeech2_tpu_torch.configs.config import load_yaml_configs
+from fastspeech2_tpu_torch.parallel.mesh import init_from_torchrun
 from fastspeech2_tpu_torch.training.checkpoint import latest_step
 from fastspeech2_tpu_torch.training.loop import train
 from fastspeech2_tpu_torch.utils.device import resolve_device
@@ -53,7 +65,7 @@ def build_parser():
 def main(argv=None):
     """-> (model, optimizer, final step)."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = init_from_torchrun(resolve_device(args.device))
     configs = load_yaml_configs(args.preprocess_config, args.model_config,
                                 args.train_config)
     restore_step = args.restore_step

@@ -16,14 +16,19 @@ gen_mel=...`` every ``--log_step`` steps and writes
 ``<out_dir>/<step>.pth.tar`` every ``--save_step`` steps; a rerun on the
 same ``--out_dir`` resumes from the newest checkpoint.  Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given, in
-float32 with TF32 off.
+float32 with TF32 off.  ``--data_parallel N`` splits each batch over N
+ranks, one process per card under ``torchrun --nproc_per_node N`` (each
+on ``cuda:<LOCAL_RANK>``, NCCL; gloo with ``--device cpu``); it raises
+unless the world has N ranks and N divides the batch.
 """
 
 import argparse
 import json
 
+from fastspeech2_tpu_torch.parallel.mesh import init_from_torchrun
 from fastspeech2_tpu_torch.synthesis.vocoder import GENERATOR_KEYS
 from fastspeech2_tpu_torch.training import vocoder
+from fastspeech2_tpu_torch.utils.device import resolve_device
 from fastspeech2_tpu_torch.utils.params_io import load_variables_npz
 
 
@@ -58,8 +63,8 @@ def build_parser():
     p.add_argument("--save_step", type=int, default=1000)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_parallel", type=int, default=None,
-                   help="shard the segment batch over N devices (not "
-                        "ported yet: values above 1 raise)")
+                   help="split the segment batch over N ranks (run "
+                        "under torchrun --nproc_per_node N)")
     p.add_argument("--adv_warmup", type=int, default=0,
                    help="hold the discriminators and train the generator "
                         "on mel-L1 only for the first N steps")
@@ -138,7 +143,7 @@ def main(argv=None):
         aug_speed=(tuple(float(x) for x in args.aug_speed.split(","))
                    if args.aug_speed else None),
         log_step=args.log_step, save_step=args.save_step, seed=args.seed,
-        device=args.device)
+        device=init_from_torchrun(resolve_device(args.device)))
 
 
 if __name__ == "__main__":

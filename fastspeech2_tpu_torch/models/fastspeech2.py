@@ -10,11 +10,20 @@ PostNet's BatchNorm on masked batch statistics; ``model.eval()`` is
 bfloat16; parameters stay float32): the activations are made at it and
 every layer computes at it (models/common.py), so the mel and the
 predictions come out at it.
+
+``mesh`` (``parallel.Mesh``): the FFT blocks hold this rank's shard of
+the model axis (models/transformer.py), and the batch-wide quantities
+span the data axis: the batch's max mel length, past which the PostNet
+zeroes frames (fastspeech2_tpu/models/fastspeech2.py:142-149), and in
+training mode the PostNet's BatchNorm statistics.  Every data rank must
+then run each forward, on its rows of one batch (a training step) or on
+the same rows (the loop's validation and samples).
 """
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from fastspeech2_tpu_torch.models.common import Linear
@@ -22,6 +31,8 @@ from fastspeech2_tpu_torch.models.postnet import PostNet
 from fastspeech2_tpu_torch.models.transformer import Decoder, Encoder
 from fastspeech2_tpu_torch.models.variance import VarianceAdaptor
 from fastspeech2_tpu_torch.ops.masking import pad_mask_from_lengths
+from fastspeech2_tpu_torch.parallel.comm import all_reduce
+from fastspeech2_tpu_torch.parallel.mesh import SINGLE
 
 
 class FastSpeech2Output(NamedTuple):
@@ -41,17 +52,19 @@ class FastSpeech2Output(NamedTuple):
 
 class FastSpeech2(nn.Module):
 
-    def __init__(self, cfg, dtype=torch.float32):
+    def __init__(self, cfg, dtype=torch.float32, mesh=SINGLE):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.encoder = Encoder(cfg, dtype)
+        self.mesh = mesh
+        self.data_group = mesh.data_group
+        self.encoder = Encoder(cfg, dtype, mesh)
         self.variance_adaptor = VarianceAdaptor(cfg)
-        self.decoder = Decoder(cfg)
+        self.decoder = Decoder(cfg, mesh)
         self.mel_linear = Linear(cfg.decoder_hidden, cfg.n_mel_channels)
         self.postnet = PostNet(cfg.n_mel_channels, cfg.postnet_embedding_dim,
                                cfg.postnet_kernel_size,
-                               cfg.postnet_n_convolutions)
+                               cfg.postnet_n_convolutions, mesh.data_group)
         if cfg.multi_speaker:
             self.speaker_emb = nn.Embedding(cfg.n_speaker, cfg.encoder_hidden)
 
@@ -65,6 +78,22 @@ class FastSpeech2(nn.Module):
         the reference's training-time cut to max_seq_len; inference
         re-dispatches pass False (no cut).  The mel targets are the loss's,
         not the forward's (the JAX forward takes and ignores them)."""
+        out = self.front(speakers, texts, src_lens, mel_lens, max_mel_len,
+                         p_targets, e_targets, d_targets, p_control,
+                         e_control, d_control, p_offset, e_offset,
+                         truncate_decoder)
+        batch_max = all_reduce(out.mel_len.max(), self.data_group,
+                               op=dist.ReduceOp.MAX)
+        return self.with_postnet(out, batch_max)
+
+    def front(self, speakers, texts, src_lens, mel_lens=None,
+              max_mel_len=None, p_targets=None, e_targets=None,
+              d_targets=None, p_control=1.0, e_control=1.0, d_control=1.0,
+              p_offset=0.0, e_offset=0.0, truncate_decoder=True):
+        """Everything up to ``mel_linear``: the output with
+        ``postnet_mel`` None.  A caller that splits one batch over several
+        replicas runs this on each, then :meth:`with_postnet` with the
+        whole batch's max mel length."""
         src_pad_mask = pad_mask_from_lengths(src_lens, texts.shape[1])
         mel_pad_mask = (pad_mask_from_lengths(mel_lens, max_mel_len)
                         if mel_lens is not None else None)
@@ -83,18 +112,21 @@ class FastSpeech2(nn.Module):
 
         x, mel_pad_mask = self.decoder(x, mel_pad_mask,
                                        truncate_to_max_len=truncate_decoder)
-        mel = self.mel_linear(x)
-        # frames at or past the batch's max mel length are zero for the
-        # PostNet, as in the reference's exact-length batch
-        t_idx = torch.arange(mel.shape[1], device=mel.device)
-        beyond_batch_max = (t_idx[None, :] >= mel_len.max()).expand(
-            mel.shape[0], -1)
-        postnet_mel = mel + self.postnet(mel, frame_mask=beyond_batch_max)
-
         return FastSpeech2Output(
-            mel=mel, postnet_mel=postnet_mel,
+            mel=self.mel_linear(x), postnet_mel=None,
             pitch_prediction=pitch_prediction,
             energy_prediction=energy_prediction,
             log_duration_prediction=log_duration_prediction,
             duration_rounded=duration_rounded, src_pad_mask=src_pad_mask,
             mel_pad_mask=mel_pad_mask, src_len=src_lens, mel_len=mel_len)
+
+    def with_postnet(self, out, batch_max):
+        """``out`` with its PostNet mel.  Frames at or past ``batch_max``
+        (a 0-d tensor: the batch's max mel length) are zero for the
+        PostNet, as in the reference's exact-length batch."""
+        mel = out.mel
+        t_idx = torch.arange(mel.shape[1], device=mel.device)
+        beyond_batch_max = (t_idx[None, :] >= batch_max).expand(
+            mel.shape[0], -1)
+        return out._replace(
+            postnet_mel=mel + self.postnet(mel, frame_mask=beyond_batch_max))

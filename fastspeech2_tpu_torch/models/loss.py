@@ -3,14 +3,17 @@
 Six scalars: total, mel L1, postnet-mel L1, pitch MSE, energy MSE and
 log-duration MSE against log(d + 1).  Each is a masked mean over the kept
 phones or frames; ``row_keep`` drops whole rows (the loader's duplicate
-rows that pad a partial batch) from every mean.
+rows that pad a partial batch) from every mean.  Under data parallel
+(``data_group``) each mean's count is the whole batch's, so each loss is
+this rank's share of the batch's loss: the shares, and their gradients,
+sum to it over the data group (``training/step.py`` sums both).
 """
 
 from typing import NamedTuple
 
 import torch
 
-from fastspeech2_tpu_torch.ops.masking import masked_mean
+from fastspeech2_tpu_torch.ops.masking import masked_mean as _masked_mean
 
 
 class LossOutput(NamedTuple):
@@ -23,7 +26,8 @@ class LossOutput(NamedTuple):
 
 
 def fastspeech2_loss(config, output, mel_targets, pitch_targets,
-                     energy_targets, duration_targets, row_keep=None):
+                     energy_targets, duration_targets, row_keep=None,
+                     data_group=None):
     """output: a FastSpeech2Output; mel_targets [B, T, n_mels] (cut here to
     the output's frame length, which the decoder may have truncated);
     pitch/energy targets [B, P] or [B, T]; duration_targets [B, P] int;
@@ -37,6 +41,9 @@ def fastspeech2_loss(config, output, mel_targets, pitch_targets,
     t = output.mel.shape[1]
     mel_targets = mel_targets[:, :t, :].float()
     log_duration_targets = torch.log(duration_targets.float() + 1.0)
+
+    def masked_mean(values, keep):
+        return _masked_mean(values, keep, data_group)
 
     def variance_keep(level):
         return src_keep if level == "phoneme_level" else mel_keep

@@ -11,12 +11,19 @@ statistics; in training mode its batch statistics exclude the frames past
 the batch's max mel length, which ``nn.BatchNorm1d`` cannot do.  The convs
 run at the activations' dtype, the BatchNorm in float32 with its output
 cast back (postnet.py:100-118).
+
+Under data parallel (a ``data_group``) the training-mode statistics are
+the whole batch's, as the JAX package's one program computes them: each
+rank's sums and kept-frame count are summed over the data group (with a
+gradient, ``parallel/comm.all_reduce_sum``), so the running statistics
+come out the same on every rank.
 """
 
 import torch
 from torch import nn
 
 from fastspeech2_tpu_torch.models.common import Conv, Dropout
+from fastspeech2_tpu_torch.parallel.comm import all_reduce_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -33,8 +40,9 @@ class MaskedBatchNorm(nn.Module):
     eps = 1e-5
     momentum = 0.1
 
-    def __init__(self, features):
+    def __init__(self, features, data_group=None):
         super().__init__()
+        self.data_group = data_group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -50,16 +58,7 @@ class MaskedBatchNorm(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            if keep is None:
-                n = torch.tensor(float(x.shape[0] * x.shape[1]),
-                                 device=x.device)
-                mean = x.mean(dim=(0, 1))
-                var = (x * x).mean(dim=(0, 1)) - mean * mean
-            else:
-                w = keep.to(x.dtype)[:, :, None]
-                n = torch.clamp(w.sum(), min=1.0)
-                mean = (x * w).sum(dim=(0, 1)) / n
-                var = (x * x * w).sum(dim=(0, 1)) / n - mean * mean
+            mean, var, n = self._batch_stats(x, keep)
             var = torch.clamp(var, min=0.0)
             with torch.no_grad():
                 unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
@@ -72,10 +71,24 @@ class MaskedBatchNorm(nn.Module):
         return ((x - mean) * torch.rsqrt(var + self.eps) * self.weight
                 + self.bias).to(dt)
 
+    def _batch_stats(self, x, keep):
+        """(mean, var, kept count) over the kept frames of the batch: of
+        every data rank's rows when there is a data group."""
+        w = (torch.ones(x.shape[:2], device=x.device) if keep is None
+             else keep.to(x.dtype))[:, :, None]
+        c = x.shape[-1]
+        sums = all_reduce_sum(torch.cat([(x * w).sum(dim=(0, 1)),
+                                         (x * x * w).sum(dim=(0, 1)),
+                                         w.sum().reshape(1)]),
+                              self.data_group)
+        n = torch.clamp(sums[-1], min=1.0).detach()
+        mean = sums[:c] / n
+        return mean, sums[c:2 * c] / n - mean * mean, n
+
 
 class PostNet(nn.Module):
     def __init__(self, n_mel_channels=80, embedding_dim=512, kernel_size=5,
-                 n_convolutions=5):
+                 n_convolutions=5, data_group=None):
         super().__init__()
         layers = []
         for i in range(n_convolutions):
@@ -84,7 +97,7 @@ class PostNet(nn.Module):
                      else embedding_dim)
             # names follow the reference: convolutions.{i}.{0: conv, 1: bn}
             layers.append(nn.ModuleList([Conv(c_in, c_out, kernel_size),
-                                         MaskedBatchNorm(c_out)]))
+                                         MaskedBatchNorm(c_out, data_group)]))
         self.convolutions = nn.ModuleList(layers)
         self.dropout = Dropout(0.5)
 

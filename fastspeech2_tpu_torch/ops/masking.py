@@ -6,6 +6,8 @@ A *pad mask* is True at PADDED positions, as in the reference
 
 import torch
 
+from fastspeech2_tpu_torch.parallel.comm import all_reduce
+
 
 def pad_mask_from_lengths(lengths, max_len):
     """[B] lengths -> [B, max_len] bool mask, True = padded position."""
@@ -21,10 +23,17 @@ def fill_masked(x, pad_mask, value=0.0):
     return x.masked_fill(pad_mask, value)
 
 
-def masked_mean(values, keep_mask):
+def masked_mean(values, keep_mask, count_group=None):
     """Mean of ``values`` over the entries where ``keep_mask`` is True
     (True = KEEP here), 0 when none is kept: sum(values * keep) /
     max(sum(keep), 1), the JAX package's static-shape form of the
-    reference's masked_select(...).mean()."""
+    reference's masked_select(...).mean().
+
+    With ``count_group`` (data parallel) the count is summed over the
+    group first, so this rank's value is its share of the whole batch's
+    mean: the shares sum to it over the group."""
     keep = keep_mask.to(values.dtype)
-    return (values * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+    count = keep.sum()
+    if count_group is not None:
+        count = all_reduce(count, count_group)
+    return (values * keep).sum() / torch.clamp(count, min=1.0)

@@ -3,7 +3,9 @@ text->wav dispatch: the port's counterpart of the JAX package's per-shape
 executable (``fastspeech2_tpu/synthesis/pipeline.py:112-142``).
 
 A :class:`GraphCache` wraps ``forward(speakers, texts, src_lens, p, e, d,
-p_offset, e_offset) -> (wav, FastSpeech2Output)``.  :meth:`capture` makes
+p_offset, e_offset) -> (wav, FastSpeech2Output)`` (a serving replica's
+cache wraps its acoustic front, ``-> (mel, output)``: the pipeline's
+docstring says why).  :meth:`capture` makes
 the graph of one input shape: an eager warm-up run on a side stream first
 (it builds the kernels, fills the wrappers' plan caches and weight packs,
 the position tables and the iSTFT constants, and lets cuDNN choose its
@@ -107,7 +109,8 @@ class GraphCache:
             g.graph.replay()
             g.replays += 1
             wav, out = g.outputs
-            return wav.clone(), type(out)(*(t.clone() for t in out))
+            return wav.clone(), type(out)(*(None if t is None else t.clone()
+                                            for t in out))
 
     def _capture(self, speakers, texts, src_lens):
         t0 = time.perf_counter()

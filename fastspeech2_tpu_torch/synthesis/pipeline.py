@@ -29,8 +29,24 @@ argument of each packing, not a flag that :meth:`Synthesizer.warm_shape`
 switches off while it runs: a warmup in a background thread never
 un-snaps a concurrent request (the JAX package toggles the shared flag,
 ``:219``).
+
+Replicas (``devices``, the serve CLI's ``--data_parallel``): one copy of
+the acoustic model and the vocoder per device, in one process, as the JAX
+package shards a dispatch over a data mesh (``:46-74``).  The batch bucket
+rounds up to a multiple of the replica count, each replica takes its
+contiguous rows, and the wavs are gathered on the first device.  The
+PostNet zeroes the frames past the *whole* batch's max mel length
+(fastspeech2_tpu/models/fastspeech2.py:142-149), so each replica runs its
+acoustic front (``FastSpeech2.front``) first, the batch's max is taken
+over all of them, and then each runs its PostNet against that max and its
+vocoder: a replica that used its own rows' max would change its shorter
+rows' tails.  On the card each replica has its own graph cache over its
+front, with its own lock, memory pool and capture stream (two replicas
+may share a card), keyed by the replica's (rows, text) shape; the
+PostNet and vocoder run eagerly after the batch's max is known.
 """
 
+import copy
 import json
 import os
 import re
@@ -42,7 +58,8 @@ import torch
 
 from fastspeech2_tpu_torch.models.hifigan import HiFiGANGenerator
 from fastspeech2_tpu_torch.models.hifigan_istft import HiFiGANiSTFTGenerator
-from fastspeech2_tpu_torch.synthesis.graphs import GraphCache
+from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2Output
+from fastspeech2_tpu_torch.synthesis.graphs import GraphCache, kernel_counts
 from fastspeech2_tpu_torch.synthesis.plotting import (
     expand_by_duration,
     plot_mel,
@@ -67,10 +84,34 @@ def round_up(n, multiple):
     return ((int(n) + multiple - 1) // multiple) * multiple
 
 
+class _Replica:
+    """One device's copy of the acoustic model and the vocoder, its graph
+    cache over the acoustic front (on the card, with a fused vocoder), and
+    the kernel launches of its eager work."""
+
+    def __init__(self, model, vocoder, device, graphs, max_mel_len):
+        self.model = model
+        self.max_mel_len = max_mel_len
+        self.vocoder = vocoder
+        self.device = torch.device(device)
+        self.launches = dict.fromkeys(kernel_counts(), 0)
+        self.graphs = (GraphCache(self.front, self.device)
+                       if graphs and self.device.type == "cuda" else None)
+
+    def front(self, speakers, texts, src_lens, p, e, d, p_off, e_off,
+              max_mel_len=None, truncate_decoder=True):
+        out = self.model.front(
+            speakers, texts, src_lens,
+            max_mel_len=max_mel_len or self.max_mel_len, p_control=p,
+            e_control=e, d_control=d, p_offset=p_off, e_offset=e_off,
+            truncate_decoder=truncate_decoder)
+        return out.mel, out
+
+
 class Synthesizer:
     def __init__(self, model, config, preprocess_config, device, vocoder=None,
                  control_mode="reference", max_mel_len=None,
-                 text_bucket=TEXT_BUCKET, snap_to_warm=False):
+                 text_bucket=TEXT_BUCKET, snap_to_warm=False, devices=None):
         """model: a FastSpeech2 in eval mode on ``device``.
 
         control_mode: "reference" scales the predicted (z-normalised)
@@ -80,6 +121,9 @@ class Synthesizer:
 
         snap_to_warm: serving mode (module docstring); off by default, as
         one-shot callers prefer exact shapes.
+
+        devices: two or more devices to replicate the model and vocoder
+        over (module docstring); the first is ``device``.
         """
         self.model = model
         self.config = config
@@ -99,8 +143,20 @@ class Synthesizer:
         self._warm = set()
         self._warm_lock = threading.Lock()
         self.fused = isinstance(vocoder, FUSED_VOCODERS)
+        self.replicas = []
+        if devices is not None and len(devices) > 1:
+            if torch.device(devices[0]) != next(model.parameters()).device:
+                raise ValueError(f"devices[0] {devices[0]} is not the "
+                                 f"model's device")
+            self.replicas = [
+                _Replica(model if i == 0 else copy.deepcopy(model).to(dev),
+                         vocoder if i == 0 or vocoder is None
+                         else copy.deepcopy(vocoder).to(dev), dev,
+                         self.fused, self.max_mel_len)
+                for i, dev in enumerate(devices)]
         self.graphs = (GraphCache(self._forward_to_wav, self.device)
-                       if self.fused and self.device.type == "cuda" else None)
+                       if self.fused and self.device.type == "cuda"
+                       and not self.replicas else None)
 
     # -- text frontends --------------------------------------------------
 
@@ -135,7 +191,8 @@ class Synthesizer:
         the re-dispatch length) are unchanged; callers slice per-sample
         outputs with the real batch count."""
         B = len(id_seqs)
-        Bb = max(1, 1 << (B - 1).bit_length())
+        Bb = round_up(max(1, 1 << (B - 1).bit_length()),
+                      max(1, len(self.replicas)))
         P = round_up(max(len(s) for s in id_seqs), self.text_bucket)
         if snap:
             Bb, P = self._snap(Bb, P)
@@ -184,7 +241,15 @@ class Synthesizer:
             self._infer_ids(ids, None, 1.0, 1.0, 1.0, snap=False)
             return
         speakers, texts, src_lens = self._pack_batch(ids, None)
-        if self.graphs is not None:
+        if self.replicas:
+            for rep, rows in zip(self.replicas,
+                                 self._split(speakers, texts, src_lens)):
+                if rep.graphs is not None:
+                    rep.graphs.capture(*rows)
+            if self.replicas[0].graphs is None:
+                self._replicated(speakers, texts, src_lens,
+                                 (1.0, 1.0, 1.0, 0.0, 0.0))
+        elif self.graphs is not None:
             self.graphs.capture(speakers, texts, src_lens)
         else:
             self.fused_forward(speakers, texts, src_lens,
@@ -229,6 +294,11 @@ class Synthesizer:
         speakers, texts, src_lens = self._pack_batch(id_seqs, speakers, snap)
 
         def forward(max_mel_len, truncate_decoder):
+            if self.replicas:
+                return self._replicated(
+                    speakers, texts, src_lens,
+                    (p_control, e_control, d_control, p_off, e_off),
+                    max_mel_len, truncate_decoder, vocode=False)[1]
             with torch.inference_mode():
                 return self.model(
                     speakers, texts, src_lens, max_mel_len=max_mel_len,
@@ -269,6 +339,69 @@ class Synthesizer:
             mel = mel.float()
         return self.vocoder(mel).float(), out
 
+    def _split(self, *arrays):
+        """Each replica's contiguous rows of the packed arrays, on its
+        device."""
+        b = arrays[0].shape[0] // len(self.replicas)
+        return [[a[i * b:(i + 1) * b].to(rep.device) for a in arrays]
+                for i, rep in enumerate(self.replicas)]
+
+    def _replicated(self, speakers, texts, src_lens, controls,
+                    max_mel_len=None, truncate_decoder=True, vocode=True):
+        """The dispatch over the replicas -> (float32 wav or None,
+        FastSpeech2Output), gathered on the first device.  Each replica's
+        front (its graph's replay where it has one at the default frame
+        length), then the batch's max mel length, then each replica's
+        PostNet against it and its vocoder."""
+        max_mel_len = max_mel_len or self.max_mel_len
+        default_len = max_mel_len == self.max_mel_len and truncate_decoder
+        fronts = []
+        with torch.inference_mode():
+            for rep, rows in zip(self.replicas,
+                                 self._split(speakers, texts, src_lens)):
+                if (default_len and rep.graphs is not None
+                        and rows[1].shape in rep.graphs):
+                    fronts.append(rep.graphs.run(*rows, controls)[1])
+                    continue
+                start = kernel_counts()
+                ctl = [torch.tensor(float(c), dtype=torch.float32,
+                                    device=rep.device) for c in controls]
+                fronts.append(rep.front(*rows, *ctl, max_mel_len,
+                                        truncate_decoder)[1])
+                self._count(rep, start)
+            batch_max = torch.stack([o.mel_len.max().to(self.device)
+                                     for o in fronts]).max()
+            outs, wavs = [], []
+            for rep, out in zip(self.replicas, fronts):
+                start = kernel_counts()
+                out = rep.model.with_postnet(out, batch_max.to(rep.device))
+                if vocode:
+                    mel = out.postnet_mel
+                    if not isinstance(rep.vocoder, MelGANVocoder):
+                        mel = mel.float()
+                    wavs.append(rep.vocoder(mel).float().to(self.device))
+                self._count(rep, start)
+                outs.append(out)
+            out = FastSpeech2Output(*(torch.cat([t.to(self.device)
+                                                 for t in parts])
+                                      for parts in zip(*outs)))
+        return (torch.cat(wavs) if vocode else None), out
+
+    @staticmethod
+    def _count(rep, start):
+        for k, v in kernel_counts().items():
+            rep.launches[k] += v - start[k]
+
+    def replica_launches(self):
+        """-> per replica {kernel: launches}: its eager work's counts plus
+        its graphs' replays (``GraphCache.launches``)."""
+        out = []
+        for rep in self.replicas:
+            graphs = (rep.graphs.launches() if rep.graphs is not None
+                      else dict.fromkeys(rep.launches, 0))
+            out.append({k: rep.launches[k] + graphs[k] for k in rep.launches})
+        return out
+
     def synthesize_ids(self, id_seqs, speakers=None, p_control=1.0,
                        e_control=1.0, d_control=1.0):
         """The fused text->wav dispatch of phone-ID arrays -> (list of int16
@@ -281,7 +414,11 @@ class Synthesizer:
         controls = (p_control, e_control, d_control, p_off, e_off)
         speakers, texts, src_lens = self._pack_batch(id_seqs, speakers,
                                                      self.snap_to_warm)
-        if self.graphs is not None and texts.shape in self.graphs:
+        if self.replicas:
+            wav, out = self._replicated(speakers, texts, src_lens, controls)
+            if self.replicas[0].graphs is None:
+                self._mark_warm(texts.shape)
+        elif self.graphs is not None and texts.shape in self.graphs:
             wav, out = self.graphs.run(speakers, texts, src_lens, controls)
         else:
             wav, out = self.fused_forward(speakers, texts, src_lens,
@@ -289,7 +426,11 @@ class Synthesizer:
             if self.graphs is None:
                 self._mark_warm(texts.shape)
         need = int(out.duration_rounded.sum(dim=1).max())
-        if need > self.max_mel_len:
+        if need > self.max_mel_len and self.replicas:
+            wav, out = self._replicated(
+                speakers, texts, src_lens, controls,
+                max_mel_len=round_up(need, 512), truncate_decoder=False)
+        elif need > self.max_mel_len:
             wav, out = self.fused_forward(
                 speakers, texts, src_lens, controls,
                 max_mel_len=round_up(need, 512), truncate_decoder=False)

@@ -203,6 +203,22 @@ def get_vocoder(model_config, preprocess_config, ckpt_path, device):
                                  f"generator_{speaker}.pth.tar")
         if os.path.exists(candidate):
             ckpt_path = candidate
+    config, state = generator_weights(name, ckpt_path)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(RANDOM_INIT_SEED)
+        generator = build_generator(config)
+    if state is not None:
+        generator.load_state_dict(state)
+    if name == "MelGAN":
+        return MelGANVocoder(generator).to(device).eval()
+    return generator.to(device).eval()
+
+
+def generator_weights(name, ckpt_path):
+    """The generator of vocoder.model ``name`` in ``ckpt_path`` (None: no
+    weights) -> (its config, its state dict or None), as
+    :func:`get_vocoder` reads them.  A port's train state names its
+    config, whose family must be ``name``'s."""
     npz = ckpt_path is not None and ckpt_path.endswith(".npz")
     ckpt = (read_torch_checkpoint(ckpt_path)
             if ckpt_path is not None and not npz else None)
@@ -216,20 +232,13 @@ def get_vocoder(model_config, preprocess_config, ckpt_path, device):
     else:
         with open(os.path.join(_HIFIGAN_DIR, CONFIGS[name])) as f:
             config = json.load(f)
-    melgan = name == "MelGAN"
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(RANDOM_INIT_SEED)
-        generator = build_generator(config)
     if npz:
-        generator.load_state_dict(generator_from_jax_params(
-            load_variables_npz(ckpt_path), config))
-    elif ckpt is not None:
-        generator.load_state_dict(
-            melgan_from_torch_state_dict(ckpt) if melgan
-            else fold_weight_norm(ckpt.get("generator", ckpt)))
-    if melgan:
-        return MelGANVocoder(generator).to(device).eval()
-    return generator.to(device).eval()
+        return config, generator_from_jax_params(
+            load_variables_npz(ckpt_path), config)
+    if ckpt is None:
+        return config, None
+    return config, (melgan_from_torch_state_dict(ckpt) if name == "MelGAN"
+                    else fold_weight_norm(ckpt.get("generator", ckpt)))
 
 
 def vocoder_infer(mels, vocoder, preprocess_config, lengths=None):

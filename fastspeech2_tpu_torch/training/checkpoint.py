@@ -27,11 +27,18 @@ def checkpoint_path(ckpt_dir, step):
 
 def save_checkpoint(ckpt_dir, model, optimizer, step):
     """Write ``<ckpt_dir>/<step>.pth.tar`` atomically; returns its path."""
+    return save_checkpoint_state(
+        ckpt_dir, model.state_dict(),
+        None if optimizer is None else optimizer.state_dict(), step)
+
+
+def save_checkpoint_state(ckpt_dir, model_state, optimizer_state, step):
+    """:func:`save_checkpoint` from the two state dicts (a sharded trainer
+    gathers them first)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, step)
-    return _save(path, {"model": model.state_dict(), "step": int(step),
-                        "optimizer": None if optimizer is None
-                        else optimizer.state_dict()})
+    return _save(path, {"model": model_state, "step": int(step),
+                        "optimizer": optimizer_state})
 
 
 def _save(path, state):
@@ -67,18 +74,6 @@ def load_checkpoint(ckpt_dir, step):
                 "PyTorch port reads only its own <step>.pth.tar checkpoints")
         raise FileNotFoundError(f"no checkpoint for step {step}: {path}")
     return torch.load(path, map_location="cpu", weights_only=True)
-
-
-def restore_checkpoint(ckpt_dir, step, model, optimizer=None):
-    """Load the model (strictly) and, when given, the optimizer from the
-    checkpoint of ``step``; returns the saved step."""
-    state = load_checkpoint(ckpt_dir, step)
-    model.load_state_dict(state["model"])
-    if optimizer is not None:
-        if state["optimizer"] is None:
-            raise ValueError(f"checkpoint {step} holds no optimizer state")
-        optimizer.load_state_dict(state["optimizer"])
-    return state["step"]
 
 
 def latest_step(ckpt_dir):

@@ -14,8 +14,23 @@ steps of the run.
 ``scan_step > 1`` (the JAX package's device-resident scan over K steps)
 runs the per-step path, whose numerics are the same
 (fastspeech2_tpu/training/step.py:122-140).
+
+Data and tensor parallel (``mesh``, ``parallel/``): one process per rank,
+each building the same loader from the same seed and taking its
+contiguous rows of every micro-batch of the same global batch.  Under an
+initialised world of N ranks and no mesh given, the data axis is
+gcd(micro-batch, N) and the model axis 1, as the JAX loop lays its mesh
+(fastspeech2_tpu/training/loop.py:69-78); ranks beyond the mesh idle.
+Tensor parallel is reached, as in the JAX package, only by passing
+``mesh=parallel.make_mesh(data, model)``.  Every rank runs the duties'
+forwards (a sharded model needs its whole model group), rank 0 alone
+draws the figures, vocodes the samples and writes log.txt, TensorBoard
+and the checkpoints, which hold the whole model whatever the layout.
+The preemption flag is agreed over the grid at every step, on the host
+(``parallel.mesh.agree``).
 """
 
+import math
 import os
 import signal
 import threading
@@ -32,9 +47,16 @@ from fastspeech2_tpu_torch.configs.config import (
 from fastspeech2_tpu_torch.data.dataset import BucketedLoader, FeatureDataset
 from fastspeech2_tpu_torch.data.prefetch import PrefetchIterator
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+from fastspeech2_tpu_torch.parallel.mesh import SINGLE, agree, make_mesh
+from fastspeech2_tpu_torch.parallel.sharding import (
+    shard_optimizer_state,
+    shard_state_dict,
+    unshard_optimizer_state,
+    unshard_state_dict,
+)
 from fastspeech2_tpu_torch.training.checkpoint import (
-    restore_checkpoint,
-    save_checkpoint,
+    load_checkpoint,
+    save_checkpoint_state,
 )
 from fastspeech2_tpu_torch.training.optim import NoamAdam
 from fastspeech2_tpu_torch.training.step import (
@@ -58,12 +80,31 @@ def loss_line(prefix, vals):
 
 def init_training(preprocess_config, model_config, train_config,
                   restore_step=0, device="cuda", seed=TRAIN_SEED,
-                  dtype=torch.float32):
+                  dtype=torch.float32, mesh=SINGLE):
     """-> (model, cfg, optim_cfg, optimizer), the model on ``device`` at
     the compute ``dtype`` with weights drawn from ``seed`` or restored from
-    ``restore_step``."""
+    ``restore_step`` (:func:`build_training`)."""
     cfg = FastSpeech2Config.build(preprocess_config, model_config)
     optim_cfg = OptimConfig.build(train_config)
+    saved = (load_checkpoint(train_config["path"]["ckpt_path"], restore_step)
+             if restore_step else None)
+    if saved and saved["optimizer"] is None:
+        raise ValueError(f"checkpoint {restore_step} holds no optimizer "
+                         "state")
+    model, optimizer = build_training(
+        cfg, optim_cfg, device, seed, dtype, mesh,
+        state=saved["model"] if saved else None,
+        opt_state=saved["optimizer"] if saved else None)
+    return model, cfg, optim_cfg, optimizer
+
+
+def build_training(cfg, optim_cfg, device="cuda", seed=TRAIN_SEED,
+                   dtype=torch.float32, mesh=SINGLE, state=None,
+                   opt_state=None):
+    """-> (model, optimizer).  The whole model's weights are drawn from
+    ``seed``, or taken from ``state`` (a whole state dict), on every rank
+    and then cut to this rank's shard of the ``mesh``; the optimizer
+    starts fresh or from ``opt_state`` (a whole optimizer state dict)."""
     # a step is reproducible on the card: cuDNN takes its deterministic
     # convolution algorithms, untuned (its float32 weight-gradient
     # algorithms may otherwise sum in another order from run to run)
@@ -72,12 +113,68 @@ def init_training(preprocess_config, model_config, train_config,
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = FastSpeech2(cfg, dtype=dtype)
+        whole = state if state is not None else model.state_dict()
+        if mesh.size > 1:
+            model = FastSpeech2(cfg, dtype=dtype, mesh=mesh)
+    if state is not None or mesh.size > 1:
+        model.load_state_dict(shard_state_dict(whole, mesh.model_rank,
+                                               mesh.model))
     model.to(device)
     optimizer = NoamAdam(model.parameters(), optim_cfg, cfg.encoder_hidden)
-    if restore_step:
-        restore_checkpoint(train_config["path"]["ckpt_path"], restore_step,
-                           model, optimizer)
-    return model, cfg, optim_cfg, optimizer
+    if opt_state is not None:
+        optimizer.load_state_dict(shard_optimizer_state(
+            opt_state, _param_names(model), mesh.model_rank, mesh.model))
+    return model, optimizer
+
+
+def _param_names(model):
+    return [name for name, _ in model.named_parameters()]
+
+
+def save_training_state(ckpt_dir, model, optimizer, step, mesh=SINGLE):
+    """The whole model's checkpoint of ``step``, gathered from the model
+    group's shards and written by rank 0 of the mesh alone."""
+    state = unshard_state_dict(model.state_dict(), mesh.model_rank,
+                               mesh.model, mesh.model_group)
+    opt_state = unshard_optimizer_state(
+        optimizer.state_dict(), _param_names(model), mesh.model_rank,
+        mesh.model, mesh.model_group)
+    if mesh.is_main:
+        save_checkpoint_state(ckpt_dir, state, opt_state, step)
+
+
+def default_mesh(optim_cfg):
+    """The JAX loop's mesh: over an initialised world of N ranks, a data
+    axis of gcd(micro-batch, N) and a model axis of 1; one process
+    otherwise."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return SINGLE
+    micro = max(optim_cfg.batch_size // max(optim_cfg.grad_acc_step, 1), 1)
+    return make_mesh(data=math.gcd(micro, dist.get_world_size()), model=1)
+
+
+def rank_rows(batch, mesh, grad_acc_step):
+    """This rank's rows of a loader batch: its contiguous 1/data of each
+    of the ``grad_acc_step`` micro-batches, in order (the host-only
+    fields too), so that train_step's micro-batches are this rank's
+    shares of the global ones."""
+    if mesh.data == 1:
+        return batch
+    B = batch["texts"].shape[0]
+    micro = B // grad_acc_step
+    if micro % mesh.data:
+        raise ValueError(f"micro-batch {micro} does not split over a data "
+                         f"axis of {mesh.data}")
+    n = micro // mesh.data
+    idx = np.concatenate([np.arange(i * micro + mesh.data_rank * n,
+                                    i * micro + (mesh.data_rank + 1) * n)
+                          for i in range(grad_acc_step)])
+    return {k: (v[idx] if isinstance(v, np.ndarray) and v.ndim
+                and v.shape[0] == B else
+                [v[i] for i in idx] if isinstance(v, list) else v)
+            for k, v in batch.items()}
 
 
 def evaluate(model, val_dataset, batch_size, cfg, device):
@@ -102,16 +199,18 @@ def evaluate(model, val_dataset, batch_size, cfg, device):
 
 
 def synth_one_sample(model, batch, preprocess_config, vocoder=None,
-                     log=print):
+                     log=print, figure=True):
     """The first row of a loader batch through the model in eval mode,
     teacher-forced on its durations, pitch and energy (reference
     utils/tools.py:109-161; fastspeech2_tpu/training/loop.py:101-160) ->
     (figure of the synthesized and ground-truth mels, the reconstructed
     wav, the synthesized wav).
 
-    The wavs are None without a vocoder.  The figure is None, and one line
-    says so, where matplotlib is not installed: that is the only failure
-    this function absorbs.  A fault of the forward or the vocoder raises.
+    The wavs are None without a vocoder.  The figure is None with
+    ``figure`` False (a rank that writes nothing runs the forward alone,
+    for its model group's collectives), and, with one line saying so,
+    where matplotlib is not installed: that is the only failure this
+    function absorbs.  A fault of the forward or the vocoder raises.
     """
     from fastspeech2_tpu_torch.synthesis.plotting import (
         expand_by_duration,
@@ -149,15 +248,16 @@ def synth_one_sample(model, batch, preprocess_config, vocoder=None,
         energy = expand_by_duration(energy[:src_len], duration)
     else:
         energy = energy[:mel_len]
-    try:
-        fig = plot_mel(
-            [(mel_pred, pitch, energy), (mel_target, pitch, energy)],
-            plot_stats(preprocess_config),
-            ["Synthesized Spectrogram", "Ground-Truth Spectrogram"])
-    except ImportError:
-        fig = None
-        log("matplotlib is not installed: the synthesized sample's mel "
-            "figure is not drawn")
+    fig = None
+    if figure:
+        try:
+            fig = plot_mel(
+                [(mel_pred, pitch, energy), (mel_target, pitch, energy)],
+                plot_stats(preprocess_config),
+                ["Synthesized Spectrogram", "Ground-Truth Spectrogram"])
+        except ImportError:
+            log("matplotlib is not installed: the synthesized sample's mel "
+                "figure is not drawn")
 
     wav_reconstruction = wav_prediction = None
     if vocoder is not None:
@@ -187,6 +287,29 @@ def log_sample(logger, tag, sample, sampling_rate):
                      sampling_rate)
 
 
+def _silent(*_):
+    pass
+
+
+class _NullLogger:
+    """The logger of a rank other than 0: writes nothing."""
+
+    def message(self, text):
+        pass
+
+    def scalars(self, step, losses):
+        pass
+
+    def figure(self, tag, fig, step=None):
+        pass
+
+    def audio(self, tag, wav, sampling_rate, step=None):
+        pass
+
+    def close(self):
+        pass
+
+
 def _start_profiler():
     from torch.profiler import ProfilerActivity, profile
 
@@ -212,21 +335,32 @@ def _write_trace(prof, profile_dir, log):
 
 def train(preprocess_config, model_config, train_config, restore_step=0,
           dtype=torch.float32, max_steps=None, log=print, device="cuda",
-          step_hook=None, vocoder=None, profile_dir=None):
+          step_hook=None, vocoder=None, profile_dir=None, mesh=None):
     """The reference's main() loop (train.py:21-169) on ``device`` at the
     compute ``dtype`` (parameters and optimizer state stay float32).
 
     step_hook: called as step_hook(step, losses) after every update (for
     measurements).  vocoder: the synth_step duty's (None: the figure
     only, as the JAX train CLI runs it).  profile_dir: where the trace of
-    the run's 11th to 20th steps goes.  Returns (model, optimizer, step).
+    the run's 11th to 20th steps goes.  mesh: this rank's
+    ``parallel.Mesh`` (default: :func:`default_mesh`).  Returns (model,
+    optimizer, step); (None, None, restore_step) on a rank outside the
+    mesh.
     """
     device = torch.device(device)
     steps = StepConfig.build(train_config)
     total_step = min(steps.total_step, max_steps or steps.total_step)
+    if mesh is None:
+        mesh = default_mesh(OptimConfig.build(train_config))
+    if not mesh.active:
+        log(f"outside the (data {mesh.data}, model {mesh.model}) mesh: "
+            "this rank stays idle")
+        return None, None, restore_step
+    if not mesh.is_main:
+        log = _silent
     model, cfg, optim_cfg, optimizer = init_training(
         preprocess_config, model_config, train_config, restore_step,
-        device=device, dtype=dtype)
+        device=device, dtype=dtype, mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"Number of FastSpeech2 Parameters: {n_params}")
 
@@ -238,10 +372,11 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
         text_bucket=bucket_cfg.get("text", 32),
         mel_bucket=bucket_cfg.get("mel", 160))
     val_dataset = FeatureDataset("val.txt", preprocess_config)
-    logger = TrainLogger(os.path.join(train_config["path"]["log_path"],
-                                      "train"), log)
-    val_logger = TrainLogger(os.path.join(train_config["path"]["log_path"],
-                                          "val"), lambda line: None)
+    log_path = train_config["path"]["log_path"]
+    logger = (TrainLogger(os.path.join(log_path, "train"), log)
+              if mesh.is_main else _NullLogger())
+    val_logger = (TrainLogger(os.path.join(log_path, "val"), _silent)
+                  if mesh.is_main else _NullLogger())
     ckpt_dir = train_config["path"]["ckpt_path"]
 
     acc = optim_cfg.grad_acc_step
@@ -286,7 +421,9 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
         if step % steps.synth_step == 0:
             log_sample(logger, f"Training/step_{step}_{batch['ids'][0]}",
                        synth_one_sample(model, batch, preprocess_config,
-                                        vocoder, log), sampling_rate)
+                                        vocoder if mesh.is_main else None,
+                                        log, figure=mesh.is_main),
+                       sampling_rate)
         if step % steps.val_step == 0:
             vals = evaluate(model, val_dataset, optim_cfg.batch_size, cfg,
                             device)
@@ -304,17 +441,19 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
                 log_sample(val_logger,
                            f"Validation/step_{step}_{val_batch['ids'][0]}",
                            synth_one_sample(model, val_batch,
-                                            preprocess_config, None, log),
+                                            preprocess_config, None, log,
+                                            figure=mesh.is_main),
                            sampling_rate)
         if step % steps.save_step == 0:
-            save_checkpoint(ckpt_dir, model, optimizer, step)
+            save_training_state(ckpt_dir, model, optimizer, step, mesh)
             log(f"Saved checkpoint at step {step}")
 
     mel_bf16 = bool(train_config.get("transfer", {}).get("mel_bf16",
                                                          False))
 
     def to_device(batch):
-        return batch, batch_to_device(batch, device, mel_bf16)
+        return batch, batch_to_device(rank_rows(batch, mesh, acc), device,
+                                      mel_bf16)
 
     step = restore_step
     epoch = epoch_batches = 0
@@ -330,8 +469,10 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
                     loader.epoch(epoch), depth=2, transform=to_device):
                 if step >= total_step:
                     break
-                if preempted.is_set():
-                    save_checkpoint(ckpt_dir, model, optimizer, step)
+                if agree(preempted.is_set(), mesh):
+                    preempted.set()
+                    save_training_state(ckpt_dir, model, optimizer, step,
+                                        mesh)
                     log(f"Preemption checkpoint saved at step {step}")
                     break
                 if profile_dir and step - restore_step == 10:
@@ -352,7 +493,7 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
             profiler.stop()
         for sig, prev in installed:
             signal.signal(sig, prev)
-    save_checkpoint(ckpt_dir, model, optimizer, step)
+    save_training_state(ckpt_dir, model, optimizer, step, mesh)
     logger.close()
     val_logger.close()
     return model, optimizer, step

@@ -16,6 +16,7 @@ optax are kept:
   weakly typed b1), and the sum with (1 - b1) * g is float32.
 """
 
+import numpy as np
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -54,15 +55,19 @@ class NoamAdam:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads):
+    def step(self, grads, norm=None):
         """Apply one update from ``grads`` (aligned with the parameters);
-        returns the learning rate it used, as a float32 tensor."""
+        returns the learning rate it used, as a float32 tensor.  ``norm``:
+        the global gradient norm to clip by, where the parameters are a
+        shard of the model (``training/step.py::global_grad_norm``); by
+        default the norm of ``grads``."""
         cfg = self.config
         b1, b2 = cfg.betas
         device = self.params[0].device
         grads = [g.float() for g in grads]
         # clip_by_global_norm, without a sync: where(norm < max, g, g/n*max)
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        if norm is None:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads))
         small = norm < cfg.grad_clip_thresh
         grads = [torch.where(small, g, g / norm * cfg.grad_clip_thresh)
                  for g in grads]
@@ -96,3 +101,61 @@ class NoamAdam:
                    for m, p, old in zip(state["mu"], self.params, self.mu)]
         self.nu = [n.to(device=p.device, dtype=torch.float32)
                    for n, p in zip(state["nu"], self.params)]
+
+
+class AdamW:
+    """``optax.adamw(schedule, b1, b2, eps, weight_decay)`` over a list of
+    parameters updated in place by :meth:`step`: optax's chain in its
+    order, the moments (1 - b) * g^k + b * m, their bias corrections,
+    mu_hat / (sqrt(nu_hat) + eps), + weight_decay * p (every parameter),
+    * -schedule(count) with the count before the update, then p + update.
+    ``schedule``: count -> learning rate (a Python float), or a subclass's
+    ``schedule`` method.  The state is ``count``, ``mu`` and ``nu``."""
+
+    def __init__(self, params, schedule=None, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=1e-4):
+        self.params = list(params)
+        if schedule is not None:
+            self.schedule = schedule
+        self.betas = tuple(betas)
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads):
+        """One update from ``grads``, aligned with the parameters."""
+        b1, b2 = self.betas
+        lr = self.schedule(self.count)
+        self.count += 1
+        one, count = np.float32(1), np.float32(self.count)
+        c1 = float(one - np.power(np.float32(b1), count))
+        c2 = float(one - np.power(np.float32(b2), count))
+        grads = list(grads)
+        mu = torch._foreach_mul(grads, 1 - b1)
+        torch._foreach_add_(mu, torch._foreach_mul(self.mu, b1))
+        nu = torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2)
+        torch._foreach_add_(nu, torch._foreach_mul(self.nu, b2))
+        self.mu, self.nu = mu, nu
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, c2))
+        torch._foreach_add_(denom, self.eps)
+        update = torch._foreach_div(torch._foreach_div(mu, c1), denom)
+        if self.weight_decay:
+            torch._foreach_add_(update, torch._foreach_mul(
+                self.params, self.weight_decay))
+        torch._foreach_mul_(update, -lr)
+        torch._foreach_add_(self.params, update)
+
+    def state_dict(self):
+        return {"count": self.count, "mu": list(self.mu),
+                "nu": list(self.nu)}
+
+    def load_state_dict(self, state):
+        if len(state["mu"]) != len(self.params):
+            raise ValueError(f"optimizer state holds {len(state['mu'])} "
+                             f"moments for {len(self.params)} parameters")
+        self.count = int(state["count"])
+        self.mu = [m.to(p.device) for m, p in zip(state["mu"], self.params)]
+        self.nu = [n.to(p.device) for n, p in zip(state["nu"], self.params)]

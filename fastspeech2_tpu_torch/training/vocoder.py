@@ -23,6 +23,16 @@ a Pallas kernel in the JAX package.  The augmentation draws come from a
 ``torch.Generator`` keyed on (seed, step) (:func:`augmentation_draws`), not
 from JAX's threefry stream: the two packages draw different numbers by
 design, and the tests pass JAX's draws in.
+
+Data parallel (``data_parallel`` N, ``:541-560``): N ranks of an
+initialised ``torch.distributed`` world, one process each, hold the same
+networks (the same seed) and draw the same global batch from the same
+sampler; rank r trains on rows [r B/N, (r+1) B/N) of it, and on its rows
+of the step's augmentation draws, which are made for the whole batch.
+Each loss is a mean over equal shares, so the gradients are averaged over
+the ranks (one all-reduce per network per step) and every rank applies
+the one-process update.  Scan mode splits its [K, B] schedule by columns,
+as the JAX loop shards it ``P(None, "data")``.
 """
 
 import math
@@ -35,6 +45,7 @@ import torch
 from fastspeech2_tpu_torch.audio.stft import MelSpectrogram
 from fastspeech2_tpu_torch.audio.wav import load_wav
 from fastspeech2_tpu_torch.models.hifigan_disc import HiFiGANDiscriminators
+from fastspeech2_tpu_torch.parallel.comm import all_reduce, all_reduce_flat
 from fastspeech2_tpu_torch.synthesis.vocoder import (
     build_generator,
     generator_from_jax_params,
@@ -44,36 +55,27 @@ from fastspeech2_tpu_torch.training.checkpoint import (
     load_checkpoint,
     save_vocoder_checkpoint,
 )
+from fastspeech2_tpu_torch.training.optim import AdamW
 from fastspeech2_tpu_torch.utils.device import resolve_device
 
 LOSS_NAMES = ("disc", "gen", "gen_adv", "gen_fm", "gen_mel")
 
 
-class VocoderAdamW:
+class VocoderAdamW(AdamW):
     """``optax.adamw(sched, b1, b2)`` with optax's eps 1e-8 and weight decay
-    1e-4 (``:58-65``), over a list of parameters updated in place by
-    :meth:`step`.  ``sched`` is the staircase ``exponential_decay(lr,
-    steps_per_epoch, lr_decay)``, evaluated at the count *before* the
-    update, in float32 as optax computes it.
-
-    The update is optax's chain in its order: the moments
-    (1 - b) * g^k + b * m, their bias corrections, mu_hat / (sqrt(nu_hat)
-    + eps), + weight_decay * p, * -lr, then p + update.  The state is
-    ``count``, ``mu`` and ``nu``."""
+    1e-4 (``:58-65``; :class:`training.optim.AdamW`).  ``sched`` is the
+    staircase ``exponential_decay(lr, steps_per_epoch, lr_decay)``,
+    evaluated at the count *before* the update, in float32 as optax
+    computes it."""
 
     def __init__(self, params, learning_rate=2e-4, betas=(0.8, 0.99),
                  lr_decay=0.999, steps_per_epoch=1000, eps=1e-8,
                  weight_decay=1e-4):
-        self.params = list(params)
+        super().__init__(params, betas=betas, eps=eps,
+                         weight_decay=weight_decay)
         self.learning_rate = learning_rate
-        self.betas = tuple(betas)
         self.lr_decay = lr_decay
         self.steps_per_epoch = steps_per_epoch
-        self.eps = eps
-        self.weight_decay = weight_decay
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
 
     def schedule(self, count):
         """The staircase learning rate at ``count`` updates done, float32
@@ -84,42 +86,6 @@ class VocoderAdamW:
         p = np.floor(f32(count) / f32(self.steps_per_epoch))
         return float(f32(self.learning_rate)
                      * np.power(f32(self.lr_decay), f32(p)))
-
-    @torch.no_grad()
-    def step(self, grads):
-        """One update from ``grads``, aligned with the parameters."""
-        b1, b2 = self.betas
-        lr = self.schedule(self.count)
-        self.count += 1
-        one, count = np.float32(1), np.float32(self.count)
-        c1 = float(one - np.power(np.float32(b1), count))
-        c2 = float(one - np.power(np.float32(b2), count))
-        grads = list(grads)
-        mu = torch._foreach_mul(grads, 1 - b1)
-        torch._foreach_add_(mu, torch._foreach_mul(self.mu, b1))
-        nu = torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2)
-        torch._foreach_add_(nu, torch._foreach_mul(self.nu, b2))
-        self.mu, self.nu = mu, nu
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, c2))
-        torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(torch._foreach_div(mu, c1), denom)
-        if self.weight_decay:
-            torch._foreach_add_(update, torch._foreach_mul(
-                self.params, self.weight_decay))
-        torch._foreach_mul_(update, -lr)
-        torch._foreach_add_(self.params, update)
-
-    def state_dict(self):
-        return {"count": self.count, "mu": list(self.mu),
-                "nu": list(self.nu)}
-
-    def load_state_dict(self, state):
-        if len(state["mu"]) != len(self.params):
-            raise ValueError(f"optimizer state holds {len(state['mu'])} "
-                             f"moments for {len(self.params)} parameters")
-        self.count = int(state["count"])
-        self.mu = [m.to(p.device) for m, p in zip(state["mu"], self.params)]
-        self.nu = [n.to(p.device) for n, p in zip(state["nu"], self.params)]
 
 
 def discriminator_loss(real_scores, fake_scores):
@@ -195,7 +161,8 @@ class VocoderTrainState:
 def make_vocoder_train_step(gen, disc, mel_fn, mel_weight=45.0,
                             external_mel=False, gen_input_scale=1.0,
                             adv_warmup=0, aug_gain_db=0.0, aug_speed=None,
-                            out_segment=None, aug_seed=0):
+                            out_segment=None, aug_seed=0, data_group=None,
+                            data_rank=0, data_size=1):
     """-> ``step(state, wav, mel=None, draws=None) -> (state, losses)``,
     which updates ``state`` in place.
 
@@ -216,8 +183,14 @@ def make_vocoder_train_step(gen, disc, mel_fn, mel_weight=45.0,
     augmentation resamples each segment and needs the mel computed in the
     step (external_mel=False).  The losses are 0-d tensors on the card,
     {disc, gen, gen_adv, gen_fm, gen_mel}, read by the caller when it
-    logs."""
+    logs.
+
+    With a ``data_group`` of ``data_size`` ranks, ``wav`` (and ``mel``)
+    are this rank's ``data_rank``-th share of the global batch; the draws
+    are made for the global batch and this share taken; gradients and
+    losses are averaged over the group (module docstring)."""
     hop = mel_fn.hop_length
+    scale = 1.0 / data_size
     if aug_speed is not None and external_mel:
         raise ValueError("aug_speed needs in-graph mels "
                          "(external_mel=False); use gain-only "
@@ -230,8 +203,12 @@ def make_vocoder_train_step(gen, disc, mel_fn, mel_weight=45.0,
 
     def step(state, wav, mel=None, draws=None):
         if draws is None and (aug_speed is not None or aug_gain_db):
-            draws = augmentation_draws(aug_seed, state.step, wav.shape[0],
+            b = wav.shape[0]
+            draws = augmentation_draws(aug_seed, state.step, b * data_size,
                                        aug_gain_db, aug_speed)
+            draws = {k: None if v is None
+                     else v[data_rank * b:(data_rank + 1) * b]
+                     for k, v in draws.items()}
         if aug_speed is not None:
             wav = resample_segments(wav, draws["rates"].to(wav.device),
                                     out_segment)
@@ -262,7 +239,8 @@ def make_vocoder_train_step(gen, disc, mel_fn, mel_weight=45.0,
             _, fake_scores = disc(y_hat.detach())
             d_loss = discriminator_loss(real_scores, fake_scores)
         if not in_warmup:
-            state.disc_opt.step(torch.autograd.grad(d_loss, disc_params))
+            state.disc_opt.step(all_reduce_flat(
+                torch.autograd.grad(d_loss, disc_params), data_group, scale))
 
         # generator, through the updated discriminators; the gradient goes
         # to the generator's parameters only
@@ -278,10 +256,14 @@ def make_vocoder_train_step(gen, disc, mel_fn, mel_weight=45.0,
         total = mel_weight * mel_l1
         if not in_warmup:
             total = (adv + fm) + total
-        state.gen_opt.step(torch.autograd.grad(total, gen_params))
+        state.gen_opt.step(all_reduce_flat(
+            torch.autograd.grad(total, gen_params), data_group, scale))
         state.step += 1
-        losses = (d_loss, total, adv, fm, mel_l1)
-        return state, {k: v.detach() for k, v in zip(LOSS_NAMES, losses)}
+        losses = torch.stack([v.detach() for v in
+                              (d_loss, total, adv, fm, mel_l1)])
+        if data_group is not None:
+            losses = all_reduce(losses, data_group) * scale
+        return state, dict(zip(LOSS_NAMES, losses.unbind(0)))
 
     return step
 
@@ -525,11 +507,26 @@ def train_vocoder(wav_dir, out_dir, *, total_steps=1000, batch_size=16,
     steps one line reports the losses; every save_step steps (and at the
     end) ``<out_dir>/<step>.pth.tar`` is written.  scan_step > 1 runs the
     device-resident bank of :func:`make_scanned_vocoder_step`.
-    ``data_parallel`` > 1 is not ported yet."""
+    ``data_parallel`` N > 1 trains on this rank's share of each batch in an
+    initialised world of N ranks (module docstring); rank 0 alone logs and
+    writes checkpoints."""
+    group, rank, n_ranks = None, 0, 1
     if data_parallel and data_parallel > 1:
-        raise NotImplementedError(
-            "data_parallel > 1: multi-device training is ROADMAP queue 1 "
-            "item 5 (multi-device), not ported yet; run with 1")
+        import torch.distributed as dist
+
+        if batch_size % data_parallel:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by "
+                f"data_parallel {data_parallel}")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != data_parallel:
+            raise ValueError(
+                f"data_parallel {data_parallel} needs a torch.distributed "
+                f"world of {data_parallel} ranks (torchrun --nproc_per_node "
+                f"{data_parallel}), found {world}")
+        group, rank, n_ranks = dist.group.WORLD, dist.get_rank(), world
+        if rank:
+            log = _silent
     device = resolve_device(device)
     # a step is reproducible on the card: cuDNN takes its deterministic
     # convolution algorithms, untuned (training/loop.py:init_training)
@@ -600,39 +597,52 @@ def train_vocoder(wav_dir, out_dir, *, total_steps=1000, batch_size=16,
         gen, disc, mel_fn, mel_weight=mel_weight, external_mel=external_mel,
         gen_input_scale=gen_input_scale, adv_warmup=adv_warmup,
         aug_gain_db=aug_gain_db, aug_speed=aug_speed,
-        out_segment=segment_size, aug_seed=seed)
+        out_segment=segment_size, aug_seed=seed, data_group=group,
+        data_rank=rank, data_size=n_ranks)
     os.makedirs(out_dir, exist_ok=True)
+    share = batch_size // n_ranks
+    rows = slice(rank * share, (rank + 1) * share)
+
+    def save(i):
+        if rank == 0:
+            save_vocoder_checkpoint(out_dir, state, i)
 
     if scan_step > 1:
         return _train_vocoder_scanned(
             scan_step, state, step_fn, start_step, total_steps, batch_size,
-            segment_size, hop, sampler, external_mel, log_step, save_step,
-            out_dir, seed, seg_ext, device, log)
+            segment_size, hop, sampler, external_mel, log_step, save,
+            save_step, seed, seg_ext, device, log, rows)
 
     for i in range(start_step + 1, total_steps + 1):
         if external_mel:
             wav, mel = sampler.sample(batch_size)
-            state, losses = step_fn(state, _to_device(wav, device),
-                                    _to_device(mel, device))
+            state, losses = step_fn(state, _to_device(wav[rows], device),
+                                    _to_device(mel[rows], device))
         else:
-            wav = _to_device(sampler.sample(batch_size), device)
+            wav = _to_device(sampler.sample(batch_size)[rows], device)
             state, losses = step_fn(state, wav)
         if i % log_step == 0 or i == total_steps:
             log(_log_line(i, total_steps,
                           {k: float(v) for k, v in losses.items()}))
         if i % save_step == 0 or i == total_steps:
-            save_vocoder_checkpoint(out_dir, state, i)
+            save(i)
     return state
+
+
+def _silent(*_):
+    pass
 
 
 def _train_vocoder_scanned(scan_step, state, step_fn, start_step,
                            total_steps, batch_size, segment_size, hop,
-                           sampler, external_mel, log_step, save_step,
-                           out_dir, seed, seg_ext, device, log):
+                           sampler, external_mel, log_step, save, save_step,
+                           seed, seg_ext, device, log, rows):
     """Training over a zero-padded device-resident bank of the whole corpus
     (``:604-704``): K = :func:`scan_dispatch` steps per dispatch, clips and
     starts from ``np.random.RandomState(seed + start_step)``
-    (:func:`scan_schedule`), the losses of a dispatch's last step logged."""
+    (:func:`scan_schedule`) for the global batch, this rank's ``rows``
+    (columns of the schedule) trained on, the losses of a dispatch's last
+    step logged; ``save(i)`` writes the checkpoint of step i."""
     K = scan_dispatch(scan_step, log_step, save_step)
     if external_mel:
         items = [sampler._load(p) for p in sampler.pairs]
@@ -669,12 +679,12 @@ def _train_vocoder_scanned(scan_step, state, step_fn, start_step,
         clips, starts = scan_schedule(rng, k, batch_size, hi, external_mel,
                                       hop)
         state, seq = scanned(state, bank_dev, mel_bank_dev,
-                             torch.as_tensor(clips, device=device),
-                             torch.as_tensor(starts, device=device))
+                             torch.as_tensor(clips[:, rows], device=device),
+                             torch.as_tensor(starts[:, rows], device=device))
         i += k
         if i % log_step == 0 or i == total_steps:
             log(_log_line(i, total_steps,
                           {kk: float(v[-1]) for kk, v in seq.items()}))
         if i % save_step == 0 or i == total_steps:
-            save_vocoder_checkpoint(out_dir, state, i)
+            save(i)
     return state

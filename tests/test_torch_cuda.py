@@ -51,9 +51,9 @@ def device():
     return resolve_device("cuda")
 
 
-def _attention_inputs(lens, L, device, D=128, seed=0):
+def _attention_inputs(lens, L, device, D=128, seed=0, H=2):
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(len(lens), 2, L, D, generator=g).to(device)
+    q, k, v = (torch.randn(len(lens), H, L, D, generator=g).to(device)
                for _ in range(3))
     mask = (torch.arange(L)[None, :] >= torch.tensor(lens)[:, None])
     return q, k, v, mask.to(device)
@@ -232,6 +232,30 @@ def test_attention_backward_kernel_matches_plain(device, L, lens):
     ref = plain_attention_backward(q, k, v, mask, g)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
+
+
+# tensor parallel over 2 ranks: one head per rank, the training shapes
+@pytest.mark.parametrize("L", [128, 768, 1000])
+@pytest.mark.parametrize("B", [5, 10])
+def test_attention_kernels_at_one_head(device, L, B):
+    lens = (TRAIN_LENS if L == 1000 else [L, 0] + [L // 2 + 7 * i
+                                                   for i in range(8)])[:B]
+    q, k, v, mask = _attention_inputs(lens, L, device, seed=L + B, H=1)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(B)).to(
+        device)
+    before = (cuda_attention.launches, cuda_attention.bwd_launches)
+    out, row_max, row_sum = cuda_attention._launch_forward(q, k, v, mask,
+                                                           True)
+    got = cuda_attention.fused_attention_backward(q, k, v, mask, out,
+                                                  row_max, row_sum, g)
+    torch.cuda.synchronize()
+    assert (cuda_attention.launches, cuda_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, multi_head_attention(q, k, v, mask),
+                               atol=1e-4, rtol=0)
+    for name, a, b in zip(("dq", "dk", "dv"), got,
+                          plain_attention_backward(q, k, v, mask, g)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=name)
 
 

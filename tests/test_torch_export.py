@@ -258,11 +258,12 @@ def test_vocoder_checkpoints_through_get_vocoder(tmp_path, capsys):
 def test_entry_points_run_on_the_card_unless_told(workspace, tmp_path,
                                                   monkeypatch):
     """Without --device cpu the new entry points ask for CUDA and raise
-    where there is none; --data_parallel above 1 is not ported."""
+    where there is none; --data_parallel 2 raises outside a world of 2
+    ranks."""
     from fastspeech2_tpu_torch.cli import train_vocoder_cli
 
     pre_path, model_path, train_path, npz, _ = workspace
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="world of 2 ranks"):
         train_vocoder_cli.main(["--wav_dir", str(tmp_path), "--out_dir",
                                 str(tmp_path / "o"), "--data_parallel", "2",
                                 "--device", "cpu"])

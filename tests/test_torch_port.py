@@ -105,6 +105,18 @@ def test_imports_without_jax():
             "import fastspeech2_tpu_torch.evaluation.prosody_sweep\n"
             "import fastspeech2_tpu_torch.evaluation.align_validation\n"
             "import fastspeech2_tpu_torch.evaluation.demo_page\n"
+            "import fastspeech2_tpu_torch.parallel\n"
+            "import fastspeech2_tpu_torch.parallel.comm\n"
+            "import fastspeech2_tpu_torch.parallel.launch\n"
+            "import fastspeech2_tpu_torch.parallel.mesh\n"
+            "import fastspeech2_tpu_torch.parallel.sharding\n"
+            "import fastspeech2_tpu_torch.text.neural_g2p\n"
+            "import fastspeech2_tpu_torch.text.train_g2p\n"
+            "import fastspeech2_tpu_torch.text.mine_lexicon\n"
+            "import fastspeech2_tpu_torch.tools.parallel_steps\n"
+            "import fastspeech2_tpu_torch.tools.leave_one_out\n"
+            "import fastspeech2_tpu_torch.tools.score_vocoder_ladder\n"
+            "import fastspeech2_tpu_torch.tools.g2p_ensemble\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
             "'optax', 'orbax', 'fastspeech2_tpu.')) for m in sys.modules "
             "if sys.modules[m])\n")

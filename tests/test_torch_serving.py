@@ -645,7 +645,8 @@ def test_http_concurrency_32(server):
 def test_serve_cli_build_server(setup, monkeypatch):
     """build_server from argv on the CPU: the model.yaml's vocoder
     (HiFi-GAN-iSTFT, tracked snapshot), a snapping synthesizer, the token
-    from $TTS_AUTH_TOKEN; --data_parallel above 1 raises."""
+    from $TTS_AUTH_TOKEN; --data_parallel 2 raises where two cards are
+    not visible (here: the CPU)."""
     pre, model_path, train_path, npz = setup["paths"]
     with open(pre) as f:
         pre_cfg = yaml.safe_load(f)
@@ -679,7 +680,7 @@ def test_serve_cli_build_server(setup, monkeypatch):
         srv.stop()
     args = serve_cli.build_parser().parse_args(argv + ["--data_parallel",
                                                        "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 cards, 0 visible"):
         serve_cli.build_server(args)
 
 
