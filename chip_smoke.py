@@ -10,9 +10,12 @@ exits non-zero):
 2. build     nvcc builds the port's CUDA kernels from csrc/ (about a
              minute); every kernel's registers and spills over all its
              template instances (a spill fails the run), K1's and K3's
-             resident blocks per SM, every kernel's HMMA (tensor-core)
-             instruction count in the SASS, K1's grid at batch 1 and K2's
-             plan;
+             resident blocks per SM, every kernel's tensor-core
+             instructions in the SASS (HMMA, the mma.sync kind, and HGMMA,
+             wgmma's; the bfloat16 K1 and K3 must hold HGMMA), K1's grid
+             at float32 and bfloat16, K3's bfloat16 scratch (linear in L),
+             the K1 wrapper's host microseconds per call at the small
+             shapes beside the kernel's own time, and K2's plan;
 3. K1        the attention kernel against its plain version at the path's
              shapes, with partly and fully padded key rows;
 4. K2        the conv-FFN kernel against its plain version at every path
@@ -162,9 +165,10 @@ exits non-zero):
 
 The bfloat16 instances (--dtype bfloat16, the JAX train CLI's default) run
 through the same script: the build reports their registers, spills and
-HMMA counts; after phase 5, K1, K2 and K3 at bfloat16 are held against
-their plain versions at every path shape, each launched twice (bitwise
-equal); after phase 8, the README sentence goes through the synthesize
+tensor-core instructions (K1 and K3 at bfloat16 are wgmma kernels); after
+phase 5, K1, K2 and K3 at bfloat16 are held against their plain versions
+at every path shape (K3 also once at [2, 2, 2000, 128]), each launched
+twice (bitwise equal); after phase 8, the README sentence goes through the synthesize
 CLI's main with --dtype bfloat16 (10 bfloat16 K1 and K2 per forward, no
 float32 ones; the mel against the same forward with the plain versions);
 phase 9 times the bfloat16 instances beside SDPA at bfloat16 (K1 and K2
@@ -326,11 +330,11 @@ BOUND_BASIS = ("3xTF32 on the tensor cores: max(3 x operations / 495 "
                "TFLOP/s, bytes / 3.35 TB/s)")
 BOUND_BASIS_BF16 = ("BF16 on the tensor cores: max(operations / 989 "
                     "TFLOP/s, bytes of bfloat16 / 3.35 TB/s)")
-BOUND_BASIS_K3_BF16 = ("BF16 for S and dP, 2xTF32 for the products with "
-                       "P and dS (a float32 operand times a bfloat16 one): "
-                       "max(2/5 x operations / 989 TFLOP/s + 2 x 3/5 x "
-                       "operations / 495 TFLOP/s, bytes of bfloat16 / 3.35 "
-                       "TB/s)")
+BOUND_BASIS_K3_BF16 = ("BF16 for S and dP, 3xBF16 for the products with "
+                       "P and dS (a float32 operand times a bfloat16 one; "
+                       "cheaper than 2xTF32 at 495 TFLOP/s): max(2/5 x "
+                       "operations / 989 TFLOP/s + 3 x 3/5 x operations / "
+                       "989 TFLOP/s, bytes of bfloat16 / 3.35 TB/s)")
 # the bfloat16 instances against their plain versions, in ulps of bfloat16
 # at the largest |plain value|: both round at the same points, and a
 # float32 sum in another order may land on the other side of a rounding
@@ -342,12 +346,16 @@ BF16_ULPS = 2
 # buckets are pinned: the rounding flips of each layer carried through the
 # residual stream (the PostNet is the same code on both sides)
 BF16_MEL_ULPS = 8
-# the attention kernels' SASS functions: K1 and its key-split combine; K3a
-# (D = rowsum(g * out)), K3b (dK, dV and the dQ partials), the dQ reduction
+# the K1 wrapper's host time: calls issued back to back per run, and runs
+K1_HOST_CALLS = 100
+K1_HOST_REPS = 7
+# the attention kernels' SASS functions: float32 K1 and its key-split
+# combine; K3a (D = rowsum(g * out)), K3b (dK, dV and the dQ partials), the
+# dQ reduction; bfloat16 K1 and its combine; K3a (D and dQ) and K3b (dK, dV)
 ATTENTION_KERNELS = ("mha_fwd_f32_kernel", "mha_fwd_combine_kernel",
                      "mha_bwd_rowdot_kernel", "mha_bwd_dkdv_kernel",
                      "mha_bwd_dq_reduce_kernel", "mha_fwd_bf16_kernel",
-                     "mha_bwd_rowterm_bf16_kernel",
+                     "mha_fwd_combine_bf16_kernel", "mha_bwd_dq_bf16_kernel",
                      "mha_bwd_dkdv_bf16_kernel")
 # the convolution kernels' SASS functions (templates: several instances
 # each): K4's one-launch dilation unit and its two-launch conv, K2's two
@@ -355,10 +363,13 @@ ATTENTION_KERNELS = ("mha_fwd_f32_kernel", "mha_fwd_combine_kernel",
 CONV_KERNELS = ("resblock_unit_kernel", "resblock_conv_kernel",
                 "ffn_conv1_kernel", "ffn_conv2_kernel",
                 "ffn_conv1_bf16_kernel", "ffn_conv2_bf16_kernel")
-# the kernels that multiply, each of which must hold HMMA instructions
-MMA_KERNELS = ("mha_fwd_f32_kernel", "mha_bwd_dkdv_kernel",
-               "mha_fwd_bf16_kernel", "mha_bwd_rowterm_bf16_kernel",
-               "mha_bwd_dkdv_bf16_kernel") + CONV_KERNELS
+# the kernels built on wgmma, each of which must hold HGMMA instructions
+WGMMA_KERNELS = ("mha_fwd_bf16_kernel", "mha_bwd_dq_bf16_kernel",
+                 "mha_bwd_dkdv_bf16_kernel")
+# the kernels that multiply, each of which must hold tensor-core
+# instructions (HMMA or HGMMA)
+MMA_KERNELS = ("mha_fwd_f32_kernel", "mha_bwd_dkdv_kernel") + WGMMA_KERNELS \
+    + CONV_KERNELS
 # K2's shapes on the paths: (B, L, k2) of the README sentence's encoder
 # and decoder, the re-dispatch bucket, one frame, a 3-tap second conv, and
 # the validation forward at batch 10
@@ -383,6 +394,57 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def k1_host_times(device):
+    """K1's wrapper at the small shapes, [1, 2, 32, 128] (inference) and
+    [10, 2, 128, 128] (training, with the row statistics), float32 and
+    bfloat16: -> {(dtype, B, L, stats): (host microseconds per call, the
+    kernel's own microseconds, the CUDA-event time per call of
+    back-to-back calls as cuda_time_ms takes it)}.  The host time is the
+    median over K1_HOST_REPS runs of the wall time of K1_HOST_CALLS calls
+    issued back to back divided by their number (the host is shared: one
+    run can read a third more); the kernel's is the median of CUDA events
+    around single calls, each issued while the card sleeps
+    (torch.cuda._sleep) so that the events time the kernel and not the
+    host's enqueue."""
+    import torch
+
+    from fastspeech2_tpu_torch.ops import cuda_attention
+
+    found = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for B, L, stats in ((1, 32, False), (TRAIN_BATCH, 128, True)):
+            q, k, v, mask = attention_inputs([L] * B, L, device, seed=L)
+            q, k, v = (t.to(dt) for t in (q, k, v))
+
+            def call():
+                cuda_attention._launch_forward(q, k, v, mask, stats)
+
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+            runs = []
+            for _ in range(K1_HOST_REPS):
+                t0 = time.perf_counter()
+                for _ in range(K1_HOST_CALLS):
+                    call()
+                runs.append((time.perf_counter() - t0) / K1_HOST_CALLS * 1e6)
+                torch.cuda.synchronize()
+            host = statistics.median(runs)
+            kernel = []
+            for _ in range(21):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(1_000_000)   # ~0.6 ms of card time
+                a.record()
+                call()
+                b.record()
+                torch.cuda.synchronize()
+                kernel.append(a.elapsed_time(b) * 1e3)
+            found[(str(dt).split(".")[1], B, L, stats)] = (
+                host, statistics.median(kernel), cuda_time_ms(call) * 1e3)
+    return found
 
 
 def with_bound(t, bound, basis=BOUND_BASIS):
@@ -417,8 +479,8 @@ def ptxas_by_kernel(report, names):
 
 
 def hmma_counts(lib_path, names):
-    """-> {kernel: HMMA instructions in its SASS}, or None without
-    cuobjdump."""
+    """-> {kernel: {"HMMA": n, "HGMMA": m}}, the tensor-core instructions in
+    its SASS (HMMA: mma.sync; HGMMA: wgmma), or None without cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -432,8 +494,10 @@ def hmma_counts(lib_path, names):
         head = block.split("\n", 1)[0]
         name = next((n for n in names if n in head), None)
         if name:
-            counts[name] = counts.get(name, 0) + sum(
-                " HMMA." in ln for ln in block.splitlines())
+            c = counts.setdefault(name, {"HMMA": 0, "HGMMA": 0})
+            for ln in block.splitlines():
+                c["HMMA"] += " HMMA." in ln
+                c["HGMMA"] += " HGMMA." in ln
     return counts
 
 
@@ -799,8 +863,9 @@ def bf16_kernel_checks(device, bshapes, k2_shapes):
     at every path shape, each launched twice on the same inputs (bitwise
     equal): K1 at the README sentence's and batch mode's shapes and at the
     training shapes with the row statistics; K2 at every shape K2_SHAPES
-    and batch mode give; K3 at the training shapes.  Raises on a failed
-    gate -> {kernel: (largest error in ulps, largest absolute error)}."""
+    and batch mode give; K3 at the training shapes and once at [2, 2, 2000,
+    128] (its scratch no longer grows as L^2).  Raises on a failed gate ->
+    {kernel: (largest error in ulps, largest absolute error)}."""
     import torch
 
     from fastspeech2_tpu_torch.ops import cuda_attention, cuda_ffn
@@ -838,17 +903,18 @@ def bf16_kernel_checks(device, bshapes, k2_shapes):
         torch.cuda.synchronize()
         record("K1", got, again, multi_head_attention(q, k, v, mask),
                f"[{q.shape[0]}, 2, {L}, 128]")
-    for L in (1000, 768, 128):
+    for B, L in ((TRAIN_BATCH, 1000), (TRAIN_BATCH, 768),
+                 (TRAIN_BATCH, 128), (2, 2000)):
         q, k, v, mask, g = (t.to(bf16) if t.is_floating_point() else t
                             for t in attention_grad_inputs(L, device,
-                                                           seed=L + 21))
+                                                           seed=L + 21, B=B))
         fwd = [cuda_attention._launch_forward(q, k, v, mask, True)
                for _ in range(2)]
         bwd = [cuda_attention.fused_attention_backward(q, k, v, mask,
                                                        *fwd[0], g)
                for _ in range(2)]
         torch.cuda.synchronize()
-        where = f"[{TRAIN_BATCH}, 2, {L}, 128]"
+        where = f"[{B}, 2, {L}, 128]"
         record("K1", fwd[0][0], fwd[1][0], multi_head_attention(q, k, v,
                                                                 mask), where)
         repeat["K1"] = repeat["K1"] and all(
@@ -866,8 +932,9 @@ def bf16_kernel_checks(device, bshapes, k2_shapes):
                f"[{B}, {L}, 256], k2={k2}")
     say(f"[bf16] K1 at [1|2, 2, 32|48|1000, 128] (partly and fully padded "
         f"rows), batch mode's [B, 2, L, 128] and [10, 2, 1000|768|128, "
-        f"128] with the row statistics; K2 at (B, L, k2) in {k2_shapes}; "
-        f"K3 at [10, 2, 1000|768|128, 128]; each against its plain "
+        f"128] and [2, 2, 2000, 128] with the row statistics; K2 at (B, L, "
+        f"k2) in {k2_shapes}; K3 at [10, 2, 1000|768|128, 128] and [2, 2, "
+        f"2000, 128]; each against its plain "
         f"version at bfloat16 on the card: largest error in ulps of "
         f"bfloat16 at the largest |plain value| (tolerance {BF16_ULPS}) "
         f"and absolute: "
@@ -3596,6 +3663,8 @@ def main():
     occupancy = {"mha_fwd_f32_kernel": lib.fs2_mha_fwd_blocks_per_sm(),
                  "mha_bwd_dkdv_kernel": lib.fs2_mha_bwd_blocks_per_sm(),
                  "mha_fwd_bf16_kernel": lib.fs2_mha_fwd_bf16_blocks_per_sm(),
+                 "mha_bwd_dq_bf16_kernel":
+                     lib.fs2_mha_bwd_bf16_dq_blocks_per_sm(),
                  "mha_bwd_dkdv_bf16_kernel":
                      lib.fs2_mha_bwd_bf16_blocks_per_sm()}
     per_kernel = ptxas_by_kernel(info.get("ptxas", ""),
@@ -3610,20 +3679,45 @@ def main():
         raise RuntimeError(f"a kernel is missing from the build or spills: "
                            f"{per_kernel}")
     hmma = hmma_counts(info["path"], ATTENTION_KERNELS + CONV_KERNELS)
-    say(f"[build] HMMA (tensor-core) instructions in the SASS (summed over "
-        f"a template's instances): "
+    say(f"[build] tensor-core instructions in the SASS (HMMA: mma.sync, "
+        f"HGMMA: wgmma; summed over a template's instances): "
         f"{'not measured (no cuobjdump)' if hmma is None else hmma}")
-    if hmma is not None and not all(hmma.get(n, 0) > 0
-                                    for n in MMA_KERNELS):
+    if hmma is not None and not all(
+            sum(hmma.get(n, {}).values()) > 0 for n in MMA_KERNELS):
         raise RuntimeError("a kernel that multiplies has no tensor-core "
                            "instruction")
-    k1_grids = {(B, L): cuda_attention.forward_plan(B, 2, L)[0]
-                for B, L in ((1, 32), (1, 1000), (TRAIN_BATCH, 128),
-                             (TRAIN_BATCH, 768), (TRAIN_BATCH, 1000))}
-    say(f"[build] K1's grid (query tiles, B*H, key chunks) at [B, 2, L, "
-        f"128], by (B, L): {k1_grids}; {math.prod(k1_grids[(1, 1000)])} "
-        f"blocks at [1, 2, 1000, 128] on "
-        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    if hmma is not None and not all(hmma.get(n, {}).get("HGMMA", 0) > 0
+                                    for n in WGMMA_KERNELS):
+        raise RuntimeError("a bfloat16 attention kernel has no wgmma "
+                           "(HGMMA) instruction")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt in (torch.float32, torch.bfloat16):
+        k1_grids = {(B, L): cuda_attention.forward_plan(B, 2, L, dt)[0]
+                    for B, L in ((1, 32), (1, 1000), (TRAIN_BATCH, 128),
+                                 (TRAIN_BATCH, 768), (TRAIN_BATCH, 1000))}
+        say(f"[build] K1's grid at {dt} (query tiles, B*H, key chunks) at "
+            f"[B, 2, L, 128], by (B, L): {k1_grids}; "
+            f"{math.prod(k1_grids[(1, 1000)])} blocks at [1, 2, 1000, 128] "
+            f"on {sms} SMs")
+    k3_scratch = {(B, L): lib.fs2_mha_bwd_scratch_floats(B, 2, L, 1)
+                  for B, L in ((TRAIN_BATCH, 1000), (TRAIN_BATCH, 2000),
+                               (2, 2000))}
+    say(f"[build] K3's bfloat16 scratch (float32 elements) at [B, 2, L, "
+        f"128], by (B, L): {k3_scratch} (B*2*L: D alone; the float32 "
+        f"instance's at [10, 2, 1000, 128]: "
+        f"{lib.fs2_mha_bwd_scratch_floats(TRAIN_BATCH, 2, 1000, 0)})")
+    if any(n != B * 2 * L for (B, L), n in k3_scratch.items()):
+        raise RuntimeError("K3's bfloat16 scratch is not B*H*L floats")
+    k1_host = k1_host_times(device)
+    say(f"[build] K1's wrapper, host microseconds per call (the median "
+        f"of {K1_HOST_REPS} runs of {K1_HOST_CALLS} calls issued back to "
+        f"back) beside the kernel's own time (CUDA events around one launch, "
+        f"median) and the CUDA-event time per call of 20 back-to-back calls "
+        f"(the timing lines' measure): "
+        + "; ".join(f"{dt} [{B}, 2, {L}, 128]{' with stats' if st else ''}"
+                    f" host {h:.1f} us, kernel {k:.1f} us, events {e:.1f} "
+                    f"us" for (dt, B, L, st), (h, k, e) in k1_host.items())
+        + f" on {card}")
     k2_plans = {(B, L): cuda_ffn.forward_plan(B, L, 1024, 9)
                 for B, L, _ in k2_shapes}
     say(f"[build] K2's plan (positions per block and tap splits of the first "
@@ -4332,6 +4426,56 @@ def main():
             f"ms, plain {t['plain_ms']:.4f} ms, library (bfloat16) {lib}, "
             f"bound {t['bound_ms']:.3e} ms ({t['bound_by']}; "
             f"{t['bound_basis']}) on {card}")
+    # ... and the bfloat16 K1 and K3 where the other paths would run them:
+    #     the serve CLI at --dtype bfloat16 ([16, 2, 128|1000, 128]) and a
+    #     tensor-parallel step at bfloat16 (one head a rank, [10, 1, L, 128])
+    bf16_other = []
+    for B, H, L, backward in ((16, 2, 128, False), (16, 2, 1000, False),
+                              (TRAIN_BATCH, 1, 128, False),
+                              (TRAIN_BATCH, 1, 1000, False),
+                              (TRAIN_BATCH, 1, 128, True),
+                              (TRAIN_BATCH, 1, 1000, True)):
+        q, k, v, mask, g = attention_grad_inputs(L, device, seed=L + H, B=B)
+        if H == 1:
+            q, k, v, g = (t[:, :1].contiguous() for t in (q, k, v, g))
+        q, k, v, g = (t.to(bf) for t in (q, k, v, g))
+        additive = torch.zeros(B, 1, 1, L, device=device).masked_fill(
+            mask[:, None, None, :], -1e9).to(bf)
+        if backward:
+            out, row_max, row_sum = cuda_attention._launch_forward(
+                q, k, v, mask, True)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves,
+                                                      attn_mask=additive)
+            t = with_bound(dict(
+                ms=cuda_time_ms(
+                    lambda: cuda_attention.fused_attention_backward(
+                        q, k, v, mask, out, row_max, row_sum, g)),
+                plain_ms=cuda_time_ms(lambda: plain_attention_backward(
+                    q, k, v, mask, g)),
+                library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                    sdpa_out, leaves, g, retain_graph=True))),
+                attention_bound_ms(B, H, L, backward=True,
+                                   dtype="bfloat16"), BOUND_BASIS_K3_BF16)
+            del sdpa_out, leaves
+        else:
+            t = with_bound(dict(
+                ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
+                    q, k, v, mask)),
+                plain_ms=cuda_time_ms(lambda: multi_head_attention(
+                    q, k, v, mask)),
+                library_ms=cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=additive))),
+                attention_bound_ms(B, H, L, dtype="bfloat16"),
+                BOUND_BASIS_BF16)
+        t["name"], t["shape"] = ("K3" if backward else "K1"), [B, H, L, 128]
+        bf16_other.append(t)
+        say(f"[timing] {t['name']} bfloat16 {t['shape']} (serving at "
+            f"--dtype bfloat16 or tensor parallel at bfloat16): kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"(bfloat16) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.3e} ms ({t['bound_by']}) on {card}")
 
     # 8. training at full width: 20 steps + one validation pass through the
     #    port's train(), counts set to 0 just before and read just after
@@ -4741,13 +4885,25 @@ def main():
     # TRAIN_STEPS steps)
     bf_launches = {"K1": b_launches["K1_bf16"], "K2": b_launches["K2_bf16"],
                    "K3": sum(r["launches"]["K3_bf16"] for r in bf_steps)}
+    # the bfloat16 attention kernels' own sources
+    bf16_sources = {
+        "K1": ["fastspeech2_tpu_torch/csrc/attention_bf16.cu",
+               "fastspeech2_tpu_torch/csrc/attention_bf16.cuh",
+               "fastspeech2_tpu_torch/csrc/hopper.cuh"],
+        "K3": ["fastspeech2_tpu_torch/csrc/attention_bwd_bf16.cu",
+               "fastspeech2_tpu_torch/csrc/attention_bf16.cuh",
+               "fastspeech2_tpu_torch/csrc/hopper.cuh"]}
     for name in ("K1", "K2", "K3"):
         fn, src, replaces, shape = sources[name]
+        if name in bf16_sources:
+            src = bf16_sources[name][0]
         t = bf16_timings[(name, TRAIN_BATCH, 1000) if name == "K3"
                          else (name, 1, 1000)]
         per = [dict(shape=[B, 2, L, 128] if name != "K2" else [B, L, 256],
                     **{key: v[key] for key in keys})
                for (n, B, L), v in sorted(bf16_timings.items()) if n == name]
+        per += [dict(shape=v["shape"], **{key: v[key] for key in keys})
+                for v in bf16_other if v["name"] == name]
         kernels.append({
             "name": f"{name} {fn} bfloat16", "route": "cuda", "source": src,
             "replaces": replaces, "launches": bf_launches[name],
@@ -4758,6 +4914,8 @@ def main():
             "bound_basis": t["bound_basis"],
             "simt_bound_ms": t.get("simt_bound_ms"),
             "shape": shape.replace("f32", "bf16"), "per_shape": per,
+            **({"sources": bf16_sources[name]} if name in bf16_sources
+               else {}),
             "launches_by_path": {
                 "bf16 synthesis": b_launches[f"{name}_bf16"],
                 "bf16 training": bf_totals[f"{name}_bf16"],

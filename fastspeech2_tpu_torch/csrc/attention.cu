@@ -56,20 +56,8 @@
 // a fully padded row m = -1e9, and -1e9 + log(L) rounds back to -1e9 in
 // float32.  Inference passes null.
 //
-// The bfloat16 instance (mha_fwd_bf16_kernel, fs2_mha_fwd_bf16) computes
-// what the TPU kernel computes on bfloat16 q, k, v: S = Q K^T with float32
-// accumulation (one m16n8k16 bfloat16 product per k-step, exact products:
-// score_tile_bf16), the scale after the product, the -1e9 mask and a
-// float32 online softmax; P rounded to bfloat16 (the TPU kernel's
-// p.astype(v.dtype)) and multiplied by V on the same instruction into a
-// float32 accumulator; the output rounded to bfloat16.  The rounded P is
-// the running exp(s - m), the normaliser 1/l applied to the float32 sum at
-// the end (the TPU kernel rounds the normalised P: the two differ by less
-// than an ulp of bfloat16 in each term).  Tiles, grid, plan, key split and
-// combine (float32 partials) are the float32 instance's; Q, K and V sit in
-// shared memory as bfloat16 (52,224 bytes).  Its bound on an H100 is the
-// bfloat16 tensor cores' 989 TFLOP/s against 2-byte tensors: at L = 1000
-// ~500 operations per byte, above the ridge (~295), so operations.
+// The bfloat16 instance is attention_bf16.cu (wgmma and TMA); this file's
+// fs2_mha_fwd_plan answers for both.
 
 #include <cuda_runtime.h>
 
@@ -87,11 +75,8 @@ constexpr int kWarps = kBM / 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBlocksPerSM = 2;   // what the shared memory below allows
 
-// Q, then two stages of (K, V), as T
-template <typename T>
-constexpr size_t smem_bytes() {
-  return sizeof(T) * tile_stride<T>() * (kBM + 4 * kBN);
-}
+// Q, then two stages of (K, V)
+constexpr size_t kSmemBytes = sizeof(float) * kStride * (kBM + 4 * kBN);
 
 // O += P V for float32: P's C fragments as A (keys in the permuted order),
 // V as B, 3xTF32, eight output column groups at a time
@@ -116,51 +101,18 @@ __device__ __forceinline__ void pv_product(const float* Vs,
   }
 }
 
-// O += P V for bfloat16, over the tile's two 16-key k-steps: P's C
-// fragments of keys 16kk..16kk+7 and 16kk+8..16kk+15, rounded to bfloat16,
-// are the A fragment as they stand; V's B fragments come by
-// ldmatrix.trans, blocks (keys 0-7 | 8-15) x (d 0-7 | 8-15) -> b0, b1 of
-// n-tile n, then of n-tile n + 1
-__device__ __forceinline__ void pv_product(const bf16* Vs,
-                                           const float s[4][4], int lane,
-                                           float o[16][4]) {
-  const int blk = lane / 8;
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-    const bf16* vk = Vs + (16 * kk + lane % 8 + 8 * (blk & 1)) * kStrideH +
-                     8 * (blk >> 1);
-#pragma unroll
-    for (int n = 0; n < 16; n += 2) {
-      uint32_t r[4];
-      ldmatrix_b16<true>(r, vk + 8 * n);
-      const uint32_t b0[2] = {r[0], r[1]};
-      const uint32_t b1[2] = {r[2], r[3]};
-      mma_bf16(o[n], a, b0);
-      mma_bf16(o[n + 1], a, b1);
-    }
-  }
-}
-
-// The block's work for T = float or bf16 (q, k, v and out of type T; the
-// row statistics and the partials float32): the tile loads, score_tile
-// and pv_product are T's overloads, the rest is shared
-template <typename T>
+// The block's work
 __device__ __forceinline__ void mha_fwd_block(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const unsigned char* __restrict__ key_pad,
-    T* __restrict__ out, float* __restrict__ row_max,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const unsigned char* __restrict__ key_pad,
+    float* __restrict__ out, float* __restrict__ row_max,
     float* __restrict__ row_sum, float* __restrict__ part_o,
     float* __restrict__ part_m, float* __restrict__ part_l, int H, int L,
     float scale, int tiles_per_chunk) {
-  constexpr int kS = tile_stride<T>();
+  constexpr int kS = kStride;
   extern __shared__ float4 smem4[];
-  T* Qs = reinterpret_cast<T*>(smem4);   // [kBM][kS]
-  T* stage_base = Qs + kBM * kS;         // per stage: K then V
+  float* Qs = reinterpret_cast<float*>(smem4);   // [kBM][kS]
+  float* stage_base = Qs + kBM * kS;             // per stage: K then V
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -169,8 +121,8 @@ __device__ __forceinline__ void mha_fwd_block(
   const int t_begin = blockIdx.z * tiles_per_chunk;
   const int t_end = min(n_tiles, t_begin + tiles_per_chunk);
   const size_t base = static_cast<size_t>(bh) * L * kDh;
-  const T* kp = k + base;
-  const T* vp = v + base;
+  const float* kp = k + base;
+  const float* vp = v + base;
   const unsigned char* pad = key_pad + static_cast<size_t>(b) * L;
 
   const int tid = threadIdx.x;
@@ -195,11 +147,11 @@ __device__ __forceinline__ void mha_fwd_block(
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
 
-  const T* Qw = Qs + warp * 16 * kS;
+  const float* Qw = Qs + warp * 16 * kS;
   for (int kt = t_begin; kt < t_end; ++kt) {
     const int stage = (kt - t_begin) & 1;
     if (kt + 1 < t_end) {
-      T* next = stage_base + (stage ^ 1) * 2 * kBN * kS;
+      float* next = stage_base + (stage ^ 1) * 2 * kBN * kS;
       load_tile_async<kBN, kThreads>(next, kp, (kt + 1) * kBN, L, tid);
       load_tile_async<kBN, kThreads>(next + kBN * kS, vp, (kt + 1) * kBN, L,
                                      tid);
@@ -209,8 +161,8 @@ __device__ __forceinline__ void mha_fwd_block(
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* Ks = stage_base + stage * 2 * kBN * kS;
-    const T* Vs = Ks + kBN * kS;
+    const float* Ks = stage_base + stage * 2 * kBN * kS;
+    const float* Vs = Ks + kBN * kS;
 
     float s[4][4];
     score_tile(Qw, Ks, lane, s);
@@ -272,7 +224,7 @@ __device__ __forceinline__ void mha_fwd_block(
     const size_t row = static_cast<size_t>(bh) * L + r;
     if (part_o == nullptr) {
       const float inv = 1.f / l[h];
-      T* op = out + row * kDh + 2 * t;
+      float* op = out + row * kDh + 2 * t;
 #pragma unroll
       for (int n = 0; n < 16; ++n)
         store2(op + 8 * n, o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
@@ -295,7 +247,6 @@ __device__ __forceinline__ void mha_fwd_block(
   }
 }
 
-// the two instances, named apart for the build report
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
@@ -308,26 +259,13 @@ mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 part_l, H, L, scale, tiles_per_chunk);
 }
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-mha_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
-                    const unsigned char* __restrict__ key_pad,
-                    bf16* __restrict__ out, float* __restrict__ row_max,
-                    float* __restrict__ row_sum, float* __restrict__ part_o,
-                    float* __restrict__ part_m, float* __restrict__ part_l,
-                    int H, int L, float scale, int tiles_per_chunk) {
-  mha_fwd_block(q, k, v, key_pad, out, row_max, row_sum, part_o, part_m,
-                part_l, H, L, scale, tiles_per_chunk);
-}
-
 // One warp per row: combines the chunks' partials in the order 0, 1, ...
-// and writes the output as Out (float, or bf16 rounded to nearest even)
-template <typename Out>
+// and writes the output
 __global__ void __launch_bounds__(256)
 mha_fwd_combine_kernel(const float* __restrict__ part_o,
                        const float* __restrict__ part_m,
                        const float* __restrict__ part_l, int n_chunks,
-                       long rows, Out* __restrict__ out,
+                       long rows, float* __restrict__ out,
                        float* __restrict__ row_max,
                        float* __restrict__ row_sum) {
   const long row = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x)
@@ -401,17 +339,10 @@ void plan(int B, int H, int L, int grid[3], int* tiles_per_chunk) {
   grid[2] = (n_tiles + per - 1) / per;
 }
 
-template <typename T>
-using FwdKernel = void (*)(const T*, const T*, const T*,
-                           const unsigned char*, T*, float*, float*, float*,
-                           float*, float*, int, int, float, int);
-
-// K1's launches for T (fs2_mha_fwd_f32's contract below)
-template <typename T>
-int mha_fwd(FwdKernel<T> kernel, const void* q, const void* k,
-            const void* v, const void* key_pad, void* out, void* row_max,
-            void* row_sum, void* scratch, int B, int H, int L, int D,
-            float scale, void* stream) {
+// K1's launches (fs2_mha_fwd_f32's contract below)
+int mha_fwd(const void* q, const void* k, const void* v, const void* key_pad,
+            void* out, void* row_max, void* row_sum, void* scratch, int B,
+            int H, int L, int D, float scale, void* stream) {
   if (D != kDh || B <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
   if ((row_max == nullptr) != (row_sum == nullptr)) return cudaErrorInvalidValue;
   int grid[3], tiles_per_chunk;
@@ -419,49 +350,42 @@ int mha_fwd(FwdKernel<T> kernel, const void* q, const void* k,
   const bool split = grid[2] > 1;
   if (split && scratch == nullptr) return cudaErrorInvalidValue;
   cudaError_t err =
-      set_smem(reinterpret_cast<const void*>(kernel), smem_bytes<T>());
+      set_smem(reinterpret_cast<const void*>(mha_fwd_f32_kernel), kSmemBytes);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long rows = static_cast<long>(B) * H * L;
   float* part_o = split ? static_cast<float*>(scratch) : nullptr;
   float* part_m = split ? part_o + grid[2] * rows * kDh : nullptr;
   float* part_l = split ? part_m + grid[2] * rows : nullptr;
-  kernel<<<dim3(grid[0], grid[1], grid[2]), kThreads, smem_bytes<T>(),
-           st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const unsigned char*>(key_pad),
-      static_cast<T*>(out), static_cast<float*>(row_max),
+  mha_fwd_f32_kernel<<<dim3(grid[0], grid[1], grid[2]), kThreads,
+                       kSmemBytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const unsigned char*>(key_pad),
+      static_cast<float*>(out), static_cast<float*>(row_max),
       static_cast<float*>(row_sum), part_o, part_m, part_l, H, L, scale,
       tiles_per_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   const int warps_per_block = 256 / 32;
-  mha_fwd_combine_kernel<T>
+  mha_fwd_combine_kernel
       <<<(rows + warps_per_block - 1) / warps_per_block, 256, 0, st>>>(
-          part_o, part_m, part_l, grid[2], rows, static_cast<T*>(out),
+          part_o, part_m, part_l, grid[2], rows, static_cast<float*>(out),
           static_cast<float*>(row_max), static_cast<float*>(row_sum));
   return cudaGetLastError();
 }
 
-// resident blocks per SM of K1's main kernel for T at its launch shape
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on an error
-template <typename T>
-int blocks_per_sm(FwdKernel<T> kernel) {
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  int n = 0;
-  if (set_smem(fn, smem_bytes<T>()) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, fn, kThreads, smem_bytes<T>()) != cudaSuccess)
-    return -1;
-  return n;
-}
-
 }  // namespace
+
+extern "C" long long fs2_mha_fwd_bf16_plan(int B, int H, int L, int* grid);
 
 // The grid K1 launches for [B, H, L, 128] (written to grid[3]: query tiles,
 // B*H, key chunks) and the float32 scratch it needs: 0 without a split,
-// else chunks * B*H*L * (128 + 2) floats.
-extern "C" long long fs2_mha_fwd_plan(int B, int H, int L, int* grid) {
+// else chunks * B*H*L * (128 + 2) floats; of the float32 instance, or with
+// bf16 != 0 of the bfloat16 one (attention_bf16.cu, its own tiles and
+// plan).
+extern "C" long long fs2_mha_fwd_plan(int B, int H, int L, int bf16,
+                                      int* grid) {
+  if (bf16) return fs2_mha_fwd_bf16_plan(B, H, L, grid);
   if (B <= 0 || H <= 0 || L <= 0) return -1;
   int tiles_per_chunk;
   plan(B, H, L, grid, &tiles_per_chunk);
@@ -480,27 +404,18 @@ extern "C" int fs2_mha_fwd_f32(const void* q, const void* k, const void* v,
                                const void* key_pad, void* out, void* row_max,
                                void* row_sum, void* scratch, int B, int H,
                                int L, int D, float scale, void* stream) {
-  return mha_fwd<float>(mha_fwd_f32_kernel, q, k, v, key_pad, out, row_max,
-                        row_sum, scratch, B, H, L, D, scale, stream);
-}
-
-// fs2_mha_fwd_f32's contract for the bfloat16 instance: q, k, v, out
-// bfloat16 [B, H, L, 128]; row_max, row_sum and the scratch float32.
-extern "C" int fs2_mha_fwd_bf16(const void* q, const void* k, const void* v,
-                                const void* key_pad, void* out, void* row_max,
-                                void* row_sum, void* scratch, int B, int H,
-                                int L, int D, float scale, void* stream) {
-  return mha_fwd<bf16>(mha_fwd_bf16_kernel, q, k, v, key_pad, out, row_max,
-                       row_sum, scratch, B, H, L, D, scale, stream);
+  return mha_fwd(q, k, v, key_pad, out, row_max, row_sum, scratch, B, H, L,
+                 D, scale, stream);
 }
 
 // Resident blocks per SM of K1's main kernel, for the build report; -1 on
 // an error.
 extern "C" int fs2_mha_fwd_blocks_per_sm() {
-  return blocks_per_sm<float>(mha_fwd_f32_kernel);
-}
-
-// The same for the bfloat16 instance; -1 on an error.
-extern "C" int fs2_mha_fwd_bf16_blocks_per_sm() {
-  return blocks_per_sm<bf16>(mha_fwd_bf16_kernel);
+  const void* fn = reinterpret_cast<const void*>(mha_fwd_f32_kernel);
+  int n = 0;
+  if (set_smem(fn, kSmemBytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads,
+                                                    kSmemBytes) != cudaSuccess)
+    return -1;
+  return n;
 }

@@ -50,25 +50,8 @@
 // reference; padded tiles are never skipped.  Keys and query rows at or
 // past L (the ragged edge) get P = dS = 0 and are loaded as zeros.
 //
-// The bfloat16 instance (fs2_mha_bwd_bf16) computes what the TPU kernel
-// computes on bfloat16 q, k, v and g: every product in float32 from the
-// upcast operands, dq, dk and dv rounded to bfloat16.  Q, K, V and G sit in
-// shared memory as bfloat16 (121,856 bytes with the float32 transpose
-// tile).  S and dP come from score_tile's bfloat16 overload (the bfloat16
-// K1's score contract, exact products), P from K1's row statistics; the
-// products with P and dS run as 3xTF32 whose bfloat16 operand is exact in
-// TF32, so two TF32 products each (a_small b, then a_big b).  Its first
-// launch forms D by the TPU kernel's definition, rowsum(dP o P) over all
-// keys with float32 P (mha_bwd_rowterm_bf16_kernel: each block holds 64
-// query rows of Q and G and walks the keys), and not from K1's output:
-// that output is rounded to bfloat16 and formed from a rounded P, and the
-// error it puts into D reached ~0.8 of an ulp of bfloat16 at the largest
-// |dq| on peaked attention (a float64 model of the two at L = 512).  The
-// dQ partials and their reduction stay float32.  Its bound on an H100:
-// S and dP, 4 L^2 Dh operations per (b, h), at the bfloat16 tensor cores'
-// 989 TFLOP/s, and dV, dK and dQ, 6 L^2 Dh, at two TF32 passes each at
-// 495 TFLOP/s (a float32 operand times one exact in TF32 needs both of the
-// float32 operand's parts, and no fewer), against 2-byte tensors.
+// The bfloat16 instance is attention_bwd_bf16.cu (wgmma and TMA, no L^2
+// scratch); this file's fs2_mha_bwd_scratch_floats answers for both.
 
 #include <cuda_runtime.h>
 
@@ -307,13 +290,11 @@ mha_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// K3c: dQ = the sum of the key tiles' partials, in the order 0, 1, ...,
-// written as Out (float, or bf16 rounded to nearest even); one thread per
-// 4 floats
-template <typename Out>
+// K3c: dQ = the sum of the key tiles' partials, in the order 0, 1, ...;
+// one thread per 4 floats
 __global__ void __launch_bounds__(kThreads)
 mha_bwd_dq_reduce_kernel(const float* __restrict__ dq_part, int n_parts,
-                         long n4, Out* __restrict__ dq) {
+                         long n4, float* __restrict__ dq) {
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n4) return;
   const float4* part = reinterpret_cast<const float4*>(dq_part);
@@ -328,290 +309,16 @@ mha_bwd_dq_reduce_kernel(const float* __restrict__ dq_part, int n_parts,
   store4(dq + 4 * i, acc);
 }
 
-// ---- the bfloat16 instance --------------------------------------------------
-
-constexpr int kTileH = kTile * kStrideH;   // bf16 values per [64][kStrideH]
-constexpr size_t kSmemKVH =
-    sizeof(bf16) * 6 * kTileH + sizeof(float) * kTile * kTS;
-
-// the row term's launch: 64 query rows (4 warps of 16) against 32-key tiles
-constexpr int kRowBM = 64;
-constexpr int kRowBN = 32;
-constexpr int kRowThreads = 128;
-constexpr size_t kSmemRowH =
-    sizeof(bf16) * kStrideH * (2 * kRowBM + 4 * kRowBN);
-
-// D = rowsum(dP o P) over all keys, P = exp(masked_score(s) - m) / l with
-// K1's row statistics, as prob_and_ds forms it; one block per (b, h, 64
-// query rows), Q and G resident, K and V tiles in a two-stage ring
-__global__ void __launch_bounds__(kRowThreads)
-mha_bwd_rowterm_bf16_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const unsigned char* __restrict__ key_pad,
-                            const bf16* __restrict__ g,
-                            const float* __restrict__ row_max,
-                            const float* __restrict__ row_sum,
-                            float* __restrict__ Drow, int H, int L,
-                            float scale) {
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);   // [64][kStrideH]
-  bf16* Gs = Qs + kRowBM * kStrideH;
-  bf16* stage_base = Gs + kRowBM * kStrideH;   // per stage: K then V
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * kRowBM;
-  const size_t base = static_cast<size_t>(bh) * L * kDh;
-  const size_t rbase = static_cast<size_t>(bh) * L;
-  const unsigned char* pad = key_pad + static_cast<size_t>(b) * L;
-  const bf16* kp = k + base;
-  const bf16* vp = v + base;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int gq = lane / 4;
-  const int t = lane % 4;
-  const int n_tiles = (L + kRowBN - 1) / kRowBN;
-
-  load_tile_async<kRowBM, kRowThreads>(Qs, q + base, q0, L, tid);
-  load_tile_async<kRowBM, kRowThreads>(Gs, g + base, q0, L, tid);
-  load_tile_async<kRowBN, kRowThreads>(stage_base, kp, 0, L, tid);
-  load_tile_async<kRowBN, kRowThreads>(stage_base + kRowBN * kStrideH,
-                                            vp, 0, L, tid);
-  cp_async_commit();
-
-  float m[2], l[2], acc[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + 16 * warp + gq + 8 * h;
-    m[h] = r < L ? row_max[rbase + r] : 0.f;
-    l[h] = r < L ? row_sum[rbase + r] : 1.f;
-  }
-  const bf16* Qw = Qs + 16 * warp * kStrideH;
-  const bf16* Gw = Gs + 16 * warp * kStrideH;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < n_tiles) {
-      bf16* next = stage_base + (stage ^ 1) * 2 * kRowBN * kStrideH;
-      load_tile_async<kRowBN, kRowThreads>(next, kp, (kt + 1) * kRowBN,
-                                                L, tid);
-      load_tile_async<kRowBN, kRowThreads>(
-          next + kRowBN * kStrideH, vp, (kt + 1) * kRowBN, L, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Ks = stage_base + stage * 2 * kRowBN * kStrideH;
-    const bf16* Vs = Ks + kRowBN * kStrideH;
-    float s[4][4], dp[4][4];
-    score_tile(Qw, Ks, lane, s);
-    score_tile(Gw, Vs, lane, dp);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = kt * kRowBN + 8 * j + 2 * t + e;
-        if (key >= L) continue;
-        const bool padded = pad[key] != 0;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float p =
-              expf(masked_score(s[j][2 * h + e], padded, scale) - m[h]) /
-              l[h];
-          acc[h] += dp[j][2 * h + e] * p;
-        }
-      }
-    __syncthreads();   // this stage is refilled by the next iteration
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float sum = quad_sum(acc[h]);
-    const int r = q0 + 16 * warp + gq + 8 * h;
-    if (r < L && t == 0) Drow[rbase + r] = sum;
-  }
-}
-
-// acc[n] (16 rows x 64 columns as 8 C fragments) += A^T B over 64 k: A^T
-// from the float32 transpose tile, B from a bfloat16 [64][kStrideH] tile
-// (p_b = &tile[0][c0]): the 3xTF32 product whose B is exact in TF32
-__device__ __forceinline__ void mma_at_b_bf16(const float* p_at,
-                                              const bf16* p_b, int g, int t,
-                                              float acc[8][4]) {
-#pragma unroll
-  for (int k0 = 0; k0 < kTile; k0 += 8) {
-    uint32_t ab[4], as[4], bb[8][2];
-    load_at_perm(p_at + k0 * kTS, kTS, g, t, ab, as);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      load_b_perm_bf16(p_b + k0 * kStrideH + 8 * n, kStrideH, g, t, bb[n]);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) mma_tf32(acc[n], as, bb[n]);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) mma_tf32(acc[n], ab, bb[n]);
-  }
-}
-
-// K3b for bfloat16: K3b's tiling and order of every sum, with bfloat16
-// tiles, score_tile for S and dP, and two TF32 products for each
-// product with P or dS
-__global__ void __launch_bounds__(kThreads, 1)
-mha_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const unsigned char* __restrict__ key_pad,
-                         const bf16* __restrict__ g,
-                         const float* __restrict__ row_max,
-                         const float* __restrict__ row_sum,
-                         const float* __restrict__ Drow,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         float* __restrict__ dq_part, int H, int L,
-                         float scale) {
-  extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);    // [64][kStrideH]
-  bf16* Vs = Ks + kTileH;
-  bf16* ring = Vs + kTileH;                     // per stage: Q then G
-  float* Ts = reinterpret_cast<float*>(ring + 4 * kTileH);   // [64][kTS]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int k0 = blockIdx.x * kTile;
-  const size_t base = static_cast<size_t>(bh) * L * kDh;
-  const size_t rbase = static_cast<size_t>(bh) * L;
-  const unsigned char* pad = key_pad + static_cast<size_t>(b) * L;
-  const bf16* qp = q + base;
-  const bf16* gp = g + base;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int gq = lane / 4;
-  const int t = lane % 4;
-  const int rg = warp & 3, kh = warp >> 2;
-  const int kr = 16 * (warp & 3), c0 = 64 * (warp >> 2);
-  float* dqp = dq_part + static_cast<size_t>(blockIdx.x) * gridDim.y * L * kDh;
-
-  load_tile_async<kTile, kThreads>(Ks, k + base, k0, L, tid);
-  load_tile_async<kTile, kThreads>(Vs, v + base, k0, L, tid);
-  load_tile_async<kTile, kThreads>(ring, qp, 0, L, tid);
-  load_tile_async<kTile, kThreads>(ring + kTileH, gp, 0, L, tid);
-  cp_async_commit();
-
-  bool key_ok[4][2], padded[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = k0 + 32 * kh + 8 * j + 2 * t + e;
-      key_ok[j][e] = key < L;
-      padded[j][e] = key_ok[j][e] && pad[key] != 0;
-    }
-
-  float acc_dv[8][4], acc_dk[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_dv[n][i] = acc_dk[n][i] = 0.f;
-
-  const int n_tiles = (L + kTile - 1) / kTile;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int q0 = it * kTile;
-    bf16* Qs = ring + (it & 1) * 2 * kTileH;
-    bf16* Gs = Qs + kTileH;
-    if (it + 1 < n_tiles) {
-      bf16* next = ring + ((it + 1) & 1) * 2 * kTileH;
-      load_tile_async<kTile, kThreads>(next, qp, q0 + kTile, L, tid);
-      load_tile_async<kTile, kThreads>(next + kTileH, gp, q0 + kTile,
-                                            L, tid);
-      cp_async_commit();
-    }
-    float m[2], l[2], Dr[2];
-    bool row_ok[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = q0 + 16 * rg + gq + 8 * h;
-      row_ok[h] = r < L;
-      row_stats(row_max, row_sum, Drow, rbase, r, L, &m[h], &l[h], &Dr[h]);
-    }
-    if (it + 1 < n_tiles)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    score_tile(Qs + 16 * rg * kStrideH, Ks + 32 * kh * kStrideH, lane,
-                    s);
-    score_tile(Gs + 16 * rg * kStrideH, Vs + 32 * kh * kStrideH, lane,
-                    dp);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          prob_and_ds(s[j][2 * h + e], dp[j][2 * h + e],
-                      row_ok[h] && key_ok[j][e], padded[j][e], m[h], l[h],
-                      Dr[h], scale);
-
-    store_tile(Ts, 16 * rg, 32 * kh, gq, t, s);      // P
-    __syncthreads();
-    mma_at_b_bf16(Ts + kr, Gs + c0, gq, t, acc_dv);  // dV += P^T G
-    __syncthreads();
-    store_tile(Ts, 16 * rg, 32 * kh, gq, t, dp);     // dS
-    __syncthreads();
-    mma_at_b_bf16(Ts + kr, Qs + c0, gq, t, acc_dk);  // dK += dS^T Q
-
-    float acc_dq[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc_dq[n][i] = 0.f;
-#pragma unroll
-    for (int j0 = 0; j0 < kTile; j0 += 8) {
-      uint32_t ab[4], as[4], bb[8][2];
-      load_a_perm(Ts + kr * kTS + j0, kTS, gq, t, ab, as);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        load_b_perm_bf16(Ks + j0 * kStrideH + c0 + 8 * n, kStrideH, gq, t,
-                         bb[n]);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) mma_tf32(acc_dq[n], as, bb[n]);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) mma_tf32(acc_dq[n], ab, bb[n]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = q0 + kr + gq + 8 * h;
-      if (r >= L) continue;
-      float* out = dqp + (static_cast<size_t>(bh) * L + r) * kDh + c0 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        *reinterpret_cast<float2*>(out + 8 * n) =
-            make_float2(acc_dq[n][2 * h], acc_dq[n][2 * h + 1]);
-    }
-    __syncthreads();   // the stage and the transpose tile are reused
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + kr + gq + 8 * h;
-    if (key >= L) continue;
-    const size_t off = base + static_cast<size_t>(key) * kDh + c0 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      store2(dv + off + 8 * n, acc_dv[n][2 * h], acc_dv[n][2 * h + 1]);
-      store2(dk + off + 8 * n, acc_dk[n][2 * h], acc_dk[n][2 * h + 1]);
-    }
-  }
-}
-
 }  // namespace
 
+extern "C" long long fs2_mha_bwd_bf16_scratch_floats(int B, int H, int L);
+
 // The float32 scratch fs2_mha_bwd_f32 needs for [B, H, L, 128]: one dQ
-// partial per 64-key tile (ceil(L / 64) * B*H*L * 128), then D (B*H*L).
-extern "C" long long fs2_mha_bwd_scratch_floats(int B, int H, int L) {
+// partial per 64-key tile (ceil(L / 64) * B*H*L * 128), then D (B*H*L); with
+// bf16 != 0 what fs2_mha_bwd_bf16 needs (attention_bwd_bf16.cu: D alone).
+extern "C" long long fs2_mha_bwd_scratch_floats(int B, int H, int L,
+                                                int bf16) {
+  if (bf16) return fs2_mha_bwd_bf16_scratch_floats(B, H, L);
   if (B <= 0 || H <= 0 || L <= 0) return -1;
   const long long rows = static_cast<long long>(B) * H * L;
   return rows + static_cast<long long>((L + kTile - 1) / kTile) * rows * kDh;
@@ -661,61 +368,9 @@ extern "C" int fs2_mha_bwd_f32(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
 
   const long n4 = rows * kDh / 4;
-  mha_bwd_dq_reduce_kernel<float>
+  mha_bwd_dq_reduce_kernel
       <<<(n4 + kThreads - 1) / kThreads, kThreads, 0, st>>>(
           dq_part, n_tiles, n4, static_cast<float*>(dq));
-  return cudaGetLastError();
-}
-
-// fs2_mha_bwd_f32's contract for the bfloat16 instance, without K1's
-// output (D is formed from S and dP): q, k, v, g, dq, dk, dv bfloat16
-// [B, H, L, 128]; row_max, row_sum and the scratch (its size as for
-// float32, fs2_mha_bwd_scratch_floats) float32.  Three launches on
-// `stream`: D, K3b, K3c.
-extern "C" int fs2_mha_bwd_bf16(const void* q, const void* k, const void* v,
-                                const void* key_pad, const void* row_max,
-                                const void* row_sum, const void* g, void* dq,
-                                void* dk, void* dv, void* scratch, int B,
-                                int H, int L, int D, float scale,
-                                void* stream) {
-  if (D != kDh || B <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(
-      reinterpret_cast<const void*>(mha_bwd_dkdv_bf16_kernel), kSmemKVH);
-  if (err != cudaSuccess) return err;
-  err = set_smem(reinterpret_cast<const void*>(mha_bwd_rowterm_bf16_kernel),
-                 kSmemRowH);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qh = static_cast<const bf16*>(q);
-  const bf16* kh = static_cast<const bf16*>(k);
-  const bf16* vh = static_cast<const bf16*>(v);
-  const bf16* gh = static_cast<const bf16*>(g);
-  const float* mf = static_cast<const float*>(row_max);
-  const float* lf = static_cast<const float*>(row_sum);
-  const unsigned char* pad = static_cast<const unsigned char*>(key_pad);
-  const long rows = static_cast<long>(B) * H * L;
-  const int n_tiles = (L + kTile - 1) / kTile;
-  float* dq_part = static_cast<float*>(scratch);
-  float* Df = dq_part + n_tiles * rows * kDh;
-
-  mha_bwd_rowterm_bf16_kernel<<<dim3((L + kRowBM - 1) / kRowBM, B * H),
-                                kRowThreads, kSmemRowH, st>>>(
-      qh, kh, vh, pad, gh, mf, lf, Df, H, L, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  mha_bwd_dkdv_bf16_kernel<<<dim3(n_tiles, B * H), kThreads, kSmemKVH,
-                             st>>>(qh, kh, vh, pad, gh, mf, lf, Df,
-                                   static_cast<bf16*>(dk),
-                                   static_cast<bf16*>(dv), dq_part, H, L,
-                                   scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const long n4 = rows * kDh / 4;
-  mha_bwd_dq_reduce_kernel<bf16>
-      <<<(n4 + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-          dq_part, n_tiles, n4, static_cast<bf16*>(dq));
   return cudaGetLastError();
 }
 
@@ -726,17 +381,6 @@ extern "C" int fs2_mha_bwd_blocks_per_sm() {
   if (set_smem(fn, kSmemKV) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads,
                                                     kSmemKV) != cudaSuccess)
-    return -1;
-  return n;
-}
-
-// Resident blocks per SM of the bfloat16 K3b; -1 on an error.
-extern "C" int fs2_mha_bwd_bf16_blocks_per_sm() {
-  const void* fn = reinterpret_cast<const void*>(mha_bwd_dkdv_bf16_kernel);
-  int n = 0;
-  if (set_smem(fn, kSmemKVH) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads,
-                                                    kSmemKVH) != cudaSuccess)
     return -1;
   return n;
 }

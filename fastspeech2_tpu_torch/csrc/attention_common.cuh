@@ -27,13 +27,9 @@
 // floats (4 mod 32 banks): a fragment load by the 32 lanes of a warp then
 // touches 32 different banks, and rows stay 16-byte aligned for cp.async.
 //
-// The bfloat16 instances (the JAX package's --dtype bfloat16) keep their
-// [rows][128] tiles as bfloat16 with a row stride of 136 values (272
-// bytes, 16 mod 128): the eight 16-byte rows an ldmatrix reads fall in
-// eight different bank groups.  Their scores come from score_tile's bfloat16 overload,
-// one m16n8k16 bfloat16 product per k-step (tf32_mma.cuh): a product of
-// two bfloat16 values is exact in float32, which is what the TPU kernels
-// compute with preferred_element_type=float32.
+// The bfloat16 instances (the JAX package's --dtype bfloat16) are built on
+// wgmma and TMA (attention_bf16.cuh, hopper.cuh); they share this file's
+// constants, masked score, quad reductions and stores.
 
 #pragma once
 
@@ -44,11 +40,9 @@
 
 namespace fs2_attn {
 
-using fs2_tc::bf16_bits;
 using fs2_tc::cp_async16;
 using fs2_tc::cp_async_commit;
 using fs2_tc::cp_async_wait;
-using fs2_tc::mma_bf16;
 using fs2_tc::mma_tf32;
 using fs2_tc::pack_bf16;
 using fs2_tc::split;
@@ -58,7 +52,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kDh = 128;           // head dim
 constexpr int kStride = kDh + 4;   // smem row stride of [rows][128] tiles
-constexpr int kStrideH = kDh + 8;  // the same for bfloat16 tiles
 constexpr float kMaskValue = -1e9f;
 constexpr float kInitMax = -1e30f;  // below any score, finite
 
@@ -196,78 +189,6 @@ __device__ __forceinline__ float masked_score(float s, bool padded,
   return padded ? kMaskValue : __fmul_rn(s, scale);
 }
 
-// ---- bfloat16 tiles --------------------------------------------------------
-
-// four 8 x 8 blocks of 16-bit values; lane l gives the address of row l % 8
-// of block l / 8 (16-byte aligned) and receives the values 2 (l % 4) and
-// 2 (l % 4) + 1 of row l / 4 of each block (TRANS: of its transpose)
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_b16(uint32_t r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-                 "{%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-                 "{%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-
-// THE SCORE CONTRACT of the bfloat16 instances: one warp's 16 x 32 tile of
-// raw scores s = Q K^T from bfloat16 tiles (q: the warp's 16 rows, k: 32
-// keys, row stride kStrideH); s[j] is the C fragment of keys 8j..8j+7.
-// The sum over d runs in k-steps d = 0, 16, ..., 112, one bfloat16 product
-// each, into an accumulator that starts at 0.  K1's bfloat16 instance forms
-// every score through this function and K3's recomputes every score
-// through it, so their scores agree bit for bit; K3 also forms dP = G V^T
-// with it.
-__device__ __forceinline__ void score_tile(const bf16* q, const bf16* k,
-                                           int lane, float s[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-  const int blk = lane / 8;
-#pragma unroll
-  for (int d = 0; d < kDh; d += 16) {
-    // A: blocks (rows 0-7 | 8-15) x (d 0-7 | 8-15) -> a0, a1, a2, a3
-    uint32_t a[4];
-    ldmatrix_b16<false>(a, q + (lane % 8 + 8 * (blk & 1)) * kStrideH + d +
-                               8 * (blk >> 1));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // B of keys 16h..16h+15: blocks (keys 0-7 | 8-15) x (d 0-7 | 8-15)
-      // -> b0, b1 of n-tile 2h, then of n-tile 2h + 1
-      uint32_t r[4];
-      ldmatrix_b16<false>(r, k + (16 * h + lane % 8 + 8 * (blk >> 1)) *
-                                     kStrideH + d + 8 * (blk & 1));
-      const uint32_t b0[2] = {r[0], r[1]};
-      const uint32_t b1[2] = {r[2], r[3]};
-      mma_bf16(s[2 * h], a, b0);
-      mma_bf16(s[2 * h + 1], a, b1);
-    }
-  }
-}
-
-// TF32 B fragment (permuted k order, as load_b_perm) of a bfloat16
-// row-major tile (k = row, n = column): a bfloat16 value is exact in TF32,
-// so there is no small part; p = &tile[k0][n0], row stride `stride`
-__device__ __forceinline__ void load_b_perm_bf16(const bf16* p, int stride,
-                                                 int g, int t,
-                                                 uint32_t b[2]) {
-  b[0] = bf16_bits(p[(2 * t) * stride + g]);
-  b[1] = bf16_bits(p[(2 * t + 1) * stride + g]);
-}
-
-// the smem row stride of a [rows][128] tile of float or bfloat16
-template <typename T>
-__host__ __device__ constexpr int tile_stride() {
-  return sizeof(T) == sizeof(float) ? kStride : kStrideH;
-}
-
 // two (store2) or four (store4) consecutive outputs as float, or as
 // bfloat16 rounded to nearest even
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -287,25 +208,6 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
   w.x = pack_bf16(v.x, v.y);
   w.y = pack_bf16(v.z, v.w);
   *reinterpret_cast<uint2*>(p) = w;
-}
-
-// rows [r0, r0 + ROWS) of a row-major bfloat16 [L][128] matrix into a smem
-// tile of stride kStrideH, by THREADS threads; rows at or past L are zeros
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                int r0, int L, int tid) {
-  static_assert((ROWS * kDh / 8) % THREADS == 0, "tile / threads");
-#pragma unroll
-  for (int it = 0; it < ROWS * kDh / 8 / THREADS; ++it) {
-    const int i = tid + it * THREADS;
-    const int r = i / (kDh / 8);
-    const int c = (i % (kDh / 8)) * 8;
-    const bool ok = r0 + r < L;
-    cp_async16(reinterpret_cast<float*>(dst + r * kStrideH + c),
-               reinterpret_cast<const float*>(
-                   ok ? src + static_cast<size_t>(r0 + r) * kDh + c : src),
-               ok);
-  }
 }
 
 // ---- asynchronous copies ---------------------------------------------------

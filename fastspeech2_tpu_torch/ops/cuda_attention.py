@@ -1,6 +1,8 @@
 """K1 and K3: fused masked self-attention forward and backward,
-hand-written CUDA for Hopper (``csrc/attention.cu``,
-``csrc/attention_bwd.cu``), replacing the TPU kernels
+hand-written CUDA for Hopper (float32: ``csrc/attention.cu``,
+``csrc/attention_bwd.cu``; bfloat16, on wgmma and TMA:
+``csrc/attention_bf16.cu``, ``csrc/attention_bwd_bf16.cu``), replacing the
+TPU kernels
 ``fastspeech2_tpu/ops/pallas_attention.py::_mha_kernel`` and
 ``::_mha_bwd_kernel`` (the ``fused_multi_head_attention`` custom VJP).
 
@@ -15,8 +17,18 @@ backward formula.
 Each kernel has a float32 and a bfloat16 instance (the JAX package's
 --dtype bfloat16), chosen by the tensors' dtype; q, k and v share it.
 Each instance counts its own launches.
+
+The forward's host path is kept short for the small shapes, where it
+costs more than the kernel: the input checks run as one condition (the
+messages are built only when it fails), the device context is entered
+only when the tensors are not on the current card, and the stream comes
+from the raw accessor (``torch.cuda.current_stream()`` builds a Stream
+object: several microseconds a call).  A launch is at least three tensor
+allocations (out and the two row statistics) and a ctypes call; one
+allocation for both statistics would need views, which cost more.
 """
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -30,9 +42,11 @@ from fastspeech2_tpu_torch.ops.attention import (
 from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
 
 HEAD_DIM = 128
+SCALE = 1.0 / math.sqrt(HEAD_DIM)   # ctypes rounds it to float, as JAX does
 
 # K1 calls (one launch, or two on the key-split path) and K3 calls (three
-# launches each) since the counts were last set to 0: float32, bfloat16
+# launches each at float32, two at bfloat16) since the counts were last set
+# to 0: float32, bfloat16
 launches = 0
 bwd_launches = 0
 launches_bf16 = 0
@@ -42,6 +56,24 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_inputs(name, q, k, v, key_pad_mask):
+    shape, dt = q.shape, q.dtype
+    if (q.is_cuda and len(shape) == 4 and shape[3] == HEAD_DIM
+            and dt in DTYPES and k.shape == shape and v.shape == shape
+            and k.dtype == dt and v.dtype == dt):
+        dev = q.device
+        if (k.device == dev and v.device == dev and q.is_contiguous()
+                and k.is_contiguous() and v.is_contiguous()
+                and (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0
+                and key_pad_mask.dtype == torch.bool
+                and key_pad_mask.device == dev
+                and key_pad_mask.shape == (shape[0], shape[2])
+                and key_pad_mask.is_contiguous()):
+            return
+    _explain_inputs(name, q, k, v, key_pad_mask)
+
+
+def _explain_inputs(name, q, k, v, key_pad_mask):
+    """Raises with the first thing the kernels do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 4:
@@ -68,22 +100,42 @@ def _check_inputs(name, q, k, v, key_pad_mask):
             or not key_pad_mask.is_contiguous()):
         raise ValueError(f"{name}: key_pad_mask must be a contiguous bool "
                          f"[{B}, {L}] tensor on {q.device}")
+    raise ValueError(f"{name}: inputs the kernels do not take")
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(device_index, B, H, L):
+def _plan(device_index, B, H, L, bf16):
     grid = (ctypes.c_int * 3)()
-    n = load_library().fs2_mha_fwd_plan(B, H, L, grid)
+    n = load_library().fs2_mha_fwd_plan(B, H, L, int(bf16), grid)
     if n < 0:
         raise ValueError(f"fs2_mha_fwd_plan: bad shape {(B, H, L)}")
     return tuple(grid), n
 
 
-def forward_plan(B, H, L):
-    """K1's grid on the current card for [B, H, L, 128]: ((query tiles,
-    B*H, key chunks), float32 scratch elements).  More than one key chunk
-    means the split path: partials to scratch and a combining launch."""
-    return _plan(torch.cuda.current_device(), B, H, L)
+def forward_plan(B, H, L, dtype=torch.float32):
+    """K1's grid on the current card for [B, H, L, 128] at ``dtype`` (each
+    instance has its own tiles and plan): ((query tiles, B*H, key chunks),
+    float32 scratch elements).  More than one key chunk means the split
+    path: partials to scratch and a combining launch."""
+    return _plan(torch.cuda.current_device(), B, H, L,
+                 dtype == torch.bfloat16)
+
+
+def _on_device(device):
+    """The device context for ``device``, entered only when it is not the
+    current card."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _current_stream():
+    """The current card's current CUDA stream, as the integer handle the
+    kernels take."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream().cuda_stream
+    return raw(torch.cuda.current_device())
 
 
 def _launch_forward(q, k, v, key_pad_mask, with_stats):
@@ -91,28 +143,30 @@ def _launch_forward(q, k, v, key_pad_mask, with_stats):
     the backward reads."""
     global launches, launches_bf16
     _check_inputs("fused_attention", q, k, v, key_pad_mask)
+    device = torch.cuda.current_device()
+    if q.get_device() != device:
+        with torch.cuda.device(q.device):
+            return _launch_forward(q, k, v, key_pad_mask, with_stats)
     bf16 = q.dtype == torch.bfloat16
     B, H, L, D = q.shape
     lib = load_library()
+    _, n_scratch = _plan(device, B, H, L, bf16)
     out = torch.empty_like(q)
-    row_max = row_sum = None
+    row_max = row_sum = scratch = None
     if with_stats:
         row_max = torch.empty((B, H, L), device=q.device, dtype=torch.float32)
         row_sum = torch.empty_like(row_max)
-    with torch.cuda.device(q.device):
-        _, n_scratch = forward_plan(B, H, L)
-        # the key-split partials, when the grid splits the keys
-        scratch = (torch.empty(n_scratch, device=q.device,
-                               dtype=torch.float32) if n_scratch else None)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        name = "fs2_mha_fwd_bf16" if bf16 else "fs2_mha_fwd_f32"
-        err = getattr(lib, name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad_mask.data_ptr(),
-            out.data_ptr(),
-            None if row_max is None else row_max.data_ptr(),
-            None if row_sum is None else row_sum.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            B, H, L, D, 1.0 / math.sqrt(D), stream)
+    if n_scratch:
+        # the key-split partials
+        scratch = torch.empty(n_scratch, device=q.device, dtype=torch.float32)
+    name = "fs2_mha_fwd_bf16" if bf16 else "fs2_mha_fwd_f32"
+    err = getattr(lib, name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_pad_mask.data_ptr(),
+        out.data_ptr(),
+        None if row_max is None else row_max.data_ptr(),
+        None if row_sum is None else row_sum.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        B, H, L, D, SCALE, _current_stream())
     check(err, name)
     if bf16:
         launches_bf16 += 1
@@ -147,12 +201,12 @@ def fused_attention_backward(q, k, v, key_pad_mask, out, row_max, row_sum,
                              f"{tuple(t.shape)} on {t.device}")
     lib = load_library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # the dQ partial of each 64-key tile, and D
-    scratch = torch.empty(lib.fs2_mha_bwd_scratch_floats(B, H, L),
+    # float32: the dQ partial of each 64-key tile, and D; bfloat16: D
+    scratch = torch.empty(lib.fs2_mha_bwd_scratch_floats(B, H, L, int(bf16)),
                           device=q.device, dtype=torch.float32)
     scale = 1.0 / math.sqrt(D)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _on_device(q.device):
+        stream = _current_stream()
         if bf16:
             name = "fs2_mha_bwd_bf16"
             err = lib.fs2_mha_bwd_bf16(

@@ -21,10 +21,12 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("attention.cu", "attention_bwd.cu", "conv_ffn.cu", "resblock.cu",
+SOURCES = ("attention.cu", "attention_bwd.cu", "attention_bf16.cu",
+           "attention_bwd_bf16.cu", "conv_ffn.cu", "resblock.cu",
            "resblock_conv.cu")
 # headers the sources include (hashed with them)
-HEADERS = ("attention_common.cuh", "conv_tiles.cuh", "tf32_mma.cuh")
+HEADERS = ("attention_bf16.cuh", "attention_common.cuh", "conv_tiles.cuh",
+           "hopper.cuh", "tf32_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,19 +39,20 @@ _SIGNATURES = {
     # stream
     "fs2_mha_fwd_f32": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
     "fs2_mha_fwd_bf16": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
-    # B, H, L, grid (int[3], written) -> scratch floats (long long)
-    "fs2_mha_fwd_plan": [_I] * 3 + [_P],
+    # B, H, L, bf16, grid (int[3], written) -> scratch floats (long long)
+    "fs2_mha_fwd_plan": [_I] * 4 + [_P],
     "fs2_mha_fwd_blocks_per_sm": [],
     "fs2_mha_bwd_blocks_per_sm": [],
     "fs2_mha_fwd_bf16_blocks_per_sm": [],
     "fs2_mha_bwd_bf16_blocks_per_sm": [],
+    "fs2_mha_bwd_bf16_dq_blocks_per_sm": [],
     # q, k, v, key_pad, out, row_max, row_sum, g, dq, dk, dv, scratch,
     # B, H, L, D, scale, stream
     "fs2_mha_bwd_f32": [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P],
     # the same without out (the bfloat16 instance forms D from S and dP)
     "fs2_mha_bwd_bf16": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
-    # B, H, L -> scratch floats (long long)
-    "fs2_mha_bwd_scratch_floats": [_I] * 3,
+    # B, H, L, bf16 -> scratch floats (long long)
+    "fs2_mha_bwd_scratch_floats": [_I] * 4,
     # x, w1, b1, w2, b2, gamma, beta, scratch, out, B, L, D, H, k1, k2, bn,
     # splits, groups, stream
     "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 9 + [_P],

@@ -15,7 +15,8 @@ Three parts, each optional:
 - ``--split-sweep 1,2,4,8,16``: K1 built once for each fixed count of key
   chunks (``-DFS2_MHA_FWD_CHUNKS=c``, into ``_build/sweep/``), timed at
   K1's path shapes and held against the plain version, beside the chunk
-  count the built-in rule picks.
+  count the built-in rule picks; at ``--dtype bfloat16`` the bfloat16
+  instance (its own tiles and plan).
 - ``--errors``: at [10, 2, 1000, 128], the error of K1's output and of K3's
   gradients against a float64 evaluation of the same formulas, beside
   that of the plain float32 version and of the 3xTF32 products emulated
@@ -39,6 +40,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 KERNEL_ATOL = 1e-4
+# bfloat16 instances against their plain versions, as chip_smoke.py holds
+# them
+BF16_ULPS = 2
 BATCH = 10
 # (name, B, L, lengths or None for the training rows) of K1's path shapes
 K1_SHAPES = (("readme_encoder", 1, 32, [31]), ("readme_decoder", 1, 1000,
@@ -131,51 +135,67 @@ def timings(attn, plain, dtype="float32"):
 
 
 def build_variant(cuda_build, chunks):
-    """attention.cu alone, its key-chunk count fixed at ``chunks``."""
+    """K1's two sources (attention.cu answers the plan for both dtypes)
+    alone, their key-chunk count fixed at ``chunks``."""
     out_dir = os.path.join(cuda_build.BUILD_DIR, "sweep")
     os.makedirs(out_dir, exist_ok=True)
-    obj = os.path.join(out_dir, f"attention_c{chunks}.o")
     lib = os.path.join(out_dir, f"libattention_c{chunks}.so")
     nvcc = cuda_build._nvcc()
-    return [nvcc, *cuda_build.NVCC_FLAGS, f"-DFS2_MHA_FWD_CHUNKS={chunks}",
-            "-c", os.path.join(cuda_build.CSRC_DIR, "attention.cu"), "-o",
-            obj], \
-        [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", obj,
-         "-o", lib], lib
+    compiles, objs = [], []
+    for src in ("attention.cu", "attention_bf16.cu"):
+        obj = os.path.join(out_dir, f"{src[:-3]}_c{chunks}.o")
+        compiles.append([nvcc, *cuda_build.NVCC_FLAGS,
+                         f"-DFS2_MHA_FWD_CHUNKS={chunks}", "-c",
+                         os.path.join(cuda_build.CSRC_DIR, src), "-o", obj])
+        objs.append(obj)
+    return compiles, [nvcc, "-shared", "-gencode",
+                      "arch=compute_90a,code=sm_90a", *objs, "-o", lib], lib
 
 
-def split_sweep(attn, plain, cuda_build, counts):
-    """K1 at its path shapes for each fixed chunk count."""
+def bf16_ulps(got, ref):
+    """max |got - ref| in ulps of bfloat16 at the largest |ref|."""
+    ref = ref.float()
+    unit = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+    return (got.float() - ref).abs().max().item() / unit
+
+
+def split_sweep(attn, plain, cuda_build, counts, dtype="float32"):
+    """K1 at its path shapes for each fixed chunk count, at ``dtype``."""
     import torch
 
+    dt = getattr(torch, dtype)
+    bf16 = dt == torch.bfloat16
+    entry = "fs2_mha_fwd_bf16" if bf16 else "fs2_mha_fwd_f32"
     builds = [build_variant(cuda_build, c) for c in counts]
-    procs = [subprocess.Popen(compile_cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for compile_cmd, _, _ in builds]
+    procs = [[subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+              for cmd in compiles] for compiles, _, _ in builds]
     libs = {}
-    for c, proc, (_, link_cmd, path) in zip(counts, procs, builds):
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {c} chunks:\n{out}")
+    for c, ps, (_, link_cmd, path) in zip(counts, procs, builds):
+        for proc in ps:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {c} chunks:\n{out}")
         subprocess.run(link_cmd, check=True, capture_output=True)
         lib = ctypes.CDLL(path)
-        lib.fs2_mha_fwd_f32.argtypes = ([ctypes.c_void_p] * 8
+        getattr(lib, entry).argtypes = ([ctypes.c_void_p] * 8
                                         + [ctypes.c_int] * 4
                                         + [ctypes.c_float, ctypes.c_void_p])
-        lib.fs2_mha_fwd_plan.argtypes = [ctypes.c_int] * 3 + [
+        lib.fs2_mha_fwd_plan.argtypes = [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         lib.fs2_mha_fwd_plan.restype = ctypes.c_longlong
         libs[c] = lib
     rows = []
     for name, B, L, lens in K1_SHAPES:
         q, k, v, _, mask = inputs(B, L, lens, seed=L + B, device="cuda")
+        q, k, v = (t.to(dt) for t in (q, k, v))
         ref = plain.multi_head_attention(q, k, v, mask)
-        rule = attn.forward_plan(B, 2, L)[0]
-        row = dict(shape=[B, 2, L, 128], path=name, rule_grid=list(rule),
-                   variants=[])
+        rule = attn.forward_plan(B, 2, L, dt)[0]
+        row = dict(shape=[B, 2, L, 128], path=name, dtype=dtype,
+                   rule_grid=list(rule), variants=[])
         for c, lib in libs.items():
             grid = (ctypes.c_int * 3)()
-            n = lib.fs2_mha_fwd_plan(B, 2, L, grid)
+            n = lib.fs2_mha_fwd_plan(B, 2, L, int(bf16), grid)
             scratch = torch.empty(max(n, 1), device="cuda")
             out = torch.empty_like(q)
             row_max = torch.empty(B, 2, L, device="cuda")
@@ -183,7 +203,7 @@ def split_sweep(attn, plain, cuda_build, counts):
             stream = torch.cuda.current_stream().cuda_stream
 
             def launch():
-                err = lib.fs2_mha_fwd_f32(
+                err = getattr(lib, entry)(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     mask.data_ptr(), out.data_ptr(),
                     row_max.data_ptr() if B > 1 else None,
@@ -191,12 +211,16 @@ def split_sweep(attn, plain, cuda_build, counts):
                     scratch.data_ptr(), B, 2, L, 128, 1.0 / math.sqrt(128),
                     stream)
                 if err:
-                    raise RuntimeError(f"fs2_mha_fwd_f32: CUDA error {err}")
+                    raise RuntimeError(f"{entry}: CUDA error {err}")
 
             launch()
             torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            if not err <= KERNEL_ATOL:
+            err = (out.float() - ref.float()).abs().max().item()
+            if bf16 and not bf16_ulps(out, ref) <= BF16_ULPS:
+                raise RuntimeError(f"K1 bfloat16 with {c} chunks disagrees "
+                                   f"with plain at {row['shape']}: "
+                                   f"{bf16_ulps(out, ref):.2f} ulps")
+            if not bf16 and not err <= KERNEL_ATOL:
                 raise RuntimeError(f"K1 with {c} chunks disagrees with plain "
                                    f"at {row['shape']}: {err:.3e}")
             row["variants"].append(dict(chunks=c, grid=list(grid),
@@ -277,7 +301,8 @@ def main(argv=None):
     ap.add_argument("--errors", action="store_true")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32",
-                    help="the kernels' instance --timings times")
+                    help="the kernels' instance --timings and "
+                         "--split-sweep time")
     ap.add_argument("--json", default=None, help="also write results here")
     args = ap.parse_args(argv)
 
@@ -308,11 +333,13 @@ def main(argv=None):
                   f"SDPA {r['sdpa_ms']:.4f} ms", flush=True)
     if args.split_sweep:
         counts = [int(c) for c in args.split_sweep.split(",")]
-        result["split_sweep"] = split_sweep(attn, plain, cuda_build, counts)
+        result["split_sweep"] = split_sweep(attn, plain, cuda_build, counts,
+                                            args.dtype)
         for r in result["split_sweep"]:
             cells = ", ".join(f"{x['chunks']}: {x['ms']:.4f}"
                               for x in r["variants"])
-            print(f"[bench] K1 {r['shape']} ({r['path']}) ms by fixed chunk "
+            print(f"[bench] K1 {r['dtype']} {r['shape']} ({r['path']}) ms "
+                  f"by fixed chunk "
                   f"count {{{cells}}}; the rule's grid {r['rule_grid']}",
                   flush=True)
     if args.errors:

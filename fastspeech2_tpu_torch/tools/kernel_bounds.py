@@ -3,8 +3,9 @@
 ``csrc/resblock.cu``), at the shapes the parity HiFi-GAN gives it, for K2
 (``pallas_ffn.py::_ffn_kernel``, ``csrc/conv_ffn.cu``) at the FFN's shapes,
 and for K1 and K3 (the attention forward and backward,
-``csrc/attention.cu`` and ``csrc/attention_bwd.cu``) at the attention
-shapes of the main paths:
+``csrc/attention.cu`` and ``csrc/attention_bwd.cu``; at bfloat16
+``csrc/attention_bf16.cu`` and ``csrc/attention_bwd_bf16.cu``) at the
+attention shapes of the main paths:
 
     python -m fastspeech2_tpu_torch.tools.kernel_bounds [--frames 1000]
 
@@ -34,9 +35,12 @@ K1's and K2's products are single bfloat16 products: max(operations /
 S = Q K^T and dP = G V^T (4 B H L^2 Dh operations) have two bfloat16
 operands, exact in one bfloat16 product at 989 TFLOP/s; dV = P^T G,
 dK = dS^T Q and dQ = dS K (6 B H L^2 Dh) have one float32 operand (P or
-dS) and one bfloat16 operand, exact in TF32, so a float32-accurate product
-takes two TF32 passes (the float32 operand's big and small parts) at 495
-TFLOP/s.  Its operations term is the sum of the two.
+dS) and one bfloat16 operand.  A float32-accurate product of those takes
+either two TF32 passes at 495 TFLOP/s (the float32 operand's big and small
+parts, the bfloat16 one exact in TF32) or three bfloat16 passes at 989
+(the float32 operand as three exact bfloat16 parts, as the kernel splits
+it); the bound takes the cheaper, three bfloat16 passes.  Its operations
+term is the sum of the two kinds.
 """
 
 import argparse
@@ -46,6 +50,10 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 # 3xTF32: big*small + small*big + big*big for each float32-accurate product
 TF32_PASSES = 3
+# a float32 operand times a bfloat16 one, float32-accurate: two TF32 passes
+# (big, small) or three bfloat16 passes (hi, mid, lo)
+TF32_PASSES_MIXED = 2
+BF16_PASSES_MIXED = 3
 PEAK_HBM_BYTES = 3.35e12
 HEAD_DIM = 128
 # the attention shapes of the main paths: [B, 2, L, 128] with batch 1 for
@@ -66,9 +74,9 @@ def _tf32_ms(flops, passes=TF32_PASSES):
     return passes * flops / PEAK_TF32_FLOPS * 1e3
 
 
-def _bf16_ms(flops):
-    """ms of ``flops`` operations as single bfloat16 products."""
-    return flops / PEAK_BF16_FLOPS * 1e3
+def _bf16_ms(flops, passes=1):
+    """ms of ``flops`` operations at ``passes`` bfloat16 products each."""
+    return passes * flops / PEAK_BF16_FLOPS * 1e3
 
 
 def _bound(flops, nbytes, t_ops):
@@ -107,9 +115,9 @@ def attention_bound_ms(B, H, L, backward=False, D=HEAD_DIM,
                        dtype="float32"):
     """K1 (forward) or K3 (``backward``) on [B, H, L, D] at ``dtype`` ->
     (bound in ms: 3xTF32 at float32; at bfloat16 bfloat16 products for K1,
-    and for K3 bfloat16 products for S and dP with two TF32 passes for the
-    rest; "operations" | "bytes"; the SIMT float32 bound in ms; operations;
-    bytes)."""
+    and for K3 bfloat16 products for S and dP with the cheaper of two TF32
+    and three bfloat16 passes for the rest; "operations" | "bytes"; the
+    SIMT float32 bound in ms; operations; bytes)."""
     product = 2.0 * B * H * L * L * D   # one L x L x D product
     flops = (5 if backward else 2) * product
     tensors = 7 if backward else 4
@@ -118,7 +126,9 @@ def attention_bound_ms(B, H, L, backward=False, D=HEAD_DIM,
     if dtype != "bfloat16":
         t_ops = _tf32_ms(flops)
     elif backward:
-        t_ops = _bf16_ms(2 * product) + _tf32_ms(3 * product, passes=2)
+        t_ops = _bf16_ms(2 * product) + min(
+            _tf32_ms(3 * product, passes=TF32_PASSES_MIXED),
+            _bf16_ms(3 * product, passes=BF16_PASSES_MIXED))
     else:
         t_ops = _bf16_ms(flops)
     return _bound(flops, nbytes, t_ops)
@@ -165,7 +175,7 @@ def main(argv=None):
                 ms, by, simt, flops, nbytes = attention_bound_ms(
                     B, 2, L, backward, dtype=dtype)
                 basis = ("3xTF32" if dtype != "bfloat16" else
-                         "BF16 for S and dP, 2xTF32 for the rest" if backward
+                         "BF16 for S and dP, 3xBF16 for the rest" if backward
                          else "BF16")
                 print(f"{name} {dtype} x [{B}, 2, {L}, {HEAD_DIM}]: "
                       f"{flops:.4g} operations, {nbytes:.4g} bytes -> bound "

@@ -17,7 +17,8 @@ Tolerance 1e-4 absolute in float32: the same sums in another order (up to
 1e-4 of their largest |value| (sums of up to 2816 terms through six convs).
 
 The bfloat16 instances of K1, K2 and K3 are held to 2 ulps of bfloat16 at
-the largest |plain value|: kernel and plain version round at the same
+the largest |plain value| (K3 also at [2, 2, 2000, 128], with its scratch
+and K1's plan at bfloat16): kernel and plain version round at the same
 points, and a float32 sum in another order may land on the other side of a
 rounding boundary (one ulp; K1 also rounds its unnormalised P, the plain
 version the normalised one).
@@ -580,6 +581,45 @@ def test_attention_kernels_bf16_match_plain(device, L, lens):
     for a, b, c in zip(*grads, plain_attention_backward(q, k, v, mask, g)):
         assert torch.equal(a, b)
         _assert_bf16_close(a, c)
+
+
+def test_attention_backward_bf16_at_l2000(device):
+    """The bfloat16 K3 at [2, 2, 2000, 128] (a full row and a partly padded
+    one) against its plain version: its only scratch is D, B*H*L floats, so
+    it runs where the float32 instance's ceil(L/64)-partials scratch would
+    take 256 MB."""
+    lens = [2000, 1411]
+    q, k, v, mask = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                     for t in _attention_inputs(lens, 2000, device, seed=20))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(21)).to(
+        device).to(torch.bfloat16)
+    out, row_max, row_sum = cuda_attention._launch_forward(q, k, v, mask,
+                                                           True)
+    grads = [cuda_attention.fused_attention_backward(
+        q, k, v, mask, out, row_max, row_sum, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, c in zip(*grads, plain_attention_backward(q, k, v, mask, g)):
+        assert torch.equal(a, b)
+        _assert_bf16_close(a, c)
+
+
+def test_attention_bf16_scratch_and_plan(device):
+    """The bfloat16 K3's scratch is D alone, linear in L (the float32
+    instance's grows as L^2); the bfloat16 K1's plan has its own 128-row
+    tiles and splits the keys only where the grid is a fraction of a wave
+    (its partials' bytes counted)."""
+    from fastspeech2_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library()
+    for B, L in ((10, 1000), (10, 2000), (2, 4000)):
+        assert lib.fs2_mha_bwd_scratch_floats(B, 2, L, 1) == B * 2 * L
+    assert (lib.fs2_mha_bwd_scratch_floats(10, 2, 2000, 0)
+            > 3 * lib.fs2_mha_bwd_scratch_floats(10, 2, 1000, 0))
+    for B, L in ((10, 1000), (10, 768), (8, 1000), (10, 128)):
+        grid, scratch = cuda_attention.forward_plan(B, 2, L, torch.bfloat16)
+        assert grid == (-(-L // 128), B * 2, 1) and scratch == 0, (B, L)
+    grid, scratch = cuda_attention.forward_plan(1, 2, 1000, torch.bfloat16)
+    assert grid[2] > 1 and scratch == grid[2] * 2 * 1000 * 130, grid
 
 
 @pytest.mark.parametrize("B,L,k2", [(1, 1000, 1), (1, 32, 1), (1, 48, 3),
