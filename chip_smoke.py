@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each printing flushed lines (a failing phase raises, and the run
-exits non-zero):
+exits non-zero; a run still going after HANG_S = 1,100 s prints every
+thread's stack and exits non-zero):
 
 1. card      the GPU's name and power limit, as nvidia-smi prints them;
 2. build     nvcc builds the port's CUDA kernels from csrc/ (about a
@@ -12,7 +13,9 @@ exits non-zero):
              template instances (a spill fails the run), K1's and K3's
              resident blocks per SM, every kernel's tensor-core
              instructions in the SASS (HMMA, the mma.sync kind, and HGMMA,
-             wgmma's; the bfloat16 K1 and K3 must hold HGMMA), K1's grid
+             wgmma's; the bfloat16 K1 and K3 must hold HGMMA), each K4
+             instance's registers, spills, shared memory and HGMMA and
+             HMMA counts (each must hold HGMMA and no HMMA), K1's grid
              at float32 and bfloat16, K3's bfloat16 scratch (linear in L),
              the K1 wrapper's host microseconds per call at the small
              shapes beside the kernel's own time, and K2's plan;
@@ -131,7 +134,9 @@ exits non-zero):
              each wav within WAV_ATOL of its solo wav outside the tail)
              and grid="full" on top; one dispatch timed as a replay and
              eagerly; K1, K2 and K4 at the batch-16 shapes against their
-             plain versions and timed;
+             plain versions and timed, and K4 at the iSTFT vocoder's six
+             shapes at batch 1 too (each beside cuDNN autotuned, TF32
+             off);
 17. evaluate evaluate --objective 2 --save_dir on phase 13's features
              with 2 clips held out (finite MCD and F0 rows; 10 K1 + 10 K2
              per acoustic forward, 6 K4 per vocoder forward) and
@@ -183,6 +188,7 @@ the script exits non-zero before printing any result.
 """
 
 import contextlib
+import faulthandler
 import io
 import json
 import math
@@ -358,14 +364,21 @@ ATTENTION_KERNELS = ("mha_fwd_f32_kernel", "mha_fwd_combine_kernel",
                      "mha_fwd_combine_bf16_kernel", "mha_bwd_dq_bf16_kernel",
                      "mha_bwd_dkdv_bf16_kernel")
 # the convolution kernels' SASS functions (templates: several instances
-# each): K4's one-launch dilation unit and its two-launch conv, K2's two
-# convs (its LayerNorm kernel does no product)
-CONV_KERNELS = ("resblock_unit_kernel", "resblock_conv_kernel",
-                "ffn_conv1_kernel", "ffn_conv2_kernel",
-                "ffn_conv1_bf16_kernel", "ffn_conv2_bf16_kernel")
+# each): K4's conv (both convs of a dilation unit), K2's two convs (its
+# LayerNorm kernel does no product)
+CONV_KERNELS = ("resblock_wgmma_kernel", "ffn_conv1_kernel",
+                "ffn_conv2_kernel", "ffn_conv1_bf16_kernel",
+                "ffn_conv2_bf16_kernel")
 # the kernels built on wgmma, each of which must hold HGMMA instructions
+# (K4's in every instance, and no HMMA)
 WGMMA_KERNELS = ("mha_fwd_bf16_kernel", "mha_bwd_dq_bf16_kernel",
-                 "mha_bwd_dkdv_bf16_kernel")
+                 "mha_bwd_dkdv_bf16_kernel", "resblock_wgmma_kernel")
+# a run still going after this many seconds has hung: it prints every
+# thread's stack and exits non-zero, inside the 1,200 s a run may take
+HANG_S = 1100
+# an instance of K4's kernel by its mangled template arguments: output
+# channels per block, and the first (1) or second (0) conv of a unit
+K4_INSTANCE = re.compile(r"resblock_wgmma_kernelILi(\d+)ELb([01])E")
 # the kernels that multiply, each of which must hold tensor-core
 # instructions (HMMA or HGMMA)
 MMA_KERNELS = ("mha_fwd_f32_kernel", "mha_bwd_dkdv_kernel") + WGMMA_KERNELS \
@@ -456,31 +469,43 @@ def with_bound(t, bound, basis=BOUND_BASIS):
     return t
 
 
+def ptxas_entries(report):
+    """-> {entry function's mangled name: {registers, spill_bytes}}, one per
+    template instance, from nvcc -Xptxas -v."""
+    rows = {}
+    current = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if "'" in line else line
+            rows[current] = dict(registers=0, spill_bytes=0)
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            rows[current]["spill_bytes"] += nums[1] + nums[2]
+        elif current and "Used" in line and "registers" in line:
+            rows[current]["registers"] = int(
+                line.split("Used")[1].split()[0])
+    return rows
+
+
 def ptxas_by_kernel(report, names):
     """-> {kernel: {instances, max_registers, spill_bytes}} over all the
     template instances of each kernel, from nvcc -Xptxas -v."""
     out = {n: dict(instances=0, max_registers=0, spill_bytes=0)
            for n in names}
-    current = None
-    for line in report.splitlines():
-        if "Compiling entry function" in line:
-            current = next((n for n in names if n in line), None)
-            if current:
-                out[current]["instances"] += 1
-        elif current and "spill stores" in line:
-            nums = [int(w) for w in line.replace(",", " ").split()
-                    if w.isdigit()]
-            out[current]["spill_bytes"] += nums[1] + nums[2]
-        elif current and "Used" in line and "registers" in line:
-            regs = int(line.split("Used")[1].split()[0])
-            out[current]["max_registers"] = max(
-                out[current]["max_registers"], regs)
+    for entry, row in ptxas_entries(report).items():
+        name = next((n for n in names if n in entry), None)
+        if name:
+            out[name]["instances"] += 1
+            out[name]["max_registers"] = max(out[name]["max_registers"],
+                                             row["registers"])
+            out[name]["spill_bytes"] += row["spill_bytes"]
     return out
 
 
-def hmma_counts(lib_path, names):
-    """-> {kernel: {"HMMA": n, "HGMMA": m}}, the tensor-core instructions in
-    its SASS (HMMA: mma.sync; HGMMA: wgmma), or None without cuobjdump."""
+def sass_functions(lib_path):
+    """-> [(function name, its SASS)] of the library, or None without
+    cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -489,16 +514,53 @@ def hmma_counts(lib_path, names):
         return None
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
+    return [tuple(block.split("\n", 1)) for block in
+            sass.split("Function : ")[1:]]
+
+
+def tensor_core_counts(sass):
+    """-> {"HMMA": n, "HGMMA": m} in one function's SASS."""
+    lines = sass.splitlines()
+    return {"HMMA": sum(" HMMA." in ln for ln in lines),
+            "HGMMA": sum(" HGMMA." in ln for ln in lines)}
+
+
+def hmma_counts(lib_path, names):
+    """-> {kernel: {"HMMA": n, "HGMMA": m}}, the tensor-core instructions in
+    its SASS (HMMA: mma.sync; HGMMA: wgmma), or None without cuobjdump."""
+    functions = sass_functions(lib_path)
+    if functions is None:
+        return None
     counts = {}
-    for block in sass.split("Function : ")[1:]:
-        head = block.split("\n", 1)[0]
+    for head, body in functions:
         name = next((n for n in names if n in head), None)
         if name:
             c = counts.setdefault(name, {"HMMA": 0, "HGMMA": 0})
-            for ln in block.splitlines():
-                c["HMMA"] += " HMMA." in ln
-                c["HGMMA"] += " HGMMA." in ln
+            for key, n in tensor_core_counts(body).items():
+                c[key] += n
     return counts
+
+
+def k4_instances(report, lib_path, lib):
+    """-> one row per instance of K4's kernel: output channels per block,
+    first or second conv, registers and spill bytes (nvcc -Xptxas -v), the
+    block's dynamic shared memory (fs2_resblock_smem_bytes) and its SASS's
+    HGMMA and HMMA counts (None without cuobjdump)."""
+    rows = {}
+    for entry, row in ptxas_entries(report).items():
+        m = K4_INSTANCE.search(entry)
+        if m:
+            nb = int(m.group(1))
+            rows[nb, m.group(2) == "1"] = dict(
+                nb=nb, first=m.group(2) == "1", **row,
+                smem_bytes=lib.fs2_resblock_smem_bytes(nb), HGMMA=None,
+                HMMA=None)
+    for head, body in sass_functions(lib_path) or ():
+        m = K4_INSTANCE.search(head)
+        if m and (int(m.group(1)), m.group(2) == "1") in rows:
+            rows[(int(m.group(1)), m.group(2) == "1")].update(
+                tensor_core_counts(body))
+    return [rows[key] for key in sorted(rows)]
 
 
 def attention_inputs(lens, L, device, seed):
@@ -2769,11 +2831,15 @@ def serving(device, card, tmp):
                 plain_ms=cuda_time_ms(lambda: cuda_ffn.plain_conv_ffn(*args)),
                 library_ms=None), ffn_bound_ms(16, L)))
     del q, k, v, mask, additive, args, packed
-    for C, L in ((256, 8000), (128, 64000)):
+    # K4 at the iSTFT vocoder's six shapes, at serving's batch 16 and the
+    # README's batch 1, beside cuDNN's chain autotuned with TF32 off
+    for B, C, L in ((16, 256, 8000), (16, 128, 64000), (1, 256, 8000),
+                    (1, 128, 64000)):
+        iters = dict(iters=5, warmup=1) if B > 1 else {}
         for kk in (3, 7, 11):
             x, w1, b1, w2, b2 = resblock_inputs(C, L, kk, device,
                                                 seed=C + kk)
-            x = x.expand(16, -1, -1).contiguous()
+            x = x.expand(B, -1, -1).contiguous()
             x = x + 0.1 * torch.randn(x.shape, device=device,
                                       generator=torch.Generator(
                                           device=device).manual_seed(kk))
@@ -2783,24 +2849,32 @@ def serving(device, card, tmp):
                                                    DILATIONS, packed=packed)
                 ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2,
                                                    DILATIONS)
-                errors[("K4", C, kk)] = ((got - ref).abs().max()
-                                         / ref.abs().max()).item()
+                errors[("K4", B, C, kk)] = ((got - ref).abs().max()
+                                            / ref.abs().max()).item()
                 del got, ref
-                t = dict(shape=[16, C, L], k=kk, ms=cuda_time_ms(
+                t = dict(shape=[B, C, L], k=kk, ms=cuda_time_ms(
                     lambda: cuda_resblock.fused_resblock(
                         x, w1, b1, w2, b2, DILATIONS, packed=packed),
-                    iters=5, warmup=1), plain_ms=cuda_time_ms(
+                    **iters), plain_ms=cuda_time_ms(
                     lambda: cuda_resblock.plain_resblock(
-                        x, w1, b1, w2, b2, DILATIONS), iters=5, warmup=1))
+                        x, w1, b1, w2, b2, DILATIONS), **iters))
                 with torch.backends.cudnn.flags(enabled=True, benchmark=True,
                                                 deterministic=False,
                                                 allow_tf32=False):
                     t["library_ms"] = cuda_time_ms(
                         lambda: cuda_resblock.plain_resblock(
-                            x, w1, b1, w2, b2, DILATIONS), iters=5, warmup=1)
-            per_shape["K4"].append(with_bound(t, resblock_bound_ms(16, L, C,
+                            x, w1, b1, w2, b2, DILATIONS), **iters)
+            per_shape["K4"].append(with_bound(t, resblock_bound_ms(B, L, C,
                                                                     kk)))
             del x, packed
+    for B in (16, 1):
+        rows = [t for t in per_shape["K4"] if t["shape"][0] == B]
+        say(f"[timing serve] K4, the six iSTFT ResBlock calls at batch {B}: "
+            f"kernel {sum(t['ms'] for t in rows):.4f} ms, cuDNN autotuned "
+            f"(TF32 off) {sum(t['library_ms'] for t in rows):.4f} ms, bound "
+            f"{sum(t['bound_ms'] for t in rows):.4f} ms; kernel no slower "
+            f"than cuDNN at every shape: "
+            f"{all(t['ms'] <= t['library_ms'] for t in rows)} on {card}")
     for name, rows in per_shape.items():
         for t in rows:
             lib = ("null" if t["library_ms"] is None
@@ -3606,6 +3680,7 @@ def main():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
         return 1
+    faulthandler.dump_traceback_later(HANG_S, exit=True)
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     from fastspeech2_tpu_torch.cli import synthesize_cli
     from fastspeech2_tpu_torch.configs.config import load_yaml_configs
@@ -3688,8 +3763,20 @@ def main():
                            "instruction")
     if hmma is not None and not all(hmma.get(n, {}).get("HGMMA", 0) > 0
                                     for n in WGMMA_KERNELS):
-        raise RuntimeError("a bfloat16 attention kernel has no wgmma "
-                           "(HGMMA) instruction")
+        raise RuntimeError("a kernel built on wgmma (the bfloat16 K1 and "
+                           "K3, K4) has no HGMMA instruction")
+    k4_build = k4_instances(info.get("ptxas", ""), info["path"], lib)
+    say("[build] K4's instances (output channels per block, conv of the "
+        "unit): " + "; ".join(
+            f"nb {r['nb']} {'first' if r['first'] else 'second'}: "
+            f"{r['registers']} registers, {r['spill_bytes']} bytes of "
+            f"spill, {r['smem_bytes']} bytes of shared memory, HGMMA "
+            f"{r['HGMMA']}, HMMA {r['HMMA']}" for r in k4_build))
+    if len(k4_build) != 8 or any(
+            r["spill_bytes"] or (hmma is not None and (
+                not r["HGMMA"] or r["HMMA"])) for r in k4_build):
+        raise RuntimeError(f"K4: an instance is missing, spills, or is not "
+                           f"on wgmma alone (HGMMA, no HMMA): {k4_build}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dt in (torch.float32, torch.bfloat16):
         k1_grids = {(B, L): cuda_attention.forward_plan(B, 2, L, dt)[0]
@@ -4858,6 +4945,7 @@ def main():
     kernels.append({
         "name": "K4 fused_resblock", "route": "cuda",
         "source": "fastspeech2_tpu_torch/csrc/resblock.cu",
+        "instances": k4_build,
         "replaces": "fastspeech2_tpu/ops/pallas_resblock.py:122",
         "launches": parity_launches["K4"], "max_abs_err": k4_err,
         "dtype": "float32",
@@ -4867,7 +4955,7 @@ def main():
         "library_ms": k4_total["library_ms"], "bound_basis": BOUND_BASIS,
         "simt_bound_ms": k4_total["simt_bound_ms"],
         "sources": ["fastspeech2_tpu_torch/csrc/resblock.cu",
-                    "fastspeech2_tpu_torch/csrc/resblock_conv.cu"],
+                    "fastspeech2_tpu_torch/csrc/hopper.cuh"],
         "shape": "the 12 ResBlock calls of a 1000-frame parity forward, "
                  "[1, 256|128|64|32, 8000|64000|128000|256000], k = 3, 7, "
                  "11, f32",
@@ -4927,6 +5015,7 @@ def main():
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 

@@ -169,7 +169,7 @@ ffn_conv1_kernel(const float* __restrict__ x, const float4* __restrict__ w1,
       zero(sl);
 #pragma unroll 1
       for (int j = j0; j < j1; ++j)
-        mma_tap<MT, 4, kSliceA / 8, true>(
+        mma_tap<MT, 4, kSliceA / 8>(
             sl, pb, ps, kStrideA, wn * 32 + (j - j0),
             wf + j * tap4 + s * (kSliceA / 8) * kFrag4, wf_mt, lane);
       add(acc, sl);
@@ -436,7 +436,7 @@ __device__ __forceinline__ void ffn_conv2_block(
       zero(part_acc);
 #pragma unroll 1
       for (int j = 0; j < k2; ++j)
-        mma_tap<2, 2, kSliceB / 8, true>(
+        mma_tap<2, 2, kSliceB / 8>(
             part_acc, pb, ps, kStrideB, j,
             wf + j * tap4 + sl * (kSliceB / 8) * kFrag4, wf_mt, lane);
       add(acc, part_acc);

@@ -1,7 +1,8 @@
 // Hopper's asynchronous machinery as inline PTX, for the bfloat16 attention
-// kernels (attention_bf16.cu, attention_bwd_bf16.cu): mbarriers, TMA tile
-// loads, warpgroup matrix products (wgmma) and their shared-memory
-// descriptors, and the host-side tensor maps.  sm_90a only (wgmma).
+// kernels (attention_bf16.cu, attention_bwd_bf16.cu) and K4 (resblock.cu):
+// mbarriers, TMA tile loads and bulk copies, warpgroup matrix products
+// (wgmma, bfloat16 and tf32) and their shared-memory descriptors, and the
+// host-side tensor maps.  sm_90a only (wgmma).
 //
 // Tiles.  Every operand tile in shared memory is one or more 64 x 64
 // bfloat16 boxes in the 128-byte swizzle: 64 rows of 128 bytes, the 16-byte
@@ -27,6 +28,12 @@
 //     2t+8..2t+9), rows offset by 16 w, the lower k in the low half.
 // So the accumulator of keys 16 s..16 s + 15 (n-tiles 2 s and 2 s + 1) is,
 // rounded pairwise to bfloat16, the A fragment of k-step s as it stands.
+//   A from registers, m64nNk8 tf32: a0 (row g, k t), a1 (row g + 8, k t),
+//     a2 (row g, k t + 4), a3 (row g + 8, k t + 4), rows offset by 16 w.
+// A tf32 operand in shared memory is K-major only (no transpose for 32-bit
+// types): 8 tf32 values are the 32 bytes of 16 bfloat16 ones, so a
+// [rows][32] tf32 tile in the 128-byte swizzle is read by the same K-major
+// descriptor, the k-step s of 8 starting 32 s bytes into each row.
 
 #pragma once
 
@@ -71,30 +78,47 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// one try_wait on the phase of parity `parity`: true once it has completed.
+// The thread sleeps in it until the phase completes or about a millisecond
+// passes (the suspend hint), so that a waiting warp leaves the issue slots
+// to the warps it shares its scheduler with
+__device__ __forceinline__ bool mbar_try_wait(uint32_t a, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(a), "r"(parity), "r"(1000000)
+      : "memory");
+  return done != 0;
+}
+
+// the low 32 bits of the card's nanosecond clock
+__device__ __forceinline__ uint32_t global_ns() {
+  uint32_t t;
+  asm volatile("mov.u32 %0, %%globaltimer_lo;\n" : "=r"(t));
+  return t;
+}
+
+// a barrier wait longer than this is a fault (2 s; below 2^32 ns, so that
+// the difference of two readings of the low word stays exact)
+constexpr uint32_t kMbarStallNs = 2000000000u;
+
 // waits until the phase of parity `parity` has completed (a fresh barrier
-// counts its phase of parity 1 as completed).  The thread sleeps in each
-// try_wait until the phase completes or about a millisecond passes (the
-// suspend hint), so that a waiting warp leaves the issue slots to the warps
-// it shares its scheduler with.  Every wait here is on a copy or on a warp
-// of the same block, so it ends within microseconds; one that polls 2^20
-// times is a fault, and traps (the launch then fails with an error) rather
-// than hanging the card.
+// counts its phase of parity 1 as completed).  Every wait here is on a copy
+// or on a warp of the same block, so it ends within microseconds; one that
+// lasts kMbarStallNs by the card's clock is a fault, and traps (the launch
+// fails with an error within seconds) rather than hanging the card.  The
+// clock is read only once the first try has failed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  uint32_t polls = 0;
-  do {
-    if (++polls == (1u << 20)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity), "r"(1000000)
-        : "memory");
-  } while (!done);
+  if (mbar_try_wait(a, parity)) return;
+  const uint32_t start = global_ns();
+  while (!mbar_try_wait(a, parity))
+    if (global_ns() - start > kMbarStallNs) __trap();
 }
 
 // ---- TMA ---------------------------------------------------------------------
@@ -109,6 +133,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the bulk-copy engine (TMA without a tensor map); completes
+// `bytes` transactions on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -168,11 +204,18 @@ __device__ __forceinline__ void reg_fence(uint32_t (&a)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-#define FS2_D8(i)                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define FS2_D32 FS2_D8(0), FS2_D8(8), FS2_D8(16), FS2_D8(24)
-#define FS2_D64 FS2_D32, FS2_D8(32), FS2_D8(40), FS2_D8(48), FS2_D8(56)
+// the accumulator operands d[0 .. n - 1] of a wgmma, with constraint m:
+// "+f" to accumulate onto d, "=f" for a fresh accumulator
+#define FS2_D8(m, i)                                                       \
+  m(d[i]), m(d[i + 1]), m(d[i + 2]), m(d[i + 3]), m(d[i + 4]), m(d[i + 5]),   \
+      m(d[i + 6]), m(d[i + 7])
+#define FS2_D16(m) FS2_D8(m, 0), FS2_D8(m, 8)
+#define FS2_D32(m) FS2_D16(m), FS2_D8(m, 16), FS2_D8(m, 24)
+#define FS2_D64(m) \
+  FS2_D32(m), FS2_D8(m, 32), FS2_D8(m, 40), FS2_D8(m, 48), FS2_D8(m, 56)
+#define FS2_D128(m)                                                       \
+  FS2_D64(m), FS2_D8(m, 64), FS2_D8(m, 72), FS2_D8(m, 80), FS2_D8(m, 88),  \
+      FS2_D8(m, 96), FS2_D8(m, 104), FS2_D8(m, 112), FS2_D8(m, 120)
 
 // d (64 x 64, float32) = A B + (accumulate ? d : 0), A (64 x 16) and B
 // (16 x 64) bfloat16 from shared memory; TA / TB = 1 for an MN-major A / B
@@ -190,7 +233,7 @@ __device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t a,
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
-      : FS2_D32
+      : FS2_D32("+f")
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
@@ -212,13 +255,7 @@ __device__ __forceinline__ void wgmma_64x64_ss_first(float (&d)[32],
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
-        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
-        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
-        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
-        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
-        "=f"(d[30]), "=f"(d[31])
+      : FS2_D32("=f")
       : "l"(a), "l"(b), "r"(0), "n"(TA), "n"(TB));
 }
 
@@ -242,7 +279,7 @@ __device__ __forceinline__ void wgmma_64x128_ss(float (&d)[64], uint64_t a,
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
-      : FS2_D64
+      : FS2_D64("+f")
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
@@ -268,13 +305,212 @@ __device__ __forceinline__ void wgmma_64x128_rs(float (&d)[64],
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
-      : FS2_D64
+      : FS2_D64("+f")
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
         "n"(TB));
 }
 
+// d (64 x N, float32) += A B: A (64 x 8) tf32 from registers (the fragment
+// above, as tf32 bit patterns), B (8 x N) tf32 K-major from shared memory
+// (descriptor b).  N = 32, 64, 128 or 256: N / 2 accumulators a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : FS2_D16("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : FS2_D32("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : FS2_D64("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<256>(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n"
+      "}\n"
+      : FS2_D128("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x N, float32) = A B, a fresh accumulator (scale-d 0): d's earlier
+// values are no input, so the product never waits on whatever last wrote
+// those registers (ptxas would serialise every product of a kernel for a
+// write under a branch, C7520)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs_first(float (&d)[N / 2],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs_first<32>(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : FS2_D16("=f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs_first<64>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : FS2_D32("=f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs_first<128>(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : FS2_D64("=f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs_first<256>(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n"
+      "}\n"
+      : FS2_D128("=f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+#undef FS2_D128
 #undef FS2_D64
 #undef FS2_D32
+#undef FS2_D16
 #undef FS2_D8
 
 // ---- host: tensor maps ------------------------------------------------------

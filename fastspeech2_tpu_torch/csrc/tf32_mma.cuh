@@ -93,17 +93,6 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                : "memory");
 }
 
-// 4 bytes global -> shared; zero-filled when !valid (src is then not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned saddr =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

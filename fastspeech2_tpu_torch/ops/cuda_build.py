@@ -22,8 +22,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("attention.cu", "attention_bwd.cu", "attention_bf16.cu",
-           "attention_bwd_bf16.cu", "conv_ffn.cu", "resblock.cu",
-           "resblock_conv.cu")
+           "attention_bwd_bf16.cu", "conv_ffn.cu", "resblock.cu")
 # headers the sources include (hashed with them)
 HEADERS = ("attention_bf16.cuh", "attention_common.cuh", "conv_tiles.cuh",
            "hopper.cuh", "tf32_mma.cuh")
@@ -59,12 +58,12 @@ _SIGNATURES = {
     "fs2_conv_ffn_fwd_bf16": [_P] * 9 + [_I] * 9 + [_P],
     # B, L, H, k1, cfg (int[3], written) -> scratch floats (long long)
     "fs2_conv_ffn_plan": [_I] * 4 + [_P],
-    # x, out, w1, b1, w2, b2, B, C, L, k, d, bn, stream
-    "fs2_resblock_unit_f32": [_P] * 6 + [_I] * 6 + [_P],
-    # B, C, L, k -> positions per block
-    "fs2_resblock_unit_tile": [_I] * 4,
-    # in, w, bias, res, out, B, C, L, k, d, first, stream
-    "fs2_resblock_conv_f32": [_P] * 5 + [_I] * 6 + [_P],
+    # in, w, bias, res, out, B, C, L, k, d, first, nb, stream
+    "fs2_resblock_conv_f32": [_P] * 5 + [_I] * 7 + [_P],
+    # B, C, L -> output channels per block
+    "fs2_resblock_n_block": [_I] * 3,
+    # nb -> dynamic shared memory bytes of a block
+    "fs2_resblock_smem_bytes": [_I],
 }
 
 _RESTYPES = {"fs2_mha_fwd_plan": ctypes.c_longlong,

@@ -1,7 +1,8 @@
-"""K4: the HiFi-GAN MRF ResBlock, hand-written CUDA for Hopper on the
-tensor cores (``csrc/resblock.cu``, ``csrc/resblock_conv.cu``), replacing
-the TPU kernel ``fastspeech2_tpu/ops/pallas_resblock.py::_resblock_kernel``,
-with its plain version.
+"""K4: the HiFi-GAN MRF ResBlock, hand-written CUDA for Hopper
+(``csrc/resblock.cu``: 3xTF32 on ``wgmma``, the weights fed by TMA),
+replacing the TPU kernel
+``fastspeech2_tpu/ops/pallas_resblock.py::_resblock_kernel``, with its plain
+version.
 
 Both compute, on channels-first x [B, C, L] with the ResBlock's
 ``nn.Conv1d`` weights w1[u], w2[u] [C, C, k] and biases b1[u], b2[u] [C],
@@ -19,16 +20,15 @@ of float32.
 computes the plain version; for CUDA tensors it launches the kernel or
 raises: no shape is sent to the plain version, short L included (the JAX
 wrapper's ``lt <= halo`` exit has no counterpart here).  One call is one
-ResBlock; ``launches`` counts calls.  Each dilation unit is one launch of
-the fused unit kernel (t stays on chip) at C in :data:`UNIT_CHANNELS`, and
-two launches of the conv kernel (t through device memory) at other C, a
-multiple of 64 (:func:`route`; PERF.md gives the measurement that chose
-it).  The kernels read the weights split into TF32 planes and packed once
-in the tensor cores' fragment order (:func:`pack_resblock_weights`,
-``ops/tf32_pack.py``); the model keeps that pack and rebuilds it only when
-a weight changes.  K4 is inference-only, as the TPU kernel is: on CUDA a
-call that wants a gradient raises (nothing in the port trains through it;
-vocoder training runs the plain path, as
+ResBlock; ``launches`` counts calls.  Each dilation unit is two launches of
+the conv kernel, t through device memory (``csrc/resblock.cu`` says why),
+at C in :data:`CHANNELS`.  The kernel reads each conv's weights split into
+TF32 big and small planes, [32-channel slice][tap][plane][C][32], each
+row's 16-byte chunks in the 128-byte swizzle that its ``wgmma`` descriptor
+reads, packed once (:func:`pack_resblock_weights`); the model keeps that
+pack and rebuilds it only when a weight changes.  K4 is inference-only, as
+the TPU kernel is: on CUDA a call that wants a gradient raises (nothing in
+the port trains through it; vocoder training runs the plain path, as
 ``fastspeech2_tpu/training/vocoder.py:475`` does).
 """
 
@@ -36,18 +36,16 @@ import torch
 from torch.nn import functional as F
 
 from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
-from fastspeech2_tpu_torch.ops.tf32_pack import pack_fragments
+from fastspeech2_tpu_torch.ops.tf32_pack import tf32_round
 
 LRELU_SLOPE = 0.1
 KERNEL_SIZES = (3, 7, 11)
-# channel counts whose dilation units run as one launch with t on chip;
-# other C (a multiple of 64) run each unit as two conv launches
-UNIT_CHANNELS = (32, 64, 128)
+CHANNELS = (32, 64, 128, 256)
 MAX_DILATION = 64
+SLICE = 32   # input channels per kernel stage: one 128-byte row of tf32
 
 # fused_resblock calls that launched the kernel since the count was last set
-# to 0 (each call is one ResBlock: one launch per dilation unit at C in
-# UNIT_CHANNELS, two at other C)
+# to 0 (each call is one ResBlock: two launches per dilation unit)
 launches = 0
 
 
@@ -64,24 +62,51 @@ def plain_resblock(x, w1, b1, w2, b2, dilations):
     return x
 
 
-def route(C):
-    """-> "unit" (one launch per dilation unit) or "conv" (two)."""
-    if C in UNIT_CHANNELS:
-        return "unit"
-    if C % 64 == 0:
-        return "conv"
-    raise ValueError(f"fused_resblock: takes C in {UNIT_CHANNELS} or a "
-                     f"multiple of 64, got C={C}")
+def _swizzle(planes):
+    """[..., R, 32] float32 rows -> the same rows with their 16-byte chunks
+    in the 128-byte swizzle (chunk c of row r stored at c ^ (r % 8)); an
+    involution, so it also undoes itself."""
+    R = planes.shape[-2]
+    chunks = planes.reshape(*planes.shape[:-1], 8, 4)
+    rows = torch.arange(R, device=planes.device)[:, None]
+    cols = torch.arange(8, device=planes.device)[None, :]
+    return chunks[..., rows, cols ^ (rows % 8), :] \
+        .reshape(planes.shape)
+
+
+def pack_conv_weight(w):
+    """A [C_out, C_in, k] conv weight (C_out = C_in = C, a multiple of 32)
+    -> [C/32, k, 2, C, 32] float32, contiguous: for each (32-channel
+    slice s, tap j), tf32(w) then tf32(w - tf32(w)) as [C_out][32] planes
+    (row co holds w[co, 32 s:32 s + 32, j]), rows in the 128-byte
+    swizzle."""
+    C_out, C_in, k = w.shape
+    if C_out != C_in or C_in % SLICE:
+        raise ValueError(f"pack_conv_weight: [C_out, C_in, k] = "
+                         f"{tuple(w.shape)} needs C_out = C_in, a multiple "
+                         f"of {SLICE}")
+    a = w.detach().float().permute(2, 0, 1)          # [k, co, ci]
+    big = tf32_round(a)
+    planes = torch.stack([big, tf32_round(a - big)], 1)   # [k, 2, co, ci]
+    planes = planes.reshape(k, 2, C_out, C_in // SLICE, SLICE)
+    return _swizzle(planes.permute(3, 0, 1, 2, 4)).contiguous()
+
+
+def unpack_conv_weight(packed):
+    """Inverse of :func:`pack_conv_weight`: -> (big, small), each
+    [k, C_out, C_in]."""
+    S, k, _, C, _ = packed.shape
+    planes = _swizzle(packed).permute(1, 2, 3, 0, 4).reshape(k, 2, C,
+                                                             S * SLICE)
+    return planes[:, 0], planes[:, 1]
 
 
 def pack_resblock_weights(w1, b1, w2, b2):
-    """-> (w1p, b1p, w2p, b2p): each conv's [C_out, C_in, k] weight split
-    into TF32 planes in fragment order (``ops/tf32_pack.py``), stacked as
-    [U, C/16, k, C/8, 32, 8]; biases as [U, C]; contiguous: what K4
-    reads."""
+    """-> (w1p, b1p, w2p, b2p): each conv's weight as
+    :func:`pack_conv_weight` packs it, stacked as [U, C/32, k, 2, C, 32];
+    biases as [U, C]; contiguous: what K4 reads."""
     def pack_w(ws):
-        return torch.stack([pack_fragments(w.detach().permute(2, 0, 1))
-                            for w in ws]).contiguous()
+        return torch.stack([pack_conv_weight(w) for w in ws]).contiguous()
 
     def pack_b(bs):
         return torch.stack([b.detach() for b in bs]).contiguous()
@@ -104,21 +129,23 @@ def fused_resblock(x, w1, b1, w2, b2, dilations, packed=None):
     return _launch(x, packed, dilations)
 
 
-def _launch(x, packed, dilations, how=None, tile=0):
-    """``how``: "unit" or "conv", :func:`route`'s by default; ``tile``: the
-    unit kernel's positions per block (64, or 128 at C <= 64), 0 for its
-    own choice.  Both are for measurement; the model takes the
-    defaults."""
+def _launch(x, packed, dilations, nb=0):
+    """``nb``: output channels per block (a power of two from 32 to C), 0
+    for the kernel's own choice (C, halved while the halved grid still
+    fits one wave of the card: ``fs2_resblock_n_block``); for tests and
+    measurement, the model takes the default."""
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"fused_resblock: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError("fused_resblock: x must be [B, C, L]")
     B, C, L = x.shape
+    if C not in CHANNELS:
+        raise ValueError(f"fused_resblock: takes C in {CHANNELS}, got C={C}")
     w1p, b1p, w2p, b2p = packed
     U = len(dilations)
     k = w1p.shape[2] if w1p.dim() == 6 else -1
-    wshape = (U, C // 16, k, C // 8, 32, 8)
+    wshape = (U, C // SLICE, k, 2, C, SLICE)
     shapes = {"x": (x, (B, C, L)), "w1": (w1p, wshape), "b1": (b1p, (U, C)),
               "w2": (w2p, wshape), "b2": (b2p, (U, C))}
     for name, (t, shape) in shapes.items():
@@ -128,42 +155,31 @@ def _launch(x, packed, dilations, how=None, tile=0):
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"fused_resblock: {name} must be contiguous "
                              f"{shape}, got {tuple(t.shape)}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"fused_resblock: {name} is not 16-byte "
-                             "aligned (the kernel loads float4)")
+    if w1p.data_ptr() % 16 or w2p.data_ptr() % 16:
+        raise ValueError("fused_resblock: the weight pack is not 16-byte "
+                         "aligned (the kernel copies it by TMA)")
     if k not in KERNEL_SIZES or not all(1 <= d <= MAX_DILATION
                                         for d in dilations):
         raise ValueError(f"fused_resblock: takes k in {KERNEL_SIZES} and "
                          f"dilations in [1, {MAX_DILATION}]; got k={k}, "
                          f"dilations={dilations}")
-    how = how or route(C)
     lib = load_library()
     out = torch.empty_like(x)
     scratch = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if how == "unit":
-            # ping-pong between scratch and out, ending in out: a unit's
-            # output may not alias its input
-            src = x
-            for u, d in enumerate(dilations):
-                dst = out if (U - 1 - u) % 2 == 0 else scratch
-                check(lib.fs2_resblock_unit_f32(
-                    src.data_ptr(), dst.data_ptr(), w1p[u].data_ptr(),
-                    b1p[u].data_ptr(), w2p[u].data_ptr(), b2p[u].data_ptr(),
-                    B, C, L, k, d, tile, stream), "fs2_resblock_unit_f32")
-                src = dst
-        else:
-            src = x
-            for u, d in enumerate(dilations):
-                check(lib.fs2_resblock_conv_f32(
-                    src.data_ptr(), w1p[u].data_ptr(), b1p[u].data_ptr(),
-                    0, scratch.data_ptr(), B, C, L, k, d, 1, stream),
-                    "fs2_resblock_conv_f32")
-                check(lib.fs2_resblock_conv_f32(
-                    scratch.data_ptr(), w2p[u].data_ptr(), b2p[u].data_ptr(),
-                    src.data_ptr(), out.data_ptr(), B, C, L, k, 1, 0,
-                    stream), "fs2_resblock_conv_f32")
-                src = out
+        # unit 0 reads x and writes out; later units update out in place
+        # (the second conv's output may be its residual, never its input)
+        src = x
+        for u, d in enumerate(dilations):
+            check(lib.fs2_resblock_conv_f32(
+                src.data_ptr(), w1p[u].data_ptr(), b1p[u].data_ptr(), 0,
+                scratch.data_ptr(), B, C, L, k, d, 1, nb, stream),
+                "fs2_resblock_conv_f32")
+            check(lib.fs2_resblock_conv_f32(
+                scratch.data_ptr(), w2p[u].data_ptr(), b2p[u].data_ptr(),
+                src.data_ptr(), out.data_ptr(), B, C, L, k, 1, 0, nb,
+                stream), "fs2_resblock_conv_f32")
+            src = out
     launches += 1
     return out

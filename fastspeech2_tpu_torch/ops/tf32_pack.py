@@ -1,6 +1,8 @@
-"""Weights for the convolution kernels K2 and K4, split for 3xTF32 and laid
-out as the tensor cores' A fragments read them (``csrc/conv_tiles.cuh``),
-and K2's bfloat16 pack (:func:`pack_fragments_bf16`).
+"""Weights for the convolution kernel K2, split for 3xTF32 and laid out as
+the tensor cores' A fragments read them (``csrc/conv_tiles.cuh``), and
+K2's bfloat16 pack (:func:`pack_fragments_bf16`).  K4 splits its weights
+with the same :func:`tf32_round` and lays them out for ``wgmma``
+(``ops/cuda_resblock.pack_conv_weight``).
 
 A conv with T taps is T matrices A_j [M, K] (M output channels, K input
 channels).  Each float32 weight w is split into big = tf32(w) and small =

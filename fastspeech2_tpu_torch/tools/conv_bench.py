@@ -4,19 +4,23 @@ conv FFN) on a CUDA card.
 Three parts, each optional:
 
 - ``--timings``: K4 at the 12 ResBlock shapes of a 1000-frame parity
-  forward and K2 at every shape of the port's paths ([1, 32|1000|1536,
-  256] for the README sentence and the re-dispatch bucket, [10, 128|1000,
-  256] for the validation forward), beside the plain versions (cuDNN at
-  the inference path's settings) and, for K4, cuDNN's chain autotuned
-  (``cudnn.benchmark``); CUDA events over 20 calls after 3 warm-up calls,
-  as ``chip_smoke.py`` times them.  ``--root DIR`` times the kernels of the
+  forward (``--batch 1``, the default; at ``--batch B`` > 1 the six shapes
+  of the iSTFT vocoder, [B, 256, 8000] and [B, 128, 64000], as serving
+  runs them at B = 16) and K2 at every shape of the port's paths ([1,
+  32|1000|1536, 256] for the README sentence and the re-dispatch bucket,
+  [10, 128|1000, 256] for the validation forward), beside the plain
+  versions (cuDNN at the inference path's settings) and, for K4, cuDNN's
+  chain autotuned (``cudnn.benchmark``, TF32 off); CUDA events over 20
+  calls after 3 warm-up calls (5 after 1 at B > 1), as ``chip_smoke.py``
+  times them.  For K4 also the device time per call from
+  ``torch.profiler`` (the kernels alone, no host time): K4's launches, and
+  the autotuned chain's convolution kernels and all its kernels.  ``--root DIR`` times the kernels of the
   port in another checkout (for example an unpacked parent commit): its
   ``fastspeech2_tpu_torch`` is imported instead of this one, and built
   there.  ``--dtype bfloat16`` times K2's bfloat16 instance (x in
   bfloat16; K4 has none: the vocoder stays float32).
-- ``--sweep``: K4 at its 12 shapes by route (one launch per dilation unit,
-  or two conv launches) and the unit kernel's tile width (64 or 128
-  positions; tile 0 is the conv kernel's one tile of 64), and K2's
+- ``--sweep``: K4 at its 12 shapes by output channels per block (every
+  power of two from 32 to C; the model takes ``n_block``'s), and K2's
   plan at [1, 32|1000, 256] by tile width, tap split count and hidden
   groups, each held against the plain version.
 - ``--profile``: the device time of each kernel a call launches (K2's
@@ -29,8 +33,8 @@ Three parts, each optional:
   against the tensor cores' own float32 accumulation.
 
 Run from a checkout's root: ``python fastspeech2_tpu_torch/tools/conv_bench.py
---timings --sweep --profile --errors [--root DIR] [--dtype bfloat16]
-[--json FILE]``.
+--timings --sweep --profile --errors [--batch B] [--root DIR] [--dtype
+bfloat16] [--json FILE]``.
 """
 
 import argparse
@@ -70,8 +74,8 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def resblock_inputs(C, L, k, seed, device="cuda"):
-    """x [1, C, L] and three dilation units of Conv1d weights scaled to keep
+def resblock_inputs(C, L, k, seed, device="cuda", B=1):
+    """x [B, C, L] and three dilation units of Conv1d weights scaled to keep
     the output O(1), biases of 0.5 (as chip_smoke.py makes them)."""
     import torch
 
@@ -81,10 +85,55 @@ def resblock_inputs(C, L, k, seed, device="cuda"):
     def r(*shape, s=1.0):
         return (torch.randn(*shape, generator=g) * s).to(device)
 
-    x = r(1, C, L)
+    x = r(B, C, L)
     w1, w2 = ([r(C, C, k, s=scale) for _ in DILATIONS] for _ in range(2))
     b1, b2 = ([r(C, s=0.5) for _ in DILATIONS] for _ in range(2))
     return x, w1, b1, w2, b2
+
+
+def device_ms(fn, calls=5, warmup=1):
+    """-> {kernel name: device ms per call} of ``calls`` calls of fn after
+    ``warmup`` calls, from torch.profiler: the kernels' own events only, not
+    the CPU-side ops that launched them (whose device time is their
+    kernels', counted again)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            kernels[e.key] = (kernels.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3 / calls)
+    return kernels
+
+
+def k4_device_times(resblock, rb, packed):
+    """K4's and the autotuned cuDNN chain's device ms per call: K4's
+    launches, the chain's convolutions (every kernel but PyTorch's
+    elementwise ones: the leaky ReLUs, the residual adds) and all its
+    kernels."""
+    import torch
+
+    k4 = device_ms(lambda: resblock.fused_resblock(*rb, DILATIONS,
+                                                   packed=packed))
+    with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                    deterministic=False, allow_tf32=False):
+        chain = device_ms(lambda: resblock.plain_resblock(*rb, DILATIONS))
+    return dict(
+        device_ms=sum(ms for n, ms in k4.items() if "resblock" in n),
+        cudnn_conv_device_ms=sum(ms for n, ms in chain.items()
+                                 if "elementwise" not in n),
+        cudnn_device_ms=sum(chain.values()))
 
 
 def ffn_inputs(B, L, seed, device="cuda", k2=1):
@@ -112,29 +161,43 @@ def ffn_kernel_call(ffn, args):
     return lambda: ffn.fused_conv_ffn(*args)
 
 
-def timings(resblock, ffn, bounds, dtype="float32"):
+def k4_shapes(bounds, batch):
+    """(C, L, k) K4 is timed at: the parity forward's 12 at batch 1, the
+    iSTFT vocoder's 6 at a larger batch."""
+    shapes = bounds.parity_resblock_shapes(1000)
+    return shapes if batch == 1 else [s for s in shapes
+                                      if s[0] in ISTFT_CHANNELS]
+
+
+def timings(resblock, ffn, bounds, dtype="float32", batch=1):
     """K4 (float32) and K2 at ``dtype`` against their plain versions."""
     import torch
 
     rows = []
-    for C, L, k in (bounds.parity_resblock_shapes(1000)
-                    if dtype == "float32" else ()):
-        rb = resblock_inputs(C, L, k, seed=C + k)
+    iters = dict(iters=20, warmup=3) if batch == 1 else dict(iters=5,
+                                                             warmup=1)
+    for C, L, k in (k4_shapes(bounds, batch) if dtype == "float32" else ()):
+        rb = resblock_inputs(C, L, k, seed=C + k, B=batch)
         packed = resblock.pack_resblock_weights(*rb[1:])
         with torch.inference_mode():
             row = dict(
-                kernel="K4", shape=[1, C, L], k=k,
+                kernel="K4", shape=[batch, C, L], k=k,
                 ms=cuda_time_ms(lambda: resblock.fused_resblock(
-                    *rb, DILATIONS, packed=packed)),
+                    *rb, DILATIONS, packed=packed), **iters),
                 plain_ms=cuda_time_ms(lambda: resblock.plain_resblock(
-                    *rb, DILATIONS)))
+                    *rb, DILATIONS), **iters))
             with torch.backends.cudnn.flags(enabled=True, benchmark=True,
                                             deterministic=False,
                                             allow_tf32=False):
                 row["cudnn_autotuned_ms"] = cuda_time_ms(
-                    lambda: resblock.plain_resblock(*rb, DILATIONS))
+                    lambda: resblock.plain_resblock(*rb, DILATIONS),
+                    **iters)
+            row.update(k4_device_times(resblock, rb, packed))
+            row["bound_ms"] = bounds.resblock_bound_ms(batch, L, C, k)[0]
         rows.append(row)
-    for B, L in K2_SHAPES:
+        del rb, packed
+        torch.cuda.empty_cache()
+    for B, L in K2_SHAPES if batch == 1 else ():
         args = ffn_inputs(B, L, seed=L + B)
         args = (args[0].to(getattr(torch, dtype)),) + args[1:]
         with torch.inference_mode():
@@ -146,7 +209,8 @@ def timings(resblock, ffn, bounds, dtype="float32"):
 
 
 def sweep(resblock, ffn, bounds):
-    """K4 by route and tile, K2's first launch by tile and split count."""
+    """K4 by output channels per block, K2's first launch by tile and split
+    count."""
     import torch
 
     rows = []
@@ -155,23 +219,18 @@ def sweep(resblock, ffn, bounds):
         packed = resblock.pack_resblock_weights(*rb[1:])
         with torch.inference_mode():
             ref = resblock.plain_resblock(*rb, DILATIONS)
-            for how in ("unit", "conv"):
-                if (how == "unit" and C not in (32, 64, 128)) or (
-                        how == "conv" and C % 64):
+            for nb in (32, 64, 128, 256):
+                if nb > C:
                     continue
-                for tile in ((0,) if how == "conv" else
-                             (64,) if C == 128 else (64, 128)):
-                    def run():
-                        return resblock._launch(rb[0], packed, DILATIONS,
-                                                how=how, tile=tile)
-                    err = (run() - ref).abs().max().item()
-                    if not err <= K4_RTOL * ref.abs().max().item():
-                        raise RuntimeError(f"K4 {how} tile {tile} at "
-                                           f"{[C, L, k]}: {err:.3e}")
-                    rows.append(dict(kernel="K4", shape=[1, C, L], k=k,
-                                     route=how, tile=tile,
-                                     ms=cuda_time_ms(run),
-                                     max_abs_err=err))
+
+                def run():
+                    return resblock._launch(rb[0], packed, DILATIONS, nb)
+                err = (run() - ref).abs().max().item()
+                if not err <= K4_RTOL * ref.abs().max().item():
+                    raise RuntimeError(f"K4 nb {nb} at {[C, L, k]}: "
+                                       f"{err:.3e}")
+                rows.append(dict(kernel="K4", shape=[1, C, L], k=k, nb=nb,
+                                 ms=cuda_time_ms(run), max_abs_err=err))
     for B, L in ((1, 32), (1, 1000)):
         args = ffn_inputs(B, L, seed=L + B)
         packed = ffn.pack_ffn_weights(args[1], args[3])
@@ -192,8 +251,6 @@ def sweep(resblock, ffn, bounds):
 def profile(resblock, ffn):
     """-> [{call, shape, kernels: {name: device ms per call}}]."""
     import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
 
     calls = []
     for B, L in ((1, 32), (1, 1000)):
@@ -207,21 +264,9 @@ def profile(resblock, ffn):
     rows = []
     for name, shape, fn in calls:
         with torch.inference_mode():
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            with torch_profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    fn()
-                torch.cuda.synchronize()
-        kernels = {}
-        for e in prof.key_averages():
-            dev = getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0))
-            if dev > 0:
-                kernels[e.key[:60]] = dev / 1e3 / 20
-        rows.append(dict(call=name, shape=shape, kernels=kernels))
+            kernels = device_ms(fn, calls=20, warmup=3)
+        rows.append(dict(call=name, shape=shape, kernels={
+            n[:60]: ms for n, ms in kernels.items()}))
     return rows
 
 
@@ -287,6 +332,9 @@ def main(argv=None):
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--errors", action="store_true")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="K4's batch in --timings (1: the 12 parity "
+                         "shapes and K2; more: the 6 iSTFT shapes)")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32",
                     help="K2's instance --timings times (bfloat16: K2 only)")
@@ -314,9 +362,14 @@ def main(argv=None):
     result = dict(root=os.path.abspath(args.root), card=card)
     print(f"[bench] {card}; port from {result['root']}", flush=True)
     if args.timings:
-        result["timings"] = timings(resblock, ffn, bounds, args.dtype)
+        result["timings"] = timings(resblock, ffn, bounds, args.dtype,
+                                    args.batch)
         for r in result["timings"]:
-            extra = (f", cuDNN autotuned {r['cudnn_autotuned_ms']:.4f} ms"
+            extra = (f", cuDNN autotuned {r['cudnn_autotuned_ms']:.4f} ms; "
+                     f"device ms: kernel {r['device_ms']:.4f}, cuDNN "
+                     f"convolutions {r['cudnn_conv_device_ms']:.4f} (all "
+                     f"{r['cudnn_device_ms']:.4f}); bound "
+                     f"{r['bound_ms']:.4f} ms"
                      if "cudnn_autotuned_ms" in r else "")
             k = f" k={r['k']}" if "k" in r else f" {r['dtype']}"
             print(f"[bench] {r['kernel']} {r['shape']}{k}: kernel "
@@ -324,26 +377,33 @@ def main(argv=None):
                   flush=True)
         k4 = [r for r in result["timings"] if r["kernel"] == "K4"]
         istft = [r for r in k4 if r["shape"][1] in ISTFT_CHANNELS]
-        for name, rows in (("the 12 parity calls", k4),
+        for name, rows in (("the 12 parity calls", k4 if args.batch == 1
+                            else []),
                            ("the iSTFT vocoder's 6 shapes", istft)):
             if not rows:
                 continue
-            print(f"[bench] K4 summed over {name}: kernel "
-                  f"{sum(r['ms'] for r in rows):.4f} ms, plain (cuDNN at "
-                  f"the inference settings) "
+            print(f"[bench] K4 summed over {name} at batch {args.batch}: "
+                  f"kernel {sum(r['ms'] for r in rows):.4f} ms (device "
+                  f"{sum(r['device_ms'] for r in rows):.4f}), plain (cuDNN "
+                  f"at the inference settings) "
                   f"{sum(r['plain_ms'] for r in rows):.4f} ms, cuDNN "
                   f"autotuned "
-                  f"{sum(r['cudnn_autotuned_ms'] for r in rows):.4f} ms",
+                  f"{sum(r['cudnn_autotuned_ms'] for r in rows):.4f} ms "
+                  f"(device, convolutions "
+                  f"{sum(r['cudnn_conv_device_ms'] for r in rows):.4f}), "
+                  f"bound {sum(r['bound_ms'] for r in rows):.4f} ms",
                   flush=True)
     if args.sweep:
         result["sweep"] = sweep(resblock, ffn, bounds)
         for r in result["sweep"]:
-            what = (f"route {r['route']}" if r["kernel"] == "K4"
-                    else f"splits {r['splits']} groups {r['groups']}")
+            what = (f"{r['nb']} output channels per block"
+                    if r["kernel"] == "K4" else
+                    f"splits {r['splits']} groups {r['groups']} tile "
+                    f"{r['tile']}")
             k = f" k={r['k']}" if "k" in r else ""
-            print(f"[bench] sweep {r['kernel']} {r['shape']}{k} {what} tile "
-                  f"{r['tile']}: {r['ms']:.4f} ms (max_abs_err "
-                  f"{r['max_abs_err']:.2e})", flush=True)
+            print(f"[bench] sweep {r['kernel']} {r['shape']}{k} {what}: "
+                  f"{r['ms']:.4f} ms (max_abs_err {r['max_abs_err']:.2e})",
+                  flush=True)
     if args.profile:
         result["profile"] = profile(resblock, ffn)
         for r in result["profile"]:

@@ -1,6 +1,5 @@
-"""PyTorch port, the arithmetic of K4 and K2 (``csrc/resblock.cu``,
-``csrc/resblock_conv.cu``, ``csrc/conv_ffn.cu``, all on
-``csrc/conv_tiles.cuh``) on the CPU.
+"""PyTorch port, the arithmetic of K4 and K2 (``csrc/resblock.cu`` on
+``wgmma``, ``csrc/conv_ffn.cu`` on ``csrc/conv_tiles.cuh``) on the CPU.
 
 The CUDA kernels run only on a card, so this file carries a numpy model of
 what they compute and holds it against the JAX package's Pallas kernels
@@ -9,19 +8,23 @@ in interpret mode (``fused_resblock``, ``fused_conv_ffn``), as
 
 - TF32 rounding as ``cvt.rna.tf32.f32`` does it (the port's
   ``ops/tf32_pack.tf32_round``, checked here against the bit rule);
-- the weights split into big and small planes once and packed in fragment
-  order (``ops/tf32_pack.pack_fragments``, read back here), the input split
-  once when it is staged;
-- the 3xTF32 product in the kernels' order: 16-channel slices, then taps,
-  then 8-channel k-steps, each adding a_big b_small, a_small b_big and
-  a_big b_big to a float32 accumulator (the tensor core modelled as exact
-  products summed in float64 and rounded once per step);
+- the weights split into big and small planes once: K2's packed in
+  fragment order (``ops/tf32_pack.pack_fragments``), K4's as [32-channel
+  slice][tap][plane][C][32] rows in the 128-byte swizzle its ``wgmma``
+  descriptors read (``ops/cuda_resblock.pack_conv_weight``), both read
+  back here; the input split once per element K2 stages, and per tap as
+  K4 loads it;
+- the 3xTF32 product in the kernels' order: slices of input channels (16
+  for K2, 32 for K4), then taps, then 8-channel k-steps, each adding
+  w_big x_small, w_small x_big and w_big x_big to a float32 accumulator
+  (the tensor core modelled as exact products summed in float64 and
+  rounded once per step);
 - the shifted tap reads with dilation and the zero fill at the sequence
-  edges (lrelu(0) = 0 for the first conv; t set to 0 outside [0, L) for
-  the second);
-- K4's fused unit: t computed per tile over the tile and a halo of 8 on
-  each side, recomputed by both neighbours; the result equals the
-  two-launch route's bit for bit at every tile width;
+  edges (lrelu(0) = 0 for the first conv; t is 0 outside [0, L) for the
+  second);
+- K4's two launches per dilation unit, t through memory, each over blocks
+  of 128 positions by NB output channels: the result equals one block
+  over the whole row bit for bit, at every NB the grid takes;
 - K2's taps split over blocks, each slice's products summed from 0 and
   then added to the running sum, the partials summed in a fixed order with
   b1 before the ReLU, the second conv's hidden channels in groups of
@@ -51,6 +54,10 @@ from fastspeech2_tpu.ops.pallas_ffn import fused_conv_ffn as jax_fused_ffn
 from fastspeech2_tpu.ops.pallas_resblock import (
     fused_resblock as jax_fused_resblock,
 )
+from fastspeech2_tpu_torch.ops.cuda_resblock import (
+    pack_conv_weight,
+    unpack_conv_weight,
+)
 from fastspeech2_tpu_torch.ops.tf32_pack import (
     pack_fragments,
     tf32_round,
@@ -64,9 +71,10 @@ from fastspeech2_tpu_torch.tools.kernel_bounds import (
 
 DILS = (1, 3, 5)
 SLOPE = np.float32(0.1)
-SLICE = 16        # input channels per staged slice (K4, K2's first conv)
+SLICE = 16        # input channels per staged slice (K2's first conv)
 SLICE_B = 64      # hidden channels per staged slice (K2's second conv)
-T_HALO = 8        # t columns on each side of K4's fused tile
+K4_SLICE = 32     # input channels per K4 stage
+K4_BM = 128       # positions per K4 block
 ATOL = 1e-5
 
 
@@ -96,6 +104,13 @@ def weight_planes(w):
     packed = pack_fragments(torch.from_numpy(np.ascontiguousarray(
         w.transpose(2, 0, 1))))
     big, small = unpack_fragments(packed)
+    return big.numpy(), small.numpy()
+
+
+def k4_weight_planes(w):
+    """[C_out, C_in, T] -> big, small [T, C_out, C_in], through K4's pack
+    and back."""
+    big, small = unpack_conv_weight(pack_conv_weight(torch.from_numpy(w)))
     return big.numpy(), small.numpy()
 
 
@@ -139,52 +154,39 @@ def window(x, start, width):
 
 # ---- K4 -------------------------------------------------------------------
 
-def k4_two_launch(x, w1, b1, w2, b2):
-    """The conv-kernel route on one batch row x [C, L]: per unit, t =
-    lrelu(conv1(lrelu(x)) + b1) through memory, out = x + (conv2(t) +
-    b2)."""
+def k4_launch(x, w, b, d, first, res=None, nb=None, bm=None):
+    """One launch of K4's conv kernel on one batch row x [C, L]: for each
+    block of ``bm`` positions (the whole row by default) and ``nb`` output
+    channels (all by default), the 3xTF32 conv of the block's window (0
+    outside [0, L), lrelu first when ``first``) in 32-channel slices, then
+    + b and lrelu (first) or res + (acc + b)."""
     C, L = x.shape
-    k = w1[0].shape[-1]
-    for u, d in enumerate(DILS):
-        staged = split(lrelu(window(x, -(k - 1) // 2 * d, L + (k - 1) * d)))
-        acc = conv_3xtf32(np.zeros((C, L)), staged, weight_planes(w1[u]),
-                          range(k), d, L, SLICE)
-        t = lrelu(acc + b1[u][:, None])
-        staged = split(window(t, -(k - 1) // 2, L + k - 1))
-        acc = conv_3xtf32(np.zeros((C, L)), staged, weight_planes(w2[u]),
-                          range(k), 1, L, SLICE)
-        x = (x + (acc + b2[u][:, None])).astype(np.float32)
-    return x
+    k = w.shape[-1]
+    wb, ws = k4_weight_planes(w)
+    nb, bm = nb or C, bm or L
+    src = lrelu(x) if first else x
+    out = np.empty_like(x)
+    for l0 in range(0, L, bm):
+        staged = split(window(src, l0 - (k - 1) // 2 * d, bm + (k - 1) * d))
+        hi = min(l0 + bm, L)
+        for c0 in range(0, C, nb):
+            ch = slice(c0, c0 + nb)
+            acc = conv_3xtf32(np.zeros((nb, bm)), staged, (wb[:, ch],
+                                                           ws[:, ch]),
+                              range(k), d, bm, K4_SLICE)
+            v = acc[:, :hi - l0] + b[ch, None]
+            out[ch, l0:hi] = lrelu(v) if first else res[ch, l0:hi] + v
+    return out
 
 
-def k4_fused(x, w1, b1, w2, b2, bn):
-    """The unit kernel's route: per unit and per tile of ``bn`` positions,
-    t over [l0 - 8, l0 + bn + 8) on chip (0 outside [0, L)), then the
-    second conv of the tile from it."""
-    C, L = x.shape
-    k = w1[0].shape[-1]
-    h2 = (k - 1) // 2
-    n1 = bn + 2 * T_HALO
+def k4_resblock(x, w1, b1, w2, b2, nb=None, bm=None):
+    """K4 on one batch row x [C, L]: per unit, t = lrelu(conv1(lrelu(x)) +
+    b1) through memory, then x + (conv2(t) + b2); blocks of ``bm``
+    positions by ``nb`` channels (the whole row and all channels by
+    default)."""
     for u, d in enumerate(DILS):
-        p1, p2 = weight_planes(w1[u]), weight_planes(w2[u])
-        out = np.empty_like(x)
-        for l0 in range(0, L, bn):
-            staged = split(lrelu(window(x, l0 - T_HALO - h2 * d,
-                                        n1 + (k - 1) * d)))
-            acc = conv_3xtf32(np.zeros((C, n1)), staged, p1, range(k), d, n1,
-                              SLICE)
-            pos = np.arange(l0 - T_HALO, l0 - T_HALO + n1)
-            t = np.where((pos >= 0) & (pos < L), lrelu(acc + b1[u][:, None]),
-                         np.float32(0))
-            tb, ts = split(t)
-            off = T_HALO - h2
-            acc = conv_3xtf32(np.zeros((C, bn)),
-                              (tb[:, off:], ts[:, off:]), p2, range(k), 1,
-                              bn, SLICE)
-            hi = min(l0 + bn, L)
-            out[:, l0:hi] = x[:, l0:hi] + (acc[:, :hi - l0]
-                                           + b2[u][:, None])
-        x = out
+        t = k4_launch(x, w1[u], b1[u], d, True, nb=nb, bm=bm)
+        x = k4_launch(t, w2[u], b2[u], 1, False, res=x, nb=nb, bm=bm)
     return x
 
 
@@ -219,12 +221,14 @@ def _jax_resblock(C, k, L):
                                    (64, 11, 1)])
 def test_k4_tiles_match_pallas_resblock(C, k, L):
     args = _resblock_inputs(C, k, L, seed=C + k + L)
-    two = k4_two_launch(*args)
-    np.testing.assert_allclose(two, _jax_resblock(C, k, L), atol=ATOL,
+    whole = k4_resblock(*args)
+    np.testing.assert_allclose(whole, _jax_resblock(C, k, L), atol=ATOL,
                                rtol=0)
-    # the fused unit's recomputed halo changes no bit, at either tile
-    for bn in (64, 128):
-        assert np.array_equal(k4_fused(*args, bn), two), bn
+    # the kernel's blocks of 128 positions, whole-C and split-N grids,
+    # change no bit
+    for nb in sorted({C, 32}):
+        assert np.array_equal(k4_resblock(*args, nb=nb, bm=K4_BM),
+                              whole), nb
 
 
 def test_k4_edges_take_no_bias():
@@ -233,7 +237,7 @@ def test_k4_edges_take_no_bias():
     outside [0, L) would differ from the reference."""
     x, w1, b1, w2, b2 = _resblock_inputs(32, 11, 129, seed=5)
     x = np.zeros_like(x)
-    got = k4_fused(x, w1, b1, w2, b2, 64)
+    got = k4_resblock(x, w1, b1, w2, b2, bm=K4_BM)
     ref = _plain_resblock(x, w1, b1, w2, b2)
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
     assert np.abs(ref[:, :10] - ref[:, 60:70]).max() > 1e-2
@@ -251,6 +255,26 @@ def _plain_resblock(x, w1, b1, w2, b2):
             torch.from_numpy(b2[u]), padding=(k - 1) // 2)
         y = y + t
     return y[0].numpy()
+
+
+def test_k4_weight_pack_is_the_swizzled_split_weights():
+    """K4's pack holds tf32(w) and tf32(w - tf32(w)) per (32-channel
+    slice, tap) as [C_out][32] rows, the 16-byte chunk c of row r at chunk
+    c ^ (r % 8) (the 128-byte swizzle), and reads back to the planes."""
+    w = np.random.default_rng(4).standard_normal((64, 64, 3),
+                                                 dtype=np.float32)
+    packed = pack_conv_weight(torch.from_numpy(w)).numpy()
+    assert packed.shape == (2, 3, 2, 64, 32)
+    big, small = split(w.transpose(2, 0, 1))
+    s, j, r = 1, 2, 13
+    for c in range(8):
+        at = 4 * (c ^ (r % 8))
+        cols = slice(32 * s + 4 * c, 32 * s + 4 * c + 4)
+        assert np.array_equal(packed[s, j, 0, r, at:at + 4], big[j, r, cols])
+        assert np.array_equal(packed[s, j, 1, r, at:at + 4],
+                              small[j, r, cols])
+    got_big, got_small = k4_weight_planes(w)
+    assert np.array_equal(got_big, big) and np.array_equal(got_small, small)
 
 
 def test_weight_planes_are_the_split_weights():

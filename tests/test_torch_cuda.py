@@ -1,11 +1,12 @@
 """PyTorch port, CUDA kernels on the card: K1, K2, K3 and K4 against their
 plain versions at the main path's shapes and at ragged L, their input
 checks, K1's key-split grid at batch 1 and the row statistics it hands to
-K3, K1, K2, K3 and K4 giving the same bits on a second launch, K4's two
-routes and both tile widths, K2's tap splits, the FFN's weight pack
-rebuilt after a weight change, the model's forward going through K1 and
-K2, a training step going through K1 and K3, and the parity HiFi-GAN
-going through K4.
+K3, K1, K2, K3 and K4 giving the same bits on a second launch, K4 at
+every C, k and ragged L, at every output-channel split of its grid, at the
+iSTFT vocoder's shapes at batch 1 and 16 and inside a CUDA graph, K2's tap
+splits, the FFN's weight pack rebuilt after a weight change, the model's
+forward going through K1 and K2, a training step going through K1 and K3,
+and the parity HiFi-GAN going through K4.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports no JAX, so it also runs on a GPU host without JAX:
@@ -402,7 +403,7 @@ def test_resblock_kernel_raises_on_what_it_does_not_take(device):
         cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5),
                                      packed=packed)
     x, w1, b1, w2, b2 = _resblock_inputs(48, 3, 40, device)
-    with pytest.raises(ValueError, match="multiple of 64"):
+    with pytest.raises(ValueError, match="C in"):
         cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
     x, w1, b1, w2, b2 = _resblock_inputs(32, 5, 40, device)
     with pytest.raises(ValueError, match="k in"):
@@ -503,34 +504,98 @@ def test_resblock_kernel_at_the_parity_path_shapes(device, C, L, k):
     _assert_resblock_close(got, ref)
 
 
-# both routes and every tile width the unit kernel has (the conv kernel
-# has one), L at one position, below the halo (60 at k = 11), and at the
-# 64- and 128-position tiles +- 1
-@pytest.mark.parametrize("how,C,tile", [
-    ("unit", 32, 64), ("unit", 32, 128), ("unit", 64, 64), ("unit", 64, 128),
-    ("unit", 128, 64), ("conv", 64, 0), ("conv", 128, 0), ("conv", 256, 0)])
+# every output-channel split of the grid (nb, a power of two from 32 to
+# C), L at one position, below the halo (60 at k = 11), and at the 64- and
+# 128-position tiles +- 1
+@pytest.mark.parametrize("C,nb", [(32, 32), (64, 32), (64, 64), (128, 32),
+                                  (128, 128), (256, 64), (256, 128),
+                                  (256, 256)])
 @pytest.mark.parametrize("L,k", [(1, 11), (9, 3), (40, 11), (63, 7),
                                  (65, 11), (127, 3), (129, 11)])
-def test_resblock_routes_and_tiles(device, how, C, tile, L, k):
+def test_resblock_routes_and_tiles(device, C, nb, L, k):
     x, w1, b1, w2, b2 = _resblock_inputs(C, k, L, device, B=2,
                                          seed=C + L + k)
     packed = cuda_resblock.pack_resblock_weights(w1, b1, w2, b2)
     with torch.inference_mode():
-        got = cuda_resblock._launch(x, packed, (1, 3, 5), how=how, tile=tile)
+        got = cuda_resblock._launch(x, packed, (1, 3, 5), nb)
         ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, (1, 3, 5))
     _assert_resblock_close(got, ref)
 
 
-# one unit of k = 11 dilated by 5: the widest halo of the path (50)
-@pytest.mark.parametrize("how,C", [("unit", 64), ("conv", 128)])
-def test_resblock_kernel_k11_d5(device, how, C):
+# every C the kernel takes at every ragged L, k 3, 7 and 11, the grid's
+# own split
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+@pytest.mark.parametrize("L", [1, 9, 40, 63, 65, 127, 129])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_resblock_kernel_every_shape(device, C, L, k):
+    x, w1, b1, w2, b2 = _resblock_inputs(C, k, L, device, B=3,
+                                         seed=C * L + k)
+    with torch.inference_mode():
+        got = cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+        ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    _assert_resblock_close(got, ref)
+
+
+# one unit of k = 11 dilated by 5: the widest reach of the path (50)
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_resblock_kernel_k11_d5(device, C):
     x, w1, b1, w2, b2 = _resblock_inputs(C, 11, 777, device, bias=2.0)
     w1, b1, w2, b2 = w1[:1], b1[:1], w2[:1], b2[:1]
     packed = cuda_resblock.pack_resblock_weights(w1, b1, w2, b2)
     with torch.inference_mode():
-        got = cuda_resblock._launch(x, packed, (5,), how=how)
+        got = cuda_resblock._launch(x, packed, (5,))
         ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, (5,))
     _assert_resblock_close(got, ref)
+
+
+# the iSTFT vocoder's six ResBlock shapes, at the README's batch 1 and
+# serving's batch 16; two launches give the same bits
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("C,L", [(256, 8000), (128, 64000)])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_resblock_kernel_at_the_istft_shapes(device, B, C, L, k):
+    x, w1, b1, w2, b2 = _resblock_inputs(C, k, L, device, B=B, seed=B + k)
+    packed = cuda_resblock.pack_resblock_weights(w1, b1, w2, b2)
+    with torch.inference_mode():
+        got = cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5),
+                                           packed=packed)
+        again = cuda_resblock.fused_resblock(x, w1, b1, w2, b2, (1, 3, 5),
+                                             packed=packed)
+        ref = cuda_resblock.plain_resblock(x, w1, b1, w2, b2, (1, 3, 5))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_resblock_close(got, ref)
+
+
+def test_resblock_kernel_in_a_cuda_graph(device):
+    """K4 captured in a CUDA graph (as serving replays it): the replay on
+    new inputs copied into the captured buffer gives the eager call's
+    bits, and the capture counted one launch."""
+    x, w1, b1, w2, b2 = _resblock_inputs(256, 7, 1000, device, B=2, seed=9)
+    packed = cuda_resblock.pack_resblock_weights(w1, b1, w2, b2)
+    static_x = x.clone()
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):   # warm-up off the capture
+            cuda_resblock.fused_resblock(static_x, w1, b1, w2, b2,
+                                         (1, 3, 5), packed=packed)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = cuda_resblock.launches
+        with torch.cuda.graph(graph):
+            static_out = cuda_resblock.fused_resblock(
+                static_x, w1, b1, w2, b2, (1, 3, 5), packed=packed)
+        assert cuda_resblock.launches == before + 1
+        new_x = x.flip(-1).contiguous()
+        static_x.copy_(new_x)
+        graph.replay()
+        eager = cuda_resblock.fused_resblock(new_x, w1, b1, w2, b2,
+                                             (1, 3, 5), packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(static_out, eager)
+    _assert_resblock_close(eager, cuda_resblock.plain_resblock(
+        new_x, w1, b1, w2, b2, (1, 3, 5)))
 
 
 @pytest.mark.parametrize("C,L,k", [(32, 4097, 7), (64, 3000, 11),

@@ -36,8 +36,9 @@ from fastspeech2_tpu_torch.ops.cuda_resblock import (
     fused_resblock,
     pack_resblock_weights,
     plain_resblock,
+    unpack_conv_weight,
 )
-from fastspeech2_tpu_torch.ops.tf32_pack import tf32_round, unpack_fragments
+from fastspeech2_tpu_torch.ops.tf32_pack import tf32_round
 from fastspeech2_tpu_torch.synthesis import vocoder as vocoder_mod
 from fastspeech2_tpu_torch.synthesis.vocoder import (
     GriffinLimVocoder,
@@ -131,12 +132,13 @@ def test_resblock_weight_pack_is_made_once_per_weight_change():
     first = block._packed(weights)
     assert block._packed(block._weights()) is first
     w1p, b1p, w2p, b2p = first
-    # [U, C/16, k, C/8, 32 lanes, 8]: the TF32 planes in fragment order
-    assert w1p.shape == (3, 2, 3, 4, 32, 8) and b2p.shape == (3, 32)
+    # [U, C/32, k, 2 planes, C, 32]: the TF32 planes of each (32-channel
+    # slice, tap), rows in the 128-byte swizzle
+    assert w1p.shape == (3, 1, 3, 2, 32, 32) and b2p.shape == (3, 32)
 
     def assert_planes_rebuild(packed, weight):
         """big = tf32(w) exactly, and big + small is w to ~2^-22."""
-        big, small = unpack_fragments(packed)
+        big, small = unpack_conv_weight(packed)
         w = weight.detach().permute(2, 0, 1)     # [k, C_out, C_in]
         assert torch.equal(big, tf32_round(w))
         torch.testing.assert_close(big + small, w, rtol=2 ** -21, atol=0)
