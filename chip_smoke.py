@@ -14,8 +14,9 @@ thread's stack and exits non-zero):
              resident blocks per SM, every kernel's tensor-core
              instructions in the SASS (HMMA, the mma.sync kind, and HGMMA,
              wgmma's; the bfloat16 K1 and K3 must hold HGMMA), each K4
-             instance's registers, spills, shared memory and HGMMA and
-             HMMA counts (each must hold HGMMA and no HMMA), K1's grid
+             instance's and each float32 K1 and K2 instance's registers,
+             spills, shared memory and HGMMA and HMMA counts (each must
+             hold HGMMA and no HMMA), K1's grid
              at float32 and bfloat16, K3's bfloat16 scratch (linear in L),
              the K1 wrapper's host microseconds per call at the small
              shapes beside the kernel's own time, and K2's plan;
@@ -27,6 +28,9 @@ thread's stack and exits non-zero):
              training shapes, and the autograd Function (K1 forward, K3
              backward) against autograd through the plain forward; K1 and
              K3 launched twice on the same inputs must agree bit for bit;
+             K3's score contract: the raw scores through K1's wgmma routine
+             and K3b's score_tile (mma.sync) bitwise equal at [10, 2, 1000,
+             128] and [2, 2, 2000, 128];
 6. K4        the MRF ResBlock kernel against its plain version at the 12
              ResBlock shapes of a 1000-frame parity-vocoder forward (each
              launched twice, bitwise equal), at L = 8 (a 1-frame mel at
@@ -63,7 +67,10 @@ thread's stack and exits non-zero):
    mandarin  tone-numbered pinyin with a language: zh config, and hanzi
              without pypinyin raising;
 9. timings   each kernel, its plain version and the library yardstick
-             (CUDA events; K1 and K2 also at batch mode's batch-8 shapes),
+             (CUDA events; K1 and K2 also at batch mode's batch-8 shapes,
+             K2 at every shape of K2_SHAPES; K1 beside SDPA and K2 beside
+             its bound also by device time: CUDA events around calls
+             queued behind a sleeping kernel, and torch.profiler's),
              text -> wav end to end, the parity vocoder's forward, and
              MelGAN's and Griffin-Lim's forward on the 1000-frame mel;
 10. training 20 steps at full model width (config/LJSpeech10, batch 10) on
@@ -134,7 +141,10 @@ thread's stack and exits non-zero):
              each wav within WAV_ATOL of its solo wav outside the tail)
              and grid="full" on top; one dispatch timed as a replay and
              eagerly; K1, K2 and K4 at the batch-16 shapes against their
-             plain versions and timed, and K4 at the iSTFT vocoder's six
+             plain versions and timed (K1 beside SDPA and K2 beside its
+             bound also by device time, as in phase 9; the bfloat16 K2
+             too), and K4 at
+             the iSTFT vocoder's six
              shapes at batch 1 too (each beside cuDNN autotuned, TF32
              off);
 17. evaluate evaluate --objective 2 --save_dir on phase 13's features
@@ -364,15 +374,19 @@ ATTENTION_KERNELS = ("mha_fwd_f32_kernel", "mha_fwd_combine_kernel",
                      "mha_fwd_combine_bf16_kernel", "mha_bwd_dq_bf16_kernel",
                      "mha_bwd_dkdv_bf16_kernel")
 # the convolution kernels' SASS functions (templates: several instances
-# each): K4's conv (both convs of a dilation unit), K2's two convs (its
-# LayerNorm kernel does no product)
-CONV_KERNELS = ("resblock_wgmma_kernel", "ffn_conv1_kernel",
-                "ffn_conv2_kernel", "ffn_conv1_bf16_kernel",
-                "ffn_conv2_bf16_kernel")
+# each): K4's conv (both convs of a dilation unit), the float32 K2's two
+# convs (one template), the bfloat16 K2's two convs (their LayerNorm
+# kernels do no product)
+CONV_KERNELS = ("resblock_wgmma_kernel", "ffn_wgmma_kernel",
+                "ffn_conv1_bf16_kernel", "ffn_conv2_bf16_kernel")
 # the kernels built on wgmma, each of which must hold HGMMA instructions
-# (K4's in every instance, and no HMMA)
 WGMMA_KERNELS = ("mha_fwd_bf16_kernel", "mha_bwd_dq_bf16_kernel",
-                 "mha_bwd_dkdv_bf16_kernel", "resblock_wgmma_kernel")
+                 "mha_bwd_dkdv_bf16_kernel", "resblock_wgmma_kernel",
+                 "mha_fwd_f32_kernel", "ffn_wgmma_kernel")
+# the kernels on wgmma alone: every instance holds HGMMA and no HMMA (K4,
+# and the float32 K1 and K2 redesigned for Hopper)
+WGMMA_ONLY_KERNELS = ("resblock_wgmma_kernel", "mha_fwd_f32_kernel",
+                      "ffn_wgmma_kernel")
 # a run still going after this many seconds has hung: it prints every
 # thread's stack and exits non-zero, inside the 1,200 s a run may take
 HANG_S = 1100
@@ -381,8 +395,7 @@ HANG_S = 1100
 K4_INSTANCE = re.compile(r"resblock_wgmma_kernelILi(\d+)ELb([01])E")
 # the kernels that multiply, each of which must hold tensor-core
 # instructions (HMMA or HGMMA)
-MMA_KERNELS = ("mha_fwd_f32_kernel", "mha_bwd_dkdv_kernel") + WGMMA_KERNELS \
-    + CONV_KERNELS
+MMA_KERNELS = ("mha_bwd_dkdv_kernel",) + WGMMA_KERNELS + CONV_KERNELS
 # K2's shapes on the paths: (B, L, k2) of the README sentence's encoder
 # and decoder, the re-dispatch bucket, one frame, a 3-tap second conv, and
 # the validation forward at batch 10
@@ -407,6 +420,50 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_times(fn, prefix="", iters=20, warmup=3):
+    """-> {prefix + "dev_ms": device ms per fn() call, prefix + "prof_ms":
+    the profiler's ms per call}.  The
+    first: CUDA events around ``iters`` calls queued behind a sleeping
+    kernel (torch.cuda._sleep), so that the host has issued them all before
+    the first one starts and the card runs them back to back: no host time,
+    the gaps between kernels included; the sleep is lengthened until it
+    outlasts the host's issue.  The second: the self device time of the
+    kernels in a torch.profiler window (CUDA activity), no gap included;
+    late in a run, after other profiler windows in the process, its
+    windows have lost kernel events (PERF.md), so the first is the one
+    held against a bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000
+    for _ in range(6):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * marks[0].elapsed_time(marks[1]):
+            break
+        cycles *= 4
+    queued = marks[1].elapsed_time(marks[2]) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    profiled = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / iters / 1e3
+    return {prefix + "dev_ms": queued, prefix + "prof_ms": profiled}
 
 
 def k1_host_times(device):
@@ -561,6 +618,31 @@ def k4_instances(report, lib_path, lib):
             rows[(int(m.group(1)), m.group(2) == "1")].update(
                 tensor_core_counts(body))
     return [rows[key] for key in sorted(rows)]
+
+
+def wgmma_instances(report, lib_path, lib):
+    """-> one row per instance of the float32 K1 and K2 kernels (the
+    float32 K1; K2's conv1 and conv2, ffn_wgmma_kernel<false|true>):
+    registers and spill bytes (nvcc -Xptxas -v), the block's dynamic shared
+    memory, and its SASS's HGMMA and HMMA counts (None without
+    cuobjdump)."""
+    smem = {"mha_fwd_f32_kernel": lib.fs2_mha_fwd_f32_smem_bytes(),
+            "ffn_wgmma_kernelILb0E": lib.fs2_conv_ffn_f32_smem_bytes(0),
+            "ffn_wgmma_kernelILb1E": lib.fs2_conv_ffn_f32_smem_bytes(1)}
+    names = {"mha_fwd_f32_kernel": "K1 f32",
+             "ffn_wgmma_kernelILb0E": "K2 f32 conv1",
+             "ffn_wgmma_kernelILb1E": "K2 f32 conv2"}
+    rows = {}
+    for entry, row in ptxas_entries(report).items():
+        key = next((k for k in names if k in entry), None)
+        if key:
+            rows[key] = dict(kernel=names[key], **row, smem_bytes=smem[key],
+                             HGMMA=None, HMMA=None)
+    for head, body in sass_functions(lib_path) or ():
+        key = next((k for k in names if k in head), None)
+        if key in rows:
+            rows[key].update(tensor_core_counts(body))
+    return [rows[key] for key in names if key in rows]
 
 
 def attention_inputs(lens, L, device, seed):
@@ -2800,8 +2882,9 @@ def serving(device, card, tmp):
         server.stop()
 
     # K1, K2 and K4 at serving's shapes against their plain versions
-    per_shape = {"K1": [], "K2": [], "K4": []}
+    per_shape = {"K1": [], "K2": [], "K2_bf16": [], "K4": []}
     errors = {}
+    bf16_errors = {}   # the bfloat16 K2 in ulps, by L
     for L in (128, 1000):
         lens = [L, 0] + [min(L, L // 2 + 7 * i) for i in range(14)]
         q, k, v, mask = attention_inputs(lens, L, device, seed=16)
@@ -2814,23 +2897,47 @@ def serving(device, card, tmp):
             shape=[16, 2, L, 128],
             ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
                 q, k, v, mask)),
+            **device_times(lambda: cuda_attention.fused_attention(
+                q, k, v, mask)),
             plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v,
                                                                mask)),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=additive))), attention_bound_ms(16, 2, L)))
+                q, k, v, attn_mask=additive)),
+            **device_times(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=additive), "library_")),
+            attention_bound_ms(16, 2, L)))
         args = ffn_inputs(L, device, seed=17, B=16)
         packed = cuda_ffn.pack_ffn_weights(args[1], args[3])
+        # the bfloat16 instance at the same shapes (serve --dtype bfloat16)
+        bf_args = (args[0].to(torch.bfloat16),) + args[1:]
+        bf_packed = cuda_ffn.pack_ffn_weights(args[1], args[3],
+                                              torch.bfloat16)
         with torch.inference_mode():
             errors[("K2", L)] = (cuda_ffn.fused_conv_ffn(*args, packed=packed)
                                  - cuda_ffn.plain_conv_ffn(*args)
                                  ).abs().max().item()
+            bf16_errors[L] = bf16_ulps(
+                cuda_ffn.fused_conv_ffn(*bf_args, packed=bf_packed),
+                cuda_ffn.plain_conv_ffn(*bf_args))
             per_shape["K2"].append(with_bound(dict(
                 shape=[16, L, 256],
                 ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(
                     *args, packed=packed)),
+                **device_times(lambda: cuda_ffn.fused_conv_ffn(
+                    *args, packed=packed)),
                 plain_ms=cuda_time_ms(lambda: cuda_ffn.plain_conv_ffn(*args)),
                 library_ms=None), ffn_bound_ms(16, L)))
-    del q, k, v, mask, additive, args, packed
+            per_shape["K2_bf16"].append(with_bound(dict(
+                shape=[16, L, 256],
+                ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(
+                    *bf_args, packed=bf_packed)),
+                **device_times(lambda: cuda_ffn.fused_conv_ffn(
+                    *bf_args, packed=bf_packed)),
+                plain_ms=cuda_time_ms(
+                    lambda: cuda_ffn.plain_conv_ffn(*bf_args)),
+                library_ms=None), ffn_bound_ms(16, L, dtype="bfloat16"),
+                BOUND_BASIS_BF16))
+    del q, k, v, mask, additive, args, packed, bf_args, bf_packed
     # K4 at the iSTFT vocoder's six shapes, at serving's batch 16 and the
     # README's batch 1, beside cuDNN's chain autotuned with TF32 off
     for B, C, L in ((16, 256, 8000), (16, 128, 64000), (1, 256, 8000),
@@ -2879,15 +2986,27 @@ def serving(device, card, tmp):
         for t in rows:
             lib = ("null" if t["library_ms"] is None
                    else f"{t['library_ms']:.4f} ms")
+            dev = (f" (device {t['dev_ms']:.4f} ms, profiler "
+                   f"{t['prof_ms']:.4f}"
+                   + (f"; SDPA's {t['library_dev_ms']:.4f} ms, profiler "
+                      f"{t['library_prof_ms']:.4f}"
+                      if "library_dev_ms" in t else "")
+                   + f"; {t['bound_ms'] / t['dev_ms']:.1%} of the bound)"
+                   if "dev_ms" in t else "")
             say(f"[timing serve] {name} {t['shape']}"
                 f"{' k=' + str(t['k']) if 'k' in t else ''}: kernel "
-                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-                f"{lib}, bound {t['bound_ms']:.3e} ms ({t['bound_by']}; "
-                f"{t['bound_basis']}) on {card}")
+                f"{t['ms']:.4f} ms{dev}, plain {t['plain_ms']:.4f} ms, "
+                f"library {lib}, bound {t['bound_ms']:.3e} ms "
+                f"({t['bound_by']}; {t['bound_basis']}) on {card}")
     say(f"[serve] kernels vs plain at serving's shapes (max_abs_diff; K4 "
         f"relative to the largest |value|): "
         f"{ {str(k): f'{v:.3e}' for k, v in errors.items()} } (tolerance "
         f"{KERNEL_ATOL:g})")
+    say(f"[serve] the bfloat16 K2 vs plain at [16, 128|1000, 256], in "
+        f"ulps of bfloat16 by L: {bf16_errors} (tolerance {BF16_ULPS})")
+    if not all(v <= BF16_ULPS for v in bf16_errors.values()):
+        raise RuntimeError("[serve] the bfloat16 K2 disagrees with its plain "
+                           "version at serving's shapes")
     if not all(v <= KERNEL_ATOL for v in errors.values()):
         raise RuntimeError("[serve] a kernel disagrees with its plain "
                            "version at serving's shapes")
@@ -3764,7 +3883,23 @@ def main():
     if hmma is not None and not all(hmma.get(n, {}).get("HGMMA", 0) > 0
                                     for n in WGMMA_KERNELS):
         raise RuntimeError("a kernel built on wgmma (the bfloat16 K1 and "
-                           "K3, K4) has no HGMMA instruction")
+                           "K3, the float32 K1 and K2, K4) has no HGMMA "
+                           "instruction")
+    if hmma is not None and any(hmma.get(n, {}).get("HMMA", 0)
+                                for n in WGMMA_ONLY_KERNELS):
+        raise RuntimeError("a kernel on wgmma alone (the float32 K1 and K2, "
+                           "K4) holds an HMMA (mma.sync) instruction")
+    f32_build = wgmma_instances(info.get("ptxas", ""), info["path"], lib)
+    say("[build] the float32 K1 and K2 on wgmma, by instance: " + "; ".join(
+        f"{r['kernel']}: {r['registers']} registers, {r['spill_bytes']} "
+        f"bytes of spill, {r['smem_bytes']} bytes of shared memory, HGMMA "
+        f"{r['HGMMA']}, HMMA {r['HMMA']}" for r in f32_build))
+    if len(f32_build) != 3 or any(
+            r["spill_bytes"] or (hmma is not None and (
+                not r["HGMMA"] or r["HMMA"])) for r in f32_build):
+        raise RuntimeError(f"the float32 K1 or K2: an instance is missing, "
+                           f"spills, or is not on wgmma alone (HGMMA, no "
+                           f"HMMA): {f32_build}")
     k4_build = k4_instances(info.get("ptxas", ""), info["path"], lib)
     say("[build] K4's instances (output channels per block, conv of the "
         "unit): " + "; ".join(
@@ -3805,11 +3940,11 @@ def main():
                     f" host {h:.1f} us, kernel {k:.1f} us, events {e:.1f} "
                     f"us" for (dt, B, L, st), (h, k, e) in k1_host.items())
         + f" on {card}")
-    k2_plans = {(B, L): cuda_ffn.forward_plan(B, L, 1024, 9)
-                for B, L, _ in k2_shapes}
-    say(f"[build] K2's plan (positions per block and tap splits of the first "
-        f"conv, hidden groups of the second) at [B, L, 256] -> 1024, by "
-        f"(B, L): {k2_plans}")
+    k2_plans = {(B, L, k2): cuda_ffn.forward_plan(B, L, 1024, 9, k2)
+                for B, L, k2 in k2_shapes + ((16, 128, 1), (16, 1000, 1))}
+    say(f"[build] K2's float32 plan (tap splits of the first conv, hidden "
+        f"groups of the second; 1 group: the LayerNorm in the second conv's "
+        f"epilogue) at [B, L, 256] -> 1024, by (B, L, k2): {k2_plans}")
 
     # 3. K1 vs plain: the encoder's L (32 for the README sentence's 31
     #    phones, 48 for 33-48 phones) and the decoder's (1000); each at
@@ -3964,6 +4099,33 @@ def main():
         f"bitwise equal (K1, K3): {repeat}")
     if not all(all(v) for v in repeat.values()):
         raise RuntimeError("K1 or K3 is not bitwise repeatable")
+    # K3's score contract: K3b recomputes every score through score_tile
+    # (mma.sync); K1 forms them on wgmma with the same split operands in the
+    # same k order.  The raw scores S = Q K^T through both routines must
+    # agree bit for bit, or K3's P would not be K1's
+    contract = {}
+    for B, L in ((TRAIN_BATCH, 1000), (2, 2000)):
+        gen = torch.Generator(device="cpu").manual_seed(B + L)
+        q, k = (torch.randn(B, 2, L, 128, generator=gen).to(device)
+                for _ in range(2))
+        routes = []
+        for route in (0, 1):
+            scores = torch.empty(B, 2, L, L, device=device)
+            cuda_build.check(lib.fs2_mha_scores_f32(
+                q.data_ptr(), k.data_ptr(), scores.data_ptr(), B, 2, L,
+                route, torch.cuda.current_stream().cuda_stream),
+                "fs2_mha_scores_f32")
+            routes.append(scores)
+        torch.cuda.synchronize()
+        contract[(B, L)] = (torch.equal(*routes),
+                            int((routes[0] != routes[1]).sum().item()))
+        del routes, scores, q, k
+    torch.cuda.empty_cache()
+    say(f"[K3 contract] raw scores Q K^T through K1's wgmma routine and K3b's "
+        f"score_tile (mma.sync) at [B, 2, L, 128], by (B, L): (bitwise "
+        f"equal, elements that differ) {contract}")
+    if not all(eq for eq, _ in contract.values()):
+        raise RuntimeError("K1's scores are not K3b's bit for bit")
 
     # the bfloat16 instances of K1, K2 and K3 against their plain versions
     bf16_errors = bf16_kernel_checks(device, bshapes, k2_shapes)
@@ -4285,9 +4447,14 @@ def main():
         timings[("K1", 1, L)] = with_bound(dict(
             ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
                 q, k, v, mask)),
+            **device_times(lambda: cuda_attention.fused_attention(
+                q, k, v, mask)),
             plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v, mask)),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=additive))), attention_bound_ms(1, 2, L))
+                q, k, v, attn_mask=additive)),
+            **device_times(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=additive), "library_")),
+            attention_bound_ms(1, 2, L))
     # ... and at batch mode's shapes, batch 8 and 2 (one full, one fully
     #    padded and partly padded rows)
     B8, enc8, _ = bshapes[0]
@@ -4299,32 +4466,55 @@ def main():
             timings[("K1", B, L)] = with_bound(dict(
                 ms=cuda_time_ms(lambda: cuda_attention.fused_attention(
                     q, k, v, mask)),
+                **device_times(lambda: cuda_attention.fused_attention(
+                    q, k, v, mask)),
                 plain_ms=cuda_time_ms(lambda: multi_head_attention(
                     q, k, v, mask)),
                 library_ms=cuda_time_ms(
                     lambda: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=additive))),
+                        q, k, v, attn_mask=additive)),
+                **device_times(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=additive), "library_")),
                 attention_bound_ms(B, 2, L))
     # K2 as the model calls it, its weight pack made once: the README
     # sentence's encoder and decoder, batch mode's batch-8 forward, the
-    # validation forward at batch 10
-    for B, L in ((1, enc_len), (1, 1000), (B8, enc8), (B8, 1000),
-                 (TRAIN_BATCH, 128), (TRAIN_BATCH, 1000)):
-        args = ffn_inputs(L, device, seed=9, B=B)
+    # validation forward at batch 10, and every shape of K2_SHAPES
+    k2_timed = {(1, enc_len, 1), (1, 1000, 1), (B8, enc8, 1), (B8, 1000, 1),
+                (TRAIN_BATCH, 128, 1), (TRAIN_BATCH, 1000, 1)}
+    k2_timed |= set(K2_SHAPES)
+    # (the 3-tap second conv's rows apart, in k2_taps3)
+    k2_taps3 = {}
+    for B, L, k2 in sorted(k2_timed):
+        args = ffn_inputs(L, device, seed=9, B=B, k2=k2)
         packed = cuda_ffn.pack_ffn_weights(args[1], args[3])
         with torch.inference_mode():
-            timings[("K2", B, L)] = with_bound(dict(
-                ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(
-                    *args, packed=packed)),
-                plain_ms=cuda_time_ms(lambda: cuda_ffn.plain_conv_ffn(*args)),
-                library_ms=None), ffn_bound_ms(B, L))
+            (timings if k2 == 1 else k2_taps3)[("K2", B, L)] = with_bound(
+                dict(ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(
+                         *args, packed=packed)),
+                     **device_times(lambda: cuda_ffn.fused_conv_ffn(
+                         *args, packed=packed)),
+                     plain_ms=cuda_time_ms(
+                         lambda: cuda_ffn.plain_conv_ffn(*args)),
+                     library_ms=None, taps=[9, k2]),
+                ffn_bound_ms(B, L, taps=(9, k2)))
 
-    for (name, B, L), t in sorted(timings.items()):
+    for (name, B, L), t in sorted(timings.items()) + sorted(k2_taps3.items()):
         lib = ("null" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        say(f"[timing] {name} B={B} L={L}: kernel {t['ms']:.4f} ms, plain "
+        dev = (f" (device {t['dev_ms']:.4f} ms, profiler "
+               f"{t['prof_ms']:.4f}"
+               + (f"; SDPA's {t['library_dev_ms']:.4f} ms, profiler "
+                  f"{t['library_prof_ms']:.4f}"
+                  if t.get("library_dev_ms") is not None else "")
+               + ")" if t.get("dev_ms") is not None else "")
+        say(f"[timing] {name} B={B} L={L}"
+            f"{' taps=' + str(t['taps']) if 'taps' in t else ''}: kernel "
+            f"{t['ms']:.4f} ms{dev}, plain "
             f"{t['plain_ms']:.4f} ms, library {lib}, bound "
             f"{t['bound_ms']:.3e} ms ({t['bound_by']}; {t['bound_basis']}); "
+            f"device share of the bound "
+            f"{t['bound_ms'] / t.get('dev_ms', t['ms']):.1%}; "
             f"SIMT bound {t['simt_bound_ms']:.3e} ms on {card}")
 
     e2e = host_ms(lambda: synth.synthesize([README_SENTENCE]))
@@ -4413,15 +4603,23 @@ def main():
         train_timings[("K1", L)] = with_bound(dict(
             ms=cuda_time_ms(lambda: cuda_attention._launch_forward(
                 q, k, v, mask, True)),
+            **device_times(lambda: cuda_attention._launch_forward(
+                q, k, v, mask, True)),
             plain_ms=cuda_time_ms(lambda: multi_head_attention(q, k, v,
                                                                mask)),
             library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=additive))),
+                q, k, v, attn_mask=additive)),
+            **device_times(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=additive), "library_")),
             attention_bound_ms(TRAIN_BATCH, 2, L))
         del sdpa_out, leaves
     for (name, L), t in sorted(train_timings.items()):
+        dev = (f" (device {t['dev_ms']:.4f} ms, profiler "
+               f"{t['prof_ms']:.4f}; SDPA's {t['library_dev_ms']:.4f} ms, "
+               f"profiler {t['library_prof_ms']:.4f})" if "dev_ms" in t
+               else "")
         say(f"[timing] {name} at [10, 2, {L}, 128] (training): kernel "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['ms']:.4f} ms{dev}, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.3e} ms "
             f"({t['bound_by']}, 3xTF32); SIMT bound "
             f"{t['simt_bound_ms']:.3e} ms on {card}")
@@ -4885,7 +5083,8 @@ def main():
     sources = {"K1": ("fused_attention", "fastspeech2_tpu_torch/csrc/attention.cu",
                       "fastspeech2_tpu/ops/pallas_attention.py:93",
                       "[1, 2, 1000, 128] f32"),
-               "K2": ("fused_conv_ffn", "fastspeech2_tpu_torch/csrc/conv_ffn.cu",
+               "K2": ("fused_conv_ffn",
+                      "fastspeech2_tpu_torch/csrc/conv_ffn_f32.cu",
                       "fastspeech2_tpu/ops/pallas_ffn.py:61",
                       "[1, 1000, 256] -> 1024, k=(9, 1) f32"),
                "K3": ("fused_attention_backward",
@@ -4894,18 +5093,20 @@ def main():
                       "[10, 2, 1000, 128] f32")}
     errs = {"K1": k1_err, "K2": k2_err, "K3": k3_err}
     # K1, K2 and K3 at every shape the paths give them
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+    keys = ("ms", "dev_ms", "prof_ms", "plain_ms", "library_ms",
+            "library_dev_ms", "library_prof_ms", "bound_ms", "bound_by",
             "simt_bound_ms")
     per_shape = {name: [
-        dict(shape=[B, 2, L, 128], **{key: t[key] for key in keys})
+        dict(shape=[B, 2, L, 128], **{key: t.get(key) for key in keys})
         for (B, L), t in sorted(
             [((B, L), t) for (n, B, L), t in timings.items() if n == name]
             + [((TRAIN_BATCH, L), t) for (n, L), t in train_timings.items()
                if n == name])]
         for name in ("K1", "K3")}
-    per_shape["K2"] = [dict(shape=[B, L, 256], **{key: t[key] for key in keys})
+    per_shape["K2"] = [dict(shape=[B, L, 256], taps=t.get("taps", [9, 1]),
+                            **{key: t.get(key) for key in keys})
                        for (n, B, L), t in sorted(timings.items())
-                       if n == "K2"]
+                       + sorted(k2_taps3.items()) if n == "K2"]
     # ... and at serving's batch-16 shapes (phase 16)
     for name in ("K1", "K2"):
         per_shape[name] += [dict(shape=t["shape"],
@@ -4916,6 +5117,15 @@ def main():
         per_shape[name] += [dict(shape=t["shape"],
                                  **{key: t.get(key) for key in keys})
                             for t in par["per_shape"][name]]
+    # the float32 K1's and K2's own sources (on wgmma and TMA)
+    f32_sources = {
+        "K1": ["fastspeech2_tpu_torch/csrc/attention.cu",
+               "fastspeech2_tpu_torch/csrc/attention_bf16.cuh",
+               "fastspeech2_tpu_torch/csrc/attention_common.cuh",
+               "fastspeech2_tpu_torch/csrc/hopper.cuh"],
+        "K2": ["fastspeech2_tpu_torch/csrc/conv_ffn_f32.cu",
+               "fastspeech2_tpu_torch/csrc/hopper.cuh",
+               "fastspeech2_tpu_torch/csrc/conv_tiles.cuh"]}
     kernels = []
     for name in ("K1", "K2", "K3"):
         fn, src, replaces, shape = sources[name]
@@ -4932,6 +5142,13 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "bound_basis": t["bound_basis"],
             "simt_bound_ms": t.get("simt_bound_ms"), "shape": shape,
+            **{key: t.get(key) for key in ("dev_ms", "prof_ms",
+                                           "library_dev_ms",
+                                           "library_prof_ms")},
+            **({"sources": f32_sources[name],
+                "instances": [r for r in f32_build
+                              if r["kernel"].startswith(name)]}
+               if name in f32_sources else {}),
             "per_shape": per_shape.get(name),
             "launches_by_path": {"synthesis": launches.get(name, 0),
                                  "parity synthesis": parity_launches.get(
@@ -4978,6 +5195,8 @@ def main():
         "K1": ["fastspeech2_tpu_torch/csrc/attention_bf16.cu",
                "fastspeech2_tpu_torch/csrc/attention_bf16.cuh",
                "fastspeech2_tpu_torch/csrc/hopper.cuh"],
+        "K2": ["fastspeech2_tpu_torch/csrc/conv_ffn.cu",
+               "fastspeech2_tpu_torch/csrc/conv_tiles.cuh"],
         "K3": ["fastspeech2_tpu_torch/csrc/attention_bwd_bf16.cu",
                "fastspeech2_tpu_torch/csrc/attention_bf16.cuh",
                "fastspeech2_tpu_torch/csrc/hopper.cuh"]}
@@ -4988,10 +5207,13 @@ def main():
         t = bf16_timings[(name, TRAIN_BATCH, 1000) if name == "K3"
                          else (name, 1, 1000)]
         per = [dict(shape=[B, 2, L, 128] if name != "K2" else [B, L, 256],
-                    **{key: v[key] for key in keys})
+                    **{key: v.get(key) for key in keys})
                for (n, B, L), v in sorted(bf16_timings.items()) if n == name]
-        per += [dict(shape=v["shape"], **{key: v[key] for key in keys})
+        per += [dict(shape=v["shape"], **{key: v.get(key) for key in keys})
                 for v in bf16_other if v["name"] == name]
+        if name == "K2":   # serving's shapes (phase 16)
+            per += [dict(shape=v["shape"], **{key: v.get(key) for key in keys})
+                    for v in served["per_shape"]["K2_bf16"]]
         kernels.append({
             "name": f"{name} {fn} bfloat16", "route": "cuda", "source": src,
             "replaces": replaces, "launches": bf_launches[name],

@@ -1,4 +1,5 @@
-// K1: fused masked multi-head self-attention forward, float32, for sm_90a.
+// K1: fused masked multi-head self-attention forward, float32, for sm_90a,
+// on wgmma (3xTF32) and TMA.
 //
 // Replaces the TPU kernel fastspeech2_tpu/ops/pallas_attention.py
 // (_mha_kernel via _pallas_forward_impl), which holds a whole (batch, head)
@@ -12,222 +13,424 @@
 // is applied before the mask replaces the score.
 //
 // What bounds it on an H100: the two products, 4 L^2 Dh operations per
-// (b, h), run on the tensor cores as 3xTF32 (attention_common.cuh), within
-// ~1e-5 of float32 at three TF32 products each: 3 x 4 L^2 Dh at 495
-// TFLOP/s, against 4 L Dh 4-byte tensors moved.  At L = 1000 that is ~750
-// TF32 operations per byte (the card's ridge is ~150), so the tensor cores
-// bound it.
+// (b, h), run on the tensor cores as 3xTF32 (tf32_mma.cuh), within ~1e-5 of
+// float32 at three TF32 products each: 3 x 4 L^2 Dh at 495 TFLOP/s, against
+// 4 L Dh 4-byte tensors moved.  At L = 1000 that is ~750 TF32 operations
+// per byte (the card's ridge is ~150), so the tensor cores bound it, and
+// only wgmma reaches their rate.
 //
-// Design: one block of 4 warps owns (b, h, 64 query rows) and walks the
-// keys in tiles of 32 with an online softmax; each warp owns 16 query rows,
-// so its S tile (16 x 32) and output accumulator (16 x 128) sit in mma
-// fragments in registers.  S = Q K^T comes from score_tile (Q as A and K as
-// B, both by ldmatrix from shared memory); P stays in registers and feeds
-// O += P V as the A operand directly, in the permuted key order
-// (attention_common.cuh), eight independent output fragments per pass.  K
-// and V tiles arrive by cp.async in a two-stage ring, so the next tile's
-// copy overlaps this tile's products.  Shared memory: Q 64 x 132 floats
-// plus two stages of K and V at 32 x 132: 101,376 bytes, so two blocks
-// (8 warps) fit on one SM.  Every operand is split into its TF32 parts where
-// it is loaded; splitting K and V once per tile instead needs their small
-// parts in shared memory too, which leaves room for one block per SM, and
-// keeping Q's fragments in registers spills: both were slower on the card.
+// Design (the bfloat16 instance's shape, attention_bf16.cu): a block of two
+// warpgroups, 64 query rows each, sharing every K and V tile.  Thread 0
+// loads Q once and tiles of 32 keys of K and V into a two-stage ring by TMA
+// (tensor maps over [B*H, L, 128] in boxes of 32 floats, the 128-byte
+// swizzle: rows past L arrive as zeros and never read the next head).
+// tf32 wgmma takes K-major operands only, and 3xTF32 needs each operand's
+// big and small TF32 parts, so the threads split the tiles in shared
+// memory where they land:
+//   - Q once: each thread keeps the big parts of its A fragments of the 16
+//     k-steps in registers and writes the small parts in place;
+//   - each K tile: big parts in place, small parts beside them;
+//   - each V tile: transposed into Vt [128 d][32 keys] big and small planes
+//     (128-byte swizzle, the keys of each k-step of 8 in the permuted order
+//     0, 2, 4, 6, 1, 3, 5, 7), the K-major B operand of P V.
+// Per tile a warpgroup forms S = Q K^T by score_tile_f32 (below: 16 k-steps
+// of three m64n32k8 products), the online softmax in registers, and
+// O += P V by four k-steps of three m64n128k8 products whose A is P from
+// registers: S's accumulator of keys 8j..8j+7, read as (c0, c2, c1, c3),
+// is the A fragment of k-step j in the permuted key order, split into its
+// TF32 parts.  P V's products run x_small w_big, x_big w_small, x_big w_big
+// (P as x, V as w; K4's order).  While P V runs, every thread splits its
+// share of the next tile (landed a tile earlier), and the block syncs once
+// per tile: then thread 0 refills the stage with the tile after next.
+// Shared memory: Q 64 KB plus two stages of 80 KB (K, K's small plane, V,
+// Vt's two planes) and the barriers: one block of 256 threads per SM, 255
+// registers a thread.  The exponential is expf, as K3 takes it.  Nothing
+// is summed by atomics: every sum has a fixed order, so every launch gives
+// the same bits.
 //
-// Filling the card: a grid of B*H*ceil(L/64) blocks is 32 at [1, 2, 1000,
-// 128], a quarter of the 132 SMs, and 320 at [10, 2, 1000, 128], one full
-// wave of two blocks per SM and a second that is a fifth full.  So the keys
-// may be split into chunks (a flash-decoding split): each block of the
-// (query tile, b*h, chunk) grid writes its unnormalised partial (row max
-// m, row sum l, accumulator) to scratch, and a second, small launch
-// combines the chunks in the fixed order 0, 1, ... and writes the output
-// and the row statistics.  fs2_mha_fwd_plan counts the waves each chunk
-// count takes (plan, below): 8 chunks (256 blocks) at [1, 2, 1000, 128], 4
-// at [10, 2, 1000|128, 128], none at [10, 2, 768, 128] or [1, 2, 32,
-// 128].  Nothing is summed by atomics, so every launch gives the same bits.
+// Filling the card: a grid of B*H*ceil(L/128) blocks is 16 at [1, 2, 1000,
+// 128] and 160 at [10, 2, 1000, 128] (1.2 waves).  So the keys may be split
+// into chunks (a flash-decoding split): each block of the (query tile, b*h,
+// chunk) grid writes its unnormalised partial (row max m, row sum l,
+// accumulator) to scratch, and a second, small launch combines the chunks
+// in the fixed order 0, 1, ... and writes the output and the row
+// statistics.  The plan (below) costs each chunk count by its waves and by
+// the partials' bytes, so the split pays only where the grid is a fraction
+// of a wave or leaves most of a second one idle.  With the row statistics
+// (training) the chunks depend on L alone, so that every row's output and
+// statistics are the same bits at any batch size and head count: a data-
+// or tensor-parallel rank's K1 is the one-process step's.
 //
 // The ragged edge (L not a multiple of the tiles) is masked: keys at or past
-// L get probability exactly 0 and are loaded as zeros (cp.async zero fill).
+// L get probability exactly 0 (their scores enter as kInitMax) and are
+// loaded as zeros.
 //
 // For training, the kernel also writes each query row's softmax statistics
 // (the final row max m and row sum l, so that P = exp(s - m) / l) through
-// two optional pointers; K3 (attention_bwd.cu) reads them and recomputes
-// each score through the same score_tile and masked_score, so its P is
-// this kernel's P.  They are kept apart, not folded into a log-sum-exp: for
-// a fully padded row m = -1e9, and -1e9 + log(L) rounds back to -1e9 in
-// float32.  Inference passes null.
+// two optional pointers; K3 (attention_bwd.cu) reads them.  They are kept
+// apart, not folded into a log-sum-exp: for a fully padded row m = -1e9,
+// and -1e9 + log(L) rounds back to -1e9 in float32.  Inference passes null.
 //
-// The bfloat16 instance is attention_bf16.cu (wgmma and TMA); this file's
-// fs2_mha_fwd_plan answers for both.
+// THE SCORE CONTRACT with K3: K3b recomputes every score through
+// score_tile (attention_common.cuh, mma.sync) with the same split operands
+// in the same k order (per k-step of 8: a_big b_small, a_small b_big,
+// a_big b_big, Q as A, K as B, from a zero accumulator), and uses this
+// kernel's row max and row sum.  fs2_mha_scores_f32 writes S through either
+// routine, so that a run on the card can show the two equal bit for bit.
+//
+// The bfloat16 instance is attention_bf16.cu; this file's fs2_mha_fwd_plan
+// answers for both.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <atomic>
 
-#include "attention_common.cuh"
+#include "attention_bf16.cuh"
 
 namespace {
 
 using namespace fs2_attn;
 
-constexpr int kBM = 64;        // query rows per block
-constexpr int kBN = 32;        // keys per tile
-constexpr int kWarps = kBM / 16;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBlocksPerSM = 2;   // what the shared memory below allows
+constexpr int kWGs = 2;           // warpgroups, 64 query rows each
+constexpr int kBM = 64 * kWGs;    // query rows per block
+constexpr int kBN = 32;           // keys per tile
+constexpr int kStages = 2;
+constexpr int kThreads = 128 * kWGs;
+constexpr int kBlocksPerSM = 1;   // what the shared memory below allows
+constexpr int kQBox = 64 * 32;    // floats of a [64][32] box
+constexpr int kKBox = kBN * 32;   // floats of a [32][32] box
+constexpr int kTileF = 4 * kKBox;  // floats of a [32][128] tile (4096)
+constexpr uint32_t kAtom = 1024;  // 8 rows of 128 bytes
 
-// Q, then two stages of (K, V)
-constexpr size_t kSmemBytes = sizeof(float) * kStride * (kBM + 4 * kBN);
+// shared memory: boxes and planes (each 1,024-byte aligned), then the
+// barriers
+struct F32Smem {
+  float q[kWGs][4 * kQBox];    // Q as loaded, then its small plane in place
+  float k[kStages][kTileF];    // K as loaded, then its big plane in place
+  float ks[kStages][kTileF];   // K's small plane
+  float v[kStages][kTileF];    // V as loaded
+  float vt[kStages][2][kTileF];  // Vt [128][32]: big, small
+  uint64_t full_q;
+  uint64_t full[kStages];
+};
+constexpr size_t kSmemBytes = sizeof(F32Smem) + 1024;
 
-// O += P V for float32: P's C fragments as A (keys in the permuted order),
-// V as B, 3xTF32, eight output column groups at a time
-__device__ __forceinline__ void pv_product(const float* Vs,
-                                           const float s[4][4], int lane,
-                                           float o[16][4]) {
-  const int g = lane / 4;
-  const int t = lane % 4;
+// the offset of (row r, column d) of a [rows][128] tile of four [rows][32]
+// boxes of `box` floats each
+__device__ __forceinline__ int tile_at(int r, int d, int box) {
+  return (d >> 5) * box + swz32(r, d & 31);
+}
+
+// Q's split: the big parts of this thread's A fragments of the 16 k-steps
+// into qb (k-step kk: rows g and g + 8 of the warp's 16 by columns 8 kk + t
+// and + 4), the small parts written in place.  q: the warpgroup's [64][128]
+// tile as loaded
+__device__ __forceinline__ void split_q(float* q, int warp, int lane,
+                                        uint32_t (&qb)[16][4]) {
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = 16 * warp + g;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t ab[4], as[4];
-    c_as_a(s[j], ab, as);
+  for (int kk = 0; kk < 16; ++kk)
 #pragma unroll
-    for (int n0 = 0; n0 < 16; n0 += 8) {
-      uint32_t bb[8][2], bs[8][2];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        load_b_perm(Vs + 8 * j * kStride + 8 * (n0 + n), kStride, g, t,
-                    bb[n], bs[n]);
-      mma_3xtf32_n<8>(o + n0, ab, as, bb, bs);
+    for (int i = 0; i < 4; ++i) {
+      const int at = tile_at(r0 + 8 * (i & 1), 8 * kk + t + 4 * (i >> 1),
+                             kQBox);
+      uint32_t small;
+      split(q[at], qb[kk][i], small);
+      q[at] = __uint_as_float(small);
     }
+}
+
+// one [32][128] tile of K (big part in place, small part into ks) and of
+// V (into Vt's two planes, transposed), by THREADS threads
+template <int THREADS>
+__device__ __forceinline__ void split_kv(float* k, float* ks, const float* v,
+                                         float* vt, int tid) {
+  float4* k4 = reinterpret_cast<float4*>(k);
+  float4* ks4 = reinterpret_cast<float4*>(ks);
+#pragma unroll
+  for (int i = 0; i < kTileF / 4 / THREADS; ++i) {
+    const int at = tid + i * THREADS;
+    const float4 x = k4[at];
+    uint32_t b[4], s[4];
+    split(x.x, b[0], s[0]);
+    split(x.y, b[1], s[1]);
+    split(x.z, b[2], s[2]);
+    split(x.w, b[3], s[3]);
+    k4[at] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                         __uint_as_float(b[2]), __uint_as_float(b[3]));
+    ks4[at] = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
+                          __uint_as_float(s[2]), __uint_as_float(s[3]));
+  }
+  if (vt == nullptr) return;
+  // Vt row d, 16-byte chunk c: keys 8 (c / 2) + (c % 2) + 0, 2, 4, 6
+  const int d = tid % 128;
+#pragma unroll
+  for (int c = tid / 128; c < 8; c += THREADS / 128) {
+    const int key0 = 8 * (c >> 1) + (c & 1);
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = v[tile_at(key0 + 2 * e, d, kKBox)];
+    uint32_t b[4], s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(x[e], b[e], s[e]);
+    const int at = d * 32 + ((c ^ d) & 7) * 4;
+    *reinterpret_cast<float4*>(vt + at) =
+        make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                    __uint_as_float(b[2]), __uint_as_float(b[3]));
+    *reinterpret_cast<float4*>(vt + kTileF + at) =
+        make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
+                    __uint_as_float(s[2]), __uint_as_float(s[3]));
   }
 }
 
-// The block's work
-__device__ __forceinline__ void mha_fwd_block(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const unsigned char* __restrict__ key_pad,
-    float* __restrict__ out, float* __restrict__ row_max,
-    float* __restrict__ row_sum, float* __restrict__ part_o,
-    float* __restrict__ part_m, float* __restrict__ part_l, int H, int L,
-    float scale, int tiles_per_chunk) {
-  constexpr int kS = kStride;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [kBM][kS]
-  float* stage_base = Qs + kBM * kS;             // per stage: K then V
+// S = Q K^T of one warpgroup's 64 query rows against a tile of 32 keys (the
+// score contract above): per k-step kk of 8 (d = 8 kk ..), Q_big K_small
+// (Q's big part from registers), Q_small K_big (from the in-place small
+// plane qs) and Q_big K_big, the first into a zero accumulator.
+// s[4j + 2h + e]: row 16 w + g + 8 h, key 8 j + 2 t + e.  The caller fences
+// before, commits and waits after.
+__device__ __forceinline__ void score_tile_f32(float (&s)[16],
+                                               const uint32_t (&qb)[16][4],
+                                               const float* qs,
+                                               const float* kb,
+                                               const float* ksm) {
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const int koff = (kk >> 2) * kKBox + (kk & 3) * 8;
+    const uint64_t big = make_desc(kb + koff, 16, kAtom);
+    const uint64_t small = make_desc(ksm + koff, 16, kAtom);
+    if (kk == 0)
+      wgmma_tf32_rs_first<32>(s, qb[kk], small);
+    else
+      wgmma_tf32_rs<32>(s, qb[kk], small);
+    wgmma_tf32_ss32(s, make_desc(qs + (kk >> 2) * kQBox + (kk & 3) * 8, 16,
+                                 kAtom),
+                    big);
+    wgmma_tf32_rs<32>(s, qb[kk], big);
+  }
+}
+
+// the pad bytes lane `lane` reads for the 32-key tile at k0 (0 at or past
+// L), fetched a tile ahead of their use
+__device__ __forceinline__ uint32_t pad_byte(const unsigned char* pad, int k0,
+                                             int L, int lane) {
+  return k0 + lane < L ? pad[k0 + lane] : 0u;
+}
+
+// The scaled, masked scores of one 32-key tile (x[4j + 2h + e]: key
+// 8j + 2t + e) in place, kInitMax for a key at or past L (below every
+// score, its exponential exactly 0); f: this lane's pad byte (pad_byte)
+__device__ __forceinline__ void tile_scores32(float (&x)[16], uint32_t f,
+                                              int k0, int L, int t,
+                                              float scale) {
+  const uint32_t padded = __ballot_sync(0xffffffffu, f != 0);
+  const int below = L - k0;
+  const uint32_t valid = below >= 32 ? ~0u : (1u << below) - 1;
+  if (padded == 0 && valid == ~0u) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) x[i] = __fmul_rn(x[i], scale);
+    return;
+  }
+  const uint32_t v = valid >> (2 * t), p = padded >> (2 * t);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = (v >> (8 * j + e)) & 1u;
+      const bool masked = (p >> (8 * j + e)) & 1u;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        x[i] = ok ? masked_score(x[i], masked, scale) : kInitMax;
+      }
+    }
+}
+
+// The online softmax of one tile's scores x (raw S in, P out): the rows'
+// new max m, the factor alpha = exp(m_old - m) their running sums l and the
+// output take, and P = exp(x - m) split into the big and small parts of
+// the four k-steps' A fragments (keys 2t, 2t + 1 as k = t, t + 4)
+__device__ __forceinline__ void softmax_tile32(float (&x)[16], uint32_t f,
+                                               int k0, int L, int t,
+                                               float scale, float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2],
+                                               uint32_t (&pb)[4][4],
+                                               uint32_t (&ps)[4][4]) {
+  tile_scores32(x, f, k0, L, t, scale);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mx = fmaxf(mx, fmaxf(x[4 * j + 2 * h], x[4 * j + 2 * h + 1]));
+    mx = quad_max(mx);
+    alpha[h] = expf(m[h] - mx);
+    m[h] = mx;
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[i] = expf(x[i] - m[(i / 2) % 2]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) rs += x[4 * j + 2 * h] + x[4 * j + 2 * h + 1];
+    l[h] = l[h] * alpha[h] + quad_sum(rs);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    split(x[4 * j], pb[j][0], ps[j][0]);
+    split(x[4 * j + 2], pb[j][1], ps[j][1]);
+    split(x[4 * j + 1], pb[j][2], ps[j][2]);
+    split(x[4 * j + 3], pb[j][3], ps[j][3]);
+  }
+}
+
+// the producer's step (thread 0): key tile kt into stage s
+__device__ __forceinline__ void load_kv(F32Smem& sm, const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int s, int kt,
+                                        int bh) {
+  mbar_expect_tx(&sm.full[s], 2 * kTileF * sizeof(float));
+#pragma unroll
+  for (int bx = 0; bx < 4; ++bx) {
+    tma_load_3d(sm.k[s] + bx * kKBox, tk, &sm.full[s], 32 * bx, kt * kBN, bh);
+    tma_load_3d(sm.v[s] + bx * kKBox, tv, &sm.full[s], 32 * bx, kt * kBN, bh);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+mha_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const unsigned char* __restrict__ key_pad,
+                   float* __restrict__ out, float* __restrict__ row_max,
+                   float* __restrict__ row_sum, float* __restrict__ part_o,
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   int H, int L, float scale, int tiles_per_chunk) {
+  extern __shared__ unsigned char smem_raw[];
+  F32Smem& sm = *reinterpret_cast<F32Smem*>(align_smem(smem_raw));
 
   const int bh = blockIdx.y;
   const int b = bh / H;
-  const int q0 = blockIdx.x * kBM;
   const int n_tiles = (L + kBN - 1) / kBN;
   const int t_begin = blockIdx.z * tiles_per_chunk;
-  const int t_end = min(n_tiles, t_begin + tiles_per_chunk);
-  const size_t base = static_cast<size_t>(bh) * L * kDh;
-  const float* kp = k + base;
-  const float* vp = v + base;
-  const unsigned char* pad = key_pad + static_cast<size_t>(b) * L;
-
+  const int n = min(n_tiles, t_begin + tiles_per_chunk) - t_begin;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
+  const int q0 = blockIdx.x * kBM + 64 * wg;   // this warpgroup's rows
+  const unsigned char* pad = key_pad + static_cast<size_t>(b) * L;
 
-  load_tile_async<kBM, kThreads>(Qs, q + base, q0, L, tid);
-  load_tile_async<kBN, kThreads>(stage_base, kp, t_begin * kBN, L, tid);
-  load_tile_async<kBN, kThreads>(stage_base + kBN * kS, vp, t_begin * kBN,
-                                 L, tid);
-  cp_async_commit();
+  if (tid == 0) {
+    mbar_init(&sm.full_q, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&sm.full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {   // Q, and the ring filled
+    mbar_expect_tx(&sm.full_q, kWGs * 4 * kQBox * sizeof(float));
+    for (int w = 0; w < kWGs; ++w)
+      for (int bx = 0; bx < 4; ++bx)
+        tma_load_3d(sm.q[w] + bx * kQBox, &tq, &sm.full_q, 32 * bx,
+                    blockIdx.x * kBM + 64 * w, bh);
+    for (int i = 0; i < min(n, kStages); ++i)
+      load_kv(sm, &tk, &tv, i, t_begin + i, bh);
+  }
+  __syncwarp();
 
-  // rows g and g + 8 of the warp's 16: running max, running sum, and the
-  // output accumulator o[n] over columns 8n..8n+7 (C fragments)
+  uint32_t qb[16][4];   // Q's big parts: A fragments of the 16 k-steps
+  mbar_wait(&sm.full_q, 0);
+  split_q(sm.q[wg], warp, lane, qb);
+  mbar_wait(&sm.full[0], 0);
+  split_kv<kThreads>(sm.k[0], sm.ks[0], sm.v[0], sm.vt[0][0], tid);
+  fence_proxy_async();
+  __syncthreads();
+
+  // rows g and g + 8 of the warp's 16: running max, running sum; the
+  // output accumulator o[4c + 2h + e] at column 8c + 2t + e
   float m[2] = {kInitMax, kInitMax};
   float l[2] = {0.f, 0.f};
-  float o[16][4];
+  float alpha[2];
+  float o[64];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float x[16];
+  uint32_t pb[4][4], ps[4][4];
+  uint32_t f = pad_byte(pad, t_begin * kBN, L, lane);
 
-  const float* Qw = Qs + warp * 16 * kS;
-  for (int kt = t_begin; kt < t_end; ++kt) {
-    const int stage = (kt - t_begin) & 1;
-    if (kt + 1 < t_end) {
-      float* next = stage_base + (stage ^ 1) * 2 * kBN * kS;
-      load_tile_async<kBN, kThreads>(next, kp, (kt + 1) * kBN, L, tid);
-      load_tile_async<kBN, kThreads>(next + kBN * kS, vp, (kt + 1) * kBN, L,
-                                     tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages;
+    const int k0 = (t_begin + i) * kBN;
+    const uint32_t f_next = pad_byte(pad, k0 + kBN, L, lane);
+    // S = Q K^T
+    reg_fence(o);
+    wgmma_fence();
+    score_tile_f32(x, qb, sm.q[wg], sm.k[s], sm.ks[s]);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(x);
+    softmax_tile32(x, f, k0, L, t, scale, m, l, alpha, pb, ps);
+    f = f_next;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      o[4 * c] *= alpha[0];
+      o[4 * c + 1] *= alpha[0];
+      o[4 * c + 2] *= alpha[1];
+      o[4 * c + 3] *= alpha[1];
     }
-    __syncthreads();
-    const float* Ks = stage_base + stage * 2 * kBN * kS;
-    const float* Vs = Ks + kBN * kS;
-
-    float s[4][4];
-    score_tile(Qw, Ks, lane, s);
-
-    const int k0 = kt * kBN;
-    bool valid[4][2];
-    float mx[2] = {m[0], m[1]};
+    // O += P V: per k-step, P_small Vt_big, P_big Vt_small, P_big Vt_big
+    reg_fence(o);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + 8 * j + 2 * t + e;
-        valid[j][e] = key < L;
-        const bool padded = valid[j][e] && pad[key] != 0;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float sc = masked_score(s[j][2 * h + e], padded, scale);
-          s[j][2 * h + e] = sc;
-          if (valid[j][e]) mx[h] = fmaxf(mx[h], sc);
-        }
-      }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = quad_max(mx[h]);
-      alpha[h] = expf(m[h] - mx[h]);
+    for (int j = 0; j < 4; ++j) {
+      reg_fence(pb[j]);
+      reg_fence(ps[j]);
     }
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float p = valid[j][e] ? expf(s[j][2 * h + e] - mx[h]) : 0.f;
-          s[j][2 * h + e] = p;
-          rs[h] += p;
-        }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] = l[h] * alpha[h] + quad_sum(rs[h]);
-      m[h] = mx[h];
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t big = make_desc(sm.vt[s][0] + 8 * j, 16, kAtom);
+      wgmma_tf32_rs<128>(o, ps[j], big);
+      wgmma_tf32_rs<128>(o, pb[j], make_desc(sm.vt[s][1] + 8 * j, 16, kAtom));
+      wgmma_tf32_rs<128>(o, pb[j], big);
     }
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
+    wgmma_commit();
+    // the next tile's split while P V runs (its stage is free: the block
+    // synced after its last use)
+    if (i + 1 < n) {
+      const int s1 = (i + 1) % kStages;
+      mbar_wait(&sm.full[s1], ((i + 1) / kStages) & 1);
+      split_kv<kThreads>(sm.k[s1], sm.ks[s1], sm.v[s1], sm.vt[s1][0], tid);
+      fence_proxy_async();
     }
-
-    pv_product(Vs, s, lane, o);
-    __syncthreads();   // this stage is refilled by the next iteration
+    wgmma_wait<0>();
+    reg_fence(o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      reg_fence(pb[j]);
+      reg_fence(ps[j]);
+    }
+    __syncthreads();   // stage s is read by no one now
+    if (tid == 0 && i + kStages < n)
+      load_kv(sm, &tk, &tv, s, t_begin + i + kStages, bh);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = q0 + warp * 16 + g + 8 * h;
+    const int r = q0 + 16 * warp + g + 8 * h;
     if (r >= L) continue;
     const size_t row = static_cast<size_t>(bh) * L + r;
     if (part_o == nullptr) {
       const float inv = 1.f / l[h];
       float* op = out + row * kDh + 2 * t;
 #pragma unroll
-      for (int n = 0; n < 16; ++n)
-        store2(op + 8 * n, o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+      for (int c = 0; c < 16; ++c)
+        store2(op + 8 * c, o[4 * c + 2 * h] * inv, o[4 * c + 2 * h + 1] * inv);
       if (row_max != nullptr && t == 0) {
         row_max[row] = m[h];
         row_sum[row] = l[h];
@@ -237,26 +440,14 @@ __device__ __forceinline__ void mha_fwd_block(
       const size_t prow = blockIdx.z * rows + row;
       float* op = part_o + prow * kDh + 2 * t;
 #pragma unroll
-      for (int n = 0; n < 16; ++n)
-        store2(op + 8 * n, o[n][2 * h], o[n][2 * h + 1]);
+      for (int c = 0; c < 16; ++c)
+        store2(op + 8 * c, o[4 * c + 2 * h], o[4 * c + 2 * h + 1]);
       if (t == 0) {
         part_m[prow] = m[h];
         part_l[prow] = l[h];
       }
     }
   }
-}
-
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const unsigned char* __restrict__ key_pad,
-                   float* __restrict__ out, float* __restrict__ row_max,
-                   float* __restrict__ row_sum, float* __restrict__ part_o,
-                   float* __restrict__ part_m, float* __restrict__ part_l,
-                   int H, int L, float scale, int tiles_per_chunk) {
-  mha_fwd_block(q, k, v, key_pad, out, row_max, row_sum, part_o, part_m,
-                part_l, H, L, scale, tiles_per_chunk);
 }
 
 // One warp per row: combines the chunks' partials in the order 0, 1, ...
@@ -304,33 +495,53 @@ int sm_count() {
   return n;
 }
 
+// The plan's cost model, in microseconds on an H100 (the card's device
+// times of this kernel): a key tile of one block (128 query rows), the
+// block's Q load, split and epilogue in key tiles, the combining launch's
+// fixed cost, and the device memory's rate for the partials (written once,
+// read back once)
+constexpr double kTileUs = 3.0;
+constexpr double kPrologueTiles = 1.5;
+constexpr double kCombineUs = 2.0;
+constexpr double kBytesPerUs = 3.35e6;
+
 // the launch: grid (query tiles, B*H, key chunks) and key tiles per chunk.
 // Blocks run in waves of kBlocksPerSM per SM, and a block takes about one
-// key tile's time for each tile of its chunk plus one for its Q load and
-// epilogue.  The plan takes the chunk count c whose
-// waves(c) * (tiles per chunk + 1) is least, the smallest c on a tie.  The
-// combining launch is left out of the count: it reads c partials once,
-// a few microseconds at the path's shapes (tools/attention_bench.py
-// --split-sweep times every c there).  FS2_MHA_FWD_CHUNKS, when defined at
-// build time, fixes c instead (the sweep builds such variants).
-void plan(int B, int H, int L, int grid[3], int* tiles_per_chunk) {
+// key tile's time for each tile of its chunk plus kPrologueTiles; a split
+// also writes chunks * B*H*L * 130 floats of partials and reads them back
+// in a second launch.  The plan takes the chunk count
+// whose modelled time is least, the smallest on a tie.
+// FS2_MHA_FWD_CHUNKS, when defined at build time, fixes the count instead
+// (tools/attention_bench.py --split-sweep builds such variants).  With
+// `stats` the chunks are kStatsChunkTiles key tiles long, or one tile where
+// L is at most that many tiles: fixed by L alone.
+constexpr int kStatsChunkTiles = 8;
+
+void plan(int B, int H, int L, bool stats, int grid[3],
+          int* tiles_per_chunk) {
   const int n_tiles = (L + kBN - 1) / kBN;
   const long blocks = static_cast<long>(B) * H * ((L + kBM - 1) / kBM);
   const long slots = static_cast<long>(kBlocksPerSM) * sm_count();
+  const double rows = static_cast<double>(B) * H * L;
   int per = n_tiles;
 #ifdef FS2_MHA_FWD_CHUNKS
   per = (n_tiles + FS2_MHA_FWD_CHUNKS - 1) / FS2_MHA_FWD_CHUNKS;
 #else
-  long best = -1;
-  for (int c = 1; c <= n_tiles; ++c) {
+  double best = -1.0;
+  for (int c = 1; c <= n_tiles && !stats; ++c) {
     const int tiles = (n_tiles + c - 1) / c;
     const long used = (n_tiles + tiles - 1) / tiles;   // no empty chunk
-    const long cost = (blocks * used + slots - 1) / slots * (tiles + 1L);
-    if (best < 0 || cost < best) {
-      best = cost;
+    double us = static_cast<double>((blocks * used + slots - 1) / slots) *
+                (tiles + kPrologueTiles) * kTileUs;
+    if (used > 1)
+      us += kCombineUs +
+            2.0 * used * rows * (kDh + 2) * sizeof(float) / kBytesPerUs;
+    if (best < 0.0 || us < best) {
+      best = us;
       per = tiles;
     }
   }
+  if (stats) per = n_tiles <= kStatsChunkTiles ? 1 : kStatsChunkTiles;
 #endif
   per = std::max(per, 1);
   *tiles_per_chunk = per;
@@ -339,18 +550,124 @@ void plan(int B, int H, int L, int grid[3], int* tiles_per_chunk) {
   grid[2] = (n_tiles + per - 1) / per;
 }
 
-// K1's launches (fs2_mha_fwd_f32's contract below)
-int mha_fwd(const void* q, const void* k, const void* v, const void* key_pad,
-            void* out, void* row_max, void* row_sum, void* scratch, int B,
-            int H, int L, int D, float scale, void* stream) {
+// ---- the score contract's check ------------------------------------------
+
+// raw S = Q K^T of one (b*h, 64 query rows, 32 keys) tile into s_out
+// ([B*H][L][L]) through K1's routine (route 1: split_q, split_kv and
+// score_tile_f32 on one warpgroup) or K3b's (route 0: score_tile on four
+// warps, mma.sync)
+__global__ void __launch_bounds__(128)
+mha_scores_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      float* __restrict__ s_out, int L, int route) {
+  extern __shared__ unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(align_smem(smem_raw));
+  const int bh = blockIdx.z;
+  const int q0 = blockIdx.x * 64, k0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const float* qp = q + static_cast<size_t>(bh) * L * kDh;
+  const float* kp = k + static_cast<size_t>(bh) * L * kDh;
+  float x[16];
+  if (route == 1) {
+    float* sk = sq + 4 * kQBox;
+    float* sks = sk + kTileF;
+    for (int i = tid; i < 64 * kDh; i += 128) {
+      const int r = i / kDh, d = i % kDh;
+      sq[tile_at(r, d, kQBox)] =
+          q0 + r < L ? qp[static_cast<size_t>(q0 + r) * kDh + d] : 0.f;
+    }
+    for (int i = tid; i < kBN * kDh; i += 128) {
+      const int r = i / kDh, d = i % kDh;
+      sk[tile_at(r, d, kKBox)] =
+          k0 + r < L ? kp[static_cast<size_t>(k0 + r) * kDh + d] : 0.f;
+    }
+    __syncthreads();
+    uint32_t qb[16][4];
+    split_q(sq, warp, lane, qb);
+    split_kv<128>(sk, sks, nullptr, nullptr, tid);
+    fence_proxy_async();
+    __syncthreads();
+    wgmma_fence();
+    score_tile_f32(x, qb, sq, sk, sks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(x);
+  } else {
+    float* ks_ = sq + 64 * kStride;
+    load_tile_async<64, 128>(sq, qp, q0, L, tid);
+    load_tile_async<kBN, 128>(ks_, kp, k0, L, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float s[4][4];
+    score_tile(sq + 16 * warp * kStride, ks_, lane, s);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[4 * j + i] = s[j][i];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = q0 + 16 * warp + g + 8 * h, key = k0 + 8 * j + 2 * t + e;
+        if (r < L && key < L)
+          s_out[(static_cast<size_t>(bh) * L + r) * L + key] =
+              x[4 * j + 2 * h + e];
+      }
+}
+
+constexpr size_t kScoresSmem =
+    sizeof(float) * (4 * kQBox + 2 * kTileF) + 1024;
+
+}  // namespace
+
+extern "C" long long fs2_mha_fwd_bf16_plan(int B, int H, int L, int* grid);
+
+// The grid K1 launches for [B, H, L, 128] (written to grid[3]: query tiles,
+// B*H, key chunks), with the row statistics (stats != 0) or without, and
+// the float32 scratch it needs: 0 without a split, else chunks * B*H*L *
+// (128 + 2) floats; of the float32 instance, or with bf16 != 0 of the
+// bfloat16 one (attention_bf16.cu, its own tiles and plan, the same with
+// and without the statistics).
+extern "C" long long fs2_mha_fwd_plan(int B, int H, int L, int bf16,
+                                      int stats, int* grid) {
+  if (bf16) return fs2_mha_fwd_bf16_plan(B, H, L, grid);
+  if (B <= 0 || H <= 0 || L <= 0) return -1;
+  int tiles_per_chunk;
+  plan(B, H, L, stats != 0, grid, &tiles_per_chunk);
+  if (grid[2] == 1) return 0;
+  return static_cast<long long>(grid[2]) * B * H * L * (kDh + 2);
+}
+
+// q, k, v, out: [B, H, L, 128] float32, contiguous, 16-byte aligned.
+// key_pad: [B, L] bytes, nonzero = padded key.  row_max, row_sum:
+// [B, H, L] float32, or both null.  scratch: fs2_mha_fwd_plan(B, H, L, 0,
+// stats) floats, stats = (row_max != null) (null when that is 0).  scale = 1/sqrt(D), rounded to float by the
+// caller as the reference rounds it.  Launches on `stream` (a second,
+// combining launch when the keys are split); returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape the kernel does not take (or when
+// cuTensorMapEncodeTiled is missing or refuses the tensor maps).
+extern "C" int fs2_mha_fwd_f32(const void* q, const void* k, const void* v,
+                               const void* key_pad, void* out, void* row_max,
+                               void* row_sum, void* scratch, int B, int H,
+                               int L, int D, float scale, void* stream) {
   if (D != kDh || B <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
   if ((row_max == nullptr) != (row_sum == nullptr)) return cudaErrorInvalidValue;
   int grid[3], tiles_per_chunk;
-  plan(B, H, L, grid, &tiles_per_chunk);
+  plan(B, H, L, row_max != nullptr, grid, &tiles_per_chunk);
   const bool split = grid[2] > 1;
   if (split && scratch == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err =
-      set_smem(reinterpret_cast<const void*>(mha_fwd_f32_kernel), kSmemBytes);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map_rows128_f32(&tq, q, L, B * H, 64) ||
+      !tensor_map_rows128_f32(&tk, k, L, B * H, kBN) ||
+      !tensor_map_rows128_f32(&tv, v, L, B * H, kBN))
+    return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = set_smem_once(
+      reinterpret_cast<const void*>(mha_fwd_f32_kernel), kSmemBytes, ready);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long rows = static_cast<long>(B) * H * L;
@@ -359,8 +676,7 @@ int mha_fwd(const void* q, const void* k, const void* v, const void* key_pad,
   float* part_l = split ? part_m + grid[2] * rows : nullptr;
   mha_fwd_f32_kernel<<<dim3(grid[0], grid[1], grid[2]), kThreads,
                        kSmemBytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const unsigned char*>(key_pad),
+      tq, tk, tv, static_cast<const unsigned char*>(key_pad),
       static_cast<float*>(out), static_cast<float*>(row_max),
       static_cast<float*>(row_sum), part_o, part_m, part_l, H, L, scale,
       tiles_per_chunk);
@@ -374,38 +690,27 @@ int mha_fwd(const void* q, const void* k, const void* v, const void* key_pad,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" long long fs2_mha_fwd_bf16_plan(int B, int H, int L, int* grid);
-
-// The grid K1 launches for [B, H, L, 128] (written to grid[3]: query tiles,
-// B*H, key chunks) and the float32 scratch it needs: 0 without a split,
-// else chunks * B*H*L * (128 + 2) floats; of the float32 instance, or with
-// bf16 != 0 of the bfloat16 one (attention_bf16.cu, its own tiles and
-// plan).
-extern "C" long long fs2_mha_fwd_plan(int B, int H, int L, int bf16,
-                                      int* grid) {
-  if (bf16) return fs2_mha_fwd_bf16_plan(B, H, L, grid);
-  if (B <= 0 || H <= 0 || L <= 0) return -1;
-  int tiles_per_chunk;
-  plan(B, H, L, grid, &tiles_per_chunk);
-  if (grid[2] == 1) return 0;
-  return static_cast<long long>(grid[2]) * B * H * L * (kDh + 2);
-}
-
-// q, k, v, out: [B, H, L, 128] float32, contiguous.  key_pad: [B, L] bytes,
-// nonzero = padded key.  row_max, row_sum: [B, H, L] float32, or both null.
-// scratch: fs2_mha_fwd_plan(B, H, L) floats (null when that is 0).
-// scale = 1/sqrt(D), rounded to float by the caller as the reference rounds
-// it.  Launches on `stream` (a second, combining launch when the keys are
-// split); returns cudaGetLastError() (or cudaErrorInvalidValue for a shape
-// the kernel does not take).
-extern "C" int fs2_mha_fwd_f32(const void* q, const void* k, const void* v,
-                               const void* key_pad, void* out, void* row_max,
-                               void* row_sum, void* scratch, int B, int H,
-                               int L, int D, float scale, void* stream) {
-  return mha_fwd(q, k, v, key_pad, out, row_max, row_sum, scratch, B, H, L,
-                 D, scale, stream);
+// The raw scores S = Q K^T of q, k ([B, H, L, 128] float32, contiguous)
+// into s ([B, H, L, L] float32) through K1's routine (route 1) or K3b's
+// score_tile (route 0), for the check that the two agree bit for bit (the
+// score contract above).  Not on any path: chip_smoke.py calls it.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+extern "C" int fs2_mha_scores_f32(const void* q, const void* k, void* s,
+                                  int B, int H, int L, int route,
+                                  void* stream) {
+  if (B <= 0 || H <= 0 || L <= 0 || (route != 0 && route != 1))
+    return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = set_smem_once(
+      reinterpret_cast<const void*>(mha_scores_f32_kernel), kScoresSmem,
+      ready);
+  if (err != cudaSuccess) return err;
+  mha_scores_f32_kernel<<<dim3((L + 63) / 64, (L + kBN - 1) / kBN, B * H),
+                          128, kScoresSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<float*>(s), L, route);
+  return cudaGetLastError();
 }
 
 // Resident blocks per SM of K1's main kernel, for the build report; -1 on
@@ -418,4 +723,10 @@ extern "C" int fs2_mha_fwd_blocks_per_sm() {
                                                     kSmemBytes) != cudaSuccess)
     return -1;
   return n;
+}
+
+// Dynamic shared memory of a block of K1's main kernel, for the build
+// report.
+extern "C" int fs2_mha_fwd_f32_smem_bytes() {
+  return static_cast<int>(kSmemBytes);
 }

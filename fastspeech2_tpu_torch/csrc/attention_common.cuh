@@ -1,35 +1,36 @@
 // Shared by K1 (attention.cu) and K3 (attention_bwd.cu): the score tile
-// S = Q K^T, whose arithmetic the two kernels must share bit for bit, and
-// the fragment loads of their [rows][128] tiles.  The 3xTF32 product, the
-// TF32 rounding and the cp.async wrappers come from tf32_mma.cuh, which K2
-// and K4 use too.  The tensor cores' own float32 accumulation rounds less
-// exactly than an FMA chain: on an H100 the kernels' errors against
-// float64 are ~4x (K1) and ~7x (K3) plain float32's, where the same split
-// on float32 GEMMs matches plain float32 (tools/attention_bench.py
-// --errors).
+// S = Q K^T on mma.sync, through which K3 recomputes K1's scores bit for
+// bit (K1 forms them on wgmma with the same split operands in the same k
+// order: attention.cu's score contract), and the fragment loads of K3's
+// [rows][128] tiles.  The 3xTF32 product, the TF32 rounding and the
+// cp.async wrappers come from tf32_mma.cuh, which K2 and K4 use too.  The
+// tensor cores' own float32 accumulation rounds less exactly than an FMA
+// chain: on an H100 K3's errors against float64 are ~7x plain float32's,
+// where the same split on float32 GEMMs matches plain float32
+// (tools/attention_bench.py --errors).
 //
-// The kernels are bound by how fast the tensor cores are fed, so each
-// k-step issues its three passes across several independent accumulators
-// (all big*small, then all small*big, then all big*big; mma_3xtf32_n)
-// rather than three dependent products in a row, and fragments of
-// row-major tiles whose rows are 16-byte runs of k come in by ldmatrix
-// (one instruction for four 8 x 4 float blocks).
+// K3 is bound by how fast the tensor cores are fed, so each k-step issues
+// its three passes across several independent accumulators (all
+// big*small, then all small*big, then all big*big; mma_3xtf32_n) rather
+// than three dependent products in a row, and fragments of row-major tiles
+// whose rows are 16-byte runs of k come in by ldmatrix (one instruction
+// for four 8 x 4 float blocks).
 //
 // Fragments are those of mma.sync.aligned.m16n8k8.row.col.f32.tf32
 // (tf32_mma.cuh).  A product whose k index runs over keys or query rows
-// may take its k in any order, as long as A and B agree.  Those products use the order
-// k = t <-> row 2t, k = t+4 <-> row 2t+1 of each group of 8, so that a C
-// fragment (c0, c2, c1, c3) is an A fragment as it stands (no shuffles),
-// and the matching B fragment rows 2t and 2t+1 of a row-major tile are
-// free of bank conflicts at a row stride of 4 mod 32 floats.
+// may take its k in any order, as long as A and B agree.  Those products
+// use the order k = t <-> row 2t, k = t+4 <-> row 2t+1 of each group of 8,
+// so that a C fragment (c0, c2, c1, c3) is an A fragment as it stands (no
+// shuffles), and the matching B fragment rows 2t and 2t+1 of a row-major
+// tile are free of bank conflicts at a row stride of 4 mod 32 floats.
 //
 // Shared-memory tiles of [rows][128] floats have a row stride of 132
 // floats (4 mod 32 banks): a fragment load by the 32 lanes of a warp then
 // touches 32 different banks, and rows stay 16-byte aligned for cp.async.
 //
-// The bfloat16 instances (the JAX package's --dtype bfloat16) are built on
-// wgmma and TMA (attention_bf16.cuh, hopper.cuh); they share this file's
-// constants, masked score, quad reductions and stores.
+// The kernels on wgmma and TMA (the float32 K1, the bfloat16 instances:
+// attention_bf16.cuh, hopper.cuh) share this file's constants, masked
+// score, quad reductions and stores.
 
 #pragma once
 
@@ -147,25 +148,18 @@ __device__ __forceinline__ void load_at_perm(const float* p, int stride,
   split(p[(2 * t + 1) * stride + g + 8], big[3], small[3]);
 }
 
-// A fragment (permuted k order) from one 8-column group of a C fragment
-__device__ __forceinline__ void c_as_a(const float c[4], uint32_t big[4],
-                                       uint32_t small[4]) {
-  split(c[0], big[0], small[0]);
-  split(c[2], big[1], small[1]);
-  split(c[1], big[2], small[2]);
-  split(c[3], big[3], small[3]);
-}
-
 // THE SCORE CONTRACT.  One warp's 16 x 32 tile of raw scores
 // s = Q K^T: query rows of the tile at q (row-major [16][128], stride
 // kStride) against keys of the tile at k ([32][128]); s[j] is the C
 // fragment of keys 8j..8j+7.  The sum over d runs in eight-wide k-steps
 // d = 0, 8, ..., 120; each adds a_big b_small, a_small b_big and a_big
 // b_big, in that order, to an accumulator that starts at 0, with Q as A
-// and K as B.  K1 forms every score through this function and K3
-// recomputes every score through it, so K3's scores, and through K1's row
-// max and row sum its probabilities, are K1's bit for bit.  K3 also forms
-// dP = G V^T with it.
+// and K as B.  K3 recomputes every score through this function; K1 forms
+// them through score_tile_f32 (attention.cu), wgmma products of the same
+// split operands in the same order, which give the same bits on an H100
+// (chip_smoke.py checks it through fs2_mha_scores_f32).  So K3's scores,
+// and through K1's row max and row sum its probabilities, are K1's bit for
+// bit.  K3 also forms dP = G V^T with it.
 __device__ __forceinline__ void score_tile(const float* q, const float* k,
                                            int lane, float s[4][4]) {
 #pragma unroll

@@ -1,74 +1,53 @@
-// K2: fused position-wise conv FFN forward, float32 on the tensor cores
-// (3xTF32), for sm_90a.
+// K2, bfloat16: fused position-wise conv FFN forward for sm_90a, on the
+// bfloat16 tensor cores (mma.sync).
 //
 // Replaces the TPU kernel fastspeech2_tpu/ops/pallas_ffn.py (_ffn_kernel via
-// _pallas_forward), which keeps one batch row's [L, H] hidden activation in
-// VMEM.  Computes, on [B, L, D] row-major activations,
+// _pallas_forward) at --dtype bfloat16, which keeps one batch row's [L, H]
+// hidden activation in VMEM.  Computes, on [B, L, D] row-major activations,
 //
 //   h   = ReLU(conv1d_k1(x; w1 [k1, D, H]) + b1)          (SAME zero padding)
 //   y   = conv1d_k2(h; w2 [k2, H, D]) + b2 + x
 //   out = (y - mean) / sqrt(E[y^2] - mean^2 + 1e-5) * gamma + beta   (over D)
 //
 // Each k-tap conv is k shifted products (tap j reads row t + j - (k-1)/2);
-// taps that fall outside [0, L) read zero.
-//
-// What bounds it on an H100: 2 L D H (k1 + k2) operations (5.24 GFLOP at
-// L = 1000, D = 256, H = 1024, k = (9, 1)), 3xTF32 on the tensor cores:
-// 0.0318 ms at L = 1000.  At L = 32 the 10.5 MB of weights bound it
-// (0.0032 ms at 3.35 TB/s), and the bound asks that many SMs pull them at
-// once.
-//
-// Design (conv_tiles.cuh has the implicit GEMM and the packed weights):
-// three launches, h and the second conv's partial sums through device
-// memory (in L2 at the path's shapes):
-//   (a) conv1: M = H (64 per block, 4 warps) by N = positions (BN = 64 or
-//       128 per block) by K = D x the block's taps.  The k1 taps are split
-//       over S blocks (S chosen so that the grid fills every SM: 9 at
-//       L = 32, 2 at L = 1000), each writing its partial sum of the
-//       pre-activation to part[S][B][L][H].  x's rows (window BN + taps - 1)
-//       are staged 16 channels at a time by cp.async, a ring of four
-//       slices (at L = 32 a block's work per slice is short, and the copy
-//       latency would show), and split once per staged element.
-//   (b) conv2: 16 rows x all D = 256 columns per block (8 warps of 32) x
-//       one of G groups of the hidden channels (G chosen so that the grid
-//       fills every SM: 16 at L = 32, 4 at L = 1000), so that many SMs pull
-//       w2 at once.  The block stages the S partials of its rows' h (with
-//       the (k2-1)/2 halo) 64 hidden channels at a time by cp.async, and
-//       forms h = ReLU(sum over s in order + b1), 0 outside [0, L), split
-//       once per staged element; it writes its group's share of the
-//       product to ypart[G][B][L][256].
-//   (c) LayerNorm: one warp per row sums the G shares in order, adds b2
-//       and the residual, reduces the sum and the sum of squares with
-//       shuffles and writes the normalised row, with the LayerNorm
-//       arithmetic of the first version of this kernel.
-// (a) and (b) keep two levels of sums: each staged slice's products are
-// accumulated by the tensor cores from 0 and then added to the running
-// float32 sum on the CUDA cores.  The tensor cores' own accumulation rounds
-// less exactly than float32's round-to-nearest, and over the 3072 terms of
-// a 3-tap second conv its error reached ~1.1e-4 on the LayerNorm's output
-// (against plain float32, on an H100) with one level.  No atomics: the
-// partials are summed in a fixed order, and two launches on the same
-// inputs agree bit for bit.
-//
-// The bfloat16 instance (fs2_conv_ffn_fwd_bf16) computes what the TPU
-// kernel computes on a bfloat16 x: both convs on the bfloat16 tensor cores
+// taps that fall outside [0, L) read zero.  It computes what the TPU kernel
+// computes on a bfloat16 x: both convs on the bfloat16 tensor cores
 // (m16n8k16, exact products, float32 accumulation) with the weights
 // rounded to bfloat16 (the TPU kernel's w.astype(x.dtype)) and packed in
 // the A fragments' order ([M/16][T][K/16][32 lanes][8 values],
 // ops/tf32_pack.py::pack_fragments_bf16); h = ReLU(sum + b1) with float32
 // b1, rounded to bfloat16; b2 and x added in float32; the LayerNorm in
-// float32; the output rounded to bfloat16.  The plan and the three
-// launches are the float32 instance's.  (a) stages the whole window of x
-// (BN + taps - 1 rows of 256 channels) in shared memory at once by
-// cp.async, as bfloat16; (b) rounds h to bfloat16 where the float32
-// instance splits it.  One level of sums: a bfloat16 h and output carry
-// 2^-9 of rounding, far above the tensor cores' accumulation error.  Its
-// bound on an H100 is the bfloat16 tensor cores' 989 TFLOP/s against the
-// 2-byte x, output and weights.
+// float32; the output rounded to bfloat16.  One level of sums: a bfloat16
+// h and output carry 2^-9 of rounding, far above the tensor cores'
+// accumulation error.  Its bound on an H100 is the bfloat16 tensor cores'
+// 989 TFLOP/s against the 2-byte x, output and weights.
+//
+// Design: three launches, h and the second conv's partial sums through
+// device memory (in L2 at the path's shapes):
+//   (a) conv1: M = H (64 per block, 4 warps) by N = positions (BN = 64 or
+//       128 per block) by K = D x the block's taps.  The k1 taps are split
+//       over S blocks (S chosen so that the grid fills every SM: 9 at
+//       L = 32, 2 at L = 1000), each writing its partial sum of the
+//       pre-activation to part[S][B][L][H].  The block stages the whole
+//       window of x (BN + taps - 1 rows of 256 channels) in shared memory
+//       at once by cp.async.
+//   (b) conv2: 16 rows x all D = 256 columns per block (8 warps of 32) x
+//       one of G groups of the hidden channels (G chosen so that the grid
+//       fills every SM: 16 at L = 32, 4 at L = 1000), so that many SMs pull
+//       w2 at once.  The block stages the S partials of its rows' h (with
+//       the (k2-1)/2 halo) 64 hidden channels at a time by cp.async, and
+//       forms h = ReLU(sum over s in order + b1), 0 outside [0, L), rounded
+//       to bfloat16; it writes its group's share of the product to
+//       ypart[G][B][L][256].
+//   (c) LayerNorm: one warp per row sums the G shares in order, adds b2
+//       and the residual, reduces the sum and the sum of squares with
+//       shuffles and writes the normalised row.
+// No atomics: the partials are summed in a fixed order, and two launches
+// on the same inputs agree bit for bit.
+//
+// The float32 instance is conv_ffn_f32.cu (3xTF32 on wgmma, TMA).
 
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "conv_tiles.cuh"
 
@@ -84,110 +63,6 @@ constexpr int kMaxSmem = 227 * 1024;   // a block's dynamic shared memory
 // ---- (a) part[s] = the taps of split s of conv_k1(x) -----------------------
 constexpr int kThreadsA = 128;
 constexpr int kBM_A = 64;       // hidden channels per block
-constexpr int kSliceA = 16;     // input channels per staged slice
-constexpr int kStrideA = 20;    // 4 mod 32, 16-byte rows
-constexpr int kStagesA = 4;     // slices in flight: the ring of raw buffers
-
-// rows [win0, win0 + span) of x's channels [c0, c0 + 16) into dst [span][20],
-// zero outside [0, L)
-__device__ __forceinline__ void stage_rows_a(float* dst, const float* xb,
-                                             int c0, int L, int win0,
-                                             int span, int tid) {
-  for (int i = tid; i < span * 4; i += kThreadsA) {
-    const int row = i >> 2;
-    const int q = (i & 3) * 4;
-    const int pos = win0 + row;
-    const bool ok = pos >= 0 && pos < L;
-    cp_async16(dst + row * kStrideA + q,
-               ok ? xb + static_cast<size_t>(pos) * kD + c0 + q : xb, ok);
-  }
-}
-
-// MT m-tiles per warp, WN warps along the positions (and 4 / WN along the
-// channels): BN = 128 is (4, 4), 64 is (2, 2), 32 is (1, 1)
-template <int MT, int WN>
-__global__ void __launch_bounds__(kThreadsA)
-ffn_conv1_kernel(const float* __restrict__ x, const float4* __restrict__ w1,
-                 float* __restrict__ part, int B, int L, int H, int k1,
-                 int splits) {
-  constexpr int WM = kBM_A / (16 * MT);
-  constexpr int BN = 32 * WN;
-  static_assert(WM * WN * 32 == kThreadsA, "4 warps");
-  extern __shared__ __align__(16) float smem[];
-
-  const int l0 = blockIdx.x * BN;
-  const int n0 = blockIdx.y * kBM_A;
-  const int b = blockIdx.z / splits;
-  const int sp = blockIdx.z % splits;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp % WM;
-  const int wn = warp / WM;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int per = (k1 + splits - 1) / splits;
-  const int j0 = min(sp * per, k1);
-  const int j1 = min(j0 + per, k1);
-  const int win0 = l0 + j0 - (k1 - 1) / 2;
-  const int span = BN + (j1 > j0 ? j1 - j0 - 1 : 0);
-  const float* xb = x + static_cast<size_t>(b) * L * kD;
-  const int wf_mt = k1 * (kD / 8) * kFrag4;
-  const int tap4 = (kD / 8) * kFrag4;
-  const float4* wf = w1 + (n0 / 16 + wm * MT) * wf_mt;
-
-  const int buf = span * kStrideA;   // floats per raw slice
-  float* raw = smem;                 // [kStagesA][span][20]
-  uint32_t* pb = reinterpret_cast<uint32_t*>(smem + kStagesA * buf);
-  uint32_t* ps = pb + buf;
-
-  float acc[MT][4][4];
-  zero(acc);
-  if (j1 > j0) {
-    constexpr int slices = kD / kSliceA;
-#pragma unroll
-    for (int s = 0; s < kStagesA - 1; ++s) {
-      stage_rows_a(raw + s * buf, xb, s * kSliceA, L, win0, span, tid);
-      cp_async_commit();
-    }
-#pragma unroll 1
-    for (int s = 0; s < slices; ++s) {
-      cp_async_wait<kStagesA - 2>();
-      __syncthreads();
-      const int next = s + kStagesA - 1;
-      if (next < slices)
-        stage_rows_a(raw + (next % kStagesA) * buf, xb, next * kSliceA, L,
-                     win0, span, tid);
-      cp_async_commit();
-      const float* src = raw + (s % kStagesA) * buf;
-      for (int i = tid; i < span * kSliceA; i += kThreadsA) {
-        const int at = (i >> 4) * kStrideA + (i & 15);
-        split(src[at], pb[at], ps[at]);
-      }
-      __syncthreads();
-      float sl[MT][4][4];
-      zero(sl);
-#pragma unroll 1
-      for (int j = j0; j < j1; ++j)
-        mma_tap<MT, 4, kSliceA / 8>(
-            sl, pb, ps, kStrideA, wn * 32 + (j - j0),
-            wf + j * tap4 + s * (kSliceA / 8) * kFrag4, wf_mt, lane);
-      add(acc, sl);
-    }
-  }
-
-  float* pout = part + static_cast<size_t>(sp * B + b) * L * H;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = n0 + 16 * (wm * MT + mt) + g + (i >= 2 ? 8 : 0);
-        const int l = l0 + wn * 32 + 8 * nt + 2 * t + (i & 1);
-        if (l < L) pout[static_cast<size_t>(l) * H + n] = acc[mt][nt][i];
-      }
-}
 
 // ---- bfloat16 fragments ---------------------------------------------------
 
@@ -328,30 +203,20 @@ __device__ __forceinline__ void stage_rows_b(float* dst, const float* part,
 // the bfloat16 row stride of h's staged slice
 constexpr int kStrideHH = kSliceB + 8;
 
-// W: the packed weights' 16-byte word, float4 for the float32 instance
-// ([D/16][k2][H/8][32][8] floats: h split into TF32 big and small planes,
-// 3xTF32, each slice's products summed from 0 and added to the running sum
-// on the CUDA cores), uint4 for the bfloat16 one ([D/16][k2][H/16][32][8]
-// bfloat16 values: h rounded to bfloat16, the bfloat16 tensor cores
-// accumulating into the running sum)
-template <typename W>
-constexpr bool kBf16W = std::is_same<W, uint4>::value;
-
-template <typename W>
 int smem_b(int splits, int k2) {
   const int span = kBN_B + k2 - 1;
-  return kBf16W<W> ? 4 * 2 * splits * span * kStrideB + 2 * span * kStrideHH
-                   : 4 * (2 * splits + 2) * span * kStrideB;
+  return 4 * 2 * splits * span * kStrideB + 2 * span * kStrideHH;
 }
 
 // grid (row tiles, groups, B): 16 rows x all 256 columns (8 warps of 32) x
-// the hidden channels [g H / groups, (g + 1) H / groups)
-template <typename W>
-__device__ __forceinline__ void ffn_conv2_block(
-    const float* __restrict__ part, const float* __restrict__ b1,
-    const W* __restrict__ w2, float* __restrict__ ypart, int B, int L, int H,
-    int k2, int splits) {
-  constexpr bool kBf16 = kBf16W<W>;
+// the hidden channels [g H / groups, (g + 1) H / groups); w2: the packed
+// weights, [D/16][k2][H/16][32][8] bfloat16 values (h rounded to bfloat16,
+// the bfloat16 tensor cores accumulating into the running sum)
+__global__ void __launch_bounds__(kThreadsB)
+ffn_conv2_bf16_kernel(const float* __restrict__ part,
+                      const float* __restrict__ b1,
+                      const uint4* __restrict__ w2, float* __restrict__ ypart,
+                      int B, int L, int H, int k2, int splits) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z;
   const int grp = blockIdx.y;
@@ -363,8 +228,8 @@ __device__ __forceinline__ void ffn_conv2_block(
   const int t = lane & 3;
   const int span = kBN_B + k2 - 1;
   const int win0 = l0 - (k2 - 1) / 2;
-  const int wf_mt = kBf16 ? k2 * (H / 16) * 32 : k2 * (H / 8) * kFrag4;
-  const W* wf = w2 + 2 * warp * wf_mt;
+  const int wf_mt = k2 * (H / 16) * 32;
+  const uint4* wf = w2 + 2 * warp * wf_mt;
   const size_t plane = static_cast<size_t>(B) * L * H;   // floats per split
   const float* pb0 = part + static_cast<size_t>(b) * L * H;
   const int slices = H / kSliceB / gridDim.y;
@@ -372,11 +237,7 @@ __device__ __forceinline__ void ffn_conv2_block(
 
   float* raw = smem;        // [2][splits][span][68]
   const int buf = splits * span * kStrideB;
-  // float32: h's big, then small plane, [span][68] each; bfloat16: h
-  // [span][kStrideHH]
-  uint32_t* pb = reinterpret_cast<uint32_t*>(smem + 2 * buf);
-  uint32_t* ps = pb + span * kStrideB;
-  bf16* hs = reinterpret_cast<bf16*>(smem + 2 * buf);
+  bf16* hs = reinterpret_cast<bf16*>(smem + 2 * buf);   // h [span][72]
 
   float acc[2][2][4];
   zero(acc);
@@ -404,43 +265,28 @@ __device__ __forceinline__ void ffn_conv2_block(
           sum += src[(s * span + row) * kStrideB + c];
         v = fmaxf(sum + __ldg(b1 + sl * kSliceB + c), 0.f);
       }
-      if constexpr (kBf16)
-        hs[row * kStrideHH + c] = __float2bfloat16_rn(v);
-      else
-        split(v, pb[row * kStrideB + c], ps[row * kStrideB + c]);
+      hs[row * kStrideHH + c] = __float2bfloat16_rn(v);
     }
     __syncthreads();
-    if constexpr (kBf16) {
 #pragma unroll 1
-      for (int j = 0; j < k2; ++j)
+    for (int j = 0; j < k2; ++j)
 #pragma unroll
-        for (int ks = 0; ks < kSliceB / 16; ++ks) {
-          uint32_t a[2][4], bfr[2][2];
+      for (int ks = 0; ks < kSliceB / 16; ++ks) {
+        uint32_t a[2][4], bfr[2][2];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            load_a_bf16(wf + mt * wf_mt +
-                            (j * (H / 16) + sl * (kSliceB / 16) + ks) * 32,
-                        lane, a[mt]);
+        for (int mt = 0; mt < 2; ++mt)
+          load_a_bf16(wf + mt * wf_mt +
+                          (j * (H / 16) + sl * (kSliceB / 16) + ks) * 32,
+                      lane, a[mt]);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          load_b_bf16(hs, kStrideHH, 8 * nt + g + j, 16 * ks, t, bfr[nt]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt)
-            load_b_bf16(hs, kStrideHH, 8 * nt + g + j, 16 * ks, t, bfr[nt]);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt)
-              mma_bf16(acc[mt][nt], a[mt], bfr[nt]);
-        }
-    } else {
-      const int tap4 = (H / 8) * kFrag4;
-      float part_acc[2][2][4];
-      zero(part_acc);
-#pragma unroll 1
-      for (int j = 0; j < k2; ++j)
-        mma_tap<2, 2, kSliceB / 8>(
-            part_acc, pb, ps, kStrideB, j,
-            wf + j * tap4 + sl * (kSliceB / 8) * kFrag4, wf_mt, lane);
-      add(acc, part_acc);
-    }
+            mma_bf16(acc[mt][nt], a[mt], bfr[nt]);
+      }
   }
 
   float* yb = ypart + (static_cast<size_t>(grp) * B + b) * L * kD;
@@ -456,28 +302,10 @@ __device__ __forceinline__ void ffn_conv2_block(
       }
 }
 
-// the two instances, named apart for the build report
-__global__ void __launch_bounds__(kThreadsB)
-ffn_conv2_kernel(const float* __restrict__ part, const float* __restrict__ b1,
-                 const float4* __restrict__ w2, float* __restrict__ ypart,
-                 int B, int L, int H, int k2, int splits) {
-  ffn_conv2_block(part, b1, w2, ypart, B, L, H, k2, splits);
-}
-
-__global__ void __launch_bounds__(kThreadsB)
-ffn_conv2_bf16_kernel(const float* __restrict__ part,
-                      const float* __restrict__ b1,
-                      const uint4* __restrict__ w2, float* __restrict__ ypart,
-                      int B, int L, int H, int k2, int splits) {
-  ffn_conv2_block(part, b1, w2, ypart, B, L, H, k2, splits);
-}
-
 // ---- (c) out = LN(sum of the groups' ypart + b2 + x) over D = 256 ---------
 constexpr int kThreadsC = 256;   // one warp per row
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
@@ -526,27 +354,6 @@ ffn_ln_kernel(const float* __restrict__ ypart, const float* __restrict__ b2,
 }
 
 template <int MT, int WN>
-cudaError_t launch_a(const float* x, const float4* w1, float* part, int B,
-                     int L, int H, int k1, int splits, cudaStream_t s) {
-  constexpr int BN = 32 * WN;
-  const int per = (k1 + splits - 1) / splits;
-  const int smem = 4 * (kStagesA + 2) * (BN + per - 1) * kStrideA;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ffn_conv1_kernel<MT, WN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
-  const dim3 grid((L + BN - 1) / BN, H / kBM_A, B * splits);
-  ffn_conv1_kernel<MT, WN><<<grid, kThreadsA, smem, s>>>(x, w1, part, B, L,
-                                                          H, k1, splits);
-  return cudaGetLastError();
-}
-
-template <int MT, int WN>
 cudaError_t launch_a(const bf16* x, const uint4* w1, float* part, int B,
                      int L, int H, int k1, int splits, cudaStream_t s) {
   constexpr int BN = 32 * WN;
@@ -567,12 +374,8 @@ cudaError_t launch_a(const bf16* x, const uint4* w1, float* part, int B,
   return cudaGetLastError();
 }
 
-// K2's three launches for X = float (W = float4, fs2_conv_ffn_fwd_f32's
-// contract below) or bf16 (W = uint4)
-template <typename X, typename W>
-int conv_ffn_fwd(void (*conv2)(const float*, const float*, const W*, float*,
-                               int, int, int, int, int),
-                 const void* x, const void* w1, const void* b1,
+// K2's three launches (fs2_conv_ffn_fwd_bf16's contract below)
+int conv_ffn_fwd(const void* x, const void* w1, const void* b1,
                  const void* w2, const void* b2, const void* gamma,
                  const void* beta, void* scratch, void* out, int B, int L,
                  int D, int H, int k1, int k2, int bn, int splits,
@@ -582,8 +385,8 @@ int conv_ffn_fwd(void (*conv2)(const float*, const float*, const W*, float*,
       (H / kSliceB) % groups != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const X* xs = static_cast<const X*>(x);
-  const W* w1s = static_cast<const W*>(w1);
+  const bf16* xs = static_cast<const bf16*>(x);
+  const uint4* w1s = static_cast<const uint4*>(w1);
   float* part = static_cast<float*>(scratch);
   float* ypart = part + static_cast<size_t>(splits) * B * L * H;
   cudaError_t err;
@@ -598,34 +401,35 @@ int conv_ffn_fwd(void (*conv2)(const float*, const float*, const W*, float*,
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  const int smem = smem_b<W>(splits, k2);
+  const int smem = smem_b(splits, k2);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   static bool opted_in = false;
   if (!opted_in) {
-    err = cudaFuncSetAttribute(conv2,
+    err = cudaFuncSetAttribute(ffn_conv2_bf16_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const dim3 grid_b((L + kBN_B - 1) / kBN_B, groups, B);
-  conv2<<<grid_b, kThreadsB, smem, s>>>(part, static_cast<const float*>(b1),
-                                        static_cast<const W*>(w2), ypart, B,
-                                        L, H, k2, splits);
+  ffn_conv2_bf16_kernel<<<grid_b, kThreadsB, smem, s>>>(
+      part, static_cast<const float*>(b1), static_cast<const uint4*>(w2),
+      ypart, B, L, H, k2, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rows = B * L;
   const dim3 grid_c((rows + kThreadsC / 32 - 1) / (kThreadsC / 32));
-  ffn_ln_kernel<X><<<grid_c, kThreadsC, 0, s>>>(
+  ffn_ln_kernel<bf16><<<grid_c, kThreadsC, 0, s>>>(
       ypart, static_cast<const float*>(b2), xs,
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<X*>(out), rows, groups);
+      static_cast<bf16*>(out), rows, groups);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// K2's launch plan at [B, L, 256] -> H with a k1-tap first conv:
+// K2's bfloat16 launch plan at [B, L, 256] -> H with a k1-tap first conv
+// (the float32 instance has its own, fs2_conv_ffn_f32_plan):
 //   cfg[0] = positions per block of (a): 64 up to L = 64, else 128;
 //   cfg[1] = the tap splits S of (a), the smallest whose grid has a block
 //            for every SM (at most k1, and no split left without a tap);
@@ -658,31 +462,16 @@ extern "C" long long fs2_conv_ffn_plan(int B, int L, int H, int k1,
   return (static_cast<long long>(splits) * H + groups * kD) * B * L;
 }
 
-// x, out: [B, L, D]; w1, w2: packed fragments of conv1 ([H/16][k1][D/8][32]
-// [8] floats) and conv2 ([D/16][k2][H/8][32][8]), conv_tiles.cuh; b1: [H];
-// b2, gamma, beta: [D]; scratch: fs2_conv_ffn_plan's floats.  All float32,
-// contiguous, 16-byte aligned.  Takes D = 256, H a multiple of 64, k1, k2
-// >= 1 (a k-tap conv pads (k-1)/2 zeros before and k/2 after, SAME), and
-// bn, splits, groups as fs2_conv_ffn_plan gives them (bn in {64, 128},
-// 1 <= splits <= k1, groups dividing H / 64).  Launches the three kernels on
-// `stream`; returns cudaGetLastError() after each (or cudaErrorInvalidValue
-// for a shape the kernels do not take).
-extern "C" int fs2_conv_ffn_fwd_f32(const void* x, const void* w1,
-                                    const void* b1, const void* w2,
-                                    const void* b2, const void* gamma,
-                                    const void* beta, void* scratch,
-                                    void* out, int B, int L, int D, int H,
-                                    int k1, int k2, int bn, int splits,
-                                    int groups, void* stream) {
-  return conv_ffn_fwd<float>(ffn_conv2_kernel, x, w1, b1, w2, b2, gamma,
-                             beta, scratch, out, B, L, D, H, k1, k2, bn,
-                             splits, groups, stream);
-}
-
-// fs2_conv_ffn_fwd_f32's contract for the bfloat16 instance: x and out
-// bfloat16; w1, w2 the bfloat16 packs of conv1 ([H/16][k1][D/16][32][8]
-// values) and conv2 ([D/16][k2][H/16][32][8]); b1, b2, gamma, beta and the
-// scratch (fs2_conv_ffn_plan's floats) float32.
+// x, out: [B, L, D] bfloat16; w1, w2: the bfloat16 packs of conv1
+// ([H/16][k1][D/16][32][8] values) and conv2 ([D/16][k2][H/16][32][8]); b1:
+// [H]; b2, gamma, beta: [D]; scratch: fs2_conv_ffn_plan's floats; b1, b2,
+// gamma, beta and the scratch float32.  All contiguous, 16-byte aligned.
+// Takes D = 256, H a multiple of 64, k1, k2 >= 1 (a k-tap conv pads
+// (k-1)/2 zeros before and k/2 after, SAME), and bn, splits, groups as
+// fs2_conv_ffn_plan gives them (bn in {64, 128}, 1 <= splits <= k1, groups
+// dividing H / 64).  Launches the three kernels on `stream`; returns
+// cudaGetLastError() after each (or cudaErrorInvalidValue for a shape the
+// kernels do not take).
 extern "C" int fs2_conv_ffn_fwd_bf16(const void* x, const void* w1,
                                      const void* b1, const void* w2,
                                      const void* b2, const void* gamma,
@@ -690,7 +479,6 @@ extern "C" int fs2_conv_ffn_fwd_bf16(const void* x, const void* w1,
                                      void* out, int B, int L, int D, int H,
                                      int k1, int k2, int bn, int splits,
                                      int groups, void* stream) {
-  return conv_ffn_fwd<bf16>(ffn_conv2_bf16_kernel, x, w1, b1, w2, b2, gamma,
-                            beta, scratch, out, B, L, D, H, k1, k2, bn,
-                            splits, groups, stream);
+  return conv_ffn_fwd(x, w1, b1, w2, b2, gamma, beta, scratch, out, B, L, D,
+                      H, k1, k2, bn, splits, groups, stream);
 }

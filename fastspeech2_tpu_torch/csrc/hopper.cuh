@@ -1,7 +1,9 @@
-// Hopper's asynchronous machinery as inline PTX, for the bfloat16 attention
-// kernels (attention_bf16.cu, attention_bwd_bf16.cu) and K4 (resblock.cu):
-// mbarriers, TMA tile loads and bulk copies, warpgroup matrix products
-// (wgmma, bfloat16 and tf32) and their shared-memory descriptors, and the
+// Hopper's asynchronous machinery as inline PTX, for the kernels on wgmma:
+// the attention forward (attention.cu, float32; attention_bf16.cu), the
+// bfloat16 attention backward (attention_bwd_bf16.cu), the float32 conv FFN
+// (conv_ffn_f32.cu) and K4 (resblock.cu): mbarriers (whose waits trap after
+// 2 s), TMA tile loads and bulk copies, warpgroup matrix products (wgmma,
+// bfloat16 and tf32) and their shared-memory descriptors, and the
 // host-side tensor maps.  sm_90a only (wgmma).
 //
 // Tiles.  Every operand tile in shared memory is one or more 64 x 64
@@ -507,6 +509,24 @@ __device__ __forceinline__ void wgmma_tf32_rs_first<256>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
 }
 
+// d (64 x 32, float32) += A B: A (64 x 8) and B (8 x 32) tf32, both
+// K-major from shared memory (descriptors a and b)
+__device__ __forceinline__ void wgmma_tf32_ss32(float (&d)[16], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : FS2_D16("+f")
+      : "l"(a), "l"(b), "r"(1));
+}
+
 #undef FS2_D128
 #undef FS2_D64
 #undef FS2_D32
@@ -561,6 +581,35 @@ inline bool tensor_map_rows128(CUtensorMap* map, const void* base, int rows,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the tensor map of a row-major float32 [heads, rows, 128] tensor in
+// boxes of `box_rows` rows by 32 columns (128 bytes) in the 128-byte
+// swizzle: a [box_rows][128] tile is four such boxes, d 0-31 first.  Rows
+// at or past `rows` read as zeros, so a box never reaches into the next
+// head
+inline bool tensor_map_rows128_f32(CUtensorMap* map, const void* base,
+                                   int rows, int heads, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {128, static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {
+      128 * sizeof(float), static_cast<cuuint64_t>(rows) * 128 * sizeof(float)};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the offset, in floats, of element (r, c) of a [rows][32] float32 (tf32)
+// box in the 128-byte swizzle: the 16-byte chunk c / 4 of row r stored at
+// chunk (c / 4) ^ (r % 8)
+__device__ __forceinline__ int swz32(int r, int c) {
+  return r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
 }
 
 }  // namespace fs2_hopper

@@ -1,7 +1,9 @@
 // Float32 products on Hopper's tensor cores within ~1e-5 of float32
 // (3xTF32), the bfloat16 product of the kernels' bfloat16 instances, and
 // asynchronous copies into shared memory: the generic pieces that K1 and
-// K3 (attention_common.cuh), K2 (conv_ffn.cu) and K4 (resblock.cu) share.
+// K3 (attention_common.cuh), K2 (conv_ffn.cu, conv_ffn_f32.cu) and K4
+// (resblock.cu) share.  The kernels on wgmma take only the split and the
+// rounding from here.
 //
 // 3xTF32 (CUTLASS's OpMultiplyAddFastF32): each float32 operand x is split
 // into big = tf32(x) and small = tf32(x - big), both rounded as

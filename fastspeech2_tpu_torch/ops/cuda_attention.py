@@ -1,8 +1,9 @@
 """K1 and K3: fused masked self-attention forward and backward,
-hand-written CUDA for Hopper (float32: ``csrc/attention.cu``,
-``csrc/attention_bwd.cu``; bfloat16, on wgmma and TMA:
-``csrc/attention_bf16.cu``, ``csrc/attention_bwd_bf16.cu``), replacing the
-TPU kernels
+hand-written CUDA for Hopper (K1 on wgmma and TMA at both dtypes:
+``csrc/attention.cu``, float32 as 3xTF32, and ``csrc/attention_bf16.cu``;
+K3: ``csrc/attention_bwd.cu``, float32 on mma.sync, recomputing K1's
+scores bit for bit, and ``csrc/attention_bwd_bf16.cu`` on wgmma), replacing
+the TPU kernels
 ``fastspeech2_tpu/ops/pallas_attention.py::_mha_kernel`` and
 ``::_mha_bwd_kernel`` (the ``fused_multi_head_attention`` custom VJP).
 
@@ -104,21 +105,25 @@ def _explain_inputs(name, q, k, v, key_pad_mask):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(device_index, B, H, L, bf16):
+def _plan(device_index, B, H, L, bf16, stats):
     grid = (ctypes.c_int * 3)()
-    n = load_library().fs2_mha_fwd_plan(B, H, L, int(bf16), grid)
+    n = load_library().fs2_mha_fwd_plan(B, H, L, int(bf16), int(stats),
+                                        grid)
     if n < 0:
         raise ValueError(f"fs2_mha_fwd_plan: bad shape {(B, H, L)}")
     return tuple(grid), n
 
 
-def forward_plan(B, H, L, dtype=torch.float32):
+def forward_plan(B, H, L, dtype=torch.float32, stats=False):
     """K1's grid on the current card for [B, H, L, 128] at ``dtype`` (each
-    instance has its own tiles and plan): ((query tiles, B*H, key chunks),
-    float32 scratch elements).  More than one key chunk means the split
-    path: partials to scratch and a combining launch."""
+    instance has its own tiles and plan), with the row statistics (the
+    training path: at float32 its key chunks depend on L alone, so that a
+    row's bits do not depend on the batch size or head count) or without:
+    ((query tiles, B*H, key chunks), float32 scratch elements).  More than
+    one key chunk means the split path: partials to scratch and a combining
+    launch."""
     return _plan(torch.cuda.current_device(), B, H, L,
-                 dtype == torch.bfloat16)
+                 dtype == torch.bfloat16, stats)
 
 
 def _on_device(device):
@@ -150,7 +155,7 @@ def _launch_forward(q, k, v, key_pad_mask, with_stats):
     bf16 = q.dtype == torch.bfloat16
     B, H, L, D = q.shape
     lib = load_library()
-    _, n_scratch = _plan(device, B, H, L, bf16)
+    _, n_scratch = _plan(device, B, H, L, bf16, with_stats)
     out = torch.empty_like(q)
     row_max = row_sum = scratch = None
     if with_stats:

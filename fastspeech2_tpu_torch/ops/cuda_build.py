@@ -22,7 +22,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("attention.cu", "attention_bwd.cu", "attention_bf16.cu",
-           "attention_bwd_bf16.cu", "conv_ffn.cu", "resblock.cu")
+           "attention_bwd_bf16.cu", "conv_ffn.cu", "conv_ffn_f32.cu",
+           "resblock.cu")
 # headers the sources include (hashed with them)
 HEADERS = ("attention_bf16.cuh", "attention_common.cuh", "conv_tiles.cuh",
            "hopper.cuh", "tf32_mma.cuh")
@@ -38,9 +39,14 @@ _SIGNATURES = {
     # stream
     "fs2_mha_fwd_f32": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
     "fs2_mha_fwd_bf16": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
-    # B, H, L, bf16, grid (int[3], written) -> scratch floats (long long)
-    "fs2_mha_fwd_plan": [_I] * 4 + [_P],
+    # B, H, L, bf16, stats, grid (int[3], written) -> scratch floats (long
+    # long)
+    "fs2_mha_fwd_plan": [_I] * 5 + [_P],
+    # q, k, s, B, H, L, route, stream: raw scores through K1's or K3b's
+    # routine (the score contract's check)
+    "fs2_mha_scores_f32": [_P] * 3 + [_I] * 4 + [_P],
     "fs2_mha_fwd_blocks_per_sm": [],
+    "fs2_mha_fwd_f32_smem_bytes": [],
     "fs2_mha_bwd_blocks_per_sm": [],
     "fs2_mha_fwd_bf16_blocks_per_sm": [],
     "fs2_mha_bwd_bf16_blocks_per_sm": [],
@@ -52,12 +58,17 @@ _SIGNATURES = {
     "fs2_mha_bwd_bf16": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
     # B, H, L, bf16 -> scratch floats (long long)
     "fs2_mha_bwd_scratch_floats": [_I] * 4,
-    # x, w1, b1, w2, b2, gamma, beta, scratch, out, B, L, D, H, k1, k2, bn,
+    # x, w1, b1, w2, b2, gamma, beta, scratch, out, B, L, D, H, k1, k2,
     # splits, groups, stream
-    "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 9 + [_P],
+    "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 8 + [_P],
+    # the same with bn (positions per block of the first conv) before splits
     "fs2_conv_ffn_fwd_bf16": [_P] * 9 + [_I] * 9 + [_P],
+    # B, L, H, k1, k2, cfg (int[2], written) -> scratch floats (long long)
+    "fs2_conv_ffn_f32_plan": [_I] * 5 + [_P],
     # B, L, H, k1, cfg (int[3], written) -> scratch floats (long long)
     "fs2_conv_ffn_plan": [_I] * 4 + [_P],
+    # conv2 (0: the first conv) -> dynamic shared memory bytes of a block
+    "fs2_conv_ffn_f32_smem_bytes": [_I],
     # in, w, bias, res, out, B, C, L, k, d, first, nb, stream
     "fs2_resblock_conv_f32": [_P] * 5 + [_I] * 7 + [_P],
     # B, C, L -> output channels per block
@@ -68,7 +79,8 @@ _SIGNATURES = {
 
 _RESTYPES = {"fs2_mha_fwd_plan": ctypes.c_longlong,
              "fs2_mha_bwd_scratch_floats": ctypes.c_longlong,
-             "fs2_conv_ffn_plan": ctypes.c_longlong}
+             "fs2_conv_ffn_plan": ctypes.c_longlong,
+             "fs2_conv_ffn_f32_plan": ctypes.c_longlong}
 
 _library = None
 build_info = {}   # filled by the build: path, seconds, ptxas report

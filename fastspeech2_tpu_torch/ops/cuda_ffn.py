@@ -1,6 +1,8 @@
 """K2: fused position-wise conv FFN, hand-written CUDA for Hopper on the
-tensor cores (``csrc/conv_ffn.cu``), replacing the TPU kernel
-``fastspeech2_tpu/ops/pallas_ffn.py::_ffn_kernel``, with its plain version.
+tensor cores (float32: ``csrc/conv_ffn_f32.cu``, 3xTF32 on ``wgmma``, the
+weights fed by TMA; bfloat16: ``csrc/conv_ffn.cu``), replacing the TPU
+kernel ``fastspeech2_tpu/ops/pallas_ffn.py::_ffn_kernel``, with its plain
+version.
 
 Both compute LN(ReLU(conv1d_k1(x) + b1) -> conv1d_k2 + b2 + x) over
 x [B, L, D] with w1 [k1, D, H] and w2 [k2, H, D] (the JAX package's
@@ -24,11 +26,12 @@ the weights rounded to bfloat16, float32 accumulation from float32 b1, h
 rounded to bfloat16, b2, the residual and the LayerNorm in float32, the
 output rounded to bfloat16.  The biases and the LayerNorm's parameters
 stay float32.  Each instance counts its own launches.  The kernel reads
-both convs' weights packed in the tensor cores' fragment order
-(:func:`pack_ffn_weights`, ``ops/tf32_pack.py``: TF32 planes, or
-bfloat16); the model keeps that pack for its no-grad forwards and rebuilds
-it only when a weight or the dtype changes.  Without a pack, a call packs
-the weights it is given.
+both convs' weights packed once (:func:`pack_ffn_weights`,
+``ops/tf32_pack.py``): at float32 the big and small TF32 planes of each
+(32-channel slice, tap) as swizzled rows, the ``wgmma`` B operand; at
+bfloat16 in the ``mma`` A fragments' order.  The model keeps that pack for
+its no-grad forwards and rebuilds it only when a weight or the dtype
+changes.  Without a pack, a call packs the weights it is given.
 """
 
 import ctypes
@@ -39,16 +42,18 @@ from torch.nn import functional as F
 
 from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
 from fastspeech2_tpu_torch.ops.tf32_pack import (
-    pack_fragments,
+    SLICE,
     pack_fragments_bf16,
+    pack_planes,
 )
 
 MODEL_DIM = 256
 
 # fused_conv_ffn calls that launched the kernel since the count was last
-# set to 0 (each call is three launches: the first conv's partial sums, the
-# second conv's group shares, the residual and LayerNorm): float32,
-# bfloat16
+# set to 0: float32 (two launches at the large shapes, the first conv and
+# the second ending in the residual and LayerNorm; up to five at the small
+# ones, csrc/conv_ffn_f32.cu), bfloat16 (three: the first conv's partial
+# sums, the second conv's group shares, the residual and LayerNorm)
 launches = 0
 launches_bf16 = 0
 
@@ -64,21 +69,29 @@ def conv1d_same(x, w):
 
 def pack_ffn_weights(w1, w2, dtype=torch.float32):
     """w1 [k1, D, H], w2 [k2, H, D] (JAX layouts, any strides) -> what K2's
-    ``dtype`` instance reads: float32 (w1p [H/16, k1, D/8, 32, 8], w2p
-    [D/16, k2, H/8, 32, 8]) or bfloat16 (w1p [H/16, k1, D/16, 32, 8], w2p
-    [D/16, k2, H/16, 32, 8])."""
-    pack = pack_fragments_bf16 if dtype == torch.bfloat16 else pack_fragments
-    return (pack(w1.detach().permute(0, 2, 1)),
-            pack(w2.detach().permute(0, 2, 1)))
+    ``dtype`` instance reads: float32 (:func:`pack_planes`: w1p [D/32, k1,
+    2, H, 32], w2p [H/32, k2, 2, D, 32]) or bfloat16 (w1p [H/16, k1, D/16,
+    32, 8], w2p [D/16, k2, H/16, 32, 8])."""
+    if dtype == torch.bfloat16:
+        return (pack_fragments_bf16(w1.detach().permute(0, 2, 1)),
+                pack_fragments_bf16(w2.detach().permute(0, 2, 1)))
+    return (pack_planes(w1.detach().permute(0, 2, 1)),
+            pack_planes(w2.detach().permute(0, 2, 1)))
 
 
 @functools.lru_cache(maxsize=256)
-def forward_plan(B, L, H, k1):
-    """-> (positions per block of the first conv, its tap splits, the
-    second conv's hidden groups): the kernel's own plan
-    (``fs2_conv_ffn_plan``)."""
-    cfg = (ctypes.c_int * 3)()
-    load_library().fs2_conv_ffn_plan(B, L, H, k1, cfg)
+def forward_plan(B, L, H, k1, k2=1, dtype=torch.float32):
+    """The kernel's own plan: at float32 (``fs2_conv_ffn_f32_plan``) the
+    first conv's tap splits and the second conv's hidden groups; at
+    bfloat16 (``fs2_conv_ffn_plan``) the first conv's positions per block,
+    its tap splits and the second conv's hidden groups."""
+    lib = load_library()
+    if dtype == torch.bfloat16:
+        cfg = (ctypes.c_int * 3)()
+        lib.fs2_conv_ffn_plan(B, L, H, k1, cfg)
+    else:
+        cfg = (ctypes.c_int * 2)()
+        lib.fs2_conv_ffn_f32_plan(B, L, H, k1, k2, cfg)
     return tuple(cfg)
 
 
@@ -147,8 +160,9 @@ def fused_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, packed=None):
 
 
 def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
-    """``plan``: (positions per block, tap splits, hidden groups) for
-    measurement; the kernel's own :func:`forward_plan` by default."""
+    """``plan``: the kernel's plan for measurement (at float32 (tap splits,
+    hidden groups), at bfloat16 (positions per block, tap splits, hidden
+    groups)); the kernel's own :func:`forward_plan` by default."""
     global launches, launches_bf16
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_ffn: unsupported device {x.device}")
@@ -161,16 +175,20 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
     B, L, D = x.shape
     k1, _, H = w1.shape
     k2 = w2.shape[0]
-    if H % 64 != 0:
+    if H % (64 if bf16 else 128) != 0:
         raise ValueError(f"fused_conv_ffn: hidden width {H} is not a "
-                         "multiple of 64")
+                         f"multiple of {64 if bf16 else 128}")
     w1p, w2p = packed
-    kd = 16 if bf16 else 8   # the depth of a packed fragment
+    if bf16:
+        w1_shape = (H // 16, k1, D // 16, 32, 8)
+        w2_shape = (D // 16, k2, H // 16, 32, 8)
+    else:
+        w1_shape = (D // SLICE, k1, 2, H, SLICE)
+        w2_shape = (H // SLICE, k2, 2, D, SLICE)
     f32 = torch.float32
     shapes = {"x": (x, (B, L, MODEL_DIM), x.dtype),
-              "w1": (w1p, (H // 16, k1, D // kd, 32, 8), x.dtype),
-              "b1": (b1, (H,), f32),
-              "w2": (w2p, (D // 16, k2, H // kd, 32, 8), x.dtype),
+              "w1": (w1p, w1_shape, x.dtype), "b1": (b1, (H,), f32),
+              "w2": (w2p, w2_shape, x.dtype),
               "b2": (b2, (D,), f32), "ln_scale": (ln_scale, (D,), f32),
               "ln_bias": (ln_bias, (D,), f32)}
     for name, (t, shape, dtype) in shapes.items():
@@ -182,21 +200,34 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
                              f"{shape}, got {tuple(t.shape)}")
         if t.data_ptr() % 16:
             raise ValueError(f"fused_conv_ffn: {name} is not 16-byte "
-                             "aligned (the kernel loads float4)")
+                             "aligned (the kernel loads 16 bytes at once)")
     lib = load_library()
-    bn, splits, groups = plan or forward_plan(B, L, H, k1)
-    # the first conv's partial sums, then the second conv's group shares
-    scratch = torch.empty((splits * H + groups * D) * B * L,
-                          device=x.device, dtype=torch.float32)
+    plan = plan or forward_plan(B, L, H, k1, k2, x.dtype)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        name = "fs2_conv_ffn_fwd_bf16" if bf16 else "fs2_conv_ffn_fwd_f32"
-        err = getattr(lib, name)(
-            x.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
-            b2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), B, L, D, H, k1, k2, bn,
-            splits, groups, stream)
+        args = (x.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
+                b2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr())
+        if bf16:
+            bn, splits, groups = plan
+            # the first conv's partial sums, then the second conv's shares
+            scratch = torch.empty((splits * H + groups * D) * B * L,
+                                  device=x.device, dtype=torch.float32)
+            name = "fs2_conv_ffn_fwd_bf16"
+            err = lib.fs2_conv_ffn_fwd_bf16(
+                *args, scratch.data_ptr(), out.data_ptr(), B, L, D, H, k1,
+                k2, bn, splits, groups, stream)
+        else:
+            splits, groups = plan
+            # the first conv's partial sums, then (groups > 1) the second
+            # conv's shares
+            scratch = torch.empty(
+                (splits * H + (groups * D if groups > 1 else 0)) * B * L,
+                device=x.device, dtype=torch.float32)
+            name = "fs2_conv_ffn_fwd_f32"
+            err = lib.fs2_conv_ffn_fwd_f32(
+                *args, scratch.data_ptr(), out.data_ptr(), B, L, D, H, k1,
+                k2, splits, groups, stream)
     check(err, name)
     if bf16:
         launches_bf16 += 1

@@ -36,13 +36,16 @@ import torch
 from torch.nn import functional as F
 
 from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
-from fastspeech2_tpu_torch.ops.tf32_pack import tf32_round
+from fastspeech2_tpu_torch.ops.tf32_pack import (
+    SLICE,
+    pack_planes,
+    unpack_planes,
+)
 
 LRELU_SLOPE = 0.1
 KERNEL_SIZES = (3, 7, 11)
 CHANNELS = (32, 64, 128, 256)
 MAX_DILATION = 64
-SLICE = 32   # input channels per kernel stage: one 128-byte row of tf32
 
 # fused_resblock calls that launched the kernel since the count was last set
 # to 0 (each call is one ResBlock: two launches per dilation unit)
@@ -62,43 +65,24 @@ def plain_resblock(x, w1, b1, w2, b2, dilations):
     return x
 
 
-def _swizzle(planes):
-    """[..., R, 32] float32 rows -> the same rows with their 16-byte chunks
-    in the 128-byte swizzle (chunk c of row r stored at c ^ (r % 8)); an
-    involution, so it also undoes itself."""
-    R = planes.shape[-2]
-    chunks = planes.reshape(*planes.shape[:-1], 8, 4)
-    rows = torch.arange(R, device=planes.device)[:, None]
-    cols = torch.arange(8, device=planes.device)[None, :]
-    return chunks[..., rows, cols ^ (rows % 8), :] \
-        .reshape(planes.shape)
-
-
 def pack_conv_weight(w):
     """A [C_out, C_in, k] conv weight (C_out = C_in = C, a multiple of 32)
     -> [C/32, k, 2, C, 32] float32, contiguous: for each (32-channel
     slice s, tap j), tf32(w) then tf32(w - tf32(w)) as [C_out][32] planes
-    (row co holds w[co, 32 s:32 s + 32, j]), rows in the 128-byte
-    swizzle."""
+    (row co holds w[co, 32 s:32 s + 32, j]), rows in the 128-byte swizzle
+    (:func:`~fastspeech2_tpu_torch.ops.tf32_pack.pack_planes`)."""
     C_out, C_in, k = w.shape
     if C_out != C_in or C_in % SLICE:
         raise ValueError(f"pack_conv_weight: [C_out, C_in, k] = "
                          f"{tuple(w.shape)} needs C_out = C_in, a multiple "
                          f"of {SLICE}")
-    a = w.detach().float().permute(2, 0, 1)          # [k, co, ci]
-    big = tf32_round(a)
-    planes = torch.stack([big, tf32_round(a - big)], 1)   # [k, 2, co, ci]
-    planes = planes.reshape(k, 2, C_out, C_in // SLICE, SLICE)
-    return _swizzle(planes.permute(3, 0, 1, 2, 4)).contiguous()
+    return pack_planes(w.detach().permute(2, 0, 1))
 
 
 def unpack_conv_weight(packed):
     """Inverse of :func:`pack_conv_weight`: -> (big, small), each
     [k, C_out, C_in]."""
-    S, k, _, C, _ = packed.shape
-    planes = _swizzle(packed).permute(1, 2, 3, 0, 4).reshape(k, 2, C,
-                                                             S * SLICE)
-    return planes[:, 0], planes[:, 1]
+    return unpack_planes(packed)
 
 
 def pack_resblock_weights(w1, b1, w2, b2):
@@ -125,6 +109,9 @@ def fused_resblock(x, w1, b1, w2, b2, dilations, packed=None):
         raise RuntimeError("fused_resblock: K4 is inference-only; call it "
                            "under torch.inference_mode() or no_grad()")
     if packed is None:
+        if x.dim() != 3 or x.shape[1] not in CHANNELS:
+            raise ValueError(f"fused_resblock: takes x [B, C, L] with C in "
+                             f"{CHANNELS}, got {tuple(x.shape)}")
         packed = pack_resblock_weights(w1, b1, w2, b2)
     return _launch(x, packed, dilations)
 

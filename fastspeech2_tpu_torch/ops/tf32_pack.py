@@ -1,20 +1,20 @@
-"""Weights for the convolution kernel K2, split for 3xTF32 and laid out as
-the tensor cores' A fragments read them (``csrc/conv_tiles.cuh``), and
-K2's bfloat16 pack (:func:`pack_fragments_bf16`).  K4 splits its weights
-with the same :func:`tf32_round` and lays them out for ``wgmma``
-(``ops/cuda_resblock.pack_conv_weight``).
+"""Weights for the float32 convolution kernels on ``wgmma``, K2
+(``csrc/conv_ffn_f32.cu``) and K4 (``csrc/resblock.cu``), split for
+3xTF32 and laid out as their ``wgmma`` descriptors read them
+(:func:`pack_planes`), and K2's bfloat16 pack (:func:`pack_fragments_bf16`).
 
-A conv with T taps is T matrices A_j [M, K] (M output channels, K input
+A conv with T taps is T matrices A_j [N, K] (N output channels, K input
 channels).  Each float32 weight w is split into big = tf32(w) and small =
 tf32(w - big), rounded as ``cvt.rna.tf32.f32`` rounds (to nearest, ties
-away from zero, 10 mantissa bits), so big + small is w to ~2^-22.  The pack
-is [M/16, T, K/8, 32, 8] float32: for each 16 x 8 block of A_j, lane
-(g, t) = (lane // 4, lane % 4) holds a0 = A[g, t], a1 = A[g+8, t],
-a2 = A[g, t+4], a3 = A[g+8, t+4] of the big plane, then the same four of
-the small plane, as bit patterns stored in float32.
+away from zero, 10 mantissa bits), so big + small is w to ~2^-22.  A
+kernel stage is one (32-channel slice, tap): its two planes are [N][32]
+rows of 128 bytes, K-major (the B operand of a tf32 ``wgmma``), each row's
+16-byte chunks in the 128-byte swizzle.
 """
 
 import torch
+
+SLICE = 32   # input channels per kernel stage: one 128-byte row of tf32
 
 
 def tf32_round(x):
@@ -26,36 +26,40 @@ def tf32_round(x):
     return r.view(torch.float32)
 
 
-def pack_fragments(a):
-    """a: float32 [T, M, K], M a multiple of 16, K of 8 ->
-    [M/16, T, K/8, 32, 8], contiguous."""
-    T, M, K = a.shape
-    if M % 16 or K % 8:
-        raise ValueError(f"pack_fragments: [T, M, K] = {tuple(a.shape)} "
-                         "needs M a multiple of 16 and K of 8")
+def _swizzle(planes):
+    """[..., R, 32] float32 rows -> the same rows with their 16-byte chunks
+    in the 128-byte swizzle (chunk c of row r stored at c ^ (r % 8)); an
+    involution, so it also undoes itself."""
+    R = planes.shape[-2]
+    chunks = planes.reshape(*planes.shape[:-1], 8, 4)
+    rows = torch.arange(R, device=planes.device)[:, None]
+    cols = torch.arange(8, device=planes.device)[None, :]
+    return chunks[..., rows, cols ^ (rows % 8), :] \
+        .reshape(planes.shape)
 
-    def frag(p):
-        # rows m = 16 mb + 8 rh + g, columns k = 8 kb + 4 th + t
-        p = p.reshape(T, M // 16, 2, 8, K // 8, 2, 4)
-        # -> [mb, T, kb, g, t, th, rh]: word th * 2 + rh of lane 4 g + t
-        return p.permute(1, 0, 4, 3, 6, 5, 2).reshape(M // 16, T, K // 8,
-                                                      32, 4)
 
+def pack_planes(a):
+    """a: [T, N, K] (tap, output channel, input channel), K a multiple of
+    32 -> [K/32, T, 2, N, 32] float32, contiguous: for each (32-channel
+    slice s, tap j), tf32(a) then tf32(a - tf32(a)) as [N][32] planes (row
+    n holds a[j, n, 32 s:32 s + 32]), rows in the 128-byte swizzle."""
+    T, N, K = a.shape
+    if K % SLICE:
+        raise ValueError(f"pack_planes: [T, N, K] = {tuple(a.shape)} needs "
+                         f"K a multiple of {SLICE}")
     a = a.detach().float()
     big = tf32_round(a)
-    small = tf32_round(a - big)
-    return torch.cat([frag(big), frag(small)], dim=-1).contiguous()
+    planes = torch.stack([big, tf32_round(a - big)], 1)   # [T, 2, N, K]
+    planes = planes.reshape(T, 2, N, K // SLICE, SLICE)
+    return _swizzle(planes.permute(3, 0, 1, 2, 4)).contiguous()
 
 
-def unpack_fragments(packed):
-    """Inverse of :func:`pack_fragments`: -> (big, small), each [T, M, K]."""
-    mb, T, kb = packed.shape[:3]
-
-    def plane(p):
-        p = p.reshape(mb, T, kb, 8, 4, 2, 2).permute(1, 0, 6, 3, 2, 5, 4)
-        return p.reshape(T, mb * 16, kb * 8)
-
-    return plane(packed[..., :4]), plane(packed[..., 4:])
+def unpack_planes(packed):
+    """Inverse of :func:`pack_planes`: -> (big, small), each [T, N, K]."""
+    S, T, _, N, _ = packed.shape
+    planes = _swizzle(packed).permute(1, 2, 3, 0, 4).reshape(T, 2, N,
+                                                             S * SLICE)
+    return planes[:, 0], planes[:, 1]
 
 
 def pack_fragments_bf16(a):

@@ -3,10 +3,13 @@
 Three parts, each optional:
 
 - ``--timings``: K1 and K3 at every shape of the port's paths (K1 at
-  [1, 2, 32|1000, 128] for the README sentence, K1 and K3 at
+  [1, 2, 32|1000, 128] for the README sentence, [8, 2, 128|1000, 128] for
+  batch mode, [16, 2, 128|1000, 128] for serving, K1 and K3 at
   [10, 2, 128|768|1000, 128] for training), with the plain versions and
   SDPA (forward, and its backward for K3) on the same inputs; CUDA events
-  over 20 calls after 3 warm-up calls, as ``chip_smoke.py`` times them.
+  over 20 calls after 3 warm-up calls, as ``chip_smoke.py`` times them,
+  and for K1 and SDPA's forward also the device time (the kernels' own
+  durations in a torch.profiler trace, no host time).
   ``--root DIR`` times the kernels of the port in another checkout (for
   example an unpacked parent commit): its ``fastspeech2_tpu_torch`` is
   imported instead of this one, and built there.  ``--dtype bfloat16``
@@ -47,6 +50,9 @@ BATCH = 10
 # (name, B, L, lengths or None for the training rows) of K1's path shapes
 K1_SHAPES = (("readme_encoder", 1, 32, [31]), ("readme_decoder", 1, 1000,
                                                 [253]),
+             ("batch_encoder", 8, 128, None), ("batch_decoder", 8, 1000, None),
+             ("serve_encoder", 16, 128, None),
+             ("serve_decoder", 16, 1000, None),
              ("train_encoder", BATCH, 128, None),
              ("train_bucket768", BATCH, 768, None),
              ("train_decoder", BATCH, 1000, None))
@@ -66,6 +72,25 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """fn's device time per call in ms: the durations of the kernels it
+    launched (torch.profiler's CUDA activity) over ``iters`` calls after
+    ``warmup``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / iters / 1e3
 
 
 def inputs(B, L, lens, seed, device):
@@ -103,18 +128,19 @@ def timings(attn, plain, dtype="float32"):
         q, k, v, g, mask = inputs(B, L, lens, seed=L + B, device="cuda")
         q, k, v, g = (t.to(dt) for t in (q, k, v, g))
         bias = additive(mask).to(dt)
-        if B == 1:   # inference: no statistics
+        if not name.startswith("train"):   # inference: no statistics
             kernel = lambda: attn.fused_attention(q, k, v, mask)  # noqa: E731
         else:        # training: the statistics K3 reads
             kernel = lambda: attn._launch_forward(  # noqa: E731
                 q, k, v, mask, True)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=bias)
         rows.append(dict(
             kernel="K1", shape=[B, 2, L, 128], path=name, dtype=dtype,
-            ms=cuda_time_ms(kernel),
+            ms=cuda_time_ms(kernel), device_ms=device_ms(kernel),
             plain_ms=cuda_time_ms(
                 lambda: plain.multi_head_attention(q, k, v, mask)),
-            sdpa_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias))))
+            sdpa_ms=cuda_time_ms(sdpa), sdpa_device_ms=device_ms(sdpa)))
     for L in K3_LENGTHS:
         q, k, v, g, mask = inputs(BATCH, L, None, seed=L, device="cuda")
         q, k, v, g = (t.to(dt) for t in (q, k, v, g))
@@ -181,7 +207,7 @@ def split_sweep(attn, plain, cuda_build, counts, dtype="float32"):
         getattr(lib, entry).argtypes = ([ctypes.c_void_p] * 8
                                         + [ctypes.c_int] * 4
                                         + [ctypes.c_float, ctypes.c_void_p])
-        lib.fs2_mha_fwd_plan.argtypes = [ctypes.c_int] * 4 + [
+        lib.fs2_mha_fwd_plan.argtypes = [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         lib.fs2_mha_fwd_plan.restype = ctypes.c_longlong
         libs[c] = lib
@@ -195,7 +221,7 @@ def split_sweep(attn, plain, cuda_build, counts, dtype="float32"):
                    rule_grid=list(rule), variants=[])
         for c, lib in libs.items():
             grid = (ctypes.c_int * 3)()
-            n = lib.fs2_mha_fwd_plan(B, 2, L, int(bf16), grid)
+            n = lib.fs2_mha_fwd_plan(B, 2, L, int(bf16), 0, grid)
             scratch = torch.empty(max(n, 1), device="cuda")
             out = torch.empty_like(q)
             row_max = torch.empty(B, 2, L, device="cuda")
@@ -327,10 +353,13 @@ def main(argv=None):
     if args.timings:
         result["timings"] = timings(attn, plain, args.dtype)
         for r in result["timings"]:
+            dev = (f" (device {r['device_ms']:.4f} ms; SDPA's "
+                   f"{r['sdpa_device_ms']:.4f} ms)" if "device_ms" in r
+                   else "")
             print(f"[bench] {r['kernel']} {r['dtype']} {r['shape']} "
                   f"({r['path']}): "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"SDPA {r['sdpa_ms']:.4f} ms", flush=True)
+                  f"SDPA {r['sdpa_ms']:.4f} ms{dev}", flush=True)
     if args.split_sweep:
         counts = [int(c) for c in args.split_sweep.split(",")]
         result["split_sweep"] = split_sweep(attn, plain, cuda_build, counts,

@@ -20,9 +20,13 @@ Three parts, each optional:
   there.  ``--dtype bfloat16`` times K2's bfloat16 instance (x in
   bfloat16; K4 has none: the vocoder stays float32).
 - ``--sweep``: K4 at its 12 shapes by output channels per block (every
-  power of two from 32 to C; the model takes ``n_block``'s), and K2's
-  plan at [1, 32|1000, 256] by tile width, tap split count and hidden
-  groups, each held against the plain version.
+  power of two from 32 to C; the model takes ``n_block``'s), and the
+  float32 K2's plan at the paths' small shapes ([1, 1|32|1000, 256], [1,
+  48, 256] with a 3-tap second conv, [10, 128, 256]) by tap splits of the
+  first conv and hidden groups of the second, each held against the plain
+  version and timed by CUDA events and by device time per kernel (the
+  data the plan's cost model in ``csrc/conv_ffn_f32.cu`` is fitted to),
+  the plan's own pick marked.
 - ``--profile``: the device time of each kernel a call launches (K2's
   three launches, K4's per dilation unit), from ``torch.profiler`` over 20
   calls, at K2's README shapes and K4's widest and narrowest shapes.
@@ -51,9 +55,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 DILATIONS = (1, 3, 5)
 K4_RTOL = 1e-4
 KERNEL_ATOL = 1e-4
-# K2's shapes: (B, L) of the README sentence's encoder and decoder, the
-# re-dispatch bucket, and the validation forward at batch 10
-K2_SHAPES = ((1, 32), (1, 1000), (1, 1536), (10, 128), (10, 1000))
+# K2's shapes: (B, L, k2) of the README sentence's encoder and decoder,
+# the re-dispatch bucket, one frame, a 3-tap second conv, the validation
+# forward at batch 10, batch mode's batch 8 and serving's batch 16
+K2_SHAPES = ((1, 32, 1), (1, 1000, 1), (1, 1536, 1), (1, 1, 1), (1, 48, 3),
+             (10, 128, 1), (10, 1000, 1), (8, 128, 1), (8, 1000, 1),
+             (16, 128, 1), (16, 1000, 1))
 # the HiFi-GAN-iSTFT C8C8I vocoder's ResBlocks (upsample rates 8, 8 from 512
 # channels): the first six of the parity forward's twelve
 ISTFT_CHANNELS = (256, 128)
@@ -197,20 +204,24 @@ def timings(resblock, ffn, bounds, dtype="float32", batch=1):
         rows.append(row)
         del rb, packed
         torch.cuda.empty_cache()
-    for B, L in K2_SHAPES if batch == 1 else ():
-        args = ffn_inputs(B, L, seed=L + B)
+    for B, L, k2 in K2_SHAPES if batch == 1 else ():
+        args = ffn_inputs(B, L, seed=L + B, k2=k2)
         args = (args[0].to(getattr(torch, dtype)),) + args[1:]
         with torch.inference_mode():
+            call = ffn_kernel_call(ffn, args)
             rows.append(dict(
-                kernel="K2", shape=[B, L, 256], dtype=dtype,
-                ms=cuda_time_ms(ffn_kernel_call(ffn, args)),
-                plain_ms=cuda_time_ms(lambda: ffn.plain_conv_ffn(*args))))
+                kernel="K2", shape=[B, L, 256], k2=k2, dtype=dtype,
+                ms=cuda_time_ms(call),
+                device_ms=sum(device_ms(call, calls=20, warmup=3).values()),
+                plain_ms=cuda_time_ms(lambda: ffn.plain_conv_ffn(*args)),
+                bound_ms=bounds.ffn_bound_ms(B, L, taps=(9, k2),
+                                             dtype=dtype)[0]))
     return rows
 
 
 def sweep(resblock, ffn, bounds):
-    """K4 by output channels per block, K2's first launch by tile and split
-    count."""
+    """K4 by output channels per block; the float32 K2 by its plan (tap
+    splits, hidden groups)."""
     import torch
 
     rows = []
@@ -231,20 +242,24 @@ def sweep(resblock, ffn, bounds):
                                        f"{err:.3e}")
                 rows.append(dict(kernel="K4", shape=[1, C, L], k=k, nb=nb,
                                  ms=cuda_time_ms(run), max_abs_err=err))
-    for B, L in ((1, 32), (1, 1000)):
-        args = ffn_inputs(B, L, seed=L + B)
+    for B, L, k2 in ((1, 1, 1), (1, 32, 1), (1, 48, 3), (1, 1000, 1),
+                     (10, 128, 1)):
+        args = ffn_inputs(B, L, seed=L + B, k2=k2)
         packed = ffn.pack_ffn_weights(args[1], args[3])
         ref = ffn.plain_conv_ffn(*args)
-        for plan in itertools.product((64, 128), (1, 2, 3, 5, 9),
-                                      (1, 4, 16)):
+        own = ffn.forward_plan(B, L, 1024, 9, k2)
+        for plan in itertools.product((1, 3, 9), (1, 2, 4, 8, 16, 32)):
             def run():
                 return ffn._launch(*args, packed=packed, plan=plan)
             err = (run() - ref).abs().max().item()
             if not err <= KERNEL_ATOL:
                 raise RuntimeError(f"K2 plan {plan} at {[B, L]}: {err:.3e}")
-            rows.append(dict(kernel="K2", shape=[B, L, 256], tile=plan[0],
-                             splits=plan[1], groups=plan[2],
-                             ms=cuda_time_ms(run), max_abs_err=err))
+            kernels = device_ms(run)
+            rows.append(dict(kernel="K2", shape=[B, L, 256], k2=k2,
+                             splits=plan[0], groups=plan[1],
+                             the_plans=plan == own, ms=cuda_time_ms(run),
+                             device_ms=sum(kernels.values()),
+                             device_ms_by_kernel=kernels, max_abs_err=err))
     return rows
 
 
@@ -370,8 +385,12 @@ def main(argv=None):
                      f"convolutions {r['cudnn_conv_device_ms']:.4f} (all "
                      f"{r['cudnn_device_ms']:.4f}); bound "
                      f"{r['bound_ms']:.4f} ms"
-                     if "cudnn_autotuned_ms" in r else "")
-            k = f" k={r['k']}" if "k" in r else f" {r['dtype']}"
+                     if "cudnn_autotuned_ms" in r else
+                     f"; device {r['device_ms']:.4f} ms, bound "
+                     f"{r['bound_ms']:.4f} ms "
+                     f"({r['bound_ms'] / r['device_ms']:.1%})")
+            k = (f" k={r['k']}" if "k" in r
+                 else f" k2={r['k2']} {r['dtype']}")
             print(f"[bench] {r['kernel']} {r['shape']}{k}: kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{extra}",
                   flush=True)
@@ -398,9 +417,11 @@ def main(argv=None):
         for r in result["sweep"]:
             what = (f"{r['nb']} output channels per block"
                     if r["kernel"] == "K4" else
-                    f"splits {r['splits']} groups {r['groups']} tile "
-                    f"{r['tile']}")
-            k = f" k={r['k']}" if "k" in r else ""
+                    f"splits {r['splits']} groups {r['groups']}"
+                    f"{' (the plan)' if r['the_plans'] else ''}, device "
+                    f"{r['device_ms']:.4f} ms")
+            k = (f" k={r['k']}" if "k" in r else f" k2={r['k2']}"
+                 if "k2" in r else "")
             print(f"[bench] sweep {r['kernel']} {r['shape']}{k} {what}: "
                   f"{r['ms']:.4f} ms (max_abs_err {r['max_abs_err']:.2e})",
                   flush=True)

@@ -1,7 +1,8 @@
 """The least time an H100 could take for K4
 (``fastspeech2_tpu/ops/pallas_resblock.py::_resblock_kernel``, ported as
 ``csrc/resblock.cu``), at the shapes the parity HiFi-GAN gives it, for K2
-(``pallas_ffn.py::_ffn_kernel``, ``csrc/conv_ffn.cu``) at the FFN's shapes,
+(``pallas_ffn.py::_ffn_kernel``, ``csrc/conv_ffn_f32.cu``; at bfloat16
+``csrc/conv_ffn.cu``) at the FFN's shapes,
 and for K1 and K3 (the attention forward and backward,
 ``csrc/attention.cu`` and ``csrc/attention_bwd.cu``; at bfloat16
 ``csrc/attention_bf16.cu`` and ``csrc/attention_bwd_bf16.cu``) at the

@@ -8,11 +8,15 @@ what they compute and holds it against the JAX package's Pallas attention
 
 - TF32 rounding as ``cvt.rna.tf32.f32`` does it: to nearest, ties away from
   zero, to 10 mantissa bits, on the bit pattern;
-- the 3xTF32 product (big*small + small*big + big*big per eight-wide
-  k-step, accumulated in float32; the tensor core modelled as exact
-  products summed in float64 and rounded once per step);
-- K1's tiles: 32-key tiles with the online softmax, the key chunks of the
-  split grid and their combine in the fixed order 0, 1, ...;
+- the 3xTF32 product (three TF32 products per eight-wide k-step,
+  accumulated in float32; the tensor core modelled as exact products
+  summed in float64 and rounded once per step): S = Q K^T and K3's
+  products as a_big b_small, a_small b_big, a_big b_big (the score
+  contract K1's wgmma routine and K3's score_tile share); K1's P V in K4's
+  order, P_small V_big, P_big V_small, P_big V_big;
+- K1's tiles (``csrc/attention.cu``, wgmma): 32-key tiles with the online
+  softmax, the key chunks of the split grid and their combine in the
+  fixed order 0, 1, ...;
 - K3's tiles: D = rowsum(G o O), P recomputed from K1's row max and row
   sum, dV and dK per 64-key tile, and dQ as the sum, in the order 0, 1,
   ..., of each 64-key tile's share dS K.
@@ -39,7 +43,7 @@ from fastspeech2_tpu_torch.tools.kernel_bounds import attention_bound_ms
 
 DH = 128
 KEY_TILE = 32     # K1's keys per tile
-TILE = 64         # K1's query rows per block; K3's tiles
+TILE = 64         # K3's tiles
 MASK = np.float32(-1e9)
 INIT_MAX = np.float32(-1e30)
 SCALE = np.float32(1.0 / math.sqrt(DH))
@@ -63,16 +67,20 @@ def split(x):
     return big, tf32_rna(x - big)
 
 
-def mma_3xtf32(acc, a, b):
+def mma_3xtf32(acc, a, b, small_first=False):
     """acc + a @ b ([..., M, K] @ [..., K, N], K a multiple of 8) as the
     kernels form it: per eight-wide k-step, a_big b_small, a_small b_big
-    and a_big b_big, each added to the float32 accumulator."""
+    and a_big b_big, each added to the float32 accumulator
+    (``small_first``: a_small b_big first, K4's order, which K1's P V
+    takes)."""
     ab, as_ = split(a)
     bb, bs = split(b)
     acc = np.asarray(acc, np.float32)
+    order = ((as_, bb), (ab, bs), (ab, bb)) if small_first else (
+        (ab, bs), (as_, bb), (ab, bb))
     for k0 in range(0, a.shape[-1], 8):
         ks = slice(k0, k0 + 8)
-        for x, y in ((ab, bs), (as_, bb), (ab, bb)):
+        for x, y in order:
             step = x[..., ks].astype(np.float64) @ y[..., ks, :].astype(
                 np.float64)
             acc = (acc.astype(np.float64) + step).astype(np.float32)
@@ -125,7 +133,8 @@ def k1_model(q, k, v, pad, chunks=1):
                          np.float32(0))
             l = l * alpha + p.sum(-1, dtype=np.float32)
             m = mx
-            o = mma_3xtf32(o * alpha[..., None], p, _rows(v, k0, KEY_TILE))
+            o = mma_3xtf32(o * alpha[..., None], p, _rows(v, k0, KEY_TILE),
+                           small_first=True)
         parts.append((m, l, o))
     if len(parts) == 1:
         m, l, o = parts[0]
@@ -245,14 +254,16 @@ def test_tf32_rna_rounds_to_nearest_ties_away_from_zero():
     assert (np.abs(r.astype(np.float64) - x) <= 2.0 ** -11 * np.abs(x)).all()
 
 
-def test_3xtf32_product_keeps_float32_accuracy():
-    """3xTF32 is within float32 rounding of the exact product; a single
-    TF32 product (about 3 decimal digits) is not."""
+@pytest.mark.parametrize("small_first", [False, True])
+def test_3xtf32_product_keeps_float32_accuracy(small_first):
+    """3xTF32 is within float32 rounding of the exact product in either
+    order of its three products; a single TF32 product (about 3 decimal
+    digits) is not."""
     rng = np.random.RandomState(1)
     a = rng.randn(64, DH).astype(np.float32)
     b = rng.randn(DH, 32).astype(np.float32)
     exact = a.astype(np.float64) @ b.astype(np.float64)
-    three = mma_3xtf32(np.zeros((64, 32), np.float32), a, b)
+    three = mma_3xtf32(np.zeros((64, 32), np.float32), a, b, small_first)
     single = tf32_rna(a).astype(np.float64) @ tf32_rna(b).astype(np.float64)
     f32 = (a @ b).astype(np.float64)
     err3 = np.abs(three - exact).max()

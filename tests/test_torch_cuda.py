@@ -115,12 +115,13 @@ def test_attention_kernel_row_statistics(device, lens, L):
 
 
 def test_attention_kernel_fills_the_card_at_batch_one(device):
-    """At [1, 2, 1000, 128] the (query tile, b*h) grid is 32 blocks; K1
-    splits the keys so that at least 128 blocks run.  The partials take
-    chunks * B*H*L * (128 + 2) floats of scratch, none without a split."""
+    """At [1, 2, 1000, 128] the (query tile, b*h) grid is 16 blocks of 128
+    query rows; K1 splits the keys so that at least 128 blocks run.  The
+    partials take chunks * B*H*L * (128 + 2) floats of scratch, none
+    without a split."""
     for B, L in ((1, 1000), (1, 32), (10, 128), (10, 768), (10, 1000)):
         grid, scratch = cuda_attention.forward_plan(B, 2, L)
-        assert grid[:2] == (-(-L // 64), B * 2), grid
+        assert grid[:2] == (-(-L // 128), B * 2), grid
         assert scratch == (0 if grid[2] == 1
                            else grid[2] * B * 2 * L * 130), (grid, scratch)
     grid, _ = cuda_attention.forward_plan(1, 2, 1000)
@@ -172,7 +173,7 @@ def test_kernels_raise_on_what_they_do_not_take(device):
     with pytest.raises(ValueError, match="key_pad_mask"):
         cuda_attention.fused_attention(q, k, v, mask.float())
     args = _ffn_inputs(16, device, H=96)
-    with pytest.raises(ValueError, match="multiple of 64"):
+    with pytest.raises(ValueError, match="multiple of 128"):
         cuda_ffn.fused_conv_ffn(*args)
     args = _ffn_inputs(16, device)
     args[0] = args[0][:, :, :128].contiguous()
@@ -456,16 +457,17 @@ def test_conv_ffn_kernel_at_the_path_shapes(device, B, L, k2):
                                atol=1e-4, rtol=0)
 
 
-# every tile width of the first conv with tap splits that leave one, two,
-# three and nine taps per block (9 = 3 + 3 + 3, 5 + 4, ...), and the second
-# conv's hidden channels in 1, 4 and 16 groups
-@pytest.mark.parametrize("bn", [64, 128])
-@pytest.mark.parametrize("splits", [1, 2, 3, 5, 9])
-@pytest.mark.parametrize("groups", [1, 4, 16])
-def test_conv_ffn_kernel_every_plan(device, bn, splits, groups):
-    args = _ffn_inputs(100, device, k2=3, seed=bn + splits + groups)
+# the float32 first conv's tap splits (each a divisor of the 9 taps: 9, 3
+# and 1 per block) with the second conv's hidden channels in 1 group (the
+# LayerNorm in its epilogue), 4 and 32 (the LayerNorm launch), on a 3-tap
+# second conv; L = 100 and 200 leave a ragged tile of each conv
+@pytest.mark.parametrize("L", [100, 200])
+@pytest.mark.parametrize("splits", [1, 3, 9])
+@pytest.mark.parametrize("groups", [1, 4, 32])
+def test_conv_ffn_kernel_every_plan(device, L, splits, groups):
+    args = _ffn_inputs(L, device, k2=3, seed=L + splits + groups)
     packed = cuda_ffn.pack_ffn_weights(args[1], args[3])
-    got = cuda_ffn._launch(*args, packed=packed, plan=(bn, splits, groups))
+    got = cuda_ffn._launch(*args, packed=packed, plan=(splits, groups))
     torch.cuda.synchronize()
     torch.testing.assert_close(got, cuda_ffn.plain_conv_ffn(*args),
                                atol=1e-4, rtol=0)
