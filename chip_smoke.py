@@ -8,29 +8,31 @@ exits non-zero; a run still going after HANG_S = 1,100 s prints every
 thread's stack and exits non-zero):
 
 1. card      the GPU's name and power limit, as nvidia-smi prints them;
-2. build     nvcc builds the port's CUDA kernels from csrc/ (about a
-             minute); every kernel's registers and spills over all its
-             template instances (a spill fails the run), K1's and K3's
-             resident blocks per SM, every kernel's tensor-core
+2. build     nvcc builds the port's CUDA kernels from csrc/ (seconds,
+             the sources in parallel); every kernel's registers and spills
+             over all its template instances (a spill fails the run), K1's
+             and K3's resident blocks per SM, every kernel's tensor-core
              instructions in the SASS (HMMA, the mma.sync kind, and HGMMA,
-             wgmma's; the bfloat16 K1 and K3 must hold HGMMA), each K4
-             instance's and each float32 K1 and K2 instance's registers,
-             spills, shared memory and HGMMA and HMMA counts (each must
-             hold HGMMA and no HMMA), K1's grid
-             at float32 and bfloat16, K3's bfloat16 scratch (linear in L),
-             the K1 wrapper's host microseconds per call at the small
-             shapes beside the kernel's own time, and K2's plan;
+             wgmma's: every kernel that multiplies must hold HGMMA and no
+             HMMA), each K4 instance's and each float32 K1, K2 and K3 and
+             bfloat16 K2 instance's registers, spills, shared memory and
+             HGMMA and HMMA counts, K1's grid at float32 and bfloat16, K3's
+             scratch at both dtypes (D alone: linear in L), the K1
+             wrapper's host microseconds per call at the small shapes
+             beside the kernel's own time, and K2's plan at both dtypes;
 3. K1        the attention kernel against its plain version at the path's
              shapes, with partly and fully padded key rows;
 4. K2        the conv-FFN kernel against its plain version at every path
              shape, each launched twice (bitwise equal);
 5. K3        the attention-backward kernel against its plain version at the
-             training shapes, and the autograd Function (K1 forward, K3
-             backward) against autograd through the plain forward; K1 and
-             K3 launched twice on the same inputs must agree bit for bit;
-             K3's score contract: the raw scores through K1's wgmma routine
-             and K3b's score_tile (mma.sync) bitwise equal at [10, 2, 1000,
-             128] and [2, 2, 2000, 128];
+             training shapes, at [2, 2, 2000, 128] and at one head a rank
+             ([10, 1, 128|1000, 128]), each launched twice (bitwise equal),
+             and the autograd Function (K1 forward, K3 backward) against
+             autograd through the plain forward; K1 and K3 launched twice
+             on the same inputs must agree bit for bit; K3's score
+             contract: the raw scores through K1's routine, K3a's (Q's
+             small parts from registers) and K3b's (K as A) bitwise equal
+             at [10, 2, 1000, 128] and [2, 2, 2000, 128];
 6. K4        the MRF ResBlock kernel against its plain version at the 12
              ResBlock shapes of a 1000-frame parity-vocoder forward (each
              launched twice, bitwise equal), at L = 8 (a 1-frame mel at
@@ -76,6 +78,8 @@ thread's stack and exits non-zero):
 10. training 20 steps at full model width (config/LJSpeech10, batch 10) on
              a synthetic corpus through the port's train(), with one
              validation pass (its losses' forward and one sample's figure);
+             K1 and K3 timed at the training shapes, K3 and SDPA's backward
+             also by device time;
              launch counts per step and in the validation pass; the
              first input at each kernel, dtype and shape held against the
              plain version (so in the bfloat16 training below);
@@ -180,14 +184,16 @@ thread's stack and exits non-zero):
 
 The bfloat16 instances (--dtype bfloat16, the JAX train CLI's default) run
 through the same script: the build reports their registers, spills and
-tensor-core instructions (K1 and K3 at bfloat16 are wgmma kernels); after
+tensor-core instructions (every bfloat16 instance is a wgmma kernel); after
 phase 5, K1, K2 and K3 at bfloat16 are held against their plain versions
-at every path shape (K3 also once at [2, 2, 2000, 128]), each launched
-twice (bitwise equal); after phase 8, the README sentence goes through the synthesize
+at every path shape (K3 also once at [2, 2, 2000, 128]; K2 also at
+serving's shapes and under every plan it can pick), each launched twice
+(bitwise equal); after phase 8, the README sentence goes through the synthesize
 CLI's main with --dtype bfloat16 (10 bfloat16 K1 and K2 per forward, no
 float32 ones; the mel against the same forward with the plain versions);
 phase 9 times the bfloat16 instances beside SDPA at bfloat16 (K1 and K2
-at batch mode's shapes and K2 at the re-dispatch's too); after phase
+at batch mode's shapes and K2 at the re-dispatch's and every shape of
+K2_SHAPES too, K2 also by device time); after phase
 12, the train CLI trains 20 steps at its default dtype (bfloat16; 10
 bfloat16 K1 and K3 per step) and 5 steps twice from one seed must agree
 exactly.
@@ -200,6 +206,7 @@ the script exits non-zero before printing any result.
 import contextlib
 import faulthandler
 import io
+import itertools
 import json
 import math
 import os
@@ -366,36 +373,31 @@ BF16_MEL_ULPS = 8
 K1_HOST_CALLS = 100
 K1_HOST_REPS = 7
 # the attention kernels' SASS functions: float32 K1 and its key-split
-# combine; K3a (D = rowsum(g * out)), K3b (dK, dV and the dQ partials), the
-# dQ reduction; bfloat16 K1 and its combine; K3a (D and dQ) and K3b (dK, dV)
+# combine; K3's D = rowsum(G o O) and its main kernel (K3a's dQ blocks and
+# K3b's dK, dV blocks); bfloat16 K1 and its combine; K3a (D and dQ) and
+# K3b (dK, dV)
 ATTENTION_KERNELS = ("mha_fwd_f32_kernel", "mha_fwd_combine_kernel",
-                     "mha_bwd_rowdot_kernel", "mha_bwd_dkdv_kernel",
-                     "mha_bwd_dq_reduce_kernel", "mha_fwd_bf16_kernel",
-                     "mha_fwd_combine_bf16_kernel", "mha_bwd_dq_bf16_kernel",
-                     "mha_bwd_dkdv_bf16_kernel")
+                     "mha_bwd_rowdot_f32_kernel", "mha_bwd_f32_kernel",
+                     "mha_fwd_bf16_kernel", "mha_fwd_combine_bf16_kernel",
+                     "mha_bwd_dq_bf16_kernel", "mha_bwd_dkdv_bf16_kernel")
 # the convolution kernels' SASS functions (templates: several instances
 # each): K4's conv (both convs of a dilation unit), the float32 K2's two
-# convs (one template), the bfloat16 K2's two convs (their LayerNorm
-# kernels do no product)
+# convs (one template), the bfloat16 K2's two convs (one template; its
+# partial-sum and LayerNorm kernels do no product)
 CONV_KERNELS = ("resblock_wgmma_kernel", "ffn_wgmma_kernel",
-                "ffn_conv1_bf16_kernel", "ffn_conv2_bf16_kernel")
-# the kernels built on wgmma, each of which must hold HGMMA instructions
+                "ffn_bf16_kernel")
+# the kernels that multiply, all built on wgmma: each must hold HGMMA and
+# no HMMA (every kernel instance has had its Hopper redesign)
 WGMMA_KERNELS = ("mha_fwd_bf16_kernel", "mha_bwd_dq_bf16_kernel",
                  "mha_bwd_dkdv_bf16_kernel", "resblock_wgmma_kernel",
-                 "mha_fwd_f32_kernel", "ffn_wgmma_kernel")
-# the kernels on wgmma alone: every instance holds HGMMA and no HMMA (K4,
-# and the float32 K1 and K2 redesigned for Hopper)
-WGMMA_ONLY_KERNELS = ("resblock_wgmma_kernel", "mha_fwd_f32_kernel",
-                      "ffn_wgmma_kernel")
+                 "mha_fwd_f32_kernel", "ffn_wgmma_kernel",
+                 "mha_bwd_f32_kernel", "ffn_bf16_kernel")
 # a run still going after this many seconds has hung: it prints every
 # thread's stack and exits non-zero, inside the 1,200 s a run may take
 HANG_S = 1100
 # an instance of K4's kernel by its mangled template arguments: output
 # channels per block, and the first (1) or second (0) conv of a unit
 K4_INSTANCE = re.compile(r"resblock_wgmma_kernelILi(\d+)ELb([01])E")
-# the kernels that multiply, each of which must hold tensor-core
-# instructions (HMMA or HGMMA)
-MMA_KERNELS = ("mha_bwd_dkdv_kernel",) + WGMMA_KERNELS + CONV_KERNELS
 # K2's shapes on the paths: (B, L, k2) of the README sentence's encoder
 # and decoder, the re-dispatch bucket, one frame, a 3-tap second conv, and
 # the validation forward at batch 10
@@ -621,17 +623,25 @@ def k4_instances(report, lib_path, lib):
 
 
 def wgmma_instances(report, lib_path, lib):
-    """-> one row per instance of the float32 K1 and K2 kernels (the
-    float32 K1; K2's conv1 and conv2, ffn_wgmma_kernel<false|true>):
-    registers and spill bytes (nvcc -Xptxas -v), the block's dynamic shared
-    memory, and its SASS's HGMMA and HMMA counts (None without
-    cuobjdump)."""
+    """-> one row per instance of the kernels redesigned for Hopper after
+    K4 (the float32 K1; the float32 K2's conv1 and conv2,
+    ffn_wgmma_kernel<false|true>; the float32 K3's main kernel, K3a's and
+    K3b's blocks; the bfloat16 K2's conv1 and conv2,
+    ffn_bf16_kernel<false|true>): registers and spill
+    bytes (nvcc -Xptxas -v), the block's dynamic shared memory, and its
+    SASS's HGMMA and HMMA counts (None without cuobjdump)."""
     smem = {"mha_fwd_f32_kernel": lib.fs2_mha_fwd_f32_smem_bytes(),
             "ffn_wgmma_kernelILb0E": lib.fs2_conv_ffn_f32_smem_bytes(0),
-            "ffn_wgmma_kernelILb1E": lib.fs2_conv_ffn_f32_smem_bytes(1)}
+            "ffn_wgmma_kernelILb1E": lib.fs2_conv_ffn_f32_smem_bytes(1),
+            "mha_bwd_f32_kernel": lib.fs2_mha_bwd_f32_smem_bytes(),
+            "ffn_bf16_kernelILb0E": lib.fs2_conv_ffn_bf16_smem_bytes(),
+            "ffn_bf16_kernelILb1E": lib.fs2_conv_ffn_bf16_smem_bytes()}
     names = {"mha_fwd_f32_kernel": "K1 f32",
              "ffn_wgmma_kernelILb0E": "K2 f32 conv1",
-             "ffn_wgmma_kernelILb1E": "K2 f32 conv2"}
+             "ffn_wgmma_kernelILb1E": "K2 f32 conv2",
+             "mha_bwd_f32_kernel": "K3 f32",
+             "ffn_bf16_kernelILb0E": "K2 bf16 conv1",
+             "ffn_bf16_kernelILb1E": "K2 bf16 conv2"}
     rows = {}
     for entry, row in ptxas_entries(report).items():
         key = next((k for k in names if k in entry), None)
@@ -1066,18 +1076,31 @@ def bf16_kernel_checks(device, bshapes, k2_shapes):
         for a, b, ref in zip(*bwd, plain_attention_backward(q, k, v, mask,
                                                             g)):
             record("K3", a, b, ref, where)
-    for B, L, k2 in k2_shapes:
+    # K2 under its own plan and under every plan it can pick (the first
+    # conv's tap splits, the second conv's hidden groups), each twice
+    k2_plans = 0
+    for B, L, k2 in k2_shapes + ((16, 128, 1), (16, 1000, 1)):
         args = ffn_inputs(L, device, seed=L + k2 + B + 1, k2=k2, B=B)
         args = (args[0].to(bf16),) + args[1:]
+        ref = cuda_ffn.plain_conv_ffn(*args)
         got = cuda_ffn.fused_conv_ffn(*args)
         again = cuda_ffn.fused_conv_ffn(*args)
         torch.cuda.synchronize()
-        record("K2", got, again, cuda_ffn.plain_conv_ffn(*args),
-               f"[{B}, {L}, 256], k2={k2}")
+        record("K2", got, again, ref, f"[{B}, {L}, 256], k2={k2}")
+        packed = cuda_ffn.pack_ffn_weights(args[1], args[3], bf16)
+        for plan in itertools.product((1, 3, 9), (1, 2, 4, 8, 16)):
+            got, again = (cuda_ffn._launch(*args, packed=packed, plan=plan)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            record("K2", got, again, ref,
+                   f"[{B}, {L}, 256], k2={k2}, plan {plan}")
+            k2_plans += 1
     say(f"[bf16] K1 at [1|2, 2, 32|48|1000, 128] (partly and fully padded "
         f"rows), batch mode's [B, 2, L, 128] and [10, 2, 1000|768|128, "
         f"128] and [2, 2, 2000, 128] with the row statistics; K2 at (B, L, "
-        f"k2) in {k2_shapes}; K3 at [10, 2, 1000|768|128, 128] and [2, 2, "
+        f"k2) in {k2_shapes} and serving's [16, 128|1000] (own plan and "
+        f"{k2_plans} forced plans: tap splits 1|3|9 x hidden groups "
+        f"1|2|4|8|16); K3 at [10, 2, 1000|768|128, 128] and [2, 2, "
         f"2000, 128]; each against its plain "
         f"version at bfloat16 on the card: largest error in ulps of "
         f"bfloat16 at the largest |plain value| (tolerance {BF16_ULPS}) "
@@ -3855,7 +3878,7 @@ def main():
         f"(nvcc {info['seconds']:.2f} s); ptxas: {' | '.join(ptxas)}")
     lib = cuda_build.load_library()
     occupancy = {"mha_fwd_f32_kernel": lib.fs2_mha_fwd_blocks_per_sm(),
-                 "mha_bwd_dkdv_kernel": lib.fs2_mha_bwd_blocks_per_sm(),
+                 "mha_bwd_f32_kernel": lib.fs2_mha_bwd_blocks_per_sm(),
                  "mha_fwd_bf16_kernel": lib.fs2_mha_fwd_bf16_blocks_per_sm(),
                  "mha_bwd_dq_bf16_kernel":
                      lib.fs2_mha_bwd_bf16_dq_blocks_per_sm(),
@@ -3876,30 +3899,26 @@ def main():
     say(f"[build] tensor-core instructions in the SASS (HMMA: mma.sync, "
         f"HGMMA: wgmma; summed over a template's instances): "
         f"{'not measured (no cuobjdump)' if hmma is None else hmma}")
-    if hmma is not None and not all(
-            sum(hmma.get(n, {}).values()) > 0 for n in MMA_KERNELS):
-        raise RuntimeError("a kernel that multiplies has no tensor-core "
-                           "instruction")
     if hmma is not None and not all(hmma.get(n, {}).get("HGMMA", 0) > 0
                                     for n in WGMMA_KERNELS):
-        raise RuntimeError("a kernel built on wgmma (the bfloat16 K1 and "
-                           "K3, the float32 K1 and K2, K4) has no HGMMA "
-                           "instruction")
+        raise RuntimeError("a kernel that multiplies (K1, K2 and K3 at both "
+                           "dtypes, K4) has no HGMMA (wgmma) instruction")
     if hmma is not None and any(hmma.get(n, {}).get("HMMA", 0)
-                                for n in WGMMA_ONLY_KERNELS):
-        raise RuntimeError("a kernel on wgmma alone (the float32 K1 and K2, "
-                           "K4) holds an HMMA (mma.sync) instruction")
-    f32_build = wgmma_instances(info.get("ptxas", ""), info["path"], lib)
-    say("[build] the float32 K1 and K2 on wgmma, by instance: " + "; ".join(
+                                for n in WGMMA_KERNELS):
+        raise RuntimeError("a kernel that multiplies holds an HMMA "
+                           "(mma.sync) instruction")
+    wgmma_build = wgmma_instances(info.get("ptxas", ""), info["path"], lib)
+    say("[build] the float32 K1, K2 and K3 and the bfloat16 K2 on wgmma, "
+        "by instance: " + "; ".join(
         f"{r['kernel']}: {r['registers']} registers, {r['spill_bytes']} "
         f"bytes of spill, {r['smem_bytes']} bytes of shared memory, HGMMA "
-        f"{r['HGMMA']}, HMMA {r['HMMA']}" for r in f32_build))
-    if len(f32_build) != 3 or any(
+        f"{r['HGMMA']}, HMMA {r['HMMA']}" for r in wgmma_build))
+    if len(wgmma_build) != 6 or any(
             r["spill_bytes"] or (hmma is not None and (
-                not r["HGMMA"] or r["HMMA"])) for r in f32_build):
-        raise RuntimeError(f"the float32 K1 or K2: an instance is missing, "
-                           f"spills, or is not on wgmma alone (HGMMA, no "
-                           f"HMMA): {f32_build}")
+                not r["HGMMA"] or r["HMMA"])) for r in wgmma_build):
+        raise RuntimeError(f"the float32 K1, K2 or K3 or the bfloat16 K2: an "
+                           f"instance is missing, spills, or is not on wgmma "
+                           f"alone (HGMMA, no HMMA): {wgmma_build}")
     k4_build = k4_instances(info.get("ptxas", ""), info["path"], lib)
     say("[build] K4's instances (output channels per block, conv of the "
         "unit): " + "; ".join(
@@ -3921,15 +3940,14 @@ def main():
             f"[B, 2, L, 128], by (B, L): {k1_grids}; "
             f"{math.prod(k1_grids[(1, 1000)])} blocks at [1, 2, 1000, 128] "
             f"on {sms} SMs")
-    k3_scratch = {(B, L): lib.fs2_mha_bwd_scratch_floats(B, 2, L, 1)
+    k3_scratch = {(dt, B, L): lib.fs2_mha_bwd_scratch_floats(B, 2, L, dt)
+                  for dt in (0, 1)
                   for B, L in ((TRAIN_BATCH, 1000), (TRAIN_BATCH, 2000),
                                (2, 2000))}
-    say(f"[build] K3's bfloat16 scratch (float32 elements) at [B, 2, L, "
-        f"128], by (B, L): {k3_scratch} (B*2*L: D alone; the float32 "
-        f"instance's at [10, 2, 1000, 128]: "
-        f"{lib.fs2_mha_bwd_scratch_floats(TRAIN_BATCH, 2, 1000, 0)})")
-    if any(n != B * 2 * L for (B, L), n in k3_scratch.items()):
-        raise RuntimeError("K3's bfloat16 scratch is not B*H*L floats")
+    say(f"[build] K3's scratch (float32 elements) at [B, 2, L, 128], by "
+        f"(bfloat16, B, L): {k3_scratch} (B*2*L at both dtypes: D alone)")
+    if any(n != B * 2 * L for (_, B, L), n in k3_scratch.items()):
+        raise RuntimeError("K3's scratch is not B*H*L floats")
     k1_host = k1_host_times(device)
     say(f"[build] K1's wrapper, host microseconds per call (the median "
         f"of {K1_HOST_REPS} runs of {K1_HOST_CALLS} calls issued back to "
@@ -3940,11 +3958,14 @@ def main():
                     f" host {h:.1f} us, kernel {k:.1f} us, events {e:.1f} "
                     f"us" for (dt, B, L, st), (h, k, e) in k1_host.items())
         + f" on {card}")
-    k2_plans = {(B, L, k2): cuda_ffn.forward_plan(B, L, 1024, 9, k2)
-                for B, L, k2 in k2_shapes + ((16, 128, 1), (16, 1000, 1))}
-    say(f"[build] K2's float32 plan (tap splits of the first conv, hidden "
-        f"groups of the second; 1 group: the LayerNorm in the second conv's "
-        f"epilogue) at [B, L, 256] -> 1024, by (B, L, k2): {k2_plans}")
+    for dt in (torch.float32, torch.bfloat16):
+        k2_plans = {(B, L, k2): cuda_ffn.forward_plan(B, L, 1024, 9, k2, dt)
+                    for B, L, k2 in k2_shapes + ((16, 128, 1),
+                                                 (16, 1000, 1))}
+        say(f"[build] K2's plan at {dt} (tap splits of the first conv, "
+            f"hidden groups of the second; 1 group: the LayerNorm in the "
+            f"second conv's epilogue) at [B, L, 256] -> 1024, by (B, L, "
+            f"k2): {k2_plans}")
 
     # 3. K1 vs plain: the encoder's L (32 for the README sentence's 31
     #    phones, 48 for 33-48 phones) and the decoder's (1000); each at
@@ -4031,28 +4052,44 @@ def main():
 
     # 5. K3 vs plain at the training slice's L (decoder 1000, LJSpeech10's
     #    bucket 768, encoder 128), batch 10 with one full, one fully padded
-    #    and partly padded rows
+    #    and partly padded rows; at one head a rank (tensor parallel 2); and
+    #    at [2, 2, 2000, 128] (the scratch is D alone); each launched twice
+    #    (bitwise equal)
     k3_err = k3_rel = 0.0
-    for L in (1000, 768, 128):
-        q, k, v, mask, g = attention_grad_inputs(L, device, seed=L + 5)
+    k3_repeat = True
+    k3_shapes = ((TRAIN_BATCH, 2, 1000), (TRAIN_BATCH, 2, 768),
+                 (TRAIN_BATCH, 2, 128), (2, 2, 2000), (TRAIN_BATCH, 1, 1000),
+                 (TRAIN_BATCH, 1, 128))
+    for B, H, L in k3_shapes:
+        q, k, v, mask, g = attention_grad_inputs(L, device, seed=L + 5, B=B)
+        q, k, v, g = (t[:, :H].contiguous() for t in (q, k, v, g))
         out, row_max, row_sum = cuda_attention._launch_forward(
             q, k, v, mask, True)
         got = cuda_attention.fused_attention_backward(
             q, k, v, mask, out, row_max, row_sum, g)
+        again = cuda_attention.fused_attention_backward(
+            q, k, v, mask, out, row_max, row_sum, g)
         torch.cuda.synchronize()
+        k3_repeat = k3_repeat and all(torch.equal(a, b)
+                                      for a, b in zip(got, again))
         ref = plain_attention_backward(q, k, v, mask, g)
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
             if not torch.isfinite(a).all():
-                raise RuntimeError(f"K3 {name} not finite at L={L}")
+                raise RuntimeError(f"K3 {name} not finite at [{B}, {H}, {L}, "
+                                   f"128]")
             err = (a - b).abs().max().item()
             k3_err = max(k3_err, err)
             k3_rel = max(k3_rel, err / b.abs().max().item())
-    say(f"[K3] attention-backward kernel vs plain at [10, 2, 1000|768|128, "
-        f"128], one full, one fully padded and partly padded rows: "
-        f"max_abs_err={k3_err:.3e}, max relative to the largest |grad| "
-        f"{k3_rel:.3e} (tolerance {K3_RTOL:g} relative)")
+        del got, again, ref
+    say(f"[K3] attention-backward kernel vs plain at [B, H, L, 128] for "
+        f"(B, H, L) in {k3_shapes}, one full, one fully padded and partly "
+        f"padded rows: max_abs_err={k3_err:.3e}, max relative to the "
+        f"largest |grad| {k3_rel:.3e} (tolerance {K3_RTOL:g} relative); two "
+        f"launches bitwise equal: {k3_repeat}")
     if not k3_rel <= K3_RTOL:
         raise RuntimeError("K3 disagrees with its plain version")
+    if not k3_repeat:
+        raise RuntimeError("K3 is not bitwise repeatable")
     # the Function (K1 forward, K3 backward) vs autograd through the plain
     # forward; a fully padded batch row has P = 1/L, where the TPU kernel's
     # formula is held instead (autograd through the masked fill gives 0)
@@ -4099,17 +4136,19 @@ def main():
         f"bitwise equal (K1, K3): {repeat}")
     if not all(all(v) for v in repeat.values()):
         raise RuntimeError("K1 or K3 is not bitwise repeatable")
-    # K3's score contract: K3b recomputes every score through score_tile
-    # (mma.sync); K1 forms them on wgmma with the same split operands in the
-    # same k order.  The raw scores S = Q K^T through both routines must
-    # agree bit for bit, or K3's P would not be K1's
+    # K3's score contract: K3a recomputes every score through K1's routine
+    # with Q's small parts from registers (route 3), K3b through the K-as-A
+    # route (S^T = K Q^T, route 2); K1 forms them through route 1, with the
+    # same split operands in the same k order.  The raw scores S = Q K^T
+    # through every route must agree bit for bit, or K3's P would not be
+    # K1's
     contract = {}
     for B, L in ((TRAIN_BATCH, 1000), (2, 2000)):
         gen = torch.Generator(device="cpu").manual_seed(B + L)
         q, k = (torch.randn(B, 2, L, 128, generator=gen).to(device)
                 for _ in range(2))
         routes = []
-        for route in (0, 1):
+        for route in (1, 2, 3):
             scores = torch.empty(B, 2, L, L, device=device)
             cuda_build.check(lib.fs2_mha_scores_f32(
                 q.data_ptr(), k.data_ptr(), scores.data_ptr(), B, 2, L,
@@ -4117,15 +4156,17 @@ def main():
                 "fs2_mha_scores_f32")
             routes.append(scores)
         torch.cuda.synchronize()
-        contract[(B, L)] = (torch.equal(*routes),
-                            int((routes[0] != routes[1]).sum().item()))
+        contract[(B, L)] = tuple(
+            (torch.equal(routes[0], r), int((routes[0] != r).sum().item()))
+            for r in routes[1:])
         del routes, scores, q, k
     torch.cuda.empty_cache()
-    say(f"[K3 contract] raw scores Q K^T through K1's wgmma routine and K3b's "
-        f"score_tile (mma.sync) at [B, 2, L, 128], by (B, L): (bitwise "
-        f"equal, elements that differ) {contract}")
-    if not all(eq for eq, _ in contract.values()):
-        raise RuntimeError("K1's scores are not K3b's bit for bit")
+    say(f"[K3 contract] raw scores Q K^T through K1's routine (route 1) "
+        f"against K3b's K-as-A route (2) and K3a's (3, Q's small parts "
+        f"from registers) at [B, 2, L, 128], by (B, L): ((bitwise equal, "
+        f"elements that differ) for routes 2 and 3) {contract}")
+    if not all(eq for pair in contract.values() for eq, _ in pair):
+        raise RuntimeError("K3's scores are not K1's bit for bit")
 
     # the bfloat16 instances of K1, K2 and K3 against their plain versions
     bf16_errors = bf16_kernel_checks(device, bshapes, k2_shapes)
@@ -4592,13 +4633,18 @@ def main():
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         sdpa_out = F.scaled_dot_product_attention(*leaves,
                                                   attn_mask=additive)
+        # K3 and SDPA's backward also by device time (SDPA's backward: all
+        # the kernels of the autograd call)
+        k3_call = (lambda: cuda_attention.fused_attention_backward(  # noqa
+            q, k, v, mask, out, row_max, row_sum, g))
+        sdpa_bwd = (lambda: torch.autograd.grad(  # noqa: E731
+            sdpa_out, leaves, g, retain_graph=True))
         train_timings[("K3", L)] = with_bound(dict(
-            ms=cuda_time_ms(lambda: cuda_attention.fused_attention_backward(
-                q, k, v, mask, out, row_max, row_sum, g)),
+            ms=cuda_time_ms(k3_call), **device_times(k3_call),
             plain_ms=cuda_time_ms(lambda: plain_attention_backward(
                 q, k, v, mask, g)),
-            library_ms=cuda_time_ms(lambda: torch.autograd.grad(
-                sdpa_out, leaves, g, retain_graph=True))),
+            library_ms=cuda_time_ms(sdpa_bwd),
+            **device_times(sdpa_bwd, "library_")),
             attention_bound_ms(TRAIN_BATCH, 2, L, backward=True))
         train_timings[("K1", L)] = with_bound(dict(
             ms=cuda_time_ms(lambda: cuda_attention._launch_forward(
@@ -4618,6 +4664,10 @@ def main():
                f"{t['prof_ms']:.4f}; SDPA's {t['library_dev_ms']:.4f} ms, "
                f"profiler {t['library_prof_ms']:.4f})" if "dev_ms" in t
                else "")
+        if name == "K3" and t["bound_by"] == "operations":
+            dev += (f"; the design's own floor, 14 L^2 Dh of 3xTF32 "
+                    f"operations where the formula's bound counts 10: "
+                    f"{t['bound_ms'] * 1.4:.3e} ms")
         say(f"[timing] {name} at [10, 2, {L}, 128] (training): kernel "
             f"{t['ms']:.4f} ms{dev}, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.3e} ms "
@@ -4689,26 +4739,36 @@ def main():
                         q, k, v, attn_mask=additive))),
                 attention_bound_ms(B, 2, L, dtype="bfloat16"),
                 BOUND_BASIS_BF16)
-    # ... and K2 at every shape of the bfloat16 paths, the re-dispatch's
-    #     [1, 1536] and batch mode's batch-8 forward included
-    for B, L in sorted({(1, enc_len), (1, 1000), (1, 1536), (B8, enc8),
-                        (B8, 1000), (TRAIN_BATCH, 128),
-                        (TRAIN_BATCH, 1000)}):
-        args = ffn_inputs(L, device, seed=9, B=B)
+    # ... and K2 at every shape of the bfloat16 paths and of K2_SHAPES
+    #     (the 3-tap second conv's [1, 48] among them), the re-dispatch's
+    #     [1, 1536] and batch mode's batch-8 forward included, also by
+    #     device time
+    for B, L, k2 in sorted({(1, enc_len, 1), (B8, enc8, 1), (B8, 1000, 1)}
+                           | set(K2_SHAPES)):
+        args = ffn_inputs(L, device, seed=9, B=B, k2=k2)
         args = (args[0].to(bf),) + args[1:]
         packed = cuda_ffn.pack_ffn_weights(args[1], args[3], bf)
         with torch.inference_mode():
             bf16_timings[("K2", B, L)] = with_bound(dict(
                 ms=cuda_time_ms(lambda: cuda_ffn.fused_conv_ffn(
                     *args, packed=packed)),
+                **device_times(lambda: cuda_ffn.fused_conv_ffn(
+                    *args, packed=packed)),
                 plain_ms=cuda_time_ms(lambda: cuda_ffn.plain_conv_ffn(*args)),
-                library_ms=None), ffn_bound_ms(B, L, dtype="bfloat16"),
+                library_ms=None, taps=[9, k2]),
+                ffn_bound_ms(B, L, taps=(9, k2), dtype="bfloat16"),
                 BOUND_BASIS_BF16)
     for (name, B, L), t in sorted(bf16_timings.items()):
         lib = ("null" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        say(f"[timing] {name} bfloat16 B={B} L={L}: kernel {t['ms']:.4f} "
-            f"ms, plain {t['plain_ms']:.4f} ms, library (bfloat16) {lib}, "
+        dev = (f" (device {t['dev_ms']:.4f} ms, profiler "
+               f"{t['prof_ms']:.4f}; share of the bound "
+               f"{t['bound_ms'] / t['dev_ms']:.1%})"
+               if t.get("dev_ms") else "")
+        say(f"[timing] {name} bfloat16 B={B} L={L}"
+            f"{' taps=' + str(t['taps']) if 'taps' in t else ''}: kernel "
+            f"{t['ms']:.4f} ms{dev}, plain {t['plain_ms']:.4f} ms, library "
+            f"(bfloat16) {lib}, "
             f"bound {t['bound_ms']:.3e} ms ({t['bound_by']}; "
             f"{t['bound_basis']}) on {card}")
     # ... and the bfloat16 K1 and K3 where the other paths would run them:
@@ -5117,15 +5177,21 @@ def main():
         per_shape[name] += [dict(shape=t["shape"],
                                  **{key: t.get(key) for key in keys})
                             for t in par["per_shape"][name]]
-    # the float32 K1's and K2's own sources (on wgmma and TMA)
+    # the float32 kernels' own sources (on wgmma and TMA)
     f32_sources = {
         "K1": ["fastspeech2_tpu_torch/csrc/attention.cu",
+               "fastspeech2_tpu_torch/csrc/attention_f32.cuh",
                "fastspeech2_tpu_torch/csrc/attention_bf16.cuh",
                "fastspeech2_tpu_torch/csrc/attention_common.cuh",
                "fastspeech2_tpu_torch/csrc/hopper.cuh"],
         "K2": ["fastspeech2_tpu_torch/csrc/conv_ffn_f32.cu",
                "fastspeech2_tpu_torch/csrc/hopper.cuh",
-               "fastspeech2_tpu_torch/csrc/conv_tiles.cuh"]}
+               "fastspeech2_tpu_torch/csrc/conv_tiles.cuh"],
+        "K3": ["fastspeech2_tpu_torch/csrc/attention_bwd.cu",
+               "fastspeech2_tpu_torch/csrc/attention_f32.cuh",
+               "fastspeech2_tpu_torch/csrc/attention_bf16.cuh",
+               "fastspeech2_tpu_torch/csrc/attention_common.cuh",
+               "fastspeech2_tpu_torch/csrc/hopper.cuh"]}
     kernels = []
     for name in ("K1", "K2", "K3"):
         fn, src, replaces, shape = sources[name]
@@ -5146,8 +5212,8 @@ def main():
                                            "library_dev_ms",
                                            "library_prof_ms")},
             **({"sources": f32_sources[name],
-                "instances": [r for r in f32_build
-                              if r["kernel"].startswith(name)]}
+                "instances": [r for r in wgmma_build
+                              if r["kernel"].startswith(f"{name} f32")]}
                if name in f32_sources else {}),
             "per_shape": per_shape.get(name),
             "launches_by_path": {"synthesis": launches.get(name, 0),
@@ -5196,6 +5262,7 @@ def main():
                "fastspeech2_tpu_torch/csrc/attention_bf16.cuh",
                "fastspeech2_tpu_torch/csrc/hopper.cuh"],
         "K2": ["fastspeech2_tpu_torch/csrc/conv_ffn.cu",
+               "fastspeech2_tpu_torch/csrc/hopper.cuh",
                "fastspeech2_tpu_torch/csrc/conv_tiles.cuh"],
         "K3": ["fastspeech2_tpu_torch/csrc/attention_bwd_bf16.cu",
                "fastspeech2_tpu_torch/csrc/attention_bf16.cuh",
@@ -5226,6 +5293,8 @@ def main():
             "shape": shape.replace("f32", "bf16"), "per_shape": per,
             **({"sources": bf16_sources[name]} if name in bf16_sources
                else {}),
+            "instances": [r for r in wgmma_build
+                          if r["kernel"].startswith(f"{name} bf16")],
             "launches_by_path": {
                 "bf16 synthesis": b_launches[f"{name}_bf16"],
                 "bf16 training": bf_totals[f"{name}_bf16"],

@@ -19,7 +19,8 @@
 // per byte (the card's ridge is ~150), so the tensor cores bound it, and
 // only wgmma reaches their rate.
 //
-// Design (the bfloat16 instance's shape, attention_bf16.cu): a block of two
+// Design (the bfloat16 instance's shape, attention_bf16.cu; the split and
+// the score routine in attention_f32.cuh, which K3 shares): a block of two
 // warpgroups, 64 query rows each, sharing every K and V tile.  Thread 0
 // loads Q once and tiles of 32 keys of K and V into a two-stage ring by TMA
 // (tensor maps over [B*H, L, 128] in boxes of 32 floats, the 128-byte
@@ -71,12 +72,12 @@
 // apart, not folded into a log-sum-exp: for a fully padded row m = -1e9,
 // and -1e9 + log(L) rounds back to -1e9 in float32.  Inference passes null.
 //
-// THE SCORE CONTRACT with K3: K3b recomputes every score through
-// score_tile (attention_common.cuh, mma.sync) with the same split operands
-// in the same k order (per k-step of 8: a_big b_small, a_small b_big,
-// a_big b_big, Q as A, K as B, from a zero accumulator), and uses this
-// kernel's row max and row sum.  fs2_mha_scores_f32 writes S through either
-// routine, so that a run on the card can show the two equal bit for bit.
+// THE SCORE CONTRACT with K3 (attention_f32.cuh): K3 recomputes every score
+// with the same split operands in the same k order (per k-step of 8:
+// Q_big K_small, Q_small K_big, Q_big K_big, from a zero accumulator; K3a
+// with Q's small parts from registers, K3b with K as A), and uses this
+// kernel's row max and row sum.  fs2_mha_scores_f32 writes S through each
+// routine, so that a run on the card can show them equal bit for bit.
 //
 // The bfloat16 instance is attention_bf16.cu; this file's fs2_mha_fwd_plan
 // answers for both.
@@ -86,7 +87,7 @@
 #include <algorithm>
 #include <atomic>
 
-#include "attention_bf16.cuh"
+#include "attention_f32.cuh"
 
 namespace {
 
@@ -98,11 +99,6 @@ constexpr int kBN = 32;           // keys per tile
 constexpr int kStages = 2;
 constexpr int kThreads = 128 * kWGs;
 constexpr int kBlocksPerSM = 1;   // what the shared memory below allows
-constexpr int kQBox = 64 * 32;    // floats of a [64][32] box
-constexpr int kKBox = kBN * 32;   // floats of a [32][32] box
-constexpr int kTileF = 4 * kKBox;  // floats of a [32][128] tile (4096)
-constexpr uint32_t kAtom = 1024;  // 8 rows of 128 bytes
-
 // shared memory: boxes and planes (each 1,024-byte aligned), then the
 // barriers
 struct F32Smem {
@@ -115,138 +111,6 @@ struct F32Smem {
   uint64_t full[kStages];
 };
 constexpr size_t kSmemBytes = sizeof(F32Smem) + 1024;
-
-// the offset of (row r, column d) of a [rows][128] tile of four [rows][32]
-// boxes of `box` floats each
-__device__ __forceinline__ int tile_at(int r, int d, int box) {
-  return (d >> 5) * box + swz32(r, d & 31);
-}
-
-// Q's split: the big parts of this thread's A fragments of the 16 k-steps
-// into qb (k-step kk: rows g and g + 8 of the warp's 16 by columns 8 kk + t
-// and + 4), the small parts written in place.  q: the warpgroup's [64][128]
-// tile as loaded
-__device__ __forceinline__ void split_q(float* q, int warp, int lane,
-                                        uint32_t (&qb)[16][4]) {
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = 16 * warp + g;
-#pragma unroll
-  for (int kk = 0; kk < 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int at = tile_at(r0 + 8 * (i & 1), 8 * kk + t + 4 * (i >> 1),
-                             kQBox);
-      uint32_t small;
-      split(q[at], qb[kk][i], small);
-      q[at] = __uint_as_float(small);
-    }
-}
-
-// one [32][128] tile of K (big part in place, small part into ks) and of
-// V (into Vt's two planes, transposed), by THREADS threads
-template <int THREADS>
-__device__ __forceinline__ void split_kv(float* k, float* ks, const float* v,
-                                         float* vt, int tid) {
-  float4* k4 = reinterpret_cast<float4*>(k);
-  float4* ks4 = reinterpret_cast<float4*>(ks);
-#pragma unroll
-  for (int i = 0; i < kTileF / 4 / THREADS; ++i) {
-    const int at = tid + i * THREADS;
-    const float4 x = k4[at];
-    uint32_t b[4], s[4];
-    split(x.x, b[0], s[0]);
-    split(x.y, b[1], s[1]);
-    split(x.z, b[2], s[2]);
-    split(x.w, b[3], s[3]);
-    k4[at] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
-                         __uint_as_float(b[2]), __uint_as_float(b[3]));
-    ks4[at] = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
-                          __uint_as_float(s[2]), __uint_as_float(s[3]));
-  }
-  if (vt == nullptr) return;
-  // Vt row d, 16-byte chunk c: keys 8 (c / 2) + (c % 2) + 0, 2, 4, 6
-  const int d = tid % 128;
-#pragma unroll
-  for (int c = tid / 128; c < 8; c += THREADS / 128) {
-    const int key0 = 8 * (c >> 1) + (c & 1);
-    float x[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[e] = v[tile_at(key0 + 2 * e, d, kKBox)];
-    uint32_t b[4], s[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split(x[e], b[e], s[e]);
-    const int at = d * 32 + ((c ^ d) & 7) * 4;
-    *reinterpret_cast<float4*>(vt + at) =
-        make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
-                    __uint_as_float(b[2]), __uint_as_float(b[3]));
-    *reinterpret_cast<float4*>(vt + kTileF + at) =
-        make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
-                    __uint_as_float(s[2]), __uint_as_float(s[3]));
-  }
-}
-
-// S = Q K^T of one warpgroup's 64 query rows against a tile of 32 keys (the
-// score contract above): per k-step kk of 8 (d = 8 kk ..), Q_big K_small
-// (Q's big part from registers), Q_small K_big (from the in-place small
-// plane qs) and Q_big K_big, the first into a zero accumulator.
-// s[4j + 2h + e]: row 16 w + g + 8 h, key 8 j + 2 t + e.  The caller fences
-// before, commits and waits after.
-__device__ __forceinline__ void score_tile_f32(float (&s)[16],
-                                               const uint32_t (&qb)[16][4],
-                                               const float* qs,
-                                               const float* kb,
-                                               const float* ksm) {
-#pragma unroll
-  for (int kk = 0; kk < 16; ++kk) {
-    const int koff = (kk >> 2) * kKBox + (kk & 3) * 8;
-    const uint64_t big = make_desc(kb + koff, 16, kAtom);
-    const uint64_t small = make_desc(ksm + koff, 16, kAtom);
-    if (kk == 0)
-      wgmma_tf32_rs_first<32>(s, qb[kk], small);
-    else
-      wgmma_tf32_rs<32>(s, qb[kk], small);
-    wgmma_tf32_ss32(s, make_desc(qs + (kk >> 2) * kQBox + (kk & 3) * 8, 16,
-                                 kAtom),
-                    big);
-    wgmma_tf32_rs<32>(s, qb[kk], big);
-  }
-}
-
-// the pad bytes lane `lane` reads for the 32-key tile at k0 (0 at or past
-// L), fetched a tile ahead of their use
-__device__ __forceinline__ uint32_t pad_byte(const unsigned char* pad, int k0,
-                                             int L, int lane) {
-  return k0 + lane < L ? pad[k0 + lane] : 0u;
-}
-
-// The scaled, masked scores of one 32-key tile (x[4j + 2h + e]: key
-// 8j + 2t + e) in place, kInitMax for a key at or past L (below every
-// score, its exponential exactly 0); f: this lane's pad byte (pad_byte)
-__device__ __forceinline__ void tile_scores32(float (&x)[16], uint32_t f,
-                                              int k0, int L, int t,
-                                              float scale) {
-  const uint32_t padded = __ballot_sync(0xffffffffu, f != 0);
-  const int below = L - k0;
-  const uint32_t valid = below >= 32 ? ~0u : (1u << below) - 1;
-  if (padded == 0 && valid == ~0u) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) x[i] = __fmul_rn(x[i], scale);
-    return;
-  }
-  const uint32_t v = valid >> (2 * t), p = padded >> (2 * t);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool ok = (v >> (8 * j + e)) & 1u;
-      const bool masked = (p >> (8 * j + e)) & 1u;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = 4 * j + 2 * h + e;
-        x[i] = ok ? masked_score(x[i], masked, scale) : kInitMax;
-      }
-    }
-}
 
 // The online softmax of one tile's scores x (raw S in, P out): the rows'
 // new max m, the factor alpha = exp(m_old - m) their running sums l and the
@@ -552,67 +416,64 @@ void plan(int B, int H, int L, bool stats, int grid[3],
 
 // ---- the score contract's check ------------------------------------------
 
-// raw S = Q K^T of one (b*h, 64 query rows, 32 keys) tile into s_out
-// ([B*H][L][L]) through K1's routine (route 1: split_q, split_kv and
-// score_tile_f32 on one warpgroup) or K3b's (route 0: score_tile on four
-// warps, mma.sync)
+// raw S = Q K^T into s_out ([B*H][L][L]) through K1's routine (route 1:
+// split_q, split_kv and score_tile_f32 on one warpgroup, a tile of 64 query
+// rows by 32 keys), K3b's (route 2: S^T = K Q^T, score_tile_f32_t, a tile
+// of 64 keys by 32 query rows) or K3a's (route 3: score_tile_f32_rr, Q's
+// small parts from registers); blockIdx.x the 64-row tile, blockIdx.y the
+// 32-row one
 __global__ void __launch_bounds__(128)
 mha_scores_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ s_out, int L, int route) {
   extern __shared__ unsigned char smem_raw[];
-  float* sq = reinterpret_cast<float*>(align_smem(smem_raw));
+  float* sa = reinterpret_cast<float*>(align_smem(smem_raw));   // A: 64 rows
+  float* sb = sa + 4 * kQBox;                                   // B: 32 rows
+  float* sbs = sb + kTileF;
   const int bh = blockIdx.z;
-  const int q0 = blockIdx.x * 64, k0 = blockIdx.y * kBN;
+  const int a0 = blockIdx.x * 64, b0 = blockIdx.y * kBN;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const float* qp = q + static_cast<size_t>(bh) * L * kDh;
-  const float* kp = k + static_cast<size_t>(bh) * L * kDh;
-  float x[16];
-  if (route == 1) {
-    float* sk = sq + 4 * kQBox;
-    float* sks = sk + kTileF;
-    for (int i = tid; i < 64 * kDh; i += 128) {
-      const int r = i / kDh, d = i % kDh;
-      sq[tile_at(r, d, kQBox)] =
-          q0 + r < L ? qp[static_cast<size_t>(q0 + r) * kDh + d] : 0.f;
-    }
-    for (int i = tid; i < kBN * kDh; i += 128) {
-      const int r = i / kDh, d = i % kDh;
-      sk[tile_at(r, d, kKBox)] =
-          k0 + r < L ? kp[static_cast<size_t>(k0 + r) * kDh + d] : 0.f;
-    }
-    __syncthreads();
-    uint32_t qb[16][4];
-    split_q(sq, warp, lane, qb);
-    split_kv<128>(sk, sks, nullptr, nullptr, tid);
-    fence_proxy_async();
-    __syncthreads();
-    wgmma_fence();
-    score_tile_f32(x, qb, sq, sk, sks);
-    wgmma_commit();
-    wgmma_wait<0>();
-    reg_fence(x);
-  } else {
-    float* ks_ = sq + 64 * kStride;
-    load_tile_async<64, 128>(sq, qp, q0, L, tid);
-    load_tile_async<kBN, 128>(ks_, kp, k0, L, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float s[4][4];
-    score_tile(sq + 16 * warp * kStride, ks_, lane, s);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[4 * j + i] = s[j][i];
+  const float* ap = (route != 2 ? q : k) + static_cast<size_t>(bh) * L * kDh;
+  const float* bp = (route != 2 ? k : q) + static_cast<size_t>(bh) * L * kDh;
+  for (int i = tid; i < 64 * kDh; i += 128) {
+    const int r = i / kDh, d = i % kDh;
+    sa[tile_at(r, d, kQBox)] =
+        a0 + r < L ? ap[static_cast<size_t>(a0 + r) * kDh + d] : 0.f;
   }
+  for (int i = tid; i < kBN * kDh; i += 128) {
+    const int r = i / kDh, d = i % kDh;
+    sb[tile_at(r, d, kKBox)] =
+        b0 + r < L ? bp[static_cast<size_t>(b0 + r) * kDh + d] : 0.f;
+  }
+  __syncthreads();
+  uint32_t ab[16][4], as[16][4];
+  if (route == 3)
+    split_q_regs(sa, warp, lane, ab, as);
+  else
+    split_q(sa, warp, lane, ab);
+  split_kv<128>(sb, sbs, nullptr, nullptr, tid);
+  fence_proxy_async();
+  __syncthreads();
+  float x[16];
+  wgmma_fence();
+  if (route == 1)
+    score_tile_f32(x, ab, sa, sb, sbs);
+  else if (route == 2)
+    score_tile_f32_t(x, ab, sa, sb, sbs);
+  else
+    score_tile_f32_rr(x, ab, as, sb, sbs);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(x);
+  // x[4j + 2h + e]: A row 16 w + g + 8 h, B row 8 j + 2 t + e
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int r = q0 + 16 * warp + g + 8 * h, key = k0 + 8 * j + 2 * t + e;
+        const int ra = a0 + 16 * warp + g + 8 * h, rb = b0 + 8 * j + 2 * t + e;
+        const int r = route != 2 ? ra : rb, key = route != 2 ? rb : ra;
         if (r < L && key < L)
           s_out[(static_cast<size_t>(bh) * L + r) * L + key] =
               x[4 * j + 2 * h + e];
@@ -691,14 +552,16 @@ extern "C" int fs2_mha_fwd_f32(const void* q, const void* k, const void* v,
 }
 
 // The raw scores S = Q K^T of q, k ([B, H, L, 128] float32, contiguous)
-// into s ([B, H, L, L] float32) through K1's routine (route 1) or K3b's
-// score_tile (route 0), for the check that the two agree bit for bit (the
-// score contract above).  Not on any path: chip_smoke.py calls it.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+// into s ([B, H, L, L] float32) through K1's routine (route 1), K3b's
+// (route 2, K as A) or K3a's (route 3, Q's small parts from registers),
+// for the check that the routes agree bit for bit (the score contract,
+// attention_f32.cuh).  Not on any path:
+// chip_smoke.py calls it.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue.
 extern "C" int fs2_mha_scores_f32(const void* q, const void* k, void* s,
                                   int B, int H, int L, int route,
                                   void* stream) {
-  if (B <= 0 || H <= 0 || L <= 0 || (route != 0 && route != 1))
+  if (B <= 0 || H <= 0 || L <= 0 || route < 1 || route > 3)
     return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> ready{0};
   cudaError_t err = set_smem_once(

@@ -1,324 +1,385 @@
-// K2, bfloat16: fused position-wise conv FFN forward for sm_90a, on the
-// bfloat16 tensor cores (mma.sync).
+// K2, bfloat16: fused position-wise conv FFN forward for sm_90a, on bfloat16
+// wgmma, the weights fed by TMA.
 //
 // Replaces the TPU kernel fastspeech2_tpu/ops/pallas_ffn.py (_ffn_kernel via
 // _pallas_forward) at --dtype bfloat16, which keeps one batch row's [L, H]
-// hidden activation in VMEM.  Computes, on [B, L, D] row-major activations,
+// hidden activation in VMEM.  Computes, on [B, L, D] row-major activations
+// (D = 256),
 //
 //   h   = ReLU(conv1d_k1(x; w1 [k1, D, H]) + b1)          (SAME zero padding)
 //   y   = conv1d_k2(h; w2 [k2, H, D]) + b2 + x
 //   out = (y - mean) / sqrt(E[y^2] - mean^2 + 1e-5) * gamma + beta   (over D)
 //
-// Each k-tap conv is k shifted products (tap j reads row t + j - (k-1)/2);
+// Each k-tap conv is k shifted products (tap j reads row l + j - (k-1)/2);
 // taps that fall outside [0, L) read zero.  It computes what the TPU kernel
-// computes on a bfloat16 x: both convs on the bfloat16 tensor cores
-// (m16n8k16, exact products, float32 accumulation) with the weights
-// rounded to bfloat16 (the TPU kernel's w.astype(x.dtype)) and packed in
-// the A fragments' order ([M/16][T][K/16][32 lanes][8 values],
-// ops/tf32_pack.py::pack_fragments_bf16); h = ReLU(sum + b1) with float32
-// b1, rounded to bfloat16; b2 and x added in float32; the LayerNorm in
-// float32; the output rounded to bfloat16.  One level of sums: a bfloat16
-// h and output carry 2^-9 of rounding, far above the tensor cores'
-// accumulation error.  Its bound on an H100 is the bfloat16 tensor cores'
-// 989 TFLOP/s against the 2-byte x, output and weights.
+// computes on a bfloat16 x: both convs on the bfloat16 tensor cores (exact
+// products, float32 accumulation) with the weights rounded to bfloat16 (the
+// TPU kernel's w.astype(x.dtype)); h = ReLU(sum + b1) with float32 b1,
+// rounded to bfloat16; b2 and x added in float32; the LayerNorm in float32;
+// the output rounded to bfloat16.  One level of sums: a bfloat16 h and
+// output carry 2^-9 of rounding, far above the tensor cores' accumulation
+// error.
 //
-// Design: three launches, h and the second conv's partial sums through
-// device memory (in L2 at the path's shapes):
-//   (a) conv1: M = H (64 per block, 4 warps) by N = positions (BN = 64 or
-//       128 per block) by K = D x the block's taps.  The k1 taps are split
-//       over S blocks (S chosen so that the grid fills every SM: 9 at
-//       L = 32, 2 at L = 1000), each writing its partial sum of the
-//       pre-activation to part[S][B][L][H].  The block stages the whole
-//       window of x (BN + taps - 1 rows of 256 channels) in shared memory
-//       at once by cp.async.
-//   (b) conv2: 16 rows x all D = 256 columns per block (8 warps of 32) x
-//       one of G groups of the hidden channels (G chosen so that the grid
-//       fills every SM: 16 at L = 32, 4 at L = 1000), so that many SMs pull
-//       w2 at once.  The block stages the S partials of its rows' h (with
-//       the (k2-1)/2 halo) 64 hidden channels at a time by cp.async, and
-//       forms h = ReLU(sum over s in order + b1), 0 outside [0, L), rounded
-//       to bfloat16; it writes its group's share of the product to
-//       ypart[G][B][L][256].
-//   (c) LayerNorm: one warp per row sums the G shares in order, adds b2
-//       and the residual, reduces the sum and the sum of squares with
-//       shuffles and writes the normalised row.
-// No atomics: the partials are summed in a fixed order, and two launches
-// on the same inputs agree bit for bit.
+// What bounds it on an H100: 2 L D H (k1 + k2) operations (5.24 GFLOP at
+// L = 1000, H = 1024, k = (9, 1)) at the bfloat16 tensor cores' 989 TFLOP/s:
+// 0.0053 ms at [1, 1000], 0.0848 ms at [16, 1000]; at L = 32 the 5.2 MB of
+// bfloat16 weights (1.6 us at 3.35 TB/s), which asks that many SMs pull
+// them at once.
+//
+// Design: both convs are implicit GEMMs on the float32 instance's machinery
+// (conv_ffn_f32.cu; K4's resblock.cu): positions are M, output channels N,
+// and each tap's input channels K.  A conv walks stages of (64 input
+// channels, one tap), slices outer, taps inner:
+//   - the weights are the B operand, read by wgmma from shared memory: the
+//     stage's [256][64] bfloat16 rows (128 bytes), laid out in the 128-byte
+//     swizzle once, when they are packed (ops/cuda_ffn.py), arrive by one
+//     bulk copy into a ring with a full and an empty mbarrier per slot;
+//     thread 0 refills a slot the block left a stage before;
+//   - the activations are the A operand, from shared memory too: the
+//     stage's [128 positions][64 channels] box of the bfloat16 input
+//     (x, or h) arrives by TMA into the same slot, a tap's shift only the
+//     box's first row, rows outside [0, L) filled with zeros by the copy
+//     engine (the tensor map's bounds are one batch row's);
+//   - per stage, 4 k-steps of 16 channels, each one m64n256k16 product
+//     (both operands from shared memory) into the warpgroup's 64 x 256
+//     float32 accumulator, which sums the whole tile (one level), with up
+//     to two stages' products in flight;
+//   - a block is two warpgroups, 64 positions each, sharing every weight
+//     stage: a tile of 128 positions by 256 output channels;
+//   - the grid is persistent (at most one block per SM), each block walking
+//     its tiles' stages as one sequence, so the ring and the activation
+//     loads run on from one tile into the next.
+// Launches, h through device memory as bfloat16 (32.8 MB at [16, 1000]):
+//   (a) conv1: the k1 taps may be split over S blocks (S divides k1), each
+//       writing its partial sum of the pre-activation to part[S][B][L][H];
+//       with S = 1 its epilogue writes h = bfloat16(ReLU(acc + b1)), with
+//       S > 1 a wide elementwise launch sums the partials in order and
+//       writes h so;
+//   (b) conv2: its A operand is h.  With G = 1 it ends in the LayerNorm: y =
+//       (acc + b2) + x, each thread's sums over its 64 values of a row (the
+//       square by fma), a butterfly over the quad, then E[y^2] - mean^2 +
+//       1e-5: the warpgroup holds all 256 output channels of its rows.
+//       Where its grid would be a fraction of the card the hidden channels
+//       split into G groups of whole slices, each writing its share to
+//       ypart[G][B][L][256];
+//   (c) with G > 1, one warp per row sums the shares in order, adds b2 and
+//       the residual and writes the LayerNorm.
+// So two launches at the large shapes, three at the smallest.  The plan
+// (fs2_conv_ffn_plan) picks S and G by a cost model fitted to a sweep of
+// every plan on an H100.  Accumulation order (tests/test_torch_conv_tiles.py
+// models it): slices of 64 input channels, taps, k-steps of 16, each into
+// the one float32 sum; the S partials and the G shares in order.  No
+// atomics: two launches on the same inputs agree bit for bit.
 //
 // The float32 instance is conv_ffn_f32.cu (3xTF32 on wgmma, TMA).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "conv_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace fs2_conv;
+using namespace fs2_hopper;
+using fs2_conv::sm_count;
+using fs2_tc::pack_bf16;
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kD = 256;
-constexpr int kMaxSmem = 227 * 1024;   // a block's dynamic shared memory
+constexpr int kThreads = 256;          // two warpgroups
+constexpr int kBM = 128;               // positions per tile (64 a warpgroup)
+constexpr int kNB = 256;               // output channels per tile
+constexpr int kSlice = 64;             // input channels per stage (128 B)
+constexpr int kKSteps = kSlice / 16;   // k-steps per stage
+constexpr int kStages = 4;             // the ring
+constexpr uint32_t kPlaneBytes = kNB * kSlice * 2;   // B: 32 KB
+constexpr uint32_t kABytes = kBM * kSlice * 2;       // A: 16 KB
+constexpr uint32_t kStageBytes = kPlaneBytes + kABytes;
+constexpr uint32_t kAtomBytes = 1024;  // 8 rows of 128 bytes
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+constexpr int kMaxSplits = 16;
 
-// ---- (a) part[s] = the taps of split s of conv_k1(x) -----------------------
-constexpr int kThreadsA = 128;
-constexpr int kBM_A = 64;       // hidden channels per block
+// Both convs.  conv1: tin = x's tensor map ([B][L][256]), w = w1's pack,
+// K = k1, S splits: out = h [B][L][H] bfloat16 (S = 1) or part[S][B][L][H]
+// float32; b1 read for S = 1.  conv2: tin = h's ([B][L][H]), w = w2's
+// pack, K = k2, G groups: out = the output [B][L][256] bfloat16 (G = 1) or
+// ypart[G][B][L][256] float32; b2, x, gamma, beta read for G = 1.
+template <bool kConv2>
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_bf16_kernel(const __grid_constant__ CUtensorMap tin,
+                const bf16* __restrict__ w,
+                const float* __restrict__ b1, const float* __restrict__ b2,
+                const bf16* __restrict__ x, const float* __restrict__ gamma,
+                const float* __restrict__ beta, void* __restrict__ out,
+                int B, int L, int H, int K, int S, int G) {
+  extern __shared__ unsigned char smem_raw[];
+  // the ring (1,024-byte aligned for the swizzle: per slot the stage's
+  // weights, B, then its activations, A), the barriers
+  bf16* ring = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes / 2);
+  uint64_t* empty = full + kStages;
 
-// ---- bfloat16 fragments ---------------------------------------------------
-
-// A fragment of one 16 x 16 block of bfloat16 packed weights: 8 values per
-// lane, one 16-byte load
-__device__ __forceinline__ void load_a_bf16(const uint4* p, int lane,
-                                            uint32_t a[4]) {
-  const uint4 w = __ldg(p + lane);
-  a[0] = w.x;
-  a[1] = w.y;
-  a[2] = w.z;
-  a[3] = w.w;
-}
-
-// the B fragment of positions (rows) col.. at channels c0.. of a
-// channels-last bfloat16 plane: b0 = channels c0 + 2t, +1 of row col + g,
-// b1 = channels c0 + 8 + 2t, +1
-__device__ __forceinline__ void load_b_bf16(const bf16* plane, int stride,
-                                            int row, int c0, int t,
-                                            uint32_t b[2]) {
-  const bf16* p = plane + row * stride + c0 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-constexpr int kStrideXH = kD + 8;   // bf16 row stride of x's window
-
-// (a) for bfloat16 x: as ffn_conv1_kernel, with the window of x staged at
-// once and the bfloat16 weights [H/16][k1][D/16][32][8]
-template <int MT, int WN>
-__global__ void __launch_bounds__(kThreadsA)
-ffn_conv1_bf16_kernel(const bf16* __restrict__ x,
-                      const uint4* __restrict__ w1, float* __restrict__ part,
-                      int B, int L, int H, int k1, int splits) {
-  constexpr int WM = kBM_A / (16 * MT);
-  constexpr int BN = 32 * WN;
-  static_assert(WM * WN * 32 == kThreadsA, "4 warps");
-  extern __shared__ __align__(16) float smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);   // [span][kStrideXH]
-
-  const int l0 = blockIdx.x * BN;
-  const int n0 = blockIdx.y * kBM_A;
-  const int b = blockIdx.z / splits;
-  const int sp = blockIdx.z % splits;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp % WM;
-  const int wn = warp / WM;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int per = (k1 + splits - 1) / splits;
-  const int j0 = min(sp * per, k1);
-  const int j1 = min(j0 + per, k1);
-  const int win0 = l0 + j0 - (k1 - 1) / 2;
-  const int span = BN + (j1 > j0 ? j1 - j0 - 1 : 0);
-  const bf16* xb = x + static_cast<size_t>(b) * L * kD;
-  // 16 x 16 blocks of the packed weights: per tap D/16, per m-tile k1 D/16
-  const int wf_mt = k1 * (kD / 16) * 32;
-  const uint4* wf = w1 + (n0 / 16 + wm * MT) * wf_mt;
-
-  float acc[MT][4][4];
-  zero(acc);
-  if (j1 > j0) {
-    for (int i = tid; i < span * (kD / 8); i += kThreadsA) {
-      const int row = i / (kD / 8);
-      const int c = (i % (kD / 8)) * 8;
-      const int pos = win0 + row;
-      const bool ok = pos >= 0 && pos < L;
-      cp_async16(reinterpret_cast<float*>(xs + row * kStrideXH + c),
-                 reinterpret_cast<const float*>(
-                     ok ? xb + static_cast<size_t>(pos) * kD + c : xb),
-                 ok);
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int cout = kConv2 ? kD : H;         // the conv's output channels
+  const int cin = kConv2 ? H : kD;          // its input channels
+  const int l_tiles = (L + kBM - 1) / kBM;
+  const int n_blocks = cout / kNB;          // 1 for conv2
+  const int parts = kConv2 ? G : S;         // the K split
+  const int tiles = l_tiles * n_blocks * B * parts;
+  // stages per tile: conv1 (256 / 64 slices) x (K / S taps); conv2
+  // (H / 64 / G slices) x K taps
+  const int taps = kConv2 ? K : K / S;
+  const int slices = kConv2 ? cin / kSlice / G : cin / kSlice;
+  const int T = slices * taps;
+  const int N = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * T;
+  const int pad = (K - 1) / 2;
+  // a tile's K split, batch row, first output channel and first position
+  // (positions fastest, then batch rows, then output-channel blocks)
+  auto coords = [&](int tile, int& sp, int& b, int& nb0, int& l0) {
+    l0 = (tile % l_tiles) * kBM;
+    int rest = tile / l_tiles;
+    b = rest % B;
+    rest /= B;
+    nb0 = (rest % n_blocks) * kNB;
+    sp = rest / n_blocks;
+  };
+  // a place in the block's sequence of stages: the tile, the stage i in
+  // it, and what they fix (the tile's coordinates, the stage's slice sl and
+  // tap j0 + jt), stepped forward without a division
+  struct Cursor {
+    int tile, i, sp, b, nb0, l0, sl, j0, jt;
+  };
+  auto set_tile = [&](Cursor& c, int tile) {
+    c.tile = tile;
+    c.i = c.jt = 0;
+    if (tile >= tiles) return;
+    coords(tile, c.sp, c.b, c.nb0, c.l0);
+    c.sl = kConv2 ? c.sp * slices : 0;
+    c.j0 = kConv2 ? 0 : c.sp * taps;
+  };
+  auto advance = [&](Cursor& c) {
+    if (++c.i == T) {
+      set_tile(c, c.tile + gridDim.x);
+    } else if (++c.jt == taps) {
+      c.jt = 0;
+      ++c.sl;
     }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kThreads / 32);   // one arrival per warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the producer's step (thread 0): the stage at pc, the block's n-th, into
+  // slot n % kStages once the stage before it there is released (a fresh
+  // slot passes at once): its weights, rows nb0 .. of the pack
+  // [cin/64][K][cout][64], by one bulk copy, and its activations, rows l0 +
+  // j - pad .. of channels 64 sl .. of the input (rows outside [0, L) read
+  // as zeros), by TMA
+  Cursor pc;   // thread 0's: the next stage load_stage loads
+  set_tile(pc, blockIdx.x);
+  auto load_stage = [&](int n) {
+    const int slot = n % kStages;
+    mbar_wait(&empty[slot], ((n / kStages) & 1) ^ 1);
+    mbar_expect_tx(&full[slot], kStageBytes);
+    bf16* dst = ring + slot * (kStageBytes / 2);
+    const bf16* src = w + ((static_cast<size_t>(pc.sl) * K + pc.j0 + pc.jt) *
+                               cout + pc.nb0) * kSlice;
+    bulk_load(dst, src, kPlaneBytes, &full[slot]);
+    tma_load_3d(dst + kPlaneBytes / 2, &tin, &full[slot], pc.sl * kSlice,
+                pc.l0 + pc.j0 + pc.jt - pad, pc.b);
+    advance(pc);
+  };
+  if (tid == 0)
+    for (int n = 0; n < N && n < kStages; ++n) load_stage(n);
+
+  // this thread's rows of a tile: p0 and p0 + 8 of the accumulator
+  const int row0 = 64 * wg + 16 * warp + g;
+  float acc[kNB / 2];
+  int n = 0;   // the block's stage counter
+  // stage n: issue its products (`fresh`: the tile's first stage, whose
+  // first product starts the accumulator), then wait for stage n - 1's
+  // products and release their slot
+  auto stage = [&](auto fresh) {
+    const int slot = n % kStages;
+    const bf16* wb = ring + slot * (kStageBytes / 2);
+    const bf16* ab = wb + kPlaneBytes / 2 + wg * 64 * kSlice;
+    mbar_wait(&full[slot], (n / kStages) & 1);
+    if (!decltype(fresh)::value) reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < kKSteps; ++q) {
+      const uint64_t bd = make_desc(wb + 16 * q, 16, kAtomBytes);
+      const uint64_t ad = make_desc(ab + 16 * q, 16, kAtomBytes);
+      if (decltype(fresh)::value && q == 0)
+        wgmma_bf16_ss256_first(acc, ad, bd);
+      else
+        wgmma_bf16_ss256(acc, ad, bd);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // stage n - 1's products are done
+    // release stage n - 1's slot; thread 0 refills the one the block left
+    // a stage before that (both warpgroups are past it by now)
+    if (n > 0 && lane == 0) mbar_arrive(&empty[(n - 1) % kStages]);
+    if (tid == 0 && n >= 2 && n - 2 + kStages < N) load_stage(n - 2 + kStages);
+    __syncwarp();
+    ++n;
+  };
 #pragma unroll 1
-    for (int j = j0; j < j1; ++j) {
-#pragma unroll 4
-      for (int ks = 0; ks < kD / 16; ++ks) {
-        uint32_t a[MT][4], bfr[4][2];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    stage(std::true_type{});
+#pragma unroll 1
+    for (int i = 1; i < T; ++i) stage(std::false_type{});
+    wgmma_wait<0>();
+    reg_fence(acc);
+
+    int sp, b, nb0, l0;
+    coords(tile, sp, b, nb0, l0);
+    const int p0 = l0 + row0;
+    if constexpr (!kConv2) {
+      // columns nb0 + 8 c + 2 t + e: h (S = 1) or split sp's partial
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          load_a_bf16(wf + mt * wf_mt + (j * (kD / 16) + ks) * 32, lane,
-                      a[mt]);
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + 8 * h;
+        if (p >= L) continue;
+        const size_t row = (static_cast<size_t>(b) * L + p) * H + nb0 + 2 * t;
+        if (S == 1) {
+          uint32_t* op = reinterpret_cast<uint32_t*>(out) + row / 2;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          load_b_bf16(xs, kStrideXH, wn * 32 + 8 * nt + g + (j - j0),
-                      16 * ks, t, bfr[nt]);
+          for (int c = 0; c < kNB / 8; ++c) {
+            const float2 bv =
+                __ldg(reinterpret_cast<const float2*>(b1 + nb0 + 8 * c + 2 * t));
+            op[4 * c] = pack_bf16(fmaxf(acc[4 * c + 2 * h] + bv.x, 0.f),
+                                  fmaxf(acc[4 * c + 2 * h + 1] + bv.y, 0.f));
+          }
+        } else {
+          float* op = static_cast<float*>(out) +
+                      static_cast<size_t>(sp) * B * L * H + row;
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
+          for (int c = 0; c < kNB / 8; ++c)
+            *reinterpret_cast<float2*>(op + 8 * c) =
+                make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+        }
+      }
+    } else {
+      if (G > 1) {
+        // this group's share
+        float* op = static_cast<float*>(out) +
+                    (static_cast<size_t>(sp) * B + b) * L * kD + 2 * t;
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], bfr[nt]);
+        for (int h = 0; h < 2; ++h) {
+          const int p = p0 + 8 * h;
+          if (p >= L) continue;
+#pragma unroll
+          for (int c = 0; c < kNB / 8; ++c)
+            *reinterpret_cast<float2*>(op + static_cast<size_t>(p) * kD +
+                                       8 * c) =
+                make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+        }
+        continue;
+      }
+      // the LayerNorm epilogue: y = (acc + b2) + x, in place in acc; the
+      // quad's four lanes hold the row's 256 columns
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + 8 * h;
+        const bool ok = p < L;
+        const uint32_t* xr = reinterpret_cast<const uint32_t*>(x) +
+                             ((static_cast<size_t>(b) * L + (ok ? p : 0)) * kD +
+                              2 * t) / 2;
+        float s = 0.f, sq = 0.f;
+#pragma unroll
+        for (int c = 0; c < kNB / 8; ++c) {
+          const uint32_t xv = ok ? xr[4 * c] : 0u;
+          const float2 bv =
+              __ldg(reinterpret_cast<const float2*>(b2 + 8 * c + 2 * t));
+          float& y0 = acc[4 * c + 2 * h];
+          float& y1 = acc[4 * c + 2 * h + 1];
+          y0 = y0 + bv.x + __uint_as_float(xv << 16);
+          y1 = y1 + bv.y + __uint_as_float(xv & 0xffff0000u);
+          s += y0;
+          sq = fmaf(y0, y0, sq);
+          s += y1;
+          sq = fmaf(y1, y1, sq);
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off *= 2) {
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+          sq += __shfl_xor_sync(0xffffffffu, sq, off);
+        }
+        const float mean = s / kD;
+        const float var = sq / kD - mean * mean;
+        const float inv = 1.f / sqrtf(var + 1e-5f);
+        if (!ok) continue;
+        uint32_t* op = static_cast<uint32_t*>(out) +
+                       ((static_cast<size_t>(b) * L + p) * kD + 2 * t) / 2;
+#pragma unroll
+        for (int c = 0; c < kNB / 8; ++c) {
+          const int col = 8 * c + 2 * t;
+          op[4 * c] = pack_bf16(
+              (acc[4 * c + 2 * h] - mean) * inv * gamma[col] + beta[col],
+              (acc[4 * c + 2 * h + 1] - mean) * inv * gamma[col + 1] +
+                  beta[col + 1]);
+        }
       }
     }
   }
-
-  float* pout = part + static_cast<size_t>(sp * B + b) * L * H;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = n0 + 16 * (wm * MT + mt) + g + (i >= 2 ? 8 : 0);
-        const int l = l0 + wn * 32 + 8 * nt + 2 * t + (i & 1);
-        if (l < L) pout[static_cast<size_t>(l) * H + n] = acc[mt][nt][i];
-      }
 }
 
-// ---- (b) ypart[g] = hidden group g's share of conv_k2(ReLU(sum part + b1))
-constexpr int kThreadsB = 256;
-constexpr int kBN_B = 16;       // rows per block
-constexpr int kSliceB = 64;     // hidden channels per staged slice
-constexpr int kStrideB = 68;    // 4 mod 32, 16-byte rows
+// Between the convs when the taps are split (S > 1): h = bfloat16(ReLU(the
+// S partials summed in the order 0, 1, ... + b1)), two values a thread
+constexpr int kThreadsSum = 256;
 
-// rows [win0, win0 + span) of the hidden channels [c0, c0 + 64) of each of
-// the splits partial planes (plane floats apart, rows H apart) into dst
-// [splits][span][68], zero outside [0, L)
-__device__ __forceinline__ void stage_rows_b(float* dst, const float* part,
-                                             size_t plane, int splits, int c0,
-                                             int L, int H, int win0, int span,
-                                             int tid) {
-  for (int s = 0; s < splits; ++s)
-    for (int i = tid; i < span * (kSliceB / 4); i += kThreadsB) {
-      const int row = i >> 4;
-      const int q = (i & 15) * 4;
-      const int pos = win0 + row;
-      const bool ok = pos >= 0 && pos < L;
-      cp_async16(dst + (s * span + row) * kStrideB + q,
-                 ok ? part + s * plane + static_cast<size_t>(pos) * H + c0 + q
-                    : part,
-                 ok);
+__global__ void __launch_bounds__(kThreadsSum)
+ffn_hidden_bf16_kernel(const float* __restrict__ part,
+                       const float* __restrict__ b1, uint32_t* __restrict__ h,
+                       int S, int H, long n2) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n2) return;
+  const float2* p = reinterpret_cast<const float2*>(part);
+  float2 v[kMaxSplits];
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    if (s < S) v[s] = p[s * n2 + i];   // every load issued before a sum
+  float2 acc = v[0];
+#pragma unroll
+  for (int s = 1; s < kMaxSplits; ++s)
+    if (s < S) {
+      acc.x += v[s].x;
+      acc.y += v[s].y;
     }
+  const float2 bv =
+      __ldg(reinterpret_cast<const float2*>(b1) + i % (H / 2));
+  h[i] = pack_bf16(fmaxf(acc.x + bv.x, 0.f), fmaxf(acc.y + bv.y, 0.f));
 }
 
-// the bfloat16 row stride of h's staged slice
-constexpr int kStrideHH = kSliceB + 8;
+// (c) with G > 1: out = LN(the groups' shares summed in order + b2 + x)
+// over D = 256, one warp per row
+constexpr int kThreadsLN = 256;
 
-int smem_b(int splits, int k2) {
-  const int span = kBN_B + k2 - 1;
-  return 4 * 2 * splits * span * kStrideB + 2 * span * kStrideHH;
-}
-
-// grid (row tiles, groups, B): 16 rows x all 256 columns (8 warps of 32) x
-// the hidden channels [g H / groups, (g + 1) H / groups); w2: the packed
-// weights, [D/16][k2][H/16][32][8] bfloat16 values (h rounded to bfloat16,
-// the bfloat16 tensor cores accumulating into the running sum)
-__global__ void __launch_bounds__(kThreadsB)
-ffn_conv2_bf16_kernel(const float* __restrict__ part,
-                      const float* __restrict__ b1,
-                      const uint4* __restrict__ w2, float* __restrict__ ypart,
-                      int B, int L, int H, int k2, int splits) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.z;
-  const int grp = blockIdx.y;
-  const int l0 = blockIdx.x * kBN_B;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;    // columns [32 warp, 32 warp + 32)
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int span = kBN_B + k2 - 1;
-  const int win0 = l0 - (k2 - 1) / 2;
-  const int wf_mt = k2 * (H / 16) * 32;
-  const uint4* wf = w2 + 2 * warp * wf_mt;
-  const size_t plane = static_cast<size_t>(B) * L * H;   // floats per split
-  const float* pb0 = part + static_cast<size_t>(b) * L * H;
-  const int slices = H / kSliceB / gridDim.y;
-  const int sl0 = grp * slices;
-
-  float* raw = smem;        // [2][splits][span][68]
-  const int buf = splits * span * kStrideB;
-  bf16* hs = reinterpret_cast<bf16*>(smem + 2 * buf);   // h [span][72]
-
-  float acc[2][2][4];
-  zero(acc);
-  stage_rows_b(raw, pb0, plane, splits, sl0 * kSliceB, L, H, win0, span,
-               tid);
-  cp_async_commit();
-#pragma unroll 1
-  for (int i_sl = 0; i_sl < slices; ++i_sl) {
-    const int sl = sl0 + i_sl;
-    cp_async_wait<0>();
-    __syncthreads();
-    if (i_sl + 1 < slices)
-      stage_rows_b(raw + ((i_sl + 1) & 1) * buf, pb0, plane, splits,
-                   (sl + 1) * kSliceB, L, H, win0, span, tid);
-    cp_async_commit();
-    const float* src = raw + (i_sl & 1) * buf;
-    for (int i = tid; i < span * kSliceB; i += kThreadsB) {
-      const int row = i >> 6;
-      const int c = i & 63;
-      const int pos = win0 + row;
-      float v = 0.f;
-      if (pos >= 0 && pos < L) {
-        float sum = src[row * kStrideB + c];
-        for (int s = 1; s < splits; ++s)
-          sum += src[(s * span + row) * kStrideB + c];
-        v = fmaxf(sum + __ldg(b1 + sl * kSliceB + c), 0.f);
-      }
-      hs[row * kStrideHH + c] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int j = 0; j < k2; ++j)
-#pragma unroll
-      for (int ks = 0; ks < kSliceB / 16; ++ks) {
-        uint32_t a[2][4], bfr[2][2];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          load_a_bf16(wf + mt * wf_mt +
-                          (j * (H / 16) + sl * (kSliceB / 16) + ks) * 32,
-                      lane, a[mt]);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          load_b_bf16(hs, kStrideHH, 8 * nt + g + j, 16 * ks, t, bfr[nt]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-            mma_bf16(acc[mt][nt], a[mt], bfr[nt]);
-      }
-  }
-
-  float* yb = ypart + (static_cast<size_t>(grp) * B + b) * L * kD;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = 32 * warp + 16 * mt + g + (i >= 2 ? 8 : 0);
-        const int l = l0 + 8 * nt + 2 * t + (i & 1);
-        if (l < L) yb[static_cast<size_t>(l) * kD + n] = acc[mt][nt][i];
-      }
-}
-
-// ---- (c) out = LN(sum of the groups' ypart + b2 + x) over D = 256 ---------
-constexpr int kThreadsC = 256;   // one warp per row
-
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// T: the type of x and the output (float, or bf16 rounded to nearest even)
-template <typename T>
-__global__ void __launch_bounds__(kThreadsC)
-ffn_ln_kernel(const float* __restrict__ ypart, const float* __restrict__ b2,
-              const T* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, T* __restrict__ out,
-              int rows, int groups) {
+__global__ void __launch_bounds__(kThreadsLN)
+ffn_ln_bf16_kernel(const float* __restrict__ ypart,
+                   const float* __restrict__ b2, const bf16* __restrict__ x,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta, bf16* __restrict__ out,
+                   int rows, int groups) {
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (kThreadsC / 32) + (threadIdx.x >> 5);
+  const int r = blockIdx.x * (kThreadsLN / 32) + (threadIdx.x >> 5);
   if (r >= rows) return;   // warp-uniform
   const size_t plane = static_cast<size_t>(rows) * kD;
   const size_t at = static_cast<size_t>(r) * kD + lane;
@@ -334,7 +395,7 @@ ffn_ln_kernel(const float* __restrict__ ypart, const float* __restrict__ b2,
   float s = 0.f, sq = 0.f;
 #pragma unroll
   for (int u = 0; u < kD / 32; ++u) {
-    y[u] = y[u] + __ldg(b2 + lane + 32 * u) + to_f32(x[at + 32 * u]);
+    y[u] = y[u] + __ldg(b2 + lane + 32 * u) + __bfloat162float(x[at + 32 * u]);
     s += y[u];
     sq = fmaf(y[u], y[u], sq);
   }
@@ -348,137 +409,173 @@ ffn_ln_kernel(const float* __restrict__ ypart, const float* __restrict__ b2,
   const float inv = 1.f / sqrtf(var + 1e-5f);
 #pragma unroll
   for (int u = 0; u < kD / 32; ++u) {
-    const int n = lane + 32 * u;
-    store(out + at + 32 * u, (y[u] - mean) * inv * gamma[n] + beta[n]);
+    const int col = lane + 32 * u;
+    out[at + 32 * u] =
+        __float2bfloat16_rn((y[u] - mean) * inv * gamma[col] + beta[col]);
   }
 }
 
-template <int MT, int WN>
-cudaError_t launch_a(const bf16* x, const uint4* w1, float* part, int B,
-                     int L, int H, int k1, int splits, cudaStream_t s) {
-  constexpr int BN = 32 * WN;
-  const int per = (k1 + splits - 1) / splits;
-  const int smem = 2 * (BN + per - 1) * kStrideXH;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+template <bool kConv2>
+cudaError_t launch(const bf16* in, const bf16* w, const float* b1,
+                   const float* b2, const bf16* x, const float* gamma,
+                   const float* beta, void* out, int B, int L, int H, int K,
+                   int S, int G, cudaStream_t st) {
   static bool opted_in = false;
   if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ffn_conv1_bf16_kernel<MT, WN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        ffn_bf16_kernel<kConv2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid((L + BN - 1) / BN, H / kBM_A, B * splits);
-  ffn_conv1_bf16_kernel<MT, WN><<<grid, kThreadsA, smem, s>>>(
-      x, w1, part, B, L, H, k1, splits);
+  const long long tiles = static_cast<long long>((L + kBM - 1) / kBM) *
+                          ((kConv2 ? kD : H) / kNB) * B * (kConv2 ? G : S);
+  const int grid = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
+  CUtensorMap tin;
+  if (!tensor_map_rows_bf16(&tin, in, kConv2 ? H : kD, L, B, kBM))
+    return cudaErrorInvalidValue;
+  ffn_bf16_kernel<kConv2><<<grid, kThreads, kSmemBytes, st>>>(
+      tin, w, b1, b2, x, gamma, beta, out, B, L, H, K, S, G);
   return cudaGetLastError();
 }
 
-// K2's three launches (fs2_conv_ffn_fwd_bf16's contract below)
-int conv_ffn_fwd(const void* x, const void* w1, const void* b1,
-                 const void* w2, const void* b2, const void* gamma,
-                 const void* beta, void* scratch, void* out, int B, int L,
-                 int D, int H, int k1, int k2, int bn, int splits,
-                 int groups, void* stream) {
-  if (D != kD || H <= 0 || H % kBM_A != 0 || B <= 0 || L <= 0 || k1 <= 0 ||
-      k2 <= 0 || splits <= 0 || splits > k1 || groups <= 0 ||
-      (H / kSliceB) % groups != 0)
+// The plan's cost model, in microseconds of device time on an H100 (from a
+// sweep of every plan at the paths' shapes): one stage of one block (two
+// warpgroups' four m64n256k16 products each), a block's first stages' wait
+// for the ring in stages, a small launch (the partials' sum, the
+// LayerNorm), the LayerNorm's time per share it sums (its warps read the
+// shares in turn), and the device memory's rate for the partials and
+// shares (written once, read once)
+constexpr double kStageUs = 0.8;
+constexpr double kPrologueStages = 2.0;
+constexpr double kLaunchUs = 2.0;
+constexpr double kGroupUs = 0.25;   // per share the LayerNorm launch reads
+constexpr double kBytesPerUs = 3.35e6;
+
+// the modelled time of a conv of `tiles` tiles, `stages` stages each, on a
+// persistent grid of one block per SM
+double conv_us(long long tiles, int stages) {
+  const long long per = (tiles + sm_count() - 1) / sm_count();
+  return (static_cast<double>(per) * stages + kPrologueStages) * kStageUs;
+}
+
+// the hidden groups conv2 may take: a power of two dividing H / 64
+bool groups_ok(int H, int grp) {
+  return grp >= 1 && (grp & (grp - 1)) == 0 && (H / kSlice) % grp == 0;
+}
+
+}  // namespace
+
+// K2's bfloat16 plan at [B, L, 256] -> H with a k1-tap first conv and a
+// k2-tap second one (the float32 instance has its own,
+// fs2_conv_ffn_f32_plan):
+//   cfg[0] = the tap splits S of conv1, a divisor of k1 (at most 16);
+//   cfg[1] = the hidden groups G of conv2 (groups_ok);
+// each the one whose modelled time is least, the smallest on a tie: the
+// conv's stages over the persistent grid, plus for S > 1 the partials'
+// bytes and their sum's launch, for G > 1 the shares' bytes and the
+// LayerNorm's launch.  Returns the floats of scratch the call needs: h
+// (B L H bfloat16 values), then, with S > 1, S B L H partial sums of
+// conv1, then, with G > 1, G B L 256 shares of conv2.
+extern "C" long long fs2_conv_ffn_plan(int B, int L, int H, int k1, int k2,
+                                       int* cfg) {
+  const double rows = static_cast<double>(B) * L;
+  const long long tiles1 =
+      static_cast<long long>((L + kBM - 1) / kBM) * (H / kNB) * B;
+  int splits = 1;
+  double best = -1.0;
+  for (int s = 1; s <= k1 && s <= kMaxSplits; ++s) {
+    if (k1 % s) continue;
+    double us = conv_us(tiles1 * s, kD / kSlice * k1 / s);
+    if (s > 1)
+      us += kLaunchUs + (2.0 * s + 0.5) * rows * H * sizeof(float) /
+                            kBytesPerUs;
+    if (best < 0.0 || us < best) {
+      best = us;
+      splits = s;
+    }
+  }
+  const long long tiles2 = static_cast<long long>((L + kBM - 1) / kBM) * B;
+  int groups = 1;
+  best = -1.0;
+  for (int grp = 1; grp <= H / kSlice; grp *= 2) {
+    if (!groups_ok(H, grp)) continue;
+    double us = conv_us(tiles2 * grp, H / kSlice / grp * k2);
+    if (grp > 1)
+      us += kLaunchUs + kGroupUs * grp +
+            (2.0 * grp + 1.0) * rows * kD * sizeof(float) / kBytesPerUs;
+    if (best < 0.0 || us < best) {
+      best = us;
+      groups = grp;
+    }
+  }
+  cfg[0] = splits;
+  cfg[1] = groups;
+  return (static_cast<long long>(H) / 2 +
+          (splits > 1 ? static_cast<long long>(splits) * H : 0) +
+          (groups > 1 ? static_cast<long long>(groups) * kD : 0)) *
+         B * L;
+}
+
+// x, out: [B, L, D] bfloat16; w1, w2: the bfloat16 packs of conv1
+// ([D/64][k1][H][64]) and conv2 ([H/64][k2][D][64]): for each (64-channel
+// slice, tap) the weights as [C_out][64] rows in the 128-byte swizzle
+// (ops/cuda_ffn.py); b1: [H]; b2, gamma, beta: [D]; scratch:
+// fs2_conv_ffn_plan's floats; b1, b2, gamma, beta and the scratch float32.
+// All contiguous, 16-byte aligned.  Takes D = 256, H a multiple of 256, k1,
+// k2 >= 1 (a k-tap conv pads (k-1)/2 zeros before and k/2 after, SAME),
+// splits dividing k1 (at most 16) and groups as groups_ok takes them, as
+// fs2_conv_ffn_plan gives them.  Launches the two convs on `stream`, with
+// the partials' sum between them for splits > 1 and the LayerNorm after
+// them for groups > 1; returns cudaGetLastError() after each (or
+// cudaErrorInvalidValue for a shape the kernels do not take).
+extern "C" int fs2_conv_ffn_fwd_bf16(const void* x, const void* w1,
+                                     const void* b1, const void* w2,
+                                     const void* b2, const void* gamma,
+                                     const void* beta, void* scratch,
+                                     void* out, int B, int L, int D, int H,
+                                     int k1, int k2, int splits, int groups,
+                                     void* stream) {
+  if (D != kD || H <= 0 || H % kNB != 0 || B <= 0 || L <= 0 || k1 <= 0 ||
+      k2 <= 0 || splits <= 0 || splits > kMaxSplits || k1 % splits != 0 ||
+      !groups_ok(H, groups) ||
+      static_cast<long long>(splits) * B * L * H >= (1LL << 31) ||
+      static_cast<long long>(groups) * B * L * kD >= (1LL << 31))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xs = static_cast<const bf16*>(x);
-  const uint4* w1s = static_cast<const uint4*>(w1);
-  float* part = static_cast<float*>(scratch);
-  float* ypart = part + static_cast<size_t>(splits) * B * L * H;
-  cudaError_t err;
-  switch (bn) {
-    case 128:
-      err = launch_a<4, 4>(xs, w1s, part, B, L, H, k1, splits, s);
-      break;
-    case 64:
-      err = launch_a<2, 2>(xs, w1s, part, B, L, H, k1, splits, s);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const float* b1f = static_cast<const float*>(b1);
+  bf16* hid = static_cast<bf16*>(scratch);
+  float* part = static_cast<float*>(scratch) + static_cast<size_t>(B) * L * H / 2;
+  float* ypart = part + (splits > 1 ? static_cast<size_t>(splits) * B * L * H : 0);
+  cudaError_t err = launch<false>(
+      xs, static_cast<const bf16*>(w1), b1f, nullptr, nullptr, nullptr,
+      nullptr, splits > 1 ? static_cast<void*>(part) : static_cast<void*>(hid),
+      B, L, H, k1, splits, 1, st);
   if (err != cudaSuccess) return err;
-  const int smem = smem_b(splits, k2);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  static bool opted_in = false;
-  if (!opted_in) {
-    err = cudaFuncSetAttribute(ffn_conv2_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
+  if (splits > 1) {
+    const long n2 = static_cast<long>(B) * L * H / 2;
+    ffn_hidden_bf16_kernel<<<(n2 + kThreadsSum - 1) / kThreadsSum,
+                             kThreadsSum, 0, st>>>(
+        part, b1f, reinterpret_cast<uint32_t*>(hid), splits, H, n2);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    opted_in = true;
   }
-  const dim3 grid_b((L + kBN_B - 1) / kBN_B, groups, B);
-  ffn_conv2_bf16_kernel<<<grid_b, kThreadsB, smem, s>>>(
-      part, static_cast<const float*>(b1), static_cast<const uint4*>(w2),
-      ypart, B, L, H, k2, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  err = launch<true>(hid, static_cast<const bf16*>(w2), nullptr,
+                     static_cast<const float*>(b2), xs,
+                     static_cast<const float*>(gamma),
+                     static_cast<const float*>(beta),
+                     groups > 1 ? static_cast<void*>(ypart) : out, B, L, H,
+                     k2, 1, groups, st);
+  if (err != cudaSuccess || groups == 1) return err;
   const int rows = B * L;
-  const dim3 grid_c((rows + kThreadsC / 32 - 1) / (kThreadsC / 32));
-  ffn_ln_kernel<bf16><<<grid_c, kThreadsC, 0, s>>>(
+  ffn_ln_bf16_kernel<<<(rows + kThreadsLN / 32 - 1) / (kThreadsLN / 32),
+                       kThreadsLN, 0, st>>>(
       ypart, static_cast<const float*>(b2), xs,
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<bf16*>(out), rows, groups);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// K2's bfloat16 launch plan at [B, L, 256] -> H with a k1-tap first conv
-// (the float32 instance has its own, fs2_conv_ffn_f32_plan):
-//   cfg[0] = positions per block of (a): 64 up to L = 64, else 128;
-//   cfg[1] = the tap splits S of (a), the smallest whose grid has a block
-//            for every SM (at most k1, and no split left without a tap);
-//   cfg[2] = the hidden groups G of (b), the smallest power of two (at most
-//            H / 64) whose grid has a block for every SM.
-// Chosen by measurement on an H100 (PERF.md).  Returns the floats of
-// scratch the call needs: S B L H partial sums of the first conv, then
-// G B L 256 of the second.
-extern "C" long long fs2_conv_ffn_plan(int B, int L, int H, int k1,
-                                       int* cfg) {
-  const int bn = L <= 64 ? 64 : 128;
-  const long long blocks =
-      static_cast<long long>((L + bn - 1) / bn) * (H / kBM_A) * B;
-  int splits = k1;
-  for (int s = 1; s <= k1; ++s)
-    if (blocks * s >= sm_count()) {
-      splits = s;
-      break;
-    }
-  const int per = (k1 + splits - 1) / splits;
-  splits = (k1 + per - 1) / per;
-  const long long tiles = static_cast<long long>((L + kBN_B - 1) / kBN_B) * B;
-  int groups = 1;
-  while (groups * 2 <= H / kSliceB && (H / kSliceB) % (groups * 2) == 0 &&
-         tiles * groups < sm_count())
-    groups *= 2;
-  cfg[0] = bn;
-  cfg[1] = splits;
-  cfg[2] = groups;
-  return (static_cast<long long>(splits) * H + groups * kD) * B * L;
-}
-
-// x, out: [B, L, D] bfloat16; w1, w2: the bfloat16 packs of conv1
-// ([H/16][k1][D/16][32][8] values) and conv2 ([D/16][k2][H/16][32][8]); b1:
-// [H]; b2, gamma, beta: [D]; scratch: fs2_conv_ffn_plan's floats; b1, b2,
-// gamma, beta and the scratch float32.  All contiguous, 16-byte aligned.
-// Takes D = 256, H a multiple of 64, k1, k2 >= 1 (a k-tap conv pads
-// (k-1)/2 zeros before and k/2 after, SAME), and bn, splits, groups as
-// fs2_conv_ffn_plan gives them (bn in {64, 128}, 1 <= splits <= k1, groups
-// dividing H / 64).  Launches the three kernels on `stream`; returns
-// cudaGetLastError() after each (or cudaErrorInvalidValue for a shape the
-// kernels do not take).
-extern "C" int fs2_conv_ffn_fwd_bf16(const void* x, const void* w1,
-                                     const void* b1, const void* w2,
-                                     const void* b2, const void* gamma,
-                                     const void* beta, void* scratch,
-                                     void* out, int B, int L, int D, int H,
-                                     int k1, int k2, int bn, int splits,
-                                     int groups, void* stream) {
-  return conv_ffn_fwd(x, w1, b1, w2, b2, gamma, beta, scratch, out, B, L, D,
-                      H, k1, k2, bn, splits, groups, stream);
-}
+// Dynamic shared memory of a block of either conv, for the build report.
+extern "C" int fs2_conv_ffn_bf16_smem_bytes() { return kSmemBytes; }

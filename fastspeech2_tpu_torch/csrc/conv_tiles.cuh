@@ -1,7 +1,6 @@
-// What the convolution kernels share: the bfloat16 K2 (conv_ffn.cu) its
-// fragment helpers (tf32_mma.cuh) and zero; the float32 K2
-// (conv_ffn_f32.cu) and K4 (resblock.cu), whose products are wgmma
-// (hopper.cuh), the SM count their persistent grids are sized against.
+// What the convolution kernels share: the SM count the persistent grids of
+// K2 (conv_ffn_f32.cu, conv_ffn.cu) and K4 (resblock.cu) are sized against,
+// and the split and rounding of tf32_mma.cuh.
 
 #pragma once
 
@@ -12,8 +11,6 @@
 
 namespace fs2_conv {
 
-using namespace fs2_tc;
-
 // the current device's SM count, read once (grids are sized against it)
 inline int sm_count() {
   static int n = 0;
@@ -23,16 +20,6 @@ inline int sm_count() {
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   }
   return n;
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 }
 
 }  // namespace fs2_conv

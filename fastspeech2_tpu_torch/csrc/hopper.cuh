@@ -1,7 +1,7 @@
 // Hopper's asynchronous machinery as inline PTX, for the kernels on wgmma:
-// the attention forward (attention.cu, float32; attention_bf16.cu), the
-// bfloat16 attention backward (attention_bwd_bf16.cu), the float32 conv FFN
-// (conv_ffn_f32.cu) and K4 (resblock.cu): mbarriers (whose waits trap after
+// the attention forward and backward (attention.cu, attention_bwd.cu,
+// float32; attention_bf16.cu, attention_bwd_bf16.cu), the conv FFN
+// (conv_ffn_f32.cu, conv_ffn.cu) and K4 (resblock.cu): mbarriers (whose waits trap after
 // 2 s), TMA tile loads and bulk copies, warpgroup matrix products (wgmma,
 // bfloat16 and tf32) and their shared-memory descriptors, and the
 // host-side tensor maps.  sm_90a only (wgmma).
@@ -312,6 +312,70 @@ __device__ __forceinline__ void wgmma_64x128_rs(float (&d)[64],
         "n"(TB));
 }
 
+// d (64 x 256, float32) += A B, A (64 x 16) and B (16 x 256) bfloat16, both
+// K-major from shared memory (descriptors a and b); the _first form starts
+// from a fresh accumulator (scale-d 0; see wgmma_64x64_ss_first)
+__device__ __forceinline__ void wgmma_bf16_ss256(float (&d)[128], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : FS2_D128("+f")
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss256_first(float (&d)[128],
+                                                       uint64_t a,
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : FS2_D128("=f")
+      : "l"(a), "l"(b), "r"(0));
+}
+
 // d (64 x N, float32) += A B: A (64 x 8) tf32 from registers (the fragment
 // above, as tf32 bit patterns), B (8 x N) tf32 K-major from shared memory
 // (descriptor b).  N = 32, 64, 128 or 256: N / 2 accumulators a thread.
@@ -527,6 +591,23 @@ __device__ __forceinline__ void wgmma_tf32_ss32(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
+// the same from a fresh accumulator (scale-d 0; see wgmma_tf32_rs_first)
+__device__ __forceinline__ void wgmma_tf32_ss32_first(float (&d)[16],
+                                                      uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : FS2_D16("=f")
+      : "l"(a), "l"(b), "r"(0));
+}
+
 #undef FS2_D128
 #undef FS2_D64
 #undef FS2_D32
@@ -575,6 +656,29 @@ inline bool tensor_map_rows128(CUtensorMap* map, const void* base, int rows,
                                  static_cast<cuuint64_t>(rows) * 128 *
                                      sizeof(__nv_bfloat16)};
   const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the tensor map of a row-major bfloat16 [batch, rows, C] tensor (C a
+// multiple of 64) in boxes of `box_rows` rows by 64 values (128 bytes) in
+// the 128-byte swizzle: rows outside [0, rows) read as zeros, so a box
+// never reaches into the next batch row
+inline bool tensor_map_rows_bf16(CUtensorMap* map, const void* base, int C,
+                                 int rows, int batch, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(C) * sizeof(__nv_bfloat16),
+      static_cast<cuuint64_t>(rows) * C * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elem,

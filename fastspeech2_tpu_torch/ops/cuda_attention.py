@@ -1,8 +1,8 @@
 """K1 and K3: fused masked self-attention forward and backward,
-hand-written CUDA for Hopper (K1 on wgmma and TMA at both dtypes:
+hand-written CUDA for Hopper, on wgmma and TMA at both dtypes (K1:
 ``csrc/attention.cu``, float32 as 3xTF32, and ``csrc/attention_bf16.cu``;
-K3: ``csrc/attention_bwd.cu``, float32 on mma.sync, recomputing K1's
-scores bit for bit, and ``csrc/attention_bwd_bf16.cu`` on wgmma), replacing
+K3, recomputing K1's scores bit for bit: ``csrc/attention_bwd.cu``, float32
+as 3xTF32, and ``csrc/attention_bwd_bf16.cu``), replacing
 the TPU kernels
 ``fastspeech2_tpu/ops/pallas_attention.py::_mha_kernel`` and
 ``::_mha_bwd_kernel`` (the ``fused_multi_head_attention`` custom VJP).
@@ -45,9 +45,8 @@ from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
 HEAD_DIM = 128
 SCALE = 1.0 / math.sqrt(HEAD_DIM)   # ctypes rounds it to float, as JAX does
 
-# K1 calls (one launch, or two on the key-split path) and K3 calls (three
-# launches each at float32, two at bfloat16) since the counts were last set
-# to 0: float32, bfloat16
+# K1 calls (one launch, or two on the key-split path) and K3 calls (two
+# launches each) since the counts were last set to 0: float32, bfloat16
 launches = 0
 bwd_launches = 0
 launches_bf16 = 0
@@ -184,9 +183,10 @@ def fused_attention_backward(q, k, v, key_pad_mask, out, row_max, row_sum,
                              g):
     """K3: (dq, dk, dv) of the attention whose K1 forward gave ``out``,
     ``row_max`` and ``row_sum``, for the incoming gradient ``g`` (made
-    contiguous here: autograd may hand over a strided one).  The bfloat16
-    instance does not read ``out``: it forms D = rowsum(dP * P) as the TPU
-    kernel does (csrc/attention_bwd.cu says why)."""
+    contiguous here: autograd may hand over a strided one).  The float32
+    instance forms D = rowsum(G * out); the bfloat16 one does not read
+    ``out``: it forms D = rowsum(dP * P) as the TPU kernel does
+    (csrc/attention_bwd_bf16.cu says why)."""
     global bwd_launches, bwd_launches_bf16
     _check_inputs("fused_attention_backward", q, k, v, key_pad_mask)
     B, H, L, D = q.shape
@@ -206,7 +206,7 @@ def fused_attention_backward(q, k, v, key_pad_mask, out, row_max, row_sum,
                              f"{tuple(t.shape)} on {t.device}")
     lib = load_library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # float32: the dQ partial of each 64-key tile, and D; bfloat16: D
+    # D, one float a query row, at both dtypes
     scratch = torch.empty(lib.fs2_mha_bwd_scratch_floats(B, H, L, int(bf16)),
                           device=q.device, dtype=torch.float32)
     scale = 1.0 / math.sqrt(D)

@@ -25,8 +25,8 @@ SOURCES = ("attention.cu", "attention_bwd.cu", "attention_bf16.cu",
            "attention_bwd_bf16.cu", "conv_ffn.cu", "conv_ffn_f32.cu",
            "resblock.cu")
 # headers the sources include (hashed with them)
-HEADERS = ("attention_bf16.cuh", "attention_common.cuh", "conv_tiles.cuh",
-           "hopper.cuh", "tf32_mma.cuh")
+HEADERS = ("attention_bf16.cuh", "attention_common.cuh", "attention_f32.cuh",
+           "conv_tiles.cuh", "hopper.cuh", "tf32_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,12 +42,14 @@ _SIGNATURES = {
     # B, H, L, bf16, stats, grid (int[3], written) -> scratch floats (long
     # long)
     "fs2_mha_fwd_plan": [_I] * 5 + [_P],
-    # q, k, s, B, H, L, route, stream: raw scores through K1's or K3b's
-    # routine (the score contract's check)
+    # q, k, s, B, H, L, route, stream: raw scores through K1's routine
+    # (route 1), K3b's (2) or K3a's (3) (the score contract's check)
     "fs2_mha_scores_f32": [_P] * 3 + [_I] * 4 + [_P],
     "fs2_mha_fwd_blocks_per_sm": [],
     "fs2_mha_fwd_f32_smem_bytes": [],
     "fs2_mha_bwd_blocks_per_sm": [],
+    # -> dynamic shared memory bytes of a block of the float32 K3
+    "fs2_mha_bwd_f32_smem_bytes": [],
     "fs2_mha_fwd_bf16_blocks_per_sm": [],
     "fs2_mha_bwd_bf16_blocks_per_sm": [],
     "fs2_mha_bwd_bf16_dq_blocks_per_sm": [],
@@ -61,12 +63,14 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, gamma, beta, scratch, out, B, L, D, H, k1, k2,
     # splits, groups, stream
     "fs2_conv_ffn_fwd_f32": [_P] * 9 + [_I] * 8 + [_P],
-    # the same with bn (positions per block of the first conv) before splits
-    "fs2_conv_ffn_fwd_bf16": [_P] * 9 + [_I] * 9 + [_P],
+    # the same at bfloat16
+    "fs2_conv_ffn_fwd_bf16": [_P] * 9 + [_I] * 8 + [_P],
     # B, L, H, k1, k2, cfg (int[2], written) -> scratch floats (long long)
     "fs2_conv_ffn_f32_plan": [_I] * 5 + [_P],
-    # B, L, H, k1, cfg (int[3], written) -> scratch floats (long long)
-    "fs2_conv_ffn_plan": [_I] * 4 + [_P],
+    # the same at bfloat16
+    "fs2_conv_ffn_plan": [_I] * 5 + [_P],
+    # -> dynamic shared memory bytes of a block of the bfloat16 K2
+    "fs2_conv_ffn_bf16_smem_bytes": [],
     # conv2 (0: the first conv) -> dynamic shared memory bytes of a block
     "fs2_conv_ffn_f32_smem_bytes": [_I],
     # in, w, bias, res, out, B, C, L, k, d, first, nb, stream

@@ -1,6 +1,7 @@
 """K2: fused position-wise conv FFN, hand-written CUDA for Hopper on the
-tensor cores (float32: ``csrc/conv_ffn_f32.cu``, 3xTF32 on ``wgmma``, the
-weights fed by TMA; bfloat16: ``csrc/conv_ffn.cu``), replacing the TPU
+tensor cores (float32: ``csrc/conv_ffn_f32.cu``, 3xTF32 on ``wgmma``;
+bfloat16: ``csrc/conv_ffn.cu``, bfloat16 ``wgmma``; both with the weights
+fed by TMA), replacing the TPU
 kernel ``fastspeech2_tpu/ops/pallas_ffn.py::_ffn_kernel``, with its plain
 version.
 
@@ -29,7 +30,8 @@ stay float32.  Each instance counts its own launches.  The kernel reads
 both convs' weights packed once (:func:`pack_ffn_weights`,
 ``ops/tf32_pack.py``): at float32 the big and small TF32 planes of each
 (32-channel slice, tap) as swizzled rows, the ``wgmma`` B operand; at
-bfloat16 in the ``mma`` A fragments' order.  The model keeps that pack for
+bfloat16 the weights rounded to bfloat16, one swizzled plane of rows per
+(64-channel slice, tap).  The model keeps that pack for
 its no-grad forwards and rebuilds it only when a weight or the dtype
 changes.  Without a pack, a call packs the weights it is given.
 """
@@ -43,8 +45,9 @@ from torch.nn import functional as F
 from fastspeech2_tpu_torch.ops.cuda_build import check, load_library
 from fastspeech2_tpu_torch.ops.tf32_pack import (
     SLICE,
-    pack_fragments_bf16,
+    SLICE_BF16,
     pack_planes,
+    pack_rows_bf16,
 )
 
 MODEL_DIM = 256
@@ -52,8 +55,8 @@ MODEL_DIM = 256
 # fused_conv_ffn calls that launched the kernel since the count was last
 # set to 0: float32 (two launches at the large shapes, the first conv and
 # the second ending in the residual and LayerNorm; up to five at the small
-# ones, csrc/conv_ffn_f32.cu), bfloat16 (three: the first conv's partial
-# sums, the second conv's group shares, the residual and LayerNorm)
+# ones, csrc/conv_ffn_f32.cu), bfloat16 (two at the large shapes, up to
+# four at the small ones, csrc/conv_ffn.cu)
 launches = 0
 launches_bf16 = 0
 
@@ -70,28 +73,24 @@ def conv1d_same(x, w):
 def pack_ffn_weights(w1, w2, dtype=torch.float32):
     """w1 [k1, D, H], w2 [k2, H, D] (JAX layouts, any strides) -> what K2's
     ``dtype`` instance reads: float32 (:func:`pack_planes`: w1p [D/32, k1,
-    2, H, 32], w2p [H/32, k2, 2, D, 32]) or bfloat16 (w1p [H/16, k1, D/16,
-    32, 8], w2p [D/16, k2, H/16, 32, 8])."""
-    if dtype == torch.bfloat16:
-        return (pack_fragments_bf16(w1.detach().permute(0, 2, 1)),
-                pack_fragments_bf16(w2.detach().permute(0, 2, 1)))
-    return (pack_planes(w1.detach().permute(0, 2, 1)),
-            pack_planes(w2.detach().permute(0, 2, 1)))
+    2, H, 32], w2p [H/32, k2, 2, D, 32]) or bfloat16
+    (:func:`pack_rows_bf16`: w1p [D/64, k1, H, 64], w2p [H/64, k2, D,
+    64])."""
+    pack = pack_rows_bf16 if dtype == torch.bfloat16 else pack_planes
+    return (pack(w1.detach().permute(0, 2, 1)),
+            pack(w2.detach().permute(0, 2, 1)))
 
 
 @functools.lru_cache(maxsize=256)
 def forward_plan(B, L, H, k1, k2=1, dtype=torch.float32):
-    """The kernel's own plan: at float32 (``fs2_conv_ffn_f32_plan``) the
-    first conv's tap splits and the second conv's hidden groups; at
-    bfloat16 (``fs2_conv_ffn_plan``) the first conv's positions per block,
-    its tap splits and the second conv's hidden groups."""
+    """The kernel's own plan at ``dtype`` (``fs2_conv_ffn_f32_plan``,
+    ``fs2_conv_ffn_plan``): the first conv's tap splits and the second
+    conv's hidden groups."""
     lib = load_library()
-    if dtype == torch.bfloat16:
-        cfg = (ctypes.c_int * 3)()
-        lib.fs2_conv_ffn_plan(B, L, H, k1, cfg)
-    else:
-        cfg = (ctypes.c_int * 2)()
-        lib.fs2_conv_ffn_f32_plan(B, L, H, k1, k2, cfg)
+    cfg = (ctypes.c_int * 2)()
+    plan = (lib.fs2_conv_ffn_plan if dtype == torch.bfloat16
+            else lib.fs2_conv_ffn_f32_plan)
+    plan(B, L, H, k1, k2, cfg)
     return tuple(cfg)
 
 
@@ -146,7 +145,7 @@ class FusedConvFFN(torch.autograd.Function):
 def fused_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, packed=None):
     """x: float32 or bfloat16 [B, L, 256]; the rest float32: w1 [k1, 256,
     H]; b1 [H]; w2 [k2, H, 256]; b2, ln_scale, ln_bias [256]; H a multiple
-    of 64; ``packed``: the weights' :func:`pack_ffn_weights` at x's dtype,
+    of 128 (of 256 at bfloat16); ``packed``: the weights' :func:`pack_ffn_weights` at x's dtype,
     made here when not given (and on the gradient path, from the saved
     weights).  The output has x's dtype."""
     args = (x, w1, b1, w2, b2, ln_scale, ln_bias)
@@ -160,9 +159,8 @@ def fused_conv_ffn(x, w1, b1, w2, b2, ln_scale, ln_bias, packed=None):
 
 
 def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
-    """``plan``: the kernel's plan for measurement (at float32 (tap splits,
-    hidden groups), at bfloat16 (positions per block, tap splits, hidden
-    groups)); the kernel's own :func:`forward_plan` by default."""
+    """``plan``: the kernel's plan for measurement, (tap splits, hidden
+    groups); the kernel's own :func:`forward_plan` by default."""
     global launches, launches_bf16
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_ffn: unsupported device {x.device}")
@@ -175,13 +173,13 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
     B, L, D = x.shape
     k1, _, H = w1.shape
     k2 = w2.shape[0]
-    if H % (64 if bf16 else 128) != 0:
+    if H % (256 if bf16 else 128) != 0:
         raise ValueError(f"fused_conv_ffn: hidden width {H} is not a "
-                         f"multiple of {64 if bf16 else 128}")
+                         f"multiple of {256 if bf16 else 128}")
     w1p, w2p = packed
     if bf16:
-        w1_shape = (H // 16, k1, D // 16, 32, 8)
-        w2_shape = (D // 16, k2, H // 16, 32, 8)
+        w1_shape = (D // SLICE_BF16, k1, H, SLICE_BF16)
+        w2_shape = (H // SLICE_BF16, k2, D, SLICE_BF16)
     else:
         w1_shape = (D // SLICE, k1, 2, H, SLICE)
         w2_shape = (H // SLICE, k2, 2, D, SLICE)
@@ -208,17 +206,19 @@ def _launch(x, w1, b1, w2, b2, ln_scale, ln_bias, packed, plan=None):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (x.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
                 b2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr())
+        splits, groups = plan
         if bf16:
-            bn, splits, groups = plan
-            # the first conv's partial sums, then the second conv's shares
-            scratch = torch.empty((splits * H + groups * D) * B * L,
-                                  device=x.device, dtype=torch.float32)
+            # h (bfloat16), then (splits > 1) the first conv's partial sums,
+            # then (groups > 1) the second conv's shares
+            scratch = torch.empty(
+                (H // 2 + (splits * H if splits > 1 else 0)
+                 + (groups * D if groups > 1 else 0)) * B * L,
+                device=x.device, dtype=torch.float32)
             name = "fs2_conv_ffn_fwd_bf16"
             err = lib.fs2_conv_ffn_fwd_bf16(
                 *args, scratch.data_ptr(), out.data_ptr(), B, L, D, H, k1,
-                k2, bn, splits, groups, stream)
+                k2, splits, groups, stream)
         else:
-            splits, groups = plan
             # the first conv's partial sums, then (groups > 1) the second
             # conv's shares
             scratch = torch.empty(

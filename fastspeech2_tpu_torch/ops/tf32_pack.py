@@ -1,7 +1,7 @@
-"""Weights for the float32 convolution kernels on ``wgmma``, K2
-(``csrc/conv_ffn_f32.cu``) and K4 (``csrc/resblock.cu``), split for
-3xTF32 and laid out as their ``wgmma`` descriptors read them
-(:func:`pack_planes`), and K2's bfloat16 pack (:func:`pack_fragments_bf16`).
+"""Weights for the convolution kernels on ``wgmma``, laid out as their
+``wgmma`` descriptors read them: the float32 K2 (``csrc/conv_ffn_f32.cu``)
+and K4 (``csrc/resblock.cu``), split for 3xTF32 (:func:`pack_planes`), and
+the bfloat16 K2 (``csrc/conv_ffn.cu``, :func:`pack_rows_bf16`).
 
 A conv with T taps is T matrices A_j [N, K] (N output channels, K input
 channels).  Each float32 weight w is split into big = tf32(w) and small =
@@ -9,12 +9,15 @@ tf32(w - big), rounded as ``cvt.rna.tf32.f32`` rounds (to nearest, ties
 away from zero, 10 mantissa bits), so big + small is w to ~2^-22.  A
 kernel stage is one (32-channel slice, tap): its two planes are [N][32]
 rows of 128 bytes, K-major (the B operand of a tf32 ``wgmma``), each row's
-16-byte chunks in the 128-byte swizzle.
+16-byte chunks in the 128-byte swizzle.  At bfloat16 a stage is one
+(64-channel slice, tap): the weights rounded to bfloat16, one [N][64] plane
+of 128-byte rows in the same swizzle.
 """
 
 import torch
 
 SLICE = 32   # input channels per kernel stage: one 128-byte row of tf32
+SLICE_BF16 = 64   # ... at bfloat16
 
 
 def tf32_round(x):
@@ -27,11 +30,12 @@ def tf32_round(x):
 
 
 def _swizzle(planes):
-    """[..., R, 32] float32 rows -> the same rows with their 16-byte chunks
-    in the 128-byte swizzle (chunk c of row r stored at c ^ (r % 8)); an
-    involution, so it also undoes itself."""
-    R = planes.shape[-2]
-    chunks = planes.reshape(*planes.shape[:-1], 8, 4)
+    """[..., R, C] rows of 128 bytes (C = 32 float32 or 64 bfloat16
+    values) -> the same rows with their 16-byte chunks in the 128-byte
+    swizzle (chunk c of row r stored at c ^ (r % 8)); an involution, so it
+    also undoes itself."""
+    R, C = planes.shape[-2:]
+    chunks = planes.reshape(*planes.shape[:-1], 8, C // 8)
     rows = torch.arange(R, device=planes.device)[:, None]
     cols = torch.arange(8, device=planes.device)[None, :]
     return chunks[..., rows, cols ^ (rows % 8), :] \
@@ -62,20 +66,23 @@ def unpack_planes(packed):
     return planes[:, 0], planes[:, 1]
 
 
-def pack_fragments_bf16(a):
-    """a: [T, M, K], M and K multiples of 16 -> [M/16, T, K/16, 32, 8]
-    bfloat16, contiguous: ``a`` rounded to bfloat16 (to nearest even, as
-    JAX's astype rounds) in the order of the A fragments of
-    mma.m16n8k16.bf16 (``csrc/tf32_mma.cuh``): for each 16 x 16 block,
-    lane (g, t) holds A[g, 2t], A[g, 2t+1], A[g+8, 2t], A[g+8, 2t+1],
-    A[g, 2t+8], A[g, 2t+9], A[g+8, 2t+8], A[g+8, 2t+9]."""
-    T, M, K = a.shape
-    if M % 16 or K % 16:
-        raise ValueError(f"pack_fragments_bf16: [T, M, K] = {tuple(a.shape)}"
-                         " needs M and K multiples of 16")
-    # rows m = 16 mb + 8 rh + g, columns k = 16 kb + 8 kh + 2 t + e
-    p = a.detach().to(torch.bfloat16).reshape(T, M // 16, 2, 8, K // 16, 2,
-                                              4, 2)
-    # -> [mb, T, kb, g, t, kh, rh, e]
-    return p.permute(1, 0, 4, 3, 6, 5, 2, 7).reshape(
-        M // 16, T, K // 16, 32, 8).contiguous()
+def pack_rows_bf16(a):
+    """a: [T, N, K] (tap, output channel, input channel), K a multiple of
+    64 -> [K/64, T, N, 64] bfloat16, contiguous: ``a`` rounded to bfloat16
+    (to nearest even, as JAX's astype rounds), for each (64-channel slice
+    s, tap j) an [N][64] plane (row n holds a[j, n, 64 s:64 s + 64]), rows
+    in the 128-byte swizzle."""
+    T, N, K = a.shape
+    if K % SLICE_BF16:
+        raise ValueError(f"pack_rows_bf16: [T, N, K] = {tuple(a.shape)} "
+                         f"needs K a multiple of {SLICE_BF16}")
+    rows = a.detach().to(torch.bfloat16).reshape(T, N, K // SLICE_BF16,
+                                                 SLICE_BF16)
+    return _swizzle(rows.permute(2, 0, 1, 3)).contiguous()
+
+
+def unpack_rows_bf16(packed):
+    """Inverse of :func:`pack_rows_bf16`: -> [T, N, K] bfloat16."""
+    S, T, N, _ = packed.shape
+    return _swizzle(packed).permute(1, 2, 0, 3).reshape(T, N,
+                                                        S * SLICE_BF16)

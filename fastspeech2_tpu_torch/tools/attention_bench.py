@@ -56,7 +56,9 @@ K1_SHAPES = (("readme_encoder", 1, 32, [31]), ("readme_decoder", 1, 1000,
              ("train_encoder", BATCH, 128, None),
              ("train_bucket768", BATCH, 768, None),
              ("train_decoder", BATCH, 1000, None))
-K3_LENGTHS = (128, 768, 1000)
+# (heads, L) of K3's training shapes at batch 10: two heads, and one head a
+# rank under tensor parallel 2
+K3_SHAPES = ((2, 128), (2, 768), (2, 1000), (1, 128), (1, 1000))
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
@@ -141,21 +143,24 @@ def timings(attn, plain, dtype="float32"):
             plain_ms=cuda_time_ms(
                 lambda: plain.multi_head_attention(q, k, v, mask)),
             sdpa_ms=cuda_time_ms(sdpa), sdpa_device_ms=device_ms(sdpa)))
-    for L in K3_LENGTHS:
+    for H, L in K3_SHAPES:
         q, k, v, g, mask = inputs(BATCH, L, None, seed=L, device="cuda")
-        q, k, v, g = (t.to(dt) for t in (q, k, v, g))
+        q, k, v, g = (t[:, :H].contiguous().to(dt) for t in (q, k, v, g))
         out, row_max, row_sum = attn._launch_forward(q, k, v, mask, True)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         sdpa_out = F.scaled_dot_product_attention(
             *leaves, attn_mask=additive(mask).to(dt))
+        kernel = lambda: attn.fused_attention_backward(  # noqa: E731
+            q, k, v, mask, out, row_max, row_sum, g)
+        sdpa = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa_out, leaves, g, retain_graph=True)
         rows.append(dict(
-            kernel="K3", shape=[BATCH, 2, L, 128], path="train", dtype=dtype,
-            ms=cuda_time_ms(lambda: attn.fused_attention_backward(
-                q, k, v, mask, out, row_max, row_sum, g)),
+            kernel="K3", shape=[BATCH, H, L, 128],
+            path="train" if H == 2 else "train_tp2", dtype=dtype,
+            ms=cuda_time_ms(kernel), device_ms=device_ms(kernel),
             plain_ms=cuda_time_ms(lambda: plain.plain_attention_backward(
                 q, k, v, mask, g)),
-            sdpa_ms=cuda_time_ms(lambda: torch.autograd.grad(
-                sdpa_out, leaves, g, retain_graph=True))))
+            sdpa_ms=cuda_time_ms(sdpa), sdpa_device_ms=device_ms(sdpa)))
         del sdpa_out, leaves
     return rows
 

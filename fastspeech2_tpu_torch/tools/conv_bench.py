@@ -20,13 +20,14 @@ Three parts, each optional:
   there.  ``--dtype bfloat16`` times K2's bfloat16 instance (x in
   bfloat16; K4 has none: the vocoder stays float32).
 - ``--sweep``: K4 at its 12 shapes by output channels per block (every
-  power of two from 32 to C; the model takes ``n_block``'s), and the
-  float32 K2's plan at the paths' small shapes ([1, 1|32|1000, 256], [1,
-  48, 256] with a 3-tap second conv, [10, 128, 256]) by tap splits of the
-  first conv and hidden groups of the second, each held against the plain
-  version and timed by CUDA events and by device time per kernel (the
-  data the plan's cost model in ``csrc/conv_ffn_f32.cu`` is fitted to),
-  the plan's own pick marked.
+  power of two from 32 to C; the model takes ``n_block``'s), and K2's plan
+  at the paths' small shapes ([1, 1|32|1000, 256], [1, 48, 256] with a
+  3-tap second conv, [10, 128, 256]; at ``--dtype bfloat16`` also [1,
+  1536], [2|8|10|16, 1000] and [16, 128]) by tap splits of the first conv
+  and hidden groups of the second, each held against the plain version
+  and timed by CUDA events and by device time per kernel (the data the
+  plans' cost models in ``csrc/conv_ffn_f32.cu`` and ``csrc/conv_ffn.cu``
+  are fitted to), the plan's own pick marked.
 - ``--profile``: the device time of each kernel a call launches (K2's
   three launches, K4's per dilation unit), from ``torch.profiler`` over 20
   calls, at K2's README shapes and K4's widest and narrowest shapes.
@@ -55,6 +56,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 DILATIONS = (1, 3, 5)
 K4_RTOL = 1e-4
 KERNEL_ATOL = 1e-4
+# K2's bfloat16 instance against its plain version, as chip_smoke.py holds it
+BF16_ULPS = 2
 # K2's shapes: (B, L, k2) of the README sentence's encoder and decoder,
 # the re-dispatch bucket, one frame, a 3-tap second conv, the validation
 # forward at batch 10, batch mode's batch 8 and serving's batch 16
@@ -219,13 +222,22 @@ def timings(resblock, ffn, bounds, dtype="float32", batch=1):
     return rows
 
 
-def sweep(resblock, ffn, bounds):
-    """K4 by output channels per block; the float32 K2 by its plan (tap
-    splits, hidden groups)."""
+def bf16_ulps(got, ref):
+    """max |got - ref| in ulps of bfloat16 at the largest |ref|."""
+    import math
+
+    unit = 2.0 ** (math.floor(math.log2(ref.float().abs().max().item())) - 7)
+    return (got.float() - ref.float()).abs().max().item() / unit
+
+
+def sweep(resblock, ffn, bounds, dtype="float32"):
+    """K4 by output channels per block (float32 only); K2 at ``dtype`` by
+    its plan (tap splits, hidden groups)."""
     import torch
 
     rows = []
-    for C, L, k in bounds.parity_resblock_shapes(1000):
+    for C, L, k in (bounds.parity_resblock_shapes(1000)
+                    if dtype == "float32" else ()):
         rb = resblock_inputs(C, L, k, seed=C + k)
         packed = resblock.pack_resblock_weights(*rb[1:])
         with torch.inference_mode():
@@ -242,21 +254,32 @@ def sweep(resblock, ffn, bounds):
                                        f"{err:.3e}")
                 rows.append(dict(kernel="K4", shape=[1, C, L], k=k, nb=nb,
                                  ms=cuda_time_ms(run), max_abs_err=err))
-    for B, L, k2 in ((1, 1, 1), (1, 32, 1), (1, 48, 3), (1, 1000, 1),
-                     (10, 128, 1)):
+    dt = getattr(torch, dtype)
+    shapes = ((1, 1, 1), (1, 32, 1), (1, 48, 3), (1, 1000, 1), (10, 128, 1))
+    if dtype == "bfloat16":   # its plan also splits the large shapes
+        shapes += ((1, 1536, 1), (2, 1000, 1), (8, 1000, 1), (10, 1000, 1),
+                   (16, 128, 1), (16, 1000, 1))
+    groups = (1, 2, 4, 8, 16, 32) if dtype == "float32" else (1, 2, 4, 8, 16)
+    for B, L, k2 in shapes:
         args = ffn_inputs(B, L, seed=L + B, k2=k2)
-        packed = ffn.pack_ffn_weights(args[1], args[3])
+        args = (args[0].to(dt),) + args[1:]
+        packed = ffn.pack_ffn_weights(args[1], args[3], dt)
         ref = ffn.plain_conv_ffn(*args)
-        own = ffn.forward_plan(B, L, 1024, 9, k2)
-        for plan in itertools.product((1, 3, 9), (1, 2, 4, 8, 16, 32)):
+        own = ffn.forward_plan(B, L, 1024, 9, k2, dt)
+        for plan in itertools.product((1, 3, 9), groups):
             def run():
                 return ffn._launch(*args, packed=packed, plan=plan)
-            err = (run() - ref).abs().max().item()
-            if not err <= KERNEL_ATOL:
+            if dtype == "float32":
+                err = (run() - ref).abs().max().item()
+                bad = not err <= KERNEL_ATOL
+            else:
+                err = bf16_ulps(run(), ref)
+                bad = not err <= BF16_ULPS
+            if bad:
                 raise RuntimeError(f"K2 plan {plan} at {[B, L]}: {err:.3e}")
             kernels = device_ms(run)
             rows.append(dict(kernel="K2", shape=[B, L, 256], k2=k2,
-                             splits=plan[0], groups=plan[1],
+                             dtype=dtype, splits=plan[0], groups=plan[1],
                              the_plans=plan == own, ms=cuda_time_ms(run),
                              device_ms=sum(kernels.values()),
                              device_ms_by_kernel=kernels, max_abs_err=err))
@@ -352,7 +375,8 @@ def main(argv=None):
                          "shapes and K2; more: the 6 iSTFT shapes)")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32",
-                    help="K2's instance --timings times (bfloat16: K2 only)")
+                    help="K2's instance --timings and --sweep time "
+                         "(bfloat16: K2 only)")
     ap.add_argument("--json", default=None, help="also write results here")
     args = ap.parse_args(argv)
 
@@ -413,7 +437,7 @@ def main(argv=None):
                   f"bound {sum(r['bound_ms'] for r in rows):.4f} ms",
                   flush=True)
     if args.sweep:
-        result["sweep"] = sweep(resblock, ffn, bounds)
+        result["sweep"] = sweep(resblock, ffn, bounds, args.dtype)
         for r in result["sweep"]:
             what = (f"{r['nb']} output channels per block"
                     if r["kernel"] == "K4" else
@@ -422,8 +446,10 @@ def main(argv=None):
                     f"{r['device_ms']:.4f} ms")
             k = (f" k={r['k']}" if "k" in r else f" k2={r['k2']}"
                  if "k2" in r else "")
+            err = ("ulps of bfloat16" if r.get("dtype") == "bfloat16"
+                   else "max_abs_err")
             print(f"[bench] sweep {r['kernel']} {r['shape']}{k} {what}: "
-                  f"{r['ms']:.4f} ms (max_abs_err {r['max_abs_err']:.2e})",
+                  f"{r['ms']:.4f} ms ({err} {r['max_abs_err']:.2e})",
                   flush=True)
     if args.profile:
         result["profile"] = profile(resblock, ffn)

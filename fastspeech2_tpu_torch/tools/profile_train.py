@@ -36,7 +36,7 @@ from fastspeech2_tpu_torch.utils.device import resolve_device
 CONFIG = "config/LJSpeech10"
 GROUPS = (("K1 attention forward", ("mha_fwd",)),
           ("K3 attention backward", ("mha_bwd",)),
-          ("K2 conv FFN", ("ffn_conv", "ffn_ln")),
+          ("K2 conv FFN", ("ffn_",)),
           ("cuDNN convolutions", ("conv", "cudnn", "implicit", "dgrad",
                                   "wgrad", "xmma")),
           ("cuBLAS GEMMs", ("gemm", "cutlass", "sm90_", "ampere_")))

@@ -10,16 +10,19 @@ what they compute and holds it against the JAX package's Pallas attention
   zero, to 10 mantissa bits, on the bit pattern;
 - the 3xTF32 product (three TF32 products per eight-wide k-step,
   accumulated in float32; the tensor core modelled as exact products
-  summed in float64 and rounded once per step): S = Q K^T and K3's
-  products as a_big b_small, a_small b_big, a_big b_big (the score
-  contract K1's wgmma routine and K3's score_tile share); K1's P V in K4's
-  order, P_small V_big, P_big V_small, P_big V_big;
+  summed in float64 and rounded once per step): S = Q K^T and dP = G V^T
+  as a_big b_small, a_small b_big, a_big b_big (the score contract every
+  route of K1 and K3 shares, ``csrc/attention_f32.cuh``); K1's P V and
+  K3's products with P and dS in K4's order, small_big, big_small,
+  big_big;
 - K1's tiles (``csrc/attention.cu``, wgmma): 32-key tiles with the online
   softmax, the key chunks of the split grid and their combine in the
   fixed order 0, 1, ...;
-- K3's tiles: D = rowsum(G o O), P recomputed from K1's row max and row
-  sum, dV and dK per 64-key tile, and dQ as the sum, in the order 0, 1,
-  ..., of each 64-key tile's share dS K.
+- K3's tiles (``csrc/attention_bwd.cu``, wgmma): D = rowsum(G o O) in
+  the order of its launch, P = exp(s - m) * (1 / l) from K1's row max and row sum, dQ
+  per 64 query rows over 32-key tiles in order (K3a), dV and dK per 64 keys
+  over 32-row query tiles in order (K3b, whose scores take the score
+  contract's K-as-A route: the same bits).
 
 A wrong combine formula, mask order or tile edge shows here in seconds,
 without a card.  The last test pins the bound the card's times are held
@@ -43,7 +46,7 @@ from fastspeech2_tpu_torch.tools.kernel_bounds import attention_bound_ms
 
 DH = 128
 KEY_TILE = 32     # K1's keys per tile
-TILE = 64         # K3's tiles
+TILE = 64         # K3's rows per block: query rows (K3a), keys (K3b)
 MASK = np.float32(-1e9)
 INIT_MAX = np.float32(-1e30)
 SCALE = np.float32(1.0 / math.sqrt(DH))
@@ -154,51 +157,82 @@ def k1_model(q, k, v, pad, chunks=1):
 
 # ---- K3 ---------------------------------------------------------------------
 
+def _row_dot(g, out):
+    """D = rowsum(G o O) as K3 forms it: each lane of a row's warp its four
+    columns 4 lane .. in order, then a butterfly over the warp's 32
+    lanes."""
+    prod = (g * out).reshape(g.shape[:-1] + (32, 4))
+    lanes = prod[..., 0]
+    for c in range(1, 4):
+        lanes = (lanes + prod[..., c]).astype(np.float32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[..., np.arange(32) ^ off]).astype(np.float32)
+    return lanes[..., 0]
+
+
+def _probs(s, rows, keys, row_max, row_sum, L):
+    """P = exp(s - m) * (1 / l) of the masked, scaled scores s of query
+    rows ``rows`` x keys ``keys`` ([..., rows, keys]), 0 where either lies
+    at or past L."""
+    row_ok = rows < L
+    idx = np.minimum(rows, L - 1)
+    m = np.where(row_ok, row_max[..., idx], np.float32(0))[..., None]
+    inv_l = np.where(row_ok, np.float32(1) / row_sum[..., idx],
+                     np.float32(0))[..., None]
+    ok = row_ok[:, None] & (keys < L)[None, :]
+    return np.where(ok, np.exp(np.where(ok, s - m, 0)) * inv_l,
+                    np.float32(0))
+
+
 def k3_model(q, k, v, pad, out, row_max, row_sum, g):
-    """-> (dq, dk, dv) of K3a, K3b (dK, dV and the dQ shares) and K3c (their
-    sum)."""
+    """-> (dq, dk, dv) of K3a (D, and dQ per 64 query rows over 32-key
+    tiles in order) and K3b (dV and dK per 64 keys over 32-row query tiles
+    in order)."""
     L = q.shape[2]
-    n_tiles = -(-L // TILE)
-    D = (g * out).sum(-1, dtype=np.float32)                       # K3a
-    dk, dv = (np.zeros(q.shape, np.float32) for _ in range(2))
+    D = _row_dot(g, out)                                          # K3a
+    dq, dk, dv = (np.zeros(q.shape, np.float32) for _ in range(3))
 
-    def p_and_ds(q0, k0):
-        """P and dS of query rows [q0, q0 + 64) x keys [k0, k0 + 64)."""
+    def ds_of(p, dp, rows):
+        d = np.where(rows < L, D[..., np.minimum(rows, L - 1)],
+                     np.float32(0))[..., None]
+        return p * (dp - d) * SCALE
+
+    for q0 in range(0, L, TILE):
         rows = np.arange(q0, q0 + TILE)
-        row_ok = rows < L
-        idx = np.minimum(rows, L - 1)
-        m = np.where(row_ok, row_max[..., idx], np.float32(0))[..., None]
-        l = np.where(row_ok, row_sum[..., idx], np.float32(1))[..., None]
-        d = np.where(row_ok, D[..., idx], np.float32(0))[..., None]
-        key_ok, padded = _flags(pad, k0, TILE, L)
-        ok = row_ok[:, None] & key_ok[None, :]
-        s = _masked_scores(_rows(q, q0, TILE), _rows(k, k0, TILE), padded)
-        dp = mma_3xtf32(0.0, _rows(g, q0, TILE),
-                        np.swapaxes(_rows(v, k0, TILE), -1, -2))
-        p = np.where(ok, np.exp(np.where(ok, s - m, 0)) / l, np.float32(0))
-        ds = np.where(ok, p * (dp - d) * SCALE, np.float32(0))
-        return p, ds
-
-    shares = np.zeros((n_tiles,) + q.shape, np.float32)
-    for kt in range(n_tiles):                                     # K3b
-        k0 = kt * TILE
+        qt, gt = _rows(q, q0, TILE), _rows(g, q0, TILE)
+        acc = np.zeros(q.shape[:2] + (TILE, DH), np.float32)
+        for k0 in range(0, L, KEY_TILE):
+            keys = np.arange(k0, k0 + KEY_TILE)
+            _, padded = _flags(pad, k0, KEY_TILE, L)
+            kt = _rows(k, k0, KEY_TILE)
+            p = _probs(_masked_scores(qt, kt, padded), rows, keys, row_max,
+                       row_sum, L)
+            dp = mma_3xtf32(0.0, gt, np.swapaxes(_rows(v, k0, KEY_TILE),
+                                                 -1, -2))
+            acc = mma_3xtf32(acc, ds_of(p, dp, rows), kt, small_first=True)
+        n = min(TILE, L - q0)
+        dq[..., q0:q0 + n, :] = acc[..., :n, :]
+    for k0 in range(0, L, TILE):                                  # K3b
+        keys = np.arange(k0, k0 + TILE)
+        _, padded = _flags(pad, k0, TILE, L)
+        kt, vt = _rows(k, k0, TILE), _rows(v, k0, TILE)
         acc_dv = acc_dk = np.zeros(q.shape[:2] + (TILE, DH), np.float32)
-        for qt in range(n_tiles):
-            q0 = qt * TILE
-            p, ds = p_and_ds(q0, k0)
-            acc_dv = mma_3xtf32(acc_dv, np.swapaxes(p, -1, -2),
-                                _rows(g, q0, TILE))
-            acc_dk = mma_3xtf32(acc_dk, np.swapaxes(ds, -1, -2),
-                                _rows(q, q0, TILE))
-            share = mma_3xtf32(0.0, ds, _rows(k, k0, TILE))
-            n = min(TILE, L - q0)
-            shares[kt][..., q0:q0 + n, :] = share[..., :n, :]
+        for q0 in range(0, L, KEY_TILE):
+            rows = np.arange(q0, q0 + KEY_TILE)
+            qt, gt = _rows(q, q0, KEY_TILE), _rows(g, q0, KEY_TILE)
+            # S^T = K Q^T: the score contract's K-as-A route, the same
+            # products in the same order, so S's bits
+            p = _probs(_masked_scores(qt, kt, padded), rows, keys, row_max,
+                       row_sum, L)
+            dp = np.swapaxes(mma_3xtf32(0.0, vt, np.swapaxes(gt, -1, -2)),
+                             -1, -2)
+            pt = np.swapaxes(p, -1, -2)
+            dst = np.swapaxes(ds_of(p, dp, rows), -1, -2)
+            acc_dv = mma_3xtf32(acc_dv, pt, gt, small_first=True)
+            acc_dk = mma_3xtf32(acc_dk, dst, qt, small_first=True)
         n = min(TILE, L - k0)
         dv[..., k0:k0 + n, :] = acc_dv[..., :n, :]
         dk[..., k0:k0 + n, :] = acc_dk[..., :n, :]
-    dq = shares[0]                                                # K3c
-    for share in shares[1:]:
-        dq = dq + share
     return dq, dk, dv
 
 

@@ -329,25 +329,29 @@ def test_bf16_split3_is_exact(seed):
     assert torch.equal(hi, _upper(x))
 
 
-def test_bf16_ffn_pack_is_the_a_fragment_order():
-    """pack_fragments_bf16: lane (g, t) of each 16 x 16 block holds
-    A[g, 2t..2t+1], A[g+8, 2t..2t+1], A[g, 2t+8..2t+9], A[g+8, 2t+8..2t+9]
-    of the weights rounded to bfloat16 (mma.m16n8k16's A registers)."""
-    from fastspeech2_tpu_torch.ops.tf32_pack import pack_fragments_bf16
+def test_bf16_ffn_pack_is_the_swizzled_rows():
+    """pack_rows_bf16 (K2's bfloat16 pack): per (64-channel slice s, tap j)
+    an [N][64] plane of the weights rounded to bfloat16, the 16-byte chunk
+    c of row n at chunk c ^ (n % 8) (the 128-byte swizzle the bfloat16
+    wgmma's B descriptor reads), and unpack_rows_bf16 reads it back."""
+    from fastspeech2_tpu_torch.ops.tf32_pack import (
+        pack_rows_bf16,
+        unpack_rows_bf16,
+    )
 
-    a = torch.from_numpy(np.random.RandomState(0).randn(3, 32, 48).astype(
+    a = torch.from_numpy(np.random.RandomState(0).randn(3, 24, 128).astype(
         np.float32))
-    packed = pack_fragments_bf16(a)
-    assert packed.dtype == BF16 and packed.shape == (2, 3, 3, 32, 8)
+    packed = pack_rows_bf16(a)
+    assert packed.dtype == BF16 and packed.shape == (2, 3, 24, 64)
     ab = a.to(BF16)
-    for mb, t_, kb, lane in ((0, 0, 0, 0), (1, 2, 2, 31), (0, 1, 1, 13)):
-        g, t = lane // 4, lane % 4
-        m, c = 16 * mb + g, 16 * kb + 2 * t
-        want = torch.stack([ab[t_, m, c], ab[t_, m, c + 1],
-                            ab[t_, m + 8, c], ab[t_, m + 8, c + 1],
-                            ab[t_, m, c + 8], ab[t_, m, c + 9],
-                            ab[t_, m + 8, c + 8], ab[t_, m + 8, c + 9]])
-        assert torch.equal(packed[mb, t_, kb, lane], want)
+    for s, j, n in ((0, 0, 0), (1, 2, 13), (0, 1, 23)):
+        for c in range(8):
+            at = 8 * (c ^ (n % 8))
+            assert torch.equal(packed[s, j, n, at:at + 8],
+                               ab[j, n, 64 * s + 8 * c:64 * s + 8 * c + 8])
+    assert torch.equal(unpack_rows_bf16(packed), ab)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        pack_rows_bf16(a[..., :96])
 
 
 def test_bf16_bounds():

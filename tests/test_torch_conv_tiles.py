@@ -63,7 +63,11 @@ from fastspeech2_tpu_torch.ops.cuda_resblock import (
     unpack_conv_weight,
 )
 from fastspeech2_tpu_torch.ops.cuda_ffn import pack_ffn_weights
-from fastspeech2_tpu_torch.ops.tf32_pack import tf32_round, unpack_planes
+from fastspeech2_tpu_torch.ops.tf32_pack import (
+    tf32_round,
+    unpack_planes,
+    unpack_rows_bf16,
+)
 from fastspeech2_tpu_torch.tools.kernel_bounds import (
     ffn_bound_ms,
     parity_resblock_shapes,
@@ -415,6 +419,129 @@ def test_k2_split_partials_sum_in_a_fixed_order():
     one, three = (k2_model(args[0][0], *args[1:], s) for s in (1, 3))
     assert np.array_equal(k2_model(args[0][0], *args[1:], 3), three)
     np.testing.assert_allclose(one, three, atol=ATOL, rtol=0)
+
+
+# ---- K2 at bfloat16 ---------------------------------------------------------
+
+BF16 = torch.bfloat16
+SLICE_BF16 = 64   # input channels per stage of the bfloat16 K2
+KSTEP_BF16 = 16   # channels per k-step of its m64n256k16 products
+
+
+def bf16(x):
+    """float32 values rounded to bfloat16 (to nearest even), as float32."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(BF16).float() \
+        .numpy()
+
+
+def conv_bf16(acc, x, w, taps, pad, slices):
+    """acc [L, N] += the taps ``taps`` of the conv of x [L, C] (bfloat16
+    values) with w [T, N, C] (bfloat16 values) over the input slices
+    ``slices``, in the kernel's order: slices of 64 channels, then taps,
+    then k-steps of 16 channels, each step's 16 exact products summed once
+    (float64, rounded to float32) and added to the float32 accumulator."""
+    L = x.shape[0]
+    for sl in slices:
+        for j in taps:
+            xs = window(x.T, j - pad, L).T                 # [L, C]
+            for c0 in range(SLICE_BF16 * sl, SLICE_BF16 * (sl + 1),
+                            KSTEP_BF16):
+                ch = slice(c0, c0 + KSTEP_BF16)
+                step = xs[:, ch].astype(np.float64) @ w[j, :, ch].T.astype(
+                    np.float64)
+                acc = (acc.astype(np.float64) + step.astype(np.float32)) \
+                    .astype(np.float32)
+    return acc
+
+
+def quad_layer_norm(y, gamma, beta):
+    """conv2's epilogue (groups = 1): quad lane t of a row sums y[8 j + 2 t
+    + e], j = 0 .. 31, e = 0, 1, in order (the square by fma), a butterfly
+    over the quad, E[y^2] - mean^2 + 1e-5; the output rounded to
+    bfloat16."""
+    cols = (8 * np.arange(32)[None, :, None] + 2 * np.arange(4)[:, None, None]
+            + np.arange(2)[None, None, :]).reshape(4, 64)
+    return _layer_norm(y, gamma, beta, cols, (1, 2))
+
+
+def warp_layer_norm(y, gamma, beta):
+    """The LayerNorm launch (groups > 1): lane l of a row's warp sums
+    y[l + 32 u], u = 0 .. 7, in order, a butterfly over the warp."""
+    cols = np.arange(32)[:, None] + 32 * np.arange(8)[None, :]
+    return _layer_norm(y, gamma, beta, cols, (16, 8, 4, 2, 1))
+
+
+def _layer_norm(y, gamma, beta, cols, offsets):
+    out = np.empty_like(y)
+    n = cols.shape[0]
+    for r in range(y.shape[0]):
+        lanes = y[r][cols]
+        s = np.zeros(n, np.float32)
+        sq = np.zeros(n, np.float32)
+        for i in range(cols.shape[1]):
+            v = lanes[:, i]
+            s = (s + v).astype(np.float32)
+            sq = (v.astype(np.float64) * v + sq).astype(np.float32)
+        for off in offsets:
+            idx = np.arange(n) ^ off
+            s = (s + s[idx]).astype(np.float32)
+            sq = (sq + sq[idx]).astype(np.float32)
+        mean = np.float32(s[0] / np.float32(256))
+        var = np.float32(np.float64(sq[0] / np.float32(256))
+                         - np.float64(mean) * mean)
+        inv = np.float32(1) / np.float32(np.sqrt(var + np.float32(1e-5)))
+        out[r] = (y[r] - mean) * inv * gamma + beta
+    return bf16(out)
+
+
+def k2_bf16_model(x, w1, b1, w2, b2, gamma, beta, splits, groups=1):
+    """The bfloat16 K2 (``csrc/conv_ffn.cu``) on x [L, 256] (bfloat16
+    values) of one batch row, with w1 [k1, 256, H], w2 [k2, H, 256] (JAX
+    layouts) read back from their bfloat16 pack: (a) per split of the
+    k1 taps the partial over its taps, the partials summed in order, h =
+    bfloat16(ReLU(sum + b1)); (b) per group of hidden slices its share of
+    the second conv, the shares summed in order; y = (shares + b2) + x;
+    the LayerNorm of the epilogue (1 group) or of the launch after it."""
+    L = x.shape[0]
+    k1, _, H = w1.shape
+    k2 = w2.shape[0]
+    w1p, w2p = pack_ffn_weights(torch.from_numpy(w1), torch.from_numpy(w2),
+                                BF16)
+    r1, r2 = (unpack_rows_bf16(p).float().numpy() for p in (w1p, w2p))
+    per = k1 // splits
+    total = None
+    for s in range(splits):
+        part = conv_bf16(np.zeros((L, H), np.float32), x, r1,
+                         range(s * per, s * per + per), (k1 - 1) // 2,
+                         range(256 // SLICE_BF16))
+        total = part if total is None else (total + part).astype(np.float32)
+    h = bf16(np.maximum(total + b1, 0))
+    size = H // SLICE_BF16 // groups
+    acc = None
+    for g in range(groups):
+        share = conv_bf16(np.zeros((L, 256), np.float32), h, r2, range(k2),
+                          (k2 - 1) // 2, range(g * size, (g + 1) * size))
+        acc = share if acc is None else (acc + share).astype(np.float32)
+    y = ((acc + b2) + x).astype(np.float32)
+    norm = quad_layer_norm if groups == 1 else warp_layer_norm
+    return norm(y, gamma, beta)
+
+
+@pytest.mark.parametrize("L,k2,splits,groups", [(1, 3, 1, 1), (33, 1, 3, 2),
+                                                (20, 3, 9, 2)])
+def test_k2_bf16_tiles_match_pallas_ffn(L, k2, splits, groups):
+    """The bfloat16 K2's order of sums, against the Pallas FFN on a
+    bfloat16 x in interpret mode: both round h and the output to
+    bfloat16, so they agree to an ulp at the largest |value|."""
+    args = list(_ffn_inputs(L, k2, seed=L + k2 + 7, H=256))
+    args[0] = bf16(args[0])
+    ref = np.asarray(jax_fused_ffn(jnp.asarray(args[0]).astype(jnp.bfloat16),
+                                   *(jnp.asarray(a) for a in args[1:]),
+                                   True)).astype(np.float32)
+    unit = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    for b in range(2):
+        got = k2_bf16_model(args[0][b], *args[1:], splits, groups)
+        assert np.abs(got - ref[b]).max() <= unit
 
 
 # ---- bounds -------------------------------------------------------------------

@@ -650,11 +650,27 @@ def test_attention_kernels_bf16_match_plain(device, L, lens):
         _assert_bf16_close(a, c)
 
 
+def test_attention_backward_f32_at_l2000(device):
+    """The float32 K3 at [2, 2, 2000, 128] (a full row and a partly padded
+    one) against its plain version, twice (bitwise equal): its only scratch
+    is D, B*H*L floats."""
+    lens = [2000, 1411]
+    q, k, v, mask = _attention_inputs(lens, 2000, device, seed=20)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(21)).to(
+        device)
+    out, row_max, row_sum = cuda_attention._launch_forward(q, k, v, mask,
+                                                           True)
+    grads = [cuda_attention.fused_attention_backward(
+        q, k, v, mask, out, row_max, row_sum, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, c in zip(*grads, plain_attention_backward(q, k, v, mask, g)):
+        assert torch.equal(a, b)
+        assert (a - c).abs().max() <= 1e-4 * c.abs().max()
+
+
 def test_attention_backward_bf16_at_l2000(device):
     """The bfloat16 K3 at [2, 2, 2000, 128] (a full row and a partly padded
-    one) against its plain version: its only scratch is D, B*H*L floats, so
-    it runs where the float32 instance's ceil(L/64)-partials scratch would
-    take 256 MB."""
+    one) against its plain version: its only scratch is D, B*H*L floats."""
     lens = [2000, 1411]
     q, k, v, mask = (t.to(torch.bfloat16) if t.is_floating_point() else t
                      for t in _attention_inputs(lens, 2000, device, seed=20))
@@ -671,17 +687,15 @@ def test_attention_backward_bf16_at_l2000(device):
 
 
 def test_attention_bf16_scratch_and_plan(device):
-    """The bfloat16 K3's scratch is D alone, linear in L (the float32
-    instance's grows as L^2); the bfloat16 K1's plan has its own 128-row
-    tiles and splits the keys only where the grid is a fraction of a wave
-    (its partials' bytes counted)."""
+    """K3's scratch is D alone at both dtypes, linear in L; the bfloat16
+    K1's plan has its own 128-row tiles and splits the keys only where the
+    grid is a fraction of a wave (its partials' bytes counted)."""
     from fastspeech2_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library()
     for B, L in ((10, 1000), (10, 2000), (2, 4000)):
-        assert lib.fs2_mha_bwd_scratch_floats(B, 2, L, 1) == B * 2 * L
-    assert (lib.fs2_mha_bwd_scratch_floats(10, 2, 2000, 0)
-            > 3 * lib.fs2_mha_bwd_scratch_floats(10, 2, 1000, 0))
+        for bf16 in (0, 1):
+            assert lib.fs2_mha_bwd_scratch_floats(B, 2, L, bf16) == B * 2 * L
     for B, L in ((10, 1000), (10, 768), (8, 1000), (10, 128)):
         grid, scratch = cuda_attention.forward_plan(B, 2, L, torch.bfloat16)
         assert grid == (-(-L // 128), B * 2, 1) and scratch == 0, (B, L)
@@ -689,8 +703,27 @@ def test_attention_bf16_scratch_and_plan(device):
     assert grid[2] > 1 and scratch == grid[2] * 2 * 1000 * 130, grid
 
 
+# the bfloat16 first conv's tap splits (9, 3 and 1 per block) with the
+# second conv's hidden channels in 1 group (the LayerNorm in its epilogue),
+# 4 and 16 (the LayerNorm launch), on a 3-tap second conv; L = 100 and 200
+# leave a ragged tile of each conv
+@pytest.mark.parametrize("L", [100, 200])
+@pytest.mark.parametrize("splits", [1, 3, 9])
+@pytest.mark.parametrize("groups", [1, 4, 16])
+def test_conv_ffn_kernel_bf16_every_plan(device, L, splits, groups):
+    args = _ffn_inputs(L, device, k2=3, seed=L + splits + groups)
+    args[0] = args[0].to(torch.bfloat16)
+    packed = cuda_ffn.pack_ffn_weights(args[1], args[3], torch.bfloat16)
+    got = cuda_ffn._launch(*args, packed=packed, plan=(splits, groups))
+    again = cuda_ffn._launch(*args, packed=packed, plan=(splits, groups))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_bf16_close(got, cuda_ffn.plain_conv_ffn(*args))
+
+
 @pytest.mark.parametrize("B,L,k2", [(1, 1000, 1), (1, 32, 1), (1, 48, 3),
-                                    (10, 128, 1), (10, 1000, 1), (1, 1, 1)])
+                                    (10, 128, 1), (10, 1000, 1), (1, 1, 1),
+                                    (16, 128, 1), (16, 1000, 1)])
 def test_conv_ffn_kernel_bf16_matches_plain(device, B, L, k2):
     args = _ffn_inputs(L, device, k2=k2, seed=L, B=B)
     args[0] = args[0].to(torch.bfloat16)
