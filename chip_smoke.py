@@ -5,7 +5,8 @@
 
 Phases, each printing flushed lines (a failing phase raises, and the run
 exits non-zero; a run still going after HANG_S = 1,100 s prints every
-thread's stack and exits non-zero):
+thread's stack and exits non-zero; the whole run should end within
+RUN_CEILING_S = 800 s, which its last lines report):
 
 1. card      the GPU's name and power limit, as nvidia-smi prints them;
 2. build     nvcc builds the port's CUDA kernels from csrc/ (seconds,
@@ -84,10 +85,19 @@ thread's stack and exits non-zero):
              first input at each kernel, dtype and shape held against the
              plain version (so in the bfloat16 training below);
              then a resume from the checkpoint through the train CLI;
+             after phase 12, scan mode (train.yaml's step block,
+             scan_step 500, cut to SCAN_STEPS steps, K = SCAN_K; mel
+             bucket SCAN_MEL_BUCKET: two shape groups) through the train
+             CLI at bfloat16: the "scan mode:" line and the stacks'
+             bytes, 10 bfloat16 K1 + K3 a step, the run bit for bit
+             equal to train_step fed its schedule from the host and to a
+             second scan run, host ms a step beside the per-step path,
+             the busy share (budget SCAN_BUDGET_S);
 11. synthesis from the trained checkpoint through the synthesize CLI's
              --restore_step;
-12. repro    5 training steps twice from one seed through train(): every
-             parameter must agree exactly;
+12. repro    5 training steps twice from one seed through train() on
+             the per-step path (scan_step 1): every parameter must agree
+             exactly;
 13. prep     data preparation from the tracked clips: the align CLI's
              align_corpus on the card (loglik and time of each EM
              iteration; durations partition every clip; boundaries near
@@ -347,6 +357,16 @@ LOO_ACOUSTIC_STEPS = 4
 LOO_VOC_STEPS = 2
 TRAIN_BATCH = 10
 TRAIN_STEPS = 20
+# phase 10's scan sub-phase: train.yaml's step block (scan_step 500) with
+# these steps and duty periods, K = gcd(500, 5) = 5, and a mel bucket that
+# splits the corpus into two shape groups; its budget on the card
+SCAN_STEPS = 20
+SCAN_LOG_STEP = 5
+SCAN_K = 5
+SCAN_MEL_BUCKET = 512
+SCAN_BUDGET_S = 60
+# the scan run's steps inside its torch.profiler window (the busy share)
+SCAN_WINDOW = (5, 15)
 # every kernel's least time (tools/kernel_bounds.py: H100 SXM peaks from
 # NVIDIA's data sheet)
 BOUND_BASIS = ("3xTF32 on the tensor cores: max(3 x operations / 495 "
@@ -395,6 +415,7 @@ WGMMA_KERNELS = ("mha_fwd_bf16_kernel", "mha_bwd_dq_bf16_kernel",
 # a run still going after this many seconds has hung: it prints every
 # thread's stack and exits non-zero, inside the 1,200 s a run may take
 HANG_S = 1100
+RUN_CEILING_S = 800
 # an instance of K4's kernel by its mangled template arguments: output
 # channels per block, and the first (1) or second (0) conv of a unit
 K4_INSTANCE = re.compile(r"resblock_wgmma_kernelILi(\d+)ELb([01])E")
@@ -2385,6 +2406,11 @@ def trace_kernels(fn, tmp, span="window"):
     trace = os.path.join(tmp, f"{span}_trace.json")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a first kernel in the window before fn: a trace that dropped
+        # the first kernels of a window (a replay's encoder, phase 16 of
+        # a run) drops this one instead; it is left out below
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         with record_function(span):
             result = fn()
             torch.cuda.synchronize()
@@ -2393,7 +2419,8 @@ def trace_kernels(fn, tmp, span="window"):
         events = json.load(f)["traceEvents"]
     os.remove(trace)
     kernels = sorted((e["ts"], e["ts"] + e["dur"], e.get("name", ""))
-                     for e in events if e.get("cat") == "kernel")
+                     for e in events if e.get("cat") == "kernel"
+                     and "spin_kernel" not in e.get("name", ""))
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("name") == span and e.get("cat") == "user_annotation"]
     return result, kernels, (spans[0] if spans else None)
@@ -2566,15 +2593,24 @@ def serving(device, card, tmp):
             raise RuntimeError("[serve] the graph's wavs disagree with the "
                                "plain versions'")
 
-        # the kernels inside one replay, by the profiler
-        (_, kernels, _) = trace_kernels(
-            lambda: graphs.run(speakers, texts, src_lens, controls), tmp,
-            "replay")
-        (_, eager_kernels, _) = trace_kernels(
-            lambda: syn.fused_forward(speakers, texts, src_lens, controls),
-            tmp, "eager")
-        in_replay, in_eager = (kernel_names_by_id(k)
-                               for k in (kernels, eager_kernels))
+        # the kernels inside one replay and one eager dispatch, by the
+        # profiler; both traced again, up to 3 times, while their K1, K2
+        # and K4 kernels differ: a late window can lose a dispatch's first
+        # kernels (PERF.md §7), while a replay runs the same kernels every
+        # time.  The kernels each pair of traces held is reported
+        attempts = []
+        for _ in range(3):
+            (_, kernels, _) = trace_kernels(
+                lambda: graphs.run(speakers, texts, src_lens, controls), tmp,
+                "replay")
+            (_, eager_kernels, _) = trace_kernels(
+                lambda: syn.fused_forward(speakers, texts, src_lens,
+                                          controls), tmp, "eager")
+            in_replay, in_eager = (kernel_names_by_id(k)
+                                   for k in (kernels, eager_kernels))
+            attempts.append((len(kernels), len(eager_kernels)))
+            if in_replay == in_eager:
+                break
         groups = {}
         for a, b, name in kernels:
             fn = re.search(r"(\w+_kernel)\b", name)
@@ -2589,7 +2625,8 @@ def serving(device, card, tmp):
             f"device kernels, {timings['replay_busy_ms']:.3f} ms covered; "
             f"device ms by group { {k: round(v, 3) for k, v in groups.items()} }"
             f"; K1/K2/K4 kernels by name {in_replay} (the eager dispatch: "
-            f"{in_eager}, {len(eager_kernels)} kernels)")
+            f"{in_eager}, {len(eager_kernels)} kernels; (replay, eager) "
+            f"kernels in each pair of traces {attempts})")
         if sorted(in_replay) != ["K1", "K2", "K4"] or in_replay != in_eager:
             raise RuntimeError("[serve] the replay does not run the eager "
                                "dispatch's K1, K2 and K4 kernels")
@@ -3264,6 +3301,238 @@ def permuted_back(grads, perms):
 
     return {k: np.take(g, np.argsort(perms[k][1]), perms[k][0])
             if k in perms else g for k, g in grads.items()}
+
+
+def scan_training(device, card, tmp, pre_cfg, model_config, base_cfg):
+    """Phase 10's scan sub-phase: the train CLI's main at its default
+    dtype, bfloat16, with config/LJSpeech10/train.yaml's step block
+    (scan_step 500) cut to SCAN_STEPS steps, log_step SCAN_LOG_STEP and
+    validation and checkpoint at the end (K = SCAN_K), on phase 10's model
+    and corpus with mel bucket SCAN_MEL_BUCKET (two shape groups).
+    Holds: the "scan mode:" line (G >= 2, K = SCAN_K) and the stacks'
+    bytes; 10 bfloat16 K1 and K3 a step and nothing else, the validation
+    pass apart; every kernel input's first shape against its plain
+    version; the run bit for bit equal to train_step fed the schedule
+    (scan.schedule) with each batch copied from the host, every step's
+    losses and every parameter and buffer; a second scan run bit for bit
+    equal to the first.  Reports the ms a step in scan mode and on the
+    per-step path (scan_step 1, the same config) and the
+    device's busy share over SCAN_WINDOW's steps of the second run ->
+    {"launches": {"bf16 scan training": counts}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastspeech2_tpu_torch.cli import train_cli
+    from fastspeech2_tpu_torch.configs.config import FastSpeech2Config
+    from fastspeech2_tpu_torch.training import loop as train_loop
+    from fastspeech2_tpu_torch.training import scan
+    from fastspeech2_tpu_torch.training.step import batch_to_device
+
+    t_phase = time.perf_counter()
+    with open(f"{CONFIG}/train.yaml") as f:
+        yaml_step = yaml.safe_load(f)["step"]
+    steps = dict(yaml_step, total_step=SCAN_STEPS, log_step=SCAN_LOG_STEP,
+                 val_step=SCAN_STEPS, save_step=SCAN_STEPS)
+    if scan.dispatch_steps(steps["scan_step"], (
+            steps["log_step"], steps["synth_step"], steps["val_step"],
+            steps["save_step"]), SCAN_STEPS) != SCAN_K:
+        raise RuntimeError(f"[scan] train.yaml's step block {yaml_step} "
+                           f"does not give K = {SCAN_K}")
+
+    def configs(name, **over):
+        train_cfg = dict(base_cfg, step=dict(steps, **over),
+                         bucket={"text": 128, "mel": SCAN_MEL_BUCKET},
+                         path={k: os.path.join(tmp, f"scan_{name}", k)
+                               for k in ("ckpt_path", "log_path",
+                                         "result_path")})
+        argv = []
+        for kind, cfg in (("preprocess", pre_cfg), ("model", model_config),
+                          ("train", train_cfg)):
+            path = os.path.join(tmp, f"scan_{name}_{kind}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            argv += [f"-{kind[0]}", path]
+        return argv, train_cfg
+
+    inner_step = train_loop.train_step
+
+    def run(name, window=None, **over):
+        """The train CLI's main -> (model, train config, printed lines,
+        per-step records, launch counts, (busy share, ms a step) of the
+        profiler ``window``'s steps or Nones); each step's launches,
+        losses and host clock at its return recorded around
+        training.loop's train_step, the counts set to 0 just before
+        main."""
+        argv, train_cfg = configs(name, **over)
+        records, traced = [], {}
+
+        def recorded(model, optimizer, batch, step, grad_acc_step=1):
+            if window and step == window[0]:
+                torch.cuda.synchronize()
+                traced["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                traced["prof"].start()
+                traced["t0"] = time.perf_counter()
+            before = launch_counts()
+            losses = inner_step(model, optimizer, batch, step, grad_acc_step)
+            after = launch_counts()
+            if step in (0, SCAN_STEPS - 1):
+                torch.cuda.synchronize()
+            records.append(dict(
+                step=step, end=time.perf_counter(),
+                launches={k: after[k] - before[k] for k in after},
+                losses=torch.stack(list(losses)).detach().clone()))
+            if window and step == window[1] - 1:
+                torch.cuda.synchronize()
+                traced["t1"] = time.perf_counter()
+                traced["prof"].stop()
+            return losses
+
+        printed = io.StringIO()
+        train_loop.train_step = recorded
+        zero_counts()
+        try:
+            with contextlib.redirect_stdout(printed):
+                model, _, final = train_cli.main(argv)
+        finally:
+            train_loop.train_step = inner_step
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if final != SCAN_STEPS or len(records) != SCAN_STEPS:
+            raise RuntimeError(f"[scan] the {name} run trained {final} "
+                               f"steps, expected {SCAN_STEPS}")
+        busy = window_ms = None
+        if window:
+            window_ms = (traced["t1"] - traced["t0"]) * 1e3 / (
+                window[1] - window[0])
+            trace = os.path.join(tmp, "scan_trace.json")
+            traced["prof"].export_chrome_trace(trace)
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            os.remove(trace)
+            kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") == "kernel"]
+            if kernels:
+                busy = _merged_us(kernels) / (
+                    (traced["t1"] - traced["t0"]) * 1e6)
+        for r in records:
+            r["losses"] = r["losses"].float().cpu()
+        return (model, train_cfg, printed.getvalue().splitlines(), records,
+                counts, (busy, window_ms))
+
+    def step_ms(records):
+        """The mean ms a step over steps 2-SCAN_STEPS: the host clock
+        from the first step's end to the last's, the device synchronised
+        at both (the duties between them included)."""
+        return (records[-1]["end"] - records[0]["end"]) * 1e3 / (
+            len(records) - 1)
+
+    with record_kernel_inputs() as scan_inputs:
+        model_a, train_cfg, lines, rec_a, counts_a, _ = run("a")
+    scan_line = next((ln for ln in lines if ln.startswith("scan mode: ")),
+                     "")
+    found = re.match(r"scan mode: (\d+) batches in (\d+) shape group\(s\) "
+                     r"device-resident, (\d+) steps/dispatch", scan_line)
+    stack_line = next((ln for ln in lines
+                       if ln.startswith("scan mode stacks: ")), "")
+    say(f"[scan] {scan_line}")
+    say(f"[scan] {stack_line}")
+    if not found or int(found.group(2)) < 2 or \
+            int(found.group(3)) != SCAN_K or not stack_line:
+        raise RuntimeError(f"[scan] expected a scan mode of >= 2 shape "
+                           f"groups at K = {SCAN_K}:\n" + "\n".join(lines))
+    per_step = {tuple(sorted(r["launches"].items())) for r in rec_a}
+    want = dict.fromkeys(counts_a, 0)
+    val_counts = {k: counts_a[k] - sum(r["launches"][k] for r in rec_a)
+                  for k in counts_a}
+    check_recorded_inputs(scan_inputs, "scan kernels", card)
+    say(f"[scan] launches per step {[dict(t) for t in per_step]}, in the "
+        f"validation pass at step {SCAN_STEPS} {val_counts}")
+    if per_step != {tuple(sorted(dict(want, K1_bf16=10,
+                                      K3_bf16=10).items()))}:
+        raise RuntimeError(f"[scan] launches per step {per_step}, expected "
+                           "10 bfloat16 K1 + 10 bfloat16 K3 and nothing else")
+    if val_counts != dict(want, K1_bf16=20, K2_bf16=20):
+        raise RuntimeError(f"[scan] launches in the validation pass "
+                           f"{val_counts}, expected 20 bfloat16 K1 + 20 "
+                           "bfloat16 K2")
+    if [r["step"] for r in rec_a] != list(range(SCAN_STEPS)):
+        raise RuntimeError("[scan] the steps did not run in order")
+    if not all(torch.isfinite(r["losses"]).all() for r in rec_a):
+        raise RuntimeError("[scan] a loss is not finite")
+
+    # the per-step replay of the schedule: the same seed and weights,
+    # train_step on each scheduled batch copied from the host
+    model_r, cfg, optim_cfg, opt_r = train_loop.init_training(
+        pre_cfg, model_config, train_cfg, device=device,
+        dtype=torch.bfloat16)
+    model_r.train()
+    groups = scan.gather_epoch(train_loop.train_loader(
+        pre_cfg, train_cfg, FastSpeech2Config.build(pre_cfg, model_config),
+        optim_cfg.batch_size).epoch(0), 1 << 62)
+    plan = scan.schedule([len(g) for g in groups], SCAN_K, 0, SCAN_STEPS)
+    replay = []
+    step = 0
+    for gi, idx in plan:
+        for i in idx:
+            losses = inner_step(model_r, opt_r, batch_to_device(
+                groups[gi][int(i)], device), step)
+            replay.append(torch.stack(list(losses)).float().cpu())
+            step += 1
+    loss_diff = max(float((a["losses"] - b).abs().max())
+                    for a, b in zip(rec_a, replay))
+    state_a, state_r = model_a.state_dict(), model_r.state_dict()
+    state_diff = {k: float((state_a[k].float() - v.float()).abs().max())
+                  for k, v in state_r.items()}
+    logged = [ln for ln in lines if ln.startswith("Step ")]
+    want_logged = [train_loop.loss_line(f"Step {s}/{SCAN_STEPS}",
+                                        replay[s - 1].tolist())
+                   for s in range(SCAN_LOG_STEP, SCAN_STEPS + 1,
+                                  SCAN_LOG_STEP)]
+    logged_ok = len(logged) == len(want_logged) and all(
+        ln.startswith(w) for ln, w in zip(logged, want_logged))
+    order = [(gi, idx.tolist()) for gi, idx in plan]
+    say(f"[scan] against train_step fed the schedule (group, batches) "
+        f"{order} from the host: max |loss difference| {loss_diff:.3e} over "
+        f"{len(replay)} steps, max |state difference| "
+        f"{max(state_diff.values()):.3e} over {len(state_diff)} tensors "
+        f"({sum(v > 0 for v in state_diff.values())} differ); the logged "
+        f"loss lines the replay's: {logged_ok}")
+    if loss_diff != 0.0 or max(state_diff.values()) != 0.0 or \
+            len(replay) != SCAN_STEPS or not logged_ok:
+        raise RuntimeError("[scan] scan mode is not train_step over its "
+                           "schedule bit for bit")
+    del model_r, opt_r, groups
+
+    # a second scan run, its steps SCAN_WINDOW under the profiler
+    model_b, _, _, rec_b, _, (busy, window_ms) = run("b",
+                                                      window=SCAN_WINDOW)
+    state_b = model_b.state_dict()
+    repro = max(float((state_a[k].float() - v.float()).abs().max())
+                for k, v in state_b.items())
+    repro_loss = max(float((a["losses"] - b["losses"]).abs().max())
+                     for a, b in zip(rec_a, rec_b))
+    say(f"[scan] two scan runs from one seed: max |state difference| "
+        f"{repro:.3e}, max |loss difference| {repro_loss:.3e}")
+    if repro != 0.0 or repro_loss != 0.0:
+        raise RuntimeError("[scan] two scan runs from one seed differ")
+    del model_a, model_b, state_a, state_b
+
+    # the per-step path on the same config, for its host time
+    _, _, lines_c, rec_c, _, _ = run("c", scan_step=1)
+    if any(ln.startswith("scan mode: ") for ln in lines_c):
+        raise RuntimeError("[scan] scan_step 1 ran scan mode")
+    phase_s = time.perf_counter() - t_phase
+    say(f"[scan] ms a step (host clock over steps 2-{SCAN_STEPS}, the "
+        f"device synchronised at both ends, the duties included): scan "
+        f"mode {step_ms(rec_a):.2f}, per-step path {step_ms(rec_c):.2f}; "
+        f"the device busy "
+        + (f"{100 * busy:.1f}%" if busy is not None else "not measured "
+           "(no kernel in the trace)")
+        + f" of steps {SCAN_WINDOW[0] + 1}-{SCAN_WINDOW[1]} in scan mode "
+        f"(torch.profiler, CUDA activity; {window_ms:.2f} ms a step in its "
+        f"window); the sub-phase took {phase_s:.1f} s (budget "
+        f"{SCAN_BUDGET_S} s); on {card}")
+    return {"launches": {"bf16 scan training": counts_a}}
 
 
 def parallel_training(device, card, features, tmp):
@@ -4994,9 +5263,12 @@ def main():
             cfg = dict(train_cfg, path={
                 k: os.path.join(tmp, f"repro{run}", k) for k in
                 ("ckpt_path", "log_path", "result_path")})
+            # scan_step 1: the per-step path (train.yaml's scan_step 500
+            # would take scan mode here, K = REPRO_STEPS; the scan
+            # sub-phase below holds its repro)
             cfg["step"] = dict(cfg["step"], total_step=REPRO_STEPS,
                                log_step=REPRO_STEPS, val_step=10 ** 9,
-                               save_step=10 ** 9)
+                               save_step=10 ** 9, scan_step=1)
             model, _, step = train(pre_cfg, model_config, cfg, dtype=dtype,
                                    log=lambda line: None, device=device)
             if step != REPRO_STEPS:
@@ -5118,6 +5390,11 @@ def main():
             f"{len(diffs)} tensors differ)")
         if bf_repro_diff != 0.0:
             raise RuntimeError("two bfloat16 trainings from one seed differ")
+        del first, second
+
+        # the scan sub-phase: train.yaml's scan mode through the train CLI
+        scanned = scan_training(device, card, tmp, pre_cfg, model_config,
+                                train_cfg)
 
     # 13. data preparation: align, preprocess, train with the duties and
     #     evaluate --synth on the tracked clips; 15. vocoder training on
@@ -5137,7 +5414,7 @@ def main():
     path_launches = dict(prep["launches"], **voc["launches"],
                          **served["launches"], **evaluated["launches"],
                          **par["launches"], **replicas["launches"],
-                         **loo["launches"])
+                         **loo["launches"], **scanned["launches"])
 
     # 14. kernels line
     sources = {"K1": ("fused_attention", "fastspeech2_tpu_torch/csrc/attention.cu",
@@ -5301,7 +5578,7 @@ def main():
                 **{path: n[f"{name}_bf16"] for path, n in
                    path_launches.items()}}})
     say(f"[total] the whole run took {time.perf_counter() - started:.1f} s "
-        f"on {card}")
+        f"(ceiling {RUN_CEILING_S} s) on {card}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

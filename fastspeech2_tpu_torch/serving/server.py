@@ -499,7 +499,10 @@ class TTSServer:
         self.httpd.serve_forever()
 
     def stop(self):
-        self.httpd.shutdown()
+        # shutdown() waits for serve_forever's loop to end: without a
+        # started loop it would wait forever
+        if self._thread:
+            self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread:
             self._thread.join(timeout=5)

@@ -165,27 +165,48 @@ def vocoder_steps(rank, world, kwargs):
 
 def loop_steps(rank, world, kwargs):
     """``training.loop.train(**kwargs)`` on this rank of a (data, model)
-    mesh (kwargs["data"], kwargs["model"]) -> the log lines, the final
-    step, whether this rank is the mesh's rank 0, the host seconds between
-    updates, and the median host seconds of one preemption check
-    (``parallel.mesh.agree``) after the run."""
+    mesh (kwargs["data"], kwargs["model"]; kwargs["dropout"] False sets
+    every dropout rate to 0) -> the log lines, the final step, whether
+    this rank is the mesh's rank 0, each step's losses, the host seconds
+    between updates, and the median host seconds of one preemption check
+    (``parallel.mesh.agree``) after the run (None outside the mesh)."""
+    from fastspeech2_tpu_torch.models.common import Dropout
     from fastspeech2_tpu_torch.parallel.mesh import agree, make_mesh
-    from fastspeech2_tpu_torch.training.loop import train
+    from fastspeech2_tpu_torch.training import loop
 
     kwargs = dict(kwargs)
     mesh = make_mesh(kwargs.pop("data"), kwargs.pop("model"))
-    lines, stamps = [], []
-    _, _, step = train(**kwargs, mesh=mesh, log=lines.append,
-                       step_hook=lambda *_: stamps.append(
-                           time.perf_counter()))
+    build = loop.build_training
+
+    def without_dropout(*args, **kw):
+        model, opt = build(*args, **kw)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+        return model, opt
+
+    lines, stamps, losses = [], [], []
+
+    def hook(step, out):
+        stamps.append(time.perf_counter())
+        losses.append(torch.stack(list(out)))     # read after the run
+
+    if not kwargs.pop("dropout", True):
+        loop.build_training = without_dropout
+    try:
+        _, _, step = loop.train(**kwargs, mesh=mesh, log=lines.append,
+                                step_hook=hook)
+    finally:
+        loop.build_training = build
     checks = []
-    for _ in range(20):
+    for _ in range(20 if mesh.active else 0):
         t0 = time.perf_counter()
         agree(False, mesh)
         checks.append(time.perf_counter() - t0)
     return {"log": lines, "step": step, "main": mesh.is_main,
+            "losses": [t.float().cpu().numpy() for t in losses],
             "step_s": np.diff(stamps).tolist(),
-            "agree_s": float(np.median(checks))}
+            "agree_s": float(np.median(checks)) if checks else None}
 
 
 def run_tasks(rank, world, tasks):

@@ -11,9 +11,14 @@ checkpoint on SIGTERM/SIGUSR1 (preemption) and at the end.  Lines go to
 scalars to TensorBoard through :class:`utils.logging.TrainLogger`.
 ``profile_dir`` records a ``torch.profiler`` trace of the 11th to 20th
 steps of the run.
-``scan_step > 1`` (the JAX package's device-resident scan over K steps)
-runs the per-step path, whose numerics are the same
-(fastspeech2_tpu/training/step.py:122-140).
+``step.scan_step`` > 1 is the JAX package's scan mode
+(fastspeech2_tpu/training/loop.py:429-535; the schedule in
+``training/scan.py``): epoch 0's batches, grouped by shape, go to the
+device once as stacks; K steps a dispatch (the gcd of scan_step and the
+duty periods below total_step) each take a batch of one group's stack in
+the JAX loop's order and run the eager ``train_step``; the duties run
+once a dispatch, on the group's first batch.  K <= 1, or an epoch over
+``step.scan_hbm_budget_mb``, logs the JAX line and takes the per-step path.
 
 Data and tensor parallel (``mesh``, ``parallel/``): one process per rank,
 each building the same loader from the same seed and taking its
@@ -26,8 +31,8 @@ Tensor parallel is reached, as in the JAX package, only by passing
 forwards (a sharded model needs its whole model group), rank 0 alone
 draws the figures, vocodes the samples and writes log.txt, TensorBoard
 and the checkpoints, which hold the whole model whatever the layout.
-The preemption flag is agreed over the grid at every step, on the host
-(``parallel.mesh.agree``).
+The preemption flag is agreed over the grid at every step (every
+dispatch in scan mode), on the host (``parallel.mesh.agree``).
 """
 
 import math
@@ -54,6 +59,7 @@ from fastspeech2_tpu_torch.parallel.sharding import (
     unshard_optimizer_state,
     unshard_state_dict,
 )
+from fastspeech2_tpu_torch.training import scan
 from fastspeech2_tpu_torch.training.checkpoint import (
     load_checkpoint,
     save_checkpoint_state,
@@ -177,6 +183,17 @@ def rank_rows(batch, mesh, grad_acc_step):
             for k, v in batch.items()}
 
 
+def train_loader(preprocess_config, train_config, cfg, batch_size):
+    """train.txt's shuffled, bucketed loader, the last partial batch
+    dropped (train.yaml ``bucket: {text, mel}``, default 32 and 160)."""
+    bucket_cfg = train_config.get("bucket", {})
+    return BucketedLoader(
+        FeatureDataset("train.txt", preprocess_config), batch_size=batch_size,
+        group_size=4, shuffle=True, drop_last=True,
+        max_mel_len=cfg.max_seq_len, text_bucket=bucket_cfg.get("text", 32),
+        mel_bucket=bucket_cfg.get("mel", 160))
+
+
 def evaluate(model, val_dataset, batch_size, cfg, device):
     """Sample-weighted mean validation losses in eval mode, the loader's
     duplicate rows left out (fastspeech2_tpu/training/loop.py:538-551)."""
@@ -291,6 +308,72 @@ def _silent(*_):
     pass
 
 
+def _no_batch(batch_size):
+    return ValueError(f"train.txt gives no batch of {batch_size} (the "
+                      "loader drops the last partial batch)")
+
+
+def stack_group(batches, mesh, acc, device, mel_bf16=False):
+    """A shape group's loader batches -> {key: [n, rows, ...] tensor on
+    ``device``}: this rank's rows of each batch (:func:`rank_rows`), in
+    ``batch_to_device``'s dtypes, as the JAX loop shards its stacks over
+    the data axis (fastspeech2_tpu/training/loop.py:486-494)."""
+    rows = [rank_rows(b, mesh, acc) for b in batches]
+    return batch_to_device({k: np.stack([r[k] for r in rows])
+                            for k in BATCH_KEYS}, device, mel_bf16)
+
+
+def _train_scanned(scan_step, step, total_step, steps, loader, model,
+                   optimizer, acc, mesh, device, mel_bf16, budget_bytes,
+                   run_duties, preempted, step_hook, profile_dir, log):
+    """Scan mode (fastspeech2_tpu/training/loop.py::_train_scanned,
+    :429-535) from ``step`` -> the step it stopped at: at total_step, at a
+    dispatch's end on preemption, or where it started when scan mode does
+    not apply (K <= 1, or epoch 0 over the budget; the JAX line says
+    which).  Each step of a dispatch indexes a stack on the device (no
+    host-to-device copy) and runs the eager ``train_step``; the duties
+    run once a dispatch, on the group's first batch, with the last step's
+    losses and the dispatch's summed mel frames."""
+    K = scan.dispatch_steps(scan_step, (steps.log_step, steps.synth_step,
+                                        steps.val_step, steps.save_step),
+                            total_step)
+    if K <= 1:
+        log(scan.INCOMPATIBLE_LINE)
+        return step
+    groups = scan.gather_epoch(loader.epoch(0), budget_bytes, mel_bf16)
+    if groups is None:
+        log(scan.budget_line(budget_bytes))
+        return step
+    if not groups:
+        raise _no_batch(loader.batch_size)
+    stacks = [stack_group(g, mesh, acc, device, mel_bf16) for g in groups]
+    frames = [np.array([int(b["mel_lens"].sum()) for b in g])
+              for g in groups]
+    log(f"scan mode: {sum(map(len, groups))} batches in {len(groups)} shape "
+        f"group(s) device-resident, {K} steps/dispatch")
+    nbytes = sum(t.numel() * t.element_size()
+                 for s in stacks for t in s.values())
+    log(f"scan mode stacks: {nbytes} bytes on {device}")
+    if profile_dir:
+        log("scan mode records no profile (as the JAX package's scanned "
+            f"path): {profile_dir} stays empty")
+    plan = scan.Schedule([len(g) for g in groups], step)
+    while step < total_step:
+        if agree(preempted.is_set(), mesh):
+            preempted.set()
+            break
+        gi, idx = plan.draw(min(K, total_step - step))
+        for i in idx:
+            batch = {k: v[int(i)] for k, v in stacks[gi].items()}
+            losses = train_step(model, optimizer, batch, step,
+                                grad_acc_step=acc)
+            step += 1
+            if step_hook is not None:
+                step_hook(step, losses)
+        run_duties(step, losses, groups[gi][0], int(frames[gi][idx].sum()))
+    return step
+
+
 class _NullLogger:
     """The logger of a rank other than 0: writes nothing."""
 
@@ -342,7 +425,8 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
     step_hook: called as step_hook(step, losses) after every update (for
     measurements).  vocoder: the synth_step duty's (None: the figure
     only, as the JAX train CLI runs it).  profile_dir: where the trace of
-    the run's 11th to 20th steps goes.  mesh: this rank's
+    the run's 11th to 20th steps goes (none in scan mode, as in the JAX
+    package).  mesh: this rank's
     ``parallel.Mesh`` (default: :func:`default_mesh`).  Returns (model,
     optimizer, step); (None, None, restore_step) on a rank outside the
     mesh.
@@ -364,13 +448,8 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
     n_params = sum(p.numel() for p in model.parameters())
     log(f"Number of FastSpeech2 Parameters: {n_params}")
 
-    dataset = FeatureDataset("train.txt", preprocess_config)
-    bucket_cfg = train_config.get("bucket", {})
-    loader = BucketedLoader(
-        dataset, batch_size=optim_cfg.batch_size, group_size=4,
-        shuffle=True, drop_last=True, max_mel_len=cfg.max_seq_len,
-        text_bucket=bucket_cfg.get("text", 32),
-        mel_bucket=bucket_cfg.get("mel", 160))
+    loader = train_loader(preprocess_config, train_config, cfg,
+                          optim_cfg.batch_size)
     val_dataset = FeatureDataset("val.txt", preprocess_config)
     log_path = train_config["path"]["log_path"]
     logger = (TrainLogger(os.path.join(log_path, "train"), log)
@@ -384,9 +463,6 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
         raise ValueError(f"batch_size {optim_cfg.batch_size} must be "
                          f"divisible by grad_acc_step {acc}")
     scan_step = int(train_config["step"].get("scan_step", 1))
-    if scan_step > 1:
-        log(f"scan_step {scan_step}: the port runs the per-step path (the "
-            "same numerics, one update per batch)")
     sampling_rate = preprocess_config["preprocessing"]["audio"][
         "sampling_rate"]
     profiler = None
@@ -459,11 +535,16 @@ def train(preprocess_config, model_config, train_config, restore_step=0,
     epoch = epoch_batches = 0
     model.train()
     try:
+        if scan_step > 1:
+            budget_mb = float(train_config["step"].get("scan_hbm_budget_mb",
+                                                       8192))
+            step = _train_scanned(
+                scan_step, step, total_step, steps, loader, model, optimizer,
+                acc, mesh, device, mel_bf16, int(budget_mb * 2 ** 20),
+                run_duties, preempted, step_hook, profile_dir, log)
         while step < total_step and not preempted.is_set():
             if epoch and epoch_batches == 0:
-                raise ValueError(
-                    f"train.txt gives no batch of {optim_cfg.batch_size} "
-                    "(the loader drops the last partial batch)")
+                raise _no_batch(optim_cfg.batch_size)
             epoch_batches = 0
             for batch, device_batch in PrefetchIterator(
                     loader.epoch(epoch), depth=2, transform=to_device):

@@ -188,11 +188,27 @@ def world(setup, tmp_path_factory):
     tasks.append(("loop_steps", dict(
         preprocess_config=configs[0], model_config=configs[1],
         train_config=configs[2], data=2, model=2, device="cpu")))
+    # the train loop in scan mode (train.yaml's scan_step 500, log_step 2:
+    # K = 2) at dp 2, dropout 0, and in one process here
+    scan_configs = load_yaml_configs(*_tiny_workspace(tmp / "scan")[0][1::2])
+    scan_configs[2]["step"].update(log_step=2, val_step=4, save_step=4)
+
+    def scan_loop(name, data):
+        train_cfg = dict(scan_configs[2], path={
+            k: str(tmp / name / k) for k in ("ckpt_path", "log_path",
+                                             "result_path")})
+        return dict(preprocess_config=scan_configs[0],
+                    model_config=scan_configs[1], train_config=train_cfg,
+                    data=data, model=1, device="cpu", dropout=False)
+
+    one["scan_loop"] = parallel_steps.loop_steps(0, 1,
+                                                 scan_loop("scan_one", 1))
+    tasks.append(("loop_steps", scan_loop("scan_dp2", 2)))
     ranks = run_ranks(parallel_steps.run_tasks, 4, (tasks,),
                       store_dir=str(tmp), timeout=WORLD_TIMEOUT)
     results = list(zip(*ranks))
     names = list(LAYOUTS) + ["dropout_a", "dropout_b", "eval", "save",
-                             "resume_from_one", "loop"]
+                             "resume_from_one", "loop", "scan_loop"]
     return dict(one=one, runs=dict(zip(names, results)), tmp=tmp,
                 loop_configs=configs)
 
@@ -400,6 +416,29 @@ def test_train_loop_under_dp_tp(world):
         FastSpeech2(Config.build(pre, model_cfg)).parameters()))
     assert os.path.exists(os.path.join(train_cfg["path"]["log_path"],
                                        "train", "log.txt"))
+
+
+def test_scan_loop_under_dp_matches_one_process(world):
+    """train() in scan mode at dp 2 (dropout 0): the one-process scan
+    run's losses at every step, the whole batch's on both ranks; rank 0
+    alone logs (the scan line among them) and writes the checkpoint."""
+    runs, one = world["runs"]["scan_loop"], world["one"]["scan_loop"]
+    assert [r["step"] for r in runs[:2]] == [4, 4]
+    assert [r["main"] for r in runs] == [True, False, False, False]
+    assert "scan mode: 3 batches in" in " ".join(one["log"])
+    assert [ln.split(" device-resident")[0] for ln in runs[0]["log"]
+            if ln.startswith("scan mode: ")] == [
+        ln.split(" device-resident")[0] for ln in one["log"]
+        if ln.startswith("scan mode: ")]
+    assert any(ln.startswith("Step 4/4") for ln in runs[0]["log"])
+    assert runs[1]["log"] == []
+    assert len(one["losses"]) == 4
+    np.testing.assert_allclose(np.stack(runs[0]["losses"]),
+                               np.stack(one["losses"]), rtol=TOL, atol=0)
+    np.testing.assert_array_equal(np.stack(runs[1]["losses"]),
+                                  np.stack(runs[0]["losses"]))
+    assert os.listdir(world["tmp"] / "scan_dp2" / "ckpt_path") == [
+        "4.pth.tar"]
 
 
 def test_sharding_rules_and_row_split(setup):

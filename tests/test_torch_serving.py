@@ -623,6 +623,23 @@ def test_http_overload_returns_429():
         srv.stop()
 
 
+def test_stop_before_start_returns():
+    """A server stopped before it was started (a caller whose set-up
+    raised, in a ``finally``) closes its socket and its batcher and
+    returns: socketserver's shutdown() alone would wait forever for a
+    serve loop that never ran."""
+    batcher = BatchingSynthesizer(_BlockingSynthesizer(), max_batch_size=2,
+                                  max_wait_ms=1.0)
+    srv = TTSServer(batcher, 22050, port=0)
+    done = threading.Event()
+    stopper = threading.Thread(target=lambda: (srv.stop(), done.set()),
+                               daemon=True)
+    stopper.start()
+    stopper.join(JOIN_S)
+    assert done.is_set()
+    assert srv.httpd.socket.fileno() == -1
+
+
 def test_http_concurrency_32(server):
     """32 simultaneous clients each get valid audio or a clean 429."""
     results, shed, errors = {}, [], []
