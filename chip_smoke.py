@@ -88,11 +88,16 @@ RUN_CEILING_S = 800 s, which its last lines report):
              after phase 12, scan mode (train.yaml's step block,
              scan_step 500, cut to SCAN_STEPS steps, K = SCAN_K; mel
              bucket SCAN_MEL_BUCKET: two shape groups) through the train
-             CLI at bfloat16: the "scan mode:" line and the stacks'
-             bytes, 10 bfloat16 K1 + K3 a step, the run bit for bit
-             equal to train_step fed its schedule from the host and to a
-             second scan run, host ms a step beside the per-step path,
-             the busy share (budget SCAN_BUDGET_S);
+             CLI at bfloat16, each step a replay of its group's CUDA
+             graph but each group's first: the "scan mode:" line, the
+             stacks' bytes and the graphs line (2 graphs, capture s,
+             pool bytes, peak memory), 10 bfloat16 K1 + K3 a step
+             (captured launches x replays), the run bit for bit equal to
+             train_step fed its schedule from the host and to a second
+             scan run; a float32 scan run of SCAN_F32_STEPS steps bit for
+             bit its eager replay; host ms a step of the graphed scan,
+             the eager replay and the per-step path, the busy share
+             (budget SCAN_BUDGET_S);
 11. synthesis from the trained checkpoint through the synthesize CLI's
              --restore_step;
 12. repro    5 training steps twice from one seed through train() on
@@ -215,6 +220,7 @@ the script exits non-zero before printing any result.
 
 import contextlib
 import faulthandler
+import functools
 import io
 import itertools
 import json
@@ -350,8 +356,9 @@ PAR_GAN_TOL = 1e-2
 # serving over two replicas against one (phase 19): int16 LSB
 REPLICA_LSB = 1
 # the G2P trainer (phase 20): cut from the JAX CLI's default 300 epochs
-# to keep the run short (an epoch takes about a second on the H100)
-G2P_EPOCHS = 60
+# to keep the run short (an epoch takes 1.1-1.4 s on the H100; 60 until
+# the scan sub-phase's float32 run took its place in the run's time)
+G2P_EPOCHS = 30
 # leave-one-out at a cut (phase 21): acoustic steps, vocoder steps per stage
 LOO_ACOUSTIC_STEPS = 4
 LOO_VOC_STEPS = 2
@@ -365,8 +372,12 @@ SCAN_LOG_STEP = 5
 SCAN_K = 5
 SCAN_MEL_BUCKET = 512
 SCAN_BUDGET_S = 60
-# the scan run's steps inside its torch.profiler window (the busy share)
-SCAN_WINDOW = (5, 15)
+# the float32 scan run's steps (K = SCAN_K)
+SCAN_F32_STEPS = 10
+# the scan run's steps inside its torch.profiler window (the busy share):
+# steps 11-20, each a replay (both groups' graphs are captured by step 6);
+# the ms a step are also read over these steps
+SCAN_WINDOW = (10, 20)
 # every kernel's least time (tools/kernel_bounds.py: H100 SXM peaks from
 # NVIDIA's data sheet)
 BOUND_BASIS = ("3xTF32 on the tensor cores: max(3 x operations / 495 "
@@ -836,7 +847,9 @@ def record_kernel_inputs():
     seen = {}
 
     def keep(key, *args):
-        if key not in seen:
+        # inside a CUDA graph's capture nothing runs: the warm-up step
+        # before it gave the same kernel the same shapes
+        if key not in seen and not torch.cuda.is_current_stream_capturing():
             seen[key] = [[t.detach().clone() for t in a]
                          if isinstance(a, (list, tuple))
                          else a.detach().clone() for a in args]
@@ -3308,17 +3321,28 @@ def scan_training(device, card, tmp, pre_cfg, model_config, base_cfg):
     dtype, bfloat16, with config/LJSpeech10/train.yaml's step block
     (scan_step 500) cut to SCAN_STEPS steps, log_step SCAN_LOG_STEP and
     validation and checkpoint at the end (K = SCAN_K), on phase 10's model
-    and corpus with mel bucket SCAN_MEL_BUCKET (two shape groups).
-    Holds: the "scan mode:" line (G >= 2, K = SCAN_K) and the stacks'
-    bytes; 10 bfloat16 K1 and K3 a step and nothing else, the validation
-    pass apart; every kernel input's first shape against its plain
-    version; the run bit for bit equal to train_step fed the schedule
-    (scan.schedule) with each batch copied from the host, every step's
-    losses and every parameter and buffer; a second scan run bit for bit
-    equal to the first.  Reports the ms a step in scan mode and on the
-    per-step path (scan_step 1, the same config) and the
-    device's busy share over SCAN_WINDOW's steps of the second run ->
-    {"launches": {"bf16 scan training": counts}}."""
+    and corpus with mel bucket SCAN_MEL_BUCKET (two shape groups).  Each
+    step is a replay of its shape group's CUDA graph of the train step
+    (training.step.make_scanned_train_step), but each group's first step,
+    the warm-up that precedes its capture.  The per-step records come from
+    the loop's step_hook; a step's launches are the wrappers' counts less
+    what the captures counted, plus the graphs' replays times their
+    captured launches.
+    Holds: the "scan mode:" line (G >= 2, K = SCAN_K), the stacks' bytes
+    and the graphs line (G graphs; capture seconds, pool bytes, beside the
+    peak memory); 10 bfloat16 K1 and K3 a step and nothing else, every
+    step but the G warm-ups a replay, the validation pass apart; every
+    kernel input's first shape against its plain version; the run bit for
+    bit equal to train_step fed the schedule (scan.schedule) with each
+    batch copied from the host (the eager replay), every step's losses,
+    every parameter and buffer and the logged loss lines; a second scan
+    run bit for bit equal to the first; a float32 scan run of
+    SCAN_F32_STEPS steps (10 float32 K1 and K3 a step) bit for bit equal
+    to its eager replay.  Reports the ms a step of the graphed scan, the
+    eager replay and the per-step path (scan_step 1, the same config) on
+    one line, and the device's busy share over SCAN_WINDOW's steps of the
+    second run -> {"launches": {"bf16 scan training": counts, "f32 scan
+    training": counts}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3331,16 +3355,19 @@ def scan_training(device, card, tmp, pre_cfg, model_config, base_cfg):
     t_phase = time.perf_counter()
     with open(f"{CONFIG}/train.yaml") as f:
         yaml_step = yaml.safe_load(f)["step"]
-    steps = dict(yaml_step, total_step=SCAN_STEPS, log_step=SCAN_LOG_STEP,
-                 val_step=SCAN_STEPS, save_step=SCAN_STEPS)
-    if scan.dispatch_steps(steps["scan_step"], (
-            steps["log_step"], steps["synth_step"], steps["val_step"],
-            steps["save_step"]), SCAN_STEPS) != SCAN_K:
-        raise RuntimeError(f"[scan] train.yaml's step block {yaml_step} "
-                           f"does not give K = {SCAN_K}")
 
-    def configs(name, **over):
-        train_cfg = dict(base_cfg, step=dict(steps, **over),
+    def step_block(total):
+        steps = dict(yaml_step, total_step=total, log_step=SCAN_LOG_STEP,
+                     val_step=total, save_step=total)
+        if scan.dispatch_steps(steps["scan_step"], (
+                steps["log_step"], steps["synth_step"], steps["val_step"],
+                steps["save_step"]), total) != SCAN_K:
+            raise RuntimeError(f"[scan] train.yaml's step block {yaml_step} "
+                               f"does not give K = {SCAN_K} at {total} steps")
+        return steps
+
+    def configs(name, total, **over):
+        train_cfg = dict(base_cfg, step=dict(step_block(total), **over),
                          bucket={"text": 128, "mel": SCAN_MEL_BUCKET},
                          path={k: os.path.join(tmp, f"scan_{name}", k)
                                for k in ("ckpt_path", "log_path",
@@ -3355,51 +3382,69 @@ def scan_training(device, card, tmp, pre_cfg, model_config, base_cfg):
         return argv, train_cfg
 
     inner_step = train_loop.train_step
+    inner_train = train_cli.train
+    inner_make = train_loop.make_scanned_train_step
 
-    def run(name, window=None, **over):
+    def run(name, window=None, total=SCAN_STEPS, dtype="bfloat16", **over):
         """The train CLI's main -> (model, train config, printed lines,
         per-step records, launch counts, (busy share, ms a step) of the
-        profiler ``window``'s steps or Nones); each step's launches,
-        losses and host clock at its return recorded around
-        training.loop's train_step, the counts set to 0 just before
-        main."""
-        argv, train_cfg = configs(name, **over)
-        records, traced = [], {}
+        profiler ``window``'s steps or Nones, the scanned runner or None);
+        each step's launches, losses and host clock at its end recorded by
+        the loop's step_hook, the counts set to 0 just before main."""
+        argv, train_cfg = configs(name, total, **over)
+        records, traced, made = [], {}, []
+        last = {}
 
-        def recorded(model, optimizer, batch, step, grad_acc_step=1):
+        def counts():
+            """The launches the card ran so far: the wrappers' counts less
+            what the captures counted, plus the graphs' replays."""
+            now = launch_counts()
+            if not made:
+                return now
+            replayed = made[0].launches()
+            return {k: now[k] - made[0].captured_launches[k] + replayed[k]
+                    for k in now}
+
+        def hook(step, losses):
+            if step in (1, SCAN_WINDOW[0], total):
+                torch.cuda.synchronize()
+            now = counts()
+            records.append(dict(
+                step=step - 1, end=time.perf_counter(),
+                launches={k: now[k] - last[k] for k in now},
+                replayed=sum(g.replays for g in made[0].graphs.values())
+                if made else 0,
+                losses=torch.stack(list(losses)).detach().clone()))
+            last.update(now)
             if window and step == window[0]:
                 torch.cuda.synchronize()
                 traced["prof"] = profile(activities=[ProfilerActivity.CUDA])
                 traced["prof"].start()
                 traced["t0"] = time.perf_counter()
-            before = launch_counts()
-            losses = inner_step(model, optimizer, batch, step, grad_acc_step)
-            after = launch_counts()
-            if step in (0, SCAN_STEPS - 1):
-                torch.cuda.synchronize()
-            records.append(dict(
-                step=step, end=time.perf_counter(),
-                launches={k: after[k] - before[k] for k in after},
-                losses=torch.stack(list(losses)).detach().clone()))
-            if window and step == window[1] - 1:
+            if window and step == window[1]:
                 torch.cuda.synchronize()
                 traced["t1"] = time.perf_counter()
                 traced["prof"].stop()
-            return losses
+
+        def make(*args, **kwargs):
+            made.append(inner_make(*args, **kwargs))
+            return made[-1]
 
         printed = io.StringIO()
-        train_loop.train_step = recorded
+        train_cli.train = functools.partial(inner_train, step_hook=hook)
+        train_loop.make_scanned_train_step = make
         zero_counts()
+        last.update(launch_counts())
         try:
             with contextlib.redirect_stdout(printed):
-                model, _, final = train_cli.main(argv)
+                model, _, final = train_cli.main(argv + ["--dtype", dtype])
         finally:
-            train_loop.train_step = inner_step
+            train_cli.train = inner_train
+            train_loop.make_scanned_train_step = inner_make
         torch.cuda.synchronize()
-        counts = launch_counts()
-        if final != SCAN_STEPS or len(records) != SCAN_STEPS:
+        if final != total or len(records) != total:
             raise RuntimeError(f"[scan] the {name} run trained {final} "
-                               f"steps, expected {SCAN_STEPS}")
+                               f"steps, expected {total}")
         busy = window_ms = None
         if window:
             window_ms = (traced["t1"] - traced["t0"]) * 1e3 / (
@@ -3417,96 +3462,148 @@ def scan_training(device, card, tmp, pre_cfg, model_config, base_cfg):
         for r in records:
             r["losses"] = r["losses"].float().cpu()
         return (model, train_cfg, printed.getvalue().splitlines(), records,
-                counts, (busy, window_ms))
+                counts(), (busy, window_ms), made[0] if made else None)
 
-    def step_ms(records):
-        """The mean ms a step over steps 2-SCAN_STEPS: the host clock
-        from the first step's end to the last's, the device synchronised
-        at both (the duties between them included)."""
-        return (records[-1]["end"] - records[0]["end"]) * 1e3 / (
-            len(records) - 1)
+    def step_ms(records, after=1):
+        """The mean ms a step over steps after+1 to N: the host clock from
+        step ``after``'s end to the last's, the device synchronised at
+        both (the duties between them included)."""
+        return (records[-1]["end"] - records[after - 1]["end"]) * 1e3 / (
+            len(records) - after)
 
+    def eager_replay(train_cfg, dtype, total):
+        """train_step on each batch of the schedule, copied from the host,
+        from the run's seed and weights -> (model, [losses], ms a step,
+        the schedule)."""
+        model_r, cfg, optim_cfg, opt_r = train_loop.init_training(
+            pre_cfg, model_config, train_cfg, device=device, dtype=dtype)
+        model_r.train()
+        groups = scan.gather_epoch(train_loop.train_loader(
+            pre_cfg, train_cfg, FastSpeech2Config.build(pre_cfg,
+                                                        model_config),
+            optim_cfg.batch_size).epoch(0), 1 << 62)
+        plan = scan.schedule([len(g) for g in groups], SCAN_K, 0, total)
+        replay = []
+        step = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for gi, idx in plan:
+            for i in idx:
+                losses = inner_step(model_r, opt_r, batch_to_device(
+                    groups[gi][int(i)], device), step)
+                replay.append(torch.stack(list(losses)))
+                step += 1
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / total
+        return model_r, [v.float().cpu() for v in replay], ms, plan
+
+    def held_to_replay(what, model, records, lines, total, replay_model,
+                       replay, plan):
+        """Raises unless the run's losses, parameters and buffers (and
+        its logged loss lines) are its eager replay's bit for bit."""
+        loss_diff = max(float((a["losses"] - b).abs().max())
+                        for a, b in zip(records, replay))
+        state_a, state_r = model.state_dict(), replay_model.state_dict()
+        state_diff = {k: float((state_a[k].float() - v.float()).abs().max())
+                      for k, v in state_r.items()}
+        logged = [ln for ln in lines if ln.startswith("Step ")]
+        want_logged = [train_loop.loss_line(f"Step {s}/{total}",
+                                            replay[s - 1].tolist())
+                       for s in range(SCAN_LOG_STEP, total + 1,
+                                      SCAN_LOG_STEP)]
+        logged_ok = len(logged) == len(want_logged) and all(
+            ln.startswith(w) for ln, w in zip(logged, want_logged))
+        order = [(gi, idx.tolist()) for gi, idx in plan]
+        say(f"[scan] {what} against train_step fed the schedule (group, "
+            f"batches) {order} from the host: max |loss difference| "
+            f"{loss_diff:.3e} over {len(replay)} steps, max |state "
+            f"difference| {max(state_diff.values()):.3e} over "
+            f"{len(state_diff)} tensors "
+            f"({sum(v > 0 for v in state_diff.values())} differ); the "
+            f"logged loss lines the replay's: {logged_ok}")
+        if loss_diff != 0.0 or max(state_diff.values()) != 0.0 or \
+                len(replay) != total or not logged_ok:
+            raise RuntimeError(f"[scan] {what} is not train_step over its "
+                               "schedule bit for bit")
+
+    def check_steps(what, records, scanned, groups, want_step):
+        """Raises unless every step launched ``want_step`` and nothing
+        else, and every step but each group's first was a replay."""
+        per_step = {tuple(sorted(r["launches"].items())) for r in records}
+        replays = sum(g.replays for g in scanned.graphs.values())
+        say(f"[scan] {what}: launches per step {[dict(t) for t in per_step]}"
+            f" (captured launches x replays), {len(scanned.graphs)} graphs "
+            f"for {groups} shape groups, {replays} replays of "
+            f"{len(records)} steps")
+        if per_step != {tuple(sorted(want_step.items()))}:
+            raise RuntimeError(f"[scan] {what}: launches per step "
+                               f"{per_step}, expected {want_step}")
+        if len(scanned.graphs) != groups or \
+                replays != len(records) - groups or \
+                [r["replayed"] for r in records][-1] != replays:
+            raise RuntimeError(f"[scan] {what}: {len(scanned.graphs)} "
+                               f"graphs and {replays} replays, expected "
+                               f"{groups} and {len(records) - groups}")
+        if [r["step"] for r in records] != list(range(len(records))):
+            raise RuntimeError("[scan] the steps did not run in order")
+        if not all(torch.isfinite(r["losses"]).all() for r in records):
+            raise RuntimeError("[scan] a loss is not finite")
+
+    torch.cuda.reset_peak_memory_stats()
     with record_kernel_inputs() as scan_inputs:
-        model_a, train_cfg, lines, rec_a, counts_a, _ = run("a")
+        (model_a, train_cfg, lines, rec_a, counts_a, _,
+         scanned_a) = run("a")
+    peak = torch.cuda.max_memory_allocated()
     scan_line = next((ln for ln in lines if ln.startswith("scan mode: ")),
                      "")
     found = re.match(r"scan mode: (\d+) batches in (\d+) shape group\(s\) "
                      r"device-resident, (\d+) steps/dispatch", scan_line)
     stack_line = next((ln for ln in lines
                        if ln.startswith("scan mode stacks: ")), "")
+    graphs_line = next((ln for ln in lines
+                        if ln.startswith("scan mode graphs: ")), "")
+    graphs_found = re.match(r"scan mode graphs: (\d+) captured in ([\d.]+) "
+                            r"s, pool (\d+) bytes", graphs_line)
     say(f"[scan] {scan_line}")
     say(f"[scan] {stack_line}")
+    say(f"[scan] {graphs_line}; peak memory {peak} bytes "
+        f"(torch.cuda.max_memory_allocated over the run)")
+    capture_s = float(graphs_found.group(2)) if graphs_found else None
     if not found or int(found.group(2)) < 2 or \
             int(found.group(3)) != SCAN_K or not stack_line:
         raise RuntimeError(f"[scan] expected a scan mode of >= 2 shape "
                            f"groups at K = {SCAN_K}:\n" + "\n".join(lines))
-    per_step = {tuple(sorted(r["launches"].items())) for r in rec_a}
+    n_groups = int(found.group(2))
+    if not graphs_found or int(graphs_found.group(1)) != n_groups or \
+            int(graphs_found.group(3)) <= 0:
+        raise RuntimeError(f"[scan] expected the graphs line of "
+                           f"{n_groups} graphs:\n" + "\n".join(lines))
     want = dict.fromkeys(counts_a, 0)
+    check_steps("bf16", rec_a, scanned_a, n_groups,
+                dict(want, K1_bf16=10, K3_bf16=10))
     val_counts = {k: counts_a[k] - sum(r["launches"][k] for r in rec_a)
                   for k in counts_a}
     check_recorded_inputs(scan_inputs, "scan kernels", card)
-    say(f"[scan] launches per step {[dict(t) for t in per_step]}, in the "
-        f"validation pass at step {SCAN_STEPS} {val_counts}")
-    if per_step != {tuple(sorted(dict(want, K1_bf16=10,
-                                      K3_bf16=10).items()))}:
-        raise RuntimeError(f"[scan] launches per step {per_step}, expected "
-                           "10 bfloat16 K1 + 10 bfloat16 K3 and nothing else")
+    say(f"[scan] launches in the validation pass at step {SCAN_STEPS} "
+        f"{val_counts}")
     if val_counts != dict(want, K1_bf16=20, K2_bf16=20):
         raise RuntimeError(f"[scan] launches in the validation pass "
                            f"{val_counts}, expected 20 bfloat16 K1 + 20 "
                            "bfloat16 K2")
-    if [r["step"] for r in rec_a] != list(range(SCAN_STEPS)):
-        raise RuntimeError("[scan] the steps did not run in order")
-    if not all(torch.isfinite(r["losses"]).all() for r in rec_a):
-        raise RuntimeError("[scan] a loss is not finite")
+    del scanned_a
 
-    # the per-step replay of the schedule: the same seed and weights,
+    # the eager replay of the schedule: the same seed and weights,
     # train_step on each scheduled batch copied from the host
-    model_r, cfg, optim_cfg, opt_r = train_loop.init_training(
-        pre_cfg, model_config, train_cfg, device=device,
-        dtype=torch.bfloat16)
-    model_r.train()
-    groups = scan.gather_epoch(train_loop.train_loader(
-        pre_cfg, train_cfg, FastSpeech2Config.build(pre_cfg, model_config),
-        optim_cfg.batch_size).epoch(0), 1 << 62)
-    plan = scan.schedule([len(g) for g in groups], SCAN_K, 0, SCAN_STEPS)
-    replay = []
-    step = 0
-    for gi, idx in plan:
-        for i in idx:
-            losses = inner_step(model_r, opt_r, batch_to_device(
-                groups[gi][int(i)], device), step)
-            replay.append(torch.stack(list(losses)).float().cpu())
-            step += 1
-    loss_diff = max(float((a["losses"] - b).abs().max())
-                    for a, b in zip(rec_a, replay))
-    state_a, state_r = model_a.state_dict(), model_r.state_dict()
-    state_diff = {k: float((state_a[k].float() - v.float()).abs().max())
-                  for k, v in state_r.items()}
-    logged = [ln for ln in lines if ln.startswith("Step ")]
-    want_logged = [train_loop.loss_line(f"Step {s}/{SCAN_STEPS}",
-                                        replay[s - 1].tolist())
-                   for s in range(SCAN_LOG_STEP, SCAN_STEPS + 1,
-                                  SCAN_LOG_STEP)]
-    logged_ok = len(logged) == len(want_logged) and all(
-        ln.startswith(w) for ln, w in zip(logged, want_logged))
-    order = [(gi, idx.tolist()) for gi, idx in plan]
-    say(f"[scan] against train_step fed the schedule (group, batches) "
-        f"{order} from the host: max |loss difference| {loss_diff:.3e} over "
-        f"{len(replay)} steps, max |state difference| "
-        f"{max(state_diff.values()):.3e} over {len(state_diff)} tensors "
-        f"({sum(v > 0 for v in state_diff.values())} differ); the logged "
-        f"loss lines the replay's: {logged_ok}")
-    if loss_diff != 0.0 or max(state_diff.values()) != 0.0 or \
-            len(replay) != SCAN_STEPS or not logged_ok:
-        raise RuntimeError("[scan] scan mode is not train_step over its "
-                           "schedule bit for bit")
-    del model_r, opt_r, groups
+    replay_model, replay, replay_ms, plan = eager_replay(
+        train_cfg, torch.bfloat16, SCAN_STEPS)
+    held_to_replay("the bf16 scan run", model_a, rec_a, lines, SCAN_STEPS,
+                   replay_model, replay, plan)
+    del replay_model
 
     # a second scan run, its steps SCAN_WINDOW under the profiler
-    model_b, _, _, rec_b, _, (busy, window_ms) = run("b",
-                                                      window=SCAN_WINDOW)
-    state_b = model_b.state_dict()
+    model_b, _, _, rec_b, _, (busy, window_ms), _ = run("b",
+                                                         window=SCAN_WINDOW)
+    state_a, state_b = model_a.state_dict(), model_b.state_dict()
     repro = max(float((state_a[k].float() - v.float()).abs().max())
                 for k, v in state_b.items())
     repro_loss = max(float((a["losses"] - b["losses"]).abs().max())
@@ -3518,21 +3615,41 @@ def scan_training(device, card, tmp, pre_cfg, model_config, base_cfg):
     del model_a, model_b, state_a, state_b
 
     # the per-step path on the same config, for its host time
-    _, _, lines_c, rec_c, _, _ = run("c", scan_step=1)
+    _, _, lines_c, rec_c, _, _, _ = run("c", scan_step=1)
     if any(ln.startswith("scan mode: ") for ln in lines_c):
         raise RuntimeError("[scan] scan_step 1 ran scan mode")
+
+    # a float32 scan run, held to its eager replay
+    (model_f, train_cfg_f, lines_f, rec_f, counts_f, _,
+     scanned_f) = run("f32", total=SCAN_F32_STEPS, dtype="float32")
+    check_steps("f32", rec_f, scanned_f, n_groups, dict(want, K1=10, K3=10))
+    del scanned_f
+    replay_model, replay_f, replay_f_ms, plan = eager_replay(
+        train_cfg_f, torch.float32, SCAN_F32_STEPS)
+    held_to_replay("the float32 scan run", model_f, rec_f, lines_f,
+                   SCAN_F32_STEPS, replay_model, replay_f, plan)
+    del replay_model, model_f
     phase_s = time.perf_counter() - t_phase
-    say(f"[scan] ms a step (host clock over steps 2-{SCAN_STEPS}, the "
-        f"device synchronised at both ends, the duties included): scan "
-        f"mode {step_ms(rec_a):.2f}, per-step path {step_ms(rec_c):.2f}; "
-        f"the device busy "
+    steady = SCAN_WINDOW[0]
+    say(f"[scan] ms a step (host clock, the device synchronised at both "
+        f"ends, the duties included): over steps 2-{SCAN_STEPS} (group 1's "
+        f"warm-up and capture included) graphed scan {step_ms(rec_a):.2f}, "
+        f"per-step path {step_ms(rec_c):.2f}; over steps {steady + 1}-"
+        f"{SCAN_STEPS} (every scan step a replay) graphed scan "
+        f"{step_ms(rec_a, steady):.2f}, per-step path "
+        f"{step_ms(rec_c, steady):.2f}; eager replay {replay_ms:.2f} (steps "
+        f"1-{SCAN_STEPS}, each batch from the host, no duties); float32: "
+        f"graphed scan {step_ms(rec_f):.2f} over steps 2-{SCAN_F32_STEPS}, "
+        f"eager replay {replay_f_ms:.2f}; capture {capture_s:.2f} s; the "
+        f"device busy "
         + (f"{100 * busy:.1f}%" if busy is not None else "not measured "
            "(no kernel in the trace)")
         + f" of steps {SCAN_WINDOW[0] + 1}-{SCAN_WINDOW[1]} in scan mode "
         f"(torch.profiler, CUDA activity; {window_ms:.2f} ms a step in its "
         f"window); the sub-phase took {phase_s:.1f} s (budget "
         f"{SCAN_BUDGET_S} s); on {card}")
-    return {"launches": {"bf16 scan training": counts_a}}
+    return {"launches": {"bf16 scan training": counts_a,
+                         "f32 scan training": counts_f}}
 
 
 def parallel_training(device, card, features, tmp):
@@ -4087,6 +4204,14 @@ def main():
     import torch
 
     started = time.perf_counter()
+    # each phase's wall seconds, for the [total] line
+    phase_s, lapped = {}, [started]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = phase_s.get(name, 0.0) + now - lapped[0]
+        lapped[0] = now
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
@@ -4136,6 +4261,7 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     say(card)
 
+    lap("1 card")
     # 2. build
     t0 = time.perf_counter()
     cuda_build.load_library()
@@ -4236,6 +4362,7 @@ def main():
             f"second conv's epilogue) at [B, L, 256] -> 1024, by (B, L, "
             f"k2): {k2_plans}")
 
+    lap("2 build")
     # 3. K1 vs plain: the encoder's L (32 for the README sentence's 31
     #    phones, 48 for 33-48 phones) and the decoder's (1000); each at
     #    [1, 2, L, 128] with a partly padded row, and as a batch of one full
@@ -4298,6 +4425,7 @@ def main():
     if not stats_rel <= KERNEL_ATOL:
         raise RuntimeError("K1's row sums disagree with the plain scores'")
 
+    lap("3 K1")
     # 4. K2 vs plain at every path shape, each launched twice
     k2_err = 0.0
     k2_repeat = True
@@ -4319,6 +4447,7 @@ def main():
     if not k2_repeat:
         raise RuntimeError("K2 is not bitwise repeatable")
 
+    lap("4 K2")
     # 5. K3 vs plain at the training slice's L (decoder 1000, LJSpeech10's
     #    bucket 768, encoder 128), batch 10 with one full, one fully padded
     #    and partly padded rows; at one head a rank (tensor parallel 2); and
@@ -4440,6 +4569,7 @@ def main():
     # the bfloat16 instances of K1, K2 and K3 against their plain versions
     bf16_errors = bf16_kernel_checks(device, bshapes, k2_shapes)
 
+    lap("5 K3")
     # 6. K4 vs plain at the 12 ResBlock shapes of a 1000-frame parity
     #    forward, at L = 8 (a 1-frame mel at C = 256: the halo is wider than
     #    L) and at L ragged against every tile
@@ -4475,6 +4605,7 @@ def main():
     if not k4_repeat:
         raise RuntimeError("K4 is not bitwise repeatable")
 
+    lap("6 K4")
     # 7. synthesis through the CLI's main; counts from this run only
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--mode", "single", "--text", README_SENTENCE,
@@ -4572,6 +4703,7 @@ def main():
     # on the CPU (the committed fixture)
     readme_fixture_check(device, card)
 
+    lap("7 synthesis")
     # 8. the parity HiFi-GAN through the CLI's main, from its seeded random
     #    init (no --vocoder_ckpt); counts from this run only
     with tempfile.TemporaryDirectory() as tmp:
@@ -4745,6 +4877,7 @@ def main():
                                 model_config, wavs[0], transformer,
                                 cuda_ffn, multi_head_attention)
 
+    lap("8 parity and options")
     # 9. timings at the path's shapes
     import torch.nn.functional as F
 
@@ -5091,6 +5224,7 @@ def main():
             f"(bfloat16) {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.3e} ms ({t['bound_by']}) on {card}")
 
+    lap("9 timings")
     # 8. training at full width: 20 steps + one validation pass through the
     #    port's train(), counts set to 0 just before and read just after
     from fastspeech2_tpu_torch.data.synthetic import (
@@ -5240,6 +5374,7 @@ def main():
         if not (resumed and stepped and saved):
             raise RuntimeError(f"the CLI resume failed:\n{proc.stdout}")
 
+        lap("10 training")
         # 11. synthesis from the trained checkpoint
         wavs, out, wav_paths = synthesize_cli.main(
             ["--mode", "single", "--text", README_SENTENCE, *paths,
@@ -5257,6 +5392,7 @@ def main():
         if len(wavs[0]) != trained_len * hop or not finite:
             raise RuntimeError("synthesis from the trained checkpoint failed")
 
+        lap("11 synthesis from the checkpoint")
         # 12. reproducibility: REPRO_STEPS steps twice from one seed through
         #     train(), with no duty but the final checkpoint
         def trained_params(run, dtype=torch.float32):
@@ -5392,25 +5528,35 @@ def main():
             raise RuntimeError("two bfloat16 trainings from one seed differ")
         del first, second
 
+        lap("12 repro")
         # the scan sub-phase: train.yaml's scan mode through the train CLI
         scanned = scan_training(device, card, tmp, pre_cfg, model_config,
                                 train_cfg)
+        lap("10 scan sub-phase")
 
     # 13. data preparation: align, preprocess, train with the duties and
     #     evaluate --synth on the tracked clips; 15. vocoder training on
     #     those features (before phase 14's line, which counts its launches)
     with tempfile.TemporaryDirectory() as prep_tmp:
         prep = data_preparation(device, card, prep_tmp)
+        lap("13 data preparation")
         voc = vocoder_training(device, card, prep["features"], prep_tmp)
+        lap("15 vocoder")
         # 16. serving and 17. objective evaluation (on phase 13's features)
         served = serving(device, card, prep_tmp)
+        lap("16 serving")
         evaluated = evaluation(device, card, prep["features"], prep_tmp)
+        lap("17 evaluate")
         # 18. parallel training, 19. serving replicas, 20. the G2P
         #     tooling, 21. leave-one-out and the vocoder ladder
         par = parallel_training(device, card, prep["features"], prep_tmp)
+        lap("18 parallel")
         replicas = serving_replicas(device, card)
+        lap("19 replicas")
         g2p_tooling(device, card, prep_tmp)
+        lap("20 g2p")
         loo = leave_one_out(device, card, prep["features"], prep_tmp)
+        lap("21 leave-one-out")
     path_launches = dict(prep["launches"], **voc["launches"],
                          **served["launches"], **evaluated["launches"],
                          **par["launches"], **replicas["launches"],
@@ -5577,8 +5723,10 @@ def main():
                 "bf16 training": bf_totals[f"{name}_bf16"],
                 **{path: n[f"{name}_bf16"] for path, n in
                    path_launches.items()}}})
+    lap("14 kernels line")
     say(f"[total] the whole run took {time.perf_counter() - started:.1f} s "
-        f"(ceiling {RUN_CEILING_S} s) on {card}")
+        f"(ceiling {RUN_CEILING_S} s) on {card}; phases (wall s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

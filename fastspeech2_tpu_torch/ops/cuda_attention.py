@@ -17,7 +17,12 @@ backward formula.
 
 Each kernel has a float32 and a bfloat16 instance (the JAX package's
 --dtype bfloat16), chosen by the tensors' dtype; q, k and v share it.
-Each instance counts its own launches.
+Each instance counts its own launches.  Inside a CUDA graph's capture a
+launch is counted once, when it is recorded: the graph's owner counts its
+replays (``synthesis/graphs.py``, ``training/step.py``).  Both kernels
+launch on the current stream and take their scratch from PyTorch's
+allocator, so a capture records them on its stream, with the scratch in
+the graph's pool.
 
 The forward's host path is kept short for the small shapes, where it
 costs more than the kernel: the input checks run as one condition (the

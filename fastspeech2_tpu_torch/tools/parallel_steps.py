@@ -96,9 +96,9 @@ def _acoustic_steps(spec):
                 m.rate = 0.0
     names = [n for n, _ in model.named_parameters()]
     first_grads = {}
-    opt_step = opt.step
+    opt_update = opt.update
 
-    def recording_step(grads, norm=None):
+    def recording_update(grads, norm=None):
         if not first_grads:
             g = [t.float() for t in grads]
             first_grads["norm"] = float(
@@ -107,9 +107,9 @@ def _acoustic_steps(spec):
             first_grads["grads"] = _numpy_state(unshard_state_dict(
                 dict(zip(names, g)), mesh.model_rank, mesh.model,
                 mesh.model_group))
-        return opt_step(grads, norm=norm)
+        return opt_update(grads, norm=norm)
 
-    opt.step = recording_step
+    opt.update = recording_update
     masks = []
     if spec.get("record_masks"):
         hooks = [m.register_forward_hook(

@@ -16,9 +16,13 @@ steps of the run.
 ``training/scan.py``): epoch 0's batches, grouped by shape, go to the
 device once as stacks; K steps a dispatch (the gcd of scan_step and the
 duty periods below total_step) each take a batch of one group's stack in
-the JAX loop's order and run the eager ``train_step``; the duties run
-once a dispatch, on the group's first batch.  K <= 1, or an epoch over
+the JAX loop's order; with one process on a card each step replays a
+CUDA graph of the train step, one per shape group (the eager
+``train_step`` on the CPU and under a process group); the duties run once
+a dispatch, on the group's first batch.  K <= 1, or an epoch over
 ``step.scan_hbm_budget_mb``, logs the JAX line and takes the per-step path.
+The per-step path (``scan_step`` 1 and both fallbacks) runs the eager
+``train_step`` on each loader batch: it has no CUDA graph.
 
 Data and tensor parallel (``mesh``, ``parallel/``): one process per rank,
 each building the same loader from the same seed and taking its
@@ -70,6 +74,7 @@ from fastspeech2_tpu_torch.training.step import (
     TRAIN_SEED,
     batch_to_device,
     eval_step,
+    make_scanned_train_step,
     train_step,
 )
 from fastspeech2_tpu_torch.utils.logging import TrainLogger
@@ -331,9 +336,14 @@ def _train_scanned(scan_step, step, total_step, steps, loader, model,
     dispatch's end on preemption, or where it started when scan mode does
     not apply (K <= 1, or epoch 0 over the budget; the JAX line says
     which).  Each step of a dispatch indexes a stack on the device (no
-    host-to-device copy) and runs the eager ``train_step``; the duties
-    run once a dispatch, on the group's first batch, with the last step's
-    losses and the dispatch's summed mel frames."""
+    host-to-device copy).  With one process on a card each step is a
+    replay of its shape group's CUDA graph of the train step
+    (``training.step.make_scanned_train_step``; one line reports the
+    graphs once every group has one, or at the end).  The eager
+    ``train_step`` runs each step instead on the CPU, and under a process
+    group, whose collectives no graph captures (one line says so).  The
+    duties run once a dispatch, on the group's first batch, with the last
+    step's losses and the dispatch's summed mel frames."""
     K = scan.dispatch_steps(scan_step, (steps.log_step, steps.synth_step,
                                         steps.val_step, steps.save_step),
                             total_step)
@@ -357,6 +367,13 @@ def _train_scanned(scan_step, step, total_step, steps, loader, model,
     if profile_dir:
         log("scan mode records no profile (as the JAX package's scanned "
             f"path): {profile_dir} stays empty")
+    scanned = None
+    if device.type == "cuda" and mesh.size > 1:
+        log(f"scan mode under a process group of {mesh.size} ranks runs "
+            "each step eagerly: no CUDA graph captures its collectives")
+    elif device.type == "cuda":
+        scanned = make_scanned_train_step(model, optimizer, acc)
+    reported = scanned is None
     plan = scan.Schedule([len(g) for g in groups], step)
     while step < total_step:
         if agree(preempted.is_set(), mesh):
@@ -364,14 +381,28 @@ def _train_scanned(scan_step, step, total_step, steps, loader, model,
             break
         gi, idx = plan.draw(min(K, total_step - step))
         for i in idx:
-            batch = {k: v[int(i)] for k, v in stacks[gi].items()}
-            losses = train_step(model, optimizer, batch, step,
-                                grad_acc_step=acc)
+            if scanned is None:
+                batch = {k: v[int(i)] for k, v in stacks[gi].items()}
+                losses = train_step(model, optimizer, batch, step,
+                                    grad_acc_step=acc)
+            else:
+                losses = scanned(gi, stacks[gi], int(i), step)
             step += 1
             if step_hook is not None:
                 step_hook(step, losses)
+        if not reported and len(scanned.graphs) == len(groups):
+            log(_graphs_line(scanned))
+            reported = True
         run_duties(step, losses, groups[gi][0], int(frames[gi][idx].sum()))
+    if not reported and scanned.graphs:
+        log(_graphs_line(scanned))
     return step
+
+
+def _graphs_line(scanned):
+    return (f"scan mode graphs: {len(scanned.graphs)} captured in "
+            f"{scanned.capture_seconds:.2f} s, pool {scanned.pool_bytes()} "
+            "bytes")
 
 
 class _NullLogger:

@@ -41,7 +41,16 @@ def noam_schedule(d_model, warm_up_step, anneal_steps=(), anneal_rate=1.0):
 
 class NoamAdam:
     """The optimizer over a list of parameters (updated in place by
-    :meth:`step`), with its state in ``mu``, ``nu`` and ``count``."""
+    :meth:`step`), with its state in ``mu``, ``nu`` and ``count``.
+
+    An update is two parts, so that a CUDA graph can hold the second
+    (``training/step.py::make_scanned_train_step``): :meth:`advance`, on the
+    host, advances ``count`` and writes the update's learning rate and
+    Adam's bias corrections, computed on the host in float32 as before,
+    into 0-d tensors on the parameters' device (``fill_``: no copy from the
+    host, so the host does not wait for the card); :meth:`update` applies
+    the update from those tensors.  The moments are written in place, so
+    each keeps its storage across updates and :meth:`load_state_dict`."""
 
     def __init__(self, params, optim_config, d_model):
         self.params = list(params)
@@ -53,6 +62,13 @@ class NoamAdam:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        device = self.params[0].device
+        # the step's scalars, set by advance(): learning rate, 1 - b1^t,
+        # 1 - b2^t; and b1 at the first moment's dtype
+        self.lr, self.c1, self.c2 = (torch.zeros((), device=device)
+                                     for _ in range(3))
+        self.decay = torch.tensor(optim_config.betas[0], dtype=mu_dtype,
+                                  device=device)
 
     @torch.no_grad()
     def step(self, grads, norm=None):
@@ -61,9 +77,27 @@ class NoamAdam:
         the global gradient norm to clip by, where the parameters are a
         shard of the model (``training/step.py::global_grad_norm``); by
         default the norm of ``grads``."""
+        self.advance()
+        return self.update(grads, norm).clone()
+
+    def advance(self):
+        """The host's part of the next update: its scalars written into
+        ``lr``, ``c1`` and ``c2`` (optax counts from 0), ``count``
+        advanced."""
+        b1, b2 = self.config.betas
+        lr = self.schedule(self.count)
+        self.count += 1
+        c1 = 1.0 - torch.tensor(b1) ** self.count
+        c2 = 1.0 - torch.tensor(b2) ** self.count
+        for dst, value in ((self.lr, lr), (self.c1, c1), (self.c2, c2)):
+            dst.fill_(float(value))
+
+    @torch.no_grad()
+    def update(self, grads, norm=None):
+        """The device's part: the update from ``grads`` with the scalars of
+        the last :meth:`advance` -> ``lr``."""
         cfg = self.config
         b1, b2 = cfg.betas
-        device = self.params[0].device
         grads = [g.float() for g in grads]
         # clip_by_global_norm, without a sync: where(norm < max, g, g/n*max)
         if norm is None:
@@ -71,36 +105,38 @@ class NoamAdam:
         small = norm < cfg.grad_clip_thresh
         grads = [torch.where(small, g, g / norm * cfg.grad_clip_thresh)
                  for g in grads]
-        # scale_by_adam, then the schedule (optax counts from 0)
-        lr = self.schedule(self.count).to(device)
-        self.count += 1
-        c1 = (1.0 - torch.tensor(b1) ** self.count).to(device)
-        c2 = (1.0 - torch.tensor(b2) ** self.count).to(device)
-        for i, (p, g) in enumerate(zip(self.params, grads)):
-            decay = torch.tensor(b1, dtype=self.mu[i].dtype, device=device)
-            mu = (1 - b1) * g + self.mu[i] * decay          # float32
-            nu = (1 - b2) * (g * g) + b2 * self.nu[i]
-            update = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
-            self.mu[i] = mu.to(self.mu[i].dtype)
-            self.nu[i] = nu
+        # scale_by_adam, then the schedule
+        for p, g, mu_i, nu_i in zip(self.params, grads, self.mu, self.nu):
+            mu = (1 - b1) * g + mu_i * self.decay          # float32
+            nu = (1 - b2) * (g * g) + b2 * nu_i
+            update = (mu / self.c1) / (torch.sqrt(nu / self.c2) + cfg.eps)
+            mu_i.copy_(mu)
+            nu_i.copy_(nu)
             if cfg.weight_decay:
                 update = update + cfg.weight_decay * p
-            p.add_(-1.0 * (lr * update))
-        return lr
+            p.add_(-1.0 * (self.lr * update))
+        return self.lr
 
     def state_dict(self):
-        return {"count": self.count, "mu": list(self.mu),
-                "nu": list(self.nu)}
+        """count and copies of the moments (the live ones change in place
+        at every update)."""
+        return {"count": self.count, "mu": [m.clone() for m in self.mu],
+                "nu": [n.clone() for n in self.nu]}
 
     def load_state_dict(self, state):
+        """Copy ``state`` into the kept moments (at their dtypes and on
+        their device)."""
         if len(state["mu"]) != len(self.params):
             raise ValueError(f"optimizer state holds {len(state['mu'])} "
                              f"moments for {len(self.params)} parameters")
+        for key in ("mu", "nu"):
+            for dst, src in zip(getattr(self, key), state[key]):
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"optimizer state: a {key} of shape "
+                                     f"{tuple(src.shape)} for a parameter "
+                                     f"of shape {tuple(dst.shape)}")
+                dst.copy_(src)
         self.count = int(state["count"])
-        self.mu = [m.to(device=p.device, dtype=old.dtype)
-                   for m, p, old in zip(state["mu"], self.params, self.mu)]
-        self.nu = [n.to(device=p.device, dtype=torch.float32)
-                   for n, p in zip(state["nu"], self.params)]
 
 
 class AdamW:
